@@ -1,0 +1,8 @@
+"""Granite-3.0-2B [hf:ibm-granite/granite-3.0-2b-base] — dense GQA."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b", family="dense", num_layers=40, d_model=2048,
+    num_heads=32, num_kv_heads=8, d_ff=8192, vocab_size=49155,
+    pattern=("global",), act="silu", rope_theta=10000.0,
+)

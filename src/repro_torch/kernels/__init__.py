@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a).
+
+flash_attention -- causal / sliding-window / softcap / GQA attention,
+                   forward (replaces the Pallas TPU kernel of the same name)
+
+Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
+ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA
+tensors, the plain version for CPU tensors) and ref.py (the plain PyTorch
+version the kernel is held against). build.py compiles the sources.
+"""
