@@ -23,6 +23,8 @@ from repro_torch.kernels import build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Q_TILE = 64          # query rows per CUDA block (BQ in the source)
+MAX_Q_TILES = 65535  # the grid's second axis
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,8 +72,8 @@ def _check(q, k, v, causal: bool, window: Optional[int],
         raise ValueError(f"query heads {h} not a multiple of KV heads {kvh}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported {HEAD_DIMS}")
-    if sq == 0 or sk == 0 or b * h > 65535:
-        raise ValueError(f"unsupported sizes: B*H {b * h}, Sq {sq}, Sk {sk}")
+    if sq == 0 or sk == 0 or -(-sq // Q_TILE) > MAX_Q_TILES:
+        raise ValueError(f"unsupported sizes: Sq {sq}, Sk {sk}")
     if q.dtype == torch.bfloat16:
         # the tensor-core path copies rows 16 bytes at a time
         for name, t in (("q", q), ("k", k), ("v", v)):

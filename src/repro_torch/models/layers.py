@@ -27,10 +27,6 @@ class ParamSpec:
             raise ValueError(f"rank mismatch: {self.shape} {self.logical}")
 
 
-def is_spec(x) -> bool:
-    return isinstance(x, ParamSpec)
-
-
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a tree of nested dicts."""
     if isinstance(tree, dict):
@@ -38,16 +34,10 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
-
-
 def init_param(generator: torch.Generator, spec: ParamSpec,
                dtype: torch.dtype) -> torch.Tensor:
-    """Draw one parameter on the generator's device (fan-in scaled normal,
-    as ``repro.models.layers.init_param``; the fan-in is the leading axis)."""
+    """Draw one parameter from ``generator``: a fan-in scaled normal, as
+    ``repro.models.layers.init_param`` (the fan-in is the leading axis)."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype)
     if spec.init == "ones":
@@ -70,8 +60,7 @@ def init_from_specs(generator: torch.Generator, specs, dtype: torch.dtype,
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
-            "float16": torch.float16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
 # -- functional layers ---------------------------------------------------------

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import list_archs as jax_list_archs  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import get_model as jax_get_model  # noqa: E402
@@ -32,6 +33,7 @@ KEY = jax.random.PRNGKey(1)
 T = 5            # decode steps after the prefill
 # max-normalised, as tests/test_decode_consistency.py holds the reference
 TOL = 1e-4
+
 
 def reduced_fp32(full):
     return dataclasses.replace(jax_reduced_config(full), dtype="float32")
@@ -115,6 +117,18 @@ def test_forward_prefill_decode_match_jax(case, attn_impl):
 
 def test_list_archs_agrees_with_reference():
     assert list_archs() == jax_list_archs()
+
+
+@pytest.mark.parametrize("arch", sorted(jax_list_archs()))
+def test_config_copy_matches_reference(arch):
+    """The port's own copies of each config and of ModelConfig give the same
+    fields, values and derived sizes as the reference's."""
+    mine, ref = get_config(arch), jax_get_config(arch)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    for name in ("q_per_kv", "d_inner", "ssm_heads", "pattern_repeats"):
+        assert getattr(mine, name) == getattr(ref, name), name
+    assert mine.param_count() == ref.param_count()
+    assert mine.active_param_count() == ref.active_param_count()
 
 
 @pytest.mark.parametrize("arch", sorted(jax_list_archs()))
