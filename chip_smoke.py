@@ -37,7 +37,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # kernel vs plain, atol = rtol
+# kernel vs plain. fp32: atol = rtol = 1e-5, elementwise. bf16: per query
+# row, max |kernel - plain| over head_dim divided by the row's max |plain|,
+# at most 2^-6. The plain version rounds its fp32 result to bf16 once; the
+# kernel also rounds P to bf16 for P.V. A correct kernel is off by one ulp
+# of the row's largest value (2^-7 of it at most); one 64-key tile dropped
+# or counted twice moves a row by 5% or more, even at S 2048.
+FP32_TOL = 1e-5
+BF16_ROW_TOL = 2.0 ** -6
 # model-level checks in fp32, max-normalised, as the reference's own
 # decode-consistency test; bf16 see phase_prefill
 MODEL_TOL = 1e-4
@@ -101,15 +108,21 @@ def phase_kernel_vs_plain():
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = kernel.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, **kw)
-        tol = TOL[str(dtype).split(".")[1]]
-        err = (out.float() - ref.float()).abs()
-        bad = err > tol + tol * ref.float().abs()
+        ref = attention_ref(q, k, v, **kw).float()
+        err = (out.float() - ref).abs()
         name = (f"B{b} H{h} KV{kv} Sq{sq} Sk{sk} D{d} causal={causal} "
                 f"window={window} softcap={softcap} {str(dtype)[6:]} "
                 f"{layout}")
+        if dtype == torch.float32:
+            bad = err > FP32_TOL + FP32_TOL * ref.abs()
+            held = f"tol atol=rtol={FP32_TOL}"
+        else:
+            row = (err.amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max()
+            bad = row > BF16_ROW_TOL
+            held = (f"row-normalised {row.item():.3e}, tol "
+                    f"{BF16_ROW_TOL:.3e}")
         log("c", f"{name}: max|kernel - plain| {err.max().item():.3e} "
-                 f"(tol atol=rtol={tol})")
+                 f"({held})")
         if not torch.isfinite(out).all() or bad.any():
             raise AssertionError(f"kernel disagrees with plain: {name}")
         if layout == "bshd":
@@ -333,7 +346,7 @@ def main():
         log("g", bench.describe(row))
     phase_step_times(cfg, params, toks[:, :PREFILL_S])
     log("g", f"Server {tok_s:.1f} tok/s (smollm-135m bf16, batch 4)")
-    row = rows["smollm-2048"]
+    row = rows["prefill-512"]          # the shape the main path launches
     record = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
@@ -347,7 +360,8 @@ def main():
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-        "shape": "B8 H9 KV3 S2048 D64 bf16 causal",
+        "shape": f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, "
+                 "(B, S, H, D) views",
     }]}
     print(json.dumps(record))
     print(bench.card())

@@ -19,8 +19,6 @@ slower, so every number is printed with the card's power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import math
 import subprocess
 import sys
 import time
@@ -186,23 +184,15 @@ def compare(old_source: Path, label: str, seed: int = 1):
     current one, in turns: old, new, new, old."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel
-    old = build.load(old_source).lib
-    old.flash_attention_fwd.argtypes = kernel._ARGTYPES
-    old.flash_attention_fwd.restype = ctypes.c_int
+    old = kernel.bind(build.load(old_source).lib)
     b, h, kv, s, d, layout = SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
-    out = torch.empty((b, h, s, d), dtype=q.dtype, device="cuda")
+    out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
 
     def run_old():
-        rc = old.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            kernel.DTYPES[q.dtype], b, h, kv, s, s, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            1, 0, 0.0, 1.0 / math.sqrt(d),
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"old kernel launch failed: CUDA error {rc}")
+        kernel.launch(old, q, k, v, out, causal=True, window=None,
+                      softcap=None)
 
     def run_new():
         return kernel.flash_attention(q, k, v)

@@ -34,16 +34,22 @@ _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
              _I, _I, ctypes.c_float, ctypes.c_float, _P)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument and result types on a library
+    built from this kernel's source."""
+    lib.flash_attention_fwd.argtypes = _ARGTYPES
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def load() -> build.Built:
     """Build (at first use) and load the kernel library, once per process:
     a launch then touches no file."""
     built = build.load(SOURCE)
-    lib = built.lib
-    lib.flash_attention_fwd.argtypes = _ARGTYPES
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    bind(built.lib)
     return built
 
 
@@ -93,10 +99,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D), on the card."""
     _check(q, k, v, causal, window, softcap)
-    lib = load().lib
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch(load().lib, q, k, v, out, causal=causal, window=window,
+           softcap=softcap)
+    flash_attention.launches += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, q, k, v, out, *, causal: bool,
+           window: Optional[int], softcap: Optional[float]) -> None:
+    """Run the kernel of ``lib`` (bound by :func:`bind`) on checked inputs
+    into ``out`` on the current stream; raise if the launch reports an
+    error. Counts nothing: :func:`flash_attention` does."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
@@ -111,8 +127,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         msg = lib.flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{rc} ({msg})")
-    flash_attention.launches += 1
-    return out
 
 
 flash_attention.launches = 0

@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm, softcap
 
 NEG_INF = -2.0 ** 30
-ATTN_IMPLS = ("auto", "chunked", "flash")
+ATTN_IMPLS = ("auto", "chunked")
 
 
 def _global_only(kind: str):
@@ -145,8 +145,7 @@ def chunked_attention(q, k, v, cfg, *, causal: bool, window: Optional[int]):
 def _attend(q, k, v, cfg):
     """Causal attention on (B, S, H, D) tensors, by ``attn_impl``:
     "auto" takes the flash kernel for CUDA tensors and the chunked path on
-    the CPU; "flash" always goes through ``flash_attention_op`` (its plain
-    version on the CPU); "chunked" always takes the chunked path."""
+    the CPU; "chunked" always takes the chunked path."""
     impl = cfg.attn_impl
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} {ATTN_IMPLS}")

@@ -69,7 +69,7 @@ class ModelConfig:
     remat: str = "nothing_saveable"    # "none" | "nothing_saveable" | "dots"
     # attention implementation: "auto" picks the CUDA flash kernel for CUDA
     # tensors and the chunked path on the CPU; "chunked" always takes the
-    # chunked path; "flash" always goes through flash_attention_op
+    # chunked path
     attn_impl: str = "auto"
     attn_chunk: int = 512
     # chunked cross-entropy: compute logits+CE over sequence chunks of this

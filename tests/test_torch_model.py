@@ -5,9 +5,9 @@ Configs: ``reduced_config(smollm)``, smollm's true widths (d_model 576, 9
 query / 3 KV heads, d_ff 1536) cut to 2 layers and a 2048 vocab (the 9/3
 head layout is the odd GQA group that the reduced 4/1 never exercises), and
 the reduced qwen3 (qk_norm) and granite, the other configs ``build_model``
-takes.
-Each runs with ``attn_impl="auto"`` (the chunked path on the CPU) and
-``"flash"`` (through ``flash_attention_op``, its plain version on the CPU).
+takes. On the CPU ``attn_impl="auto"`` takes the chunked path, which is
+also held against the plain attention here; the kernel branch runs only on
+the card, where ``chip_smoke.py`` holds it against the chunked path.
 """
 import dataclasses
 import functools
@@ -27,7 +27,9 @@ from repro.models import get_model as jax_get_model  # noqa: E402
 from repro.models import reduced_config as jax_reduced_config  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.models import ModelConfig, build_model  # noqa: E402
+from repro_torch.models.attention import chunked_attention  # noqa: E402
 
 KEY = jax.random.PRNGKey(1)
 T = 5            # decode steps after the prefill
@@ -84,13 +86,11 @@ def close(got, want, scale):
     assert err < TOL, f"max-normalised error {err}"
 
 
-@pytest.mark.parametrize("attn_impl", ["auto", "flash"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_forward_prefill_decode_match_jax(case, attn_impl):
+def test_forward_prefill_decode_match_jax(case):
     ref = reference(case)
     _, _, b, s = CASES[case]
-    model = build_model(port_config(ref["cfg"], attn_impl=attn_impl),
-                        device="cpu")
+    model = build_model(port_config(ref["cfg"]), device="cpu")
     params = params_from_jax(ref["params"], device="cpu")
     toks = torch.from_numpy(ref["tokens"])
     scale = float(np.abs(ref["forward"]).max()) + 1e-6
@@ -113,6 +113,31 @@ def test_forward_prefill_decode_match_jax(case, attn_impl):
                                        toks[:, s + t:s + t + 1], s + t)
         close(dec, ref["decode"][t], scale)
         close(dec[:, 0], ref["forward"][:, s + t], scale)
+
+
+# chunk sizes: one chunk; dividing S; not dividing S (halved until it does)
+@pytest.mark.parametrize("chunk", [96, 16, 64])
+def test_chunked_attention_matches_plain_attention(chunk):
+    """The CPU path of the prefill attention against the plain materialised
+    softmax, on smollm's 9/3 head layout, (B, S, H, D) in and out."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 96, heads, 64), dtype=np.float32)) for heads in (9, 3, 3))
+    cfg = dataclasses.replace(get_config("smollm-135m"), attn_chunk=chunk)
+    got = chunked_attention(q, k, v, cfg, causal=True, window=None)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2)).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_unknown_attn_impl_is_refused():
+    ref = reference("smollm-reduced")
+    model = build_model(port_config(ref["cfg"], attn_impl="flash"),
+                        device="cpu")
+    params = params_from_jax(ref["params"], device="cpu")
+    with pytest.raises(ValueError, match="attn_impl"):
+        model.forward(params, torch.from_numpy(ref["tokens"]))
 
 
 def test_list_archs_agrees_with_reference():
