@@ -1,30 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch / CUDA port's serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   (a) device   -- the card's name and power limit (nvidia-smi)
-  (b) build    -- nvcc builds the flash-attention kernel from src/
-  (c) kernel   -- the kernel against its plain PyTorch version on the card
-  (d) prefill  -- smollm-135m at full width (seeded random weights), B 4,
-                  S 512: prefill logits through the kernel against
+  (b) build    -- nvcc builds the flash-attention and SSD-scan kernels from
+                  src/, both at once
+  (c) flash    -- the flash-attention kernel against its plain version
+  (d) ssd      -- the SSD-scan kernel against its plain version and the
+                  chunked path (y and the final state)
+  smollm-135m at full width (seeded random weights):
+  (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
-  (e) decode   -- prefill, then decode steps, against forward's logits
-  (f) server   -- Server.run: 8 requests, batch 4, max_len 256, 16 tokens
-  (g) times    -- kernel, plain version, scaled_dot_product_attention (as a
-                  yardstick only; the port never calls it), the kernel's
-                  bound; a full prefill (through the kernel and through
-                  the chunked path) and a decode step, with the card's busy
-                  share; the Server's tokens/s
+  (f) decode   -- prefill, then decode steps, against forward's logits
+  (g) server   -- Server.run: 8 requests, batch 4, max_len 256, 16 tokens
+  mamba2-130m at full width (seeded random weights):
+  (h) prefill  -- B 4, S 512: fp32 logits and cache through the kernel
+                  against the same weights' plain path on the CPU; bf16 by
+                  its distance from fp32; exactly 24 launches per prefill
+  (i) decode   -- prefill, then decode steps, against forward's logits
+  (j) server   -- Server.run as (g)
+  (k) times    -- each kernel, its plain version, its bound and (flash
+                  only) scaled_dot_product_attention as a yardstick the port
+                  never calls; each model's prefill and decode step, with
+                  the card's busy share; the Servers' tokens/s
 
-Phases (d)-(f) are the main path: every kernel launch count is set to 0 just
-before (d) and read just after (f). The last lines are the kernels' JSON
-record, the card's name and power limit, and
+Phases (e)-(g) and (h)-(j) are the main paths: every kernel launch count is
+set to 0 just before each path and read just after it. The last lines are
+the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
 """
+import concurrent.futures
 import dataclasses
 import json
 import sys
@@ -45,6 +54,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # or counted twice moves a row by 5% or more, even at S 2048.
 FP32_TOL = 1e-5
 BF16_ROW_TOL = 2.0 ** -6
+# SSD kernel vs plain and chunked: max |error| over the reference's max |y|
+# (or |h_final|), the reference's own tolerances (tests/test_kernels.py)
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 # model-level checks in fp32, max-normalised, as the reference's own
 # decode-consistency test; bf16 see phase_prefill
 MODEL_TOL = 1e-4
@@ -56,7 +68,7 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-# -- (c) kernel against plain --------------------------------------------------
+# -- (c) flash kernel against plain --------------------------------------------------
 
 # (b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout)
 # layout "bhsd": contiguous (B, H, S, D); "bshd": (B, S, H, D) storage viewed
@@ -130,7 +142,69 @@ def phase_kernel_vs_plain():
     return main_err
 
 
-# -- (d)-(f) the main path ------------------------------------------------------
+# -- (d) SSD kernel against plain and chunked ----------------------------------
+
+# (b, s, h, p, n, chunk, dtype, layout); layout "view": x, b and c cut out of
+# one (B, S, H P + 2 N) tensor, as the model passes its conv output
+def ssd_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    m = (24, 64, 128, 128)          # mamba2-130m: H, P, N, chunk
+    return [
+        # tests/test_kernels.py SSD_CASES
+        (2, 64, 3, 16, 32, 16, f32, "contiguous"),
+        (1, 128, 2, 32, 64, 32, f32, "contiguous"),
+        (1, 64, 2, 16, 32, 64, f32, "contiguous"),
+        (2, 64, 2, 16, 32, 16, bf16, "contiguous"),
+        # mamba2's prefill shape, contiguous and as the model's views
+        (PREFILL_B, PREFILL_S, *m, f32, "contiguous"),
+        (PREFILL_B, PREFILL_S, *m, bf16, "contiguous"),
+        (PREFILL_B, PREFILL_S, *m, f32, "view"),
+        (PREFILL_B, PREFILL_S, *m, bf16, "view"),
+        # ragged S, S < chunk, S = 1
+        (2, 500, *m, f32, "view"),
+        (2, 500, *m, bf16, "view"),
+        (2, 100, *m, f32, "view"),
+        (2, 1, *m, f32, "view"),
+        (2, 1, *m, bf16, "view"),
+    ]
+
+
+def phase_ssd_vs_plain():
+    """The kernel's y and final state against ref.py's sequential
+    recurrence and against the model's chunked path (which halves its
+    chunk until it divides S); returns the largest |y error| against the
+    plain version at the shape and layout the model launches, in bf16."""
+    from repro_torch.kernels.bench import make_ssd_inputs
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main_err = None
+    for b, s, h, p, n, chunk, dtype, layout in ssd_cases():
+        args = make_ssd_inputs(gen, b, s, h, p, n, dtype, layout)
+        y, hf = kernel.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        name = (f"B{b} S{s} H{h} P{p} N{n} chunk {chunk} "
+                f"{str(dtype)[6:]} {layout}")
+        errs = {}
+        for against, (y_ref, h_ref) in (
+                ("plain", ssd_ref(*args)),
+                ("chunked", ssd_chunked(*args, chunk))):
+            errs[against] = (max_norm_err(y, y_ref), max_norm_err(hf, h_ref))
+            if against == "plain" and layout == "view" and \
+                    dtype == torch.bfloat16 and s == PREFILL_S:
+                main_err = (y.float() - y_ref.float()).abs().max().item()
+        log("d", f"{name}: max-normalised " + "; ".join(
+            f"{k}: y {e_y:.2e}, h_final {e_h:.2e}"
+            for k, (e_y, e_h) in errs.items()) + f" (tol {tol})")
+        if not (torch.isfinite(y).all() and torch.isfinite(hf).all()) or \
+                max(max(e) for e in errs.values()) > tol:
+            raise AssertionError(f"ssd_scan disagrees: {name}")
+    return main_err
+
+
+# -- (e)-(j) the main paths ------------------------------------------------------
 
 
 def max_norm_err(got, want):
@@ -143,22 +217,44 @@ def mean_norm_err(got, want):
             / (want.float().abs().max() + 1e-6)).item()
 
 
-def run_counted(fn, expected):
-    """Call fn and check it launched flash_attention ``expected`` times."""
-    from repro_torch.kernels.flash_attention import kernel
-    before = kernel.flash_attention.launches
-    out, _ = fn()
+def counters():
+    """Every kernel wrapper, by name; each counts its own launches."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.ssd import kernel as ssd
+    return {"flash_attention": flash.flash_attention,
+            "ssd_scan": ssd.ssd_scan}
+
+
+def run_counted(fn, wrapper, expected):
+    """Call fn, which returns (logits, ...), and check it launched
+    ``wrapper``'s kernel ``expected`` times; returns what fn returned."""
+    before = wrapper.launches
+    result = fn()
     torch.cuda.synchronize()
-    n = kernel.flash_attention.launches - before
+    n = wrapper.launches - before
     if n != expected:
-        raise AssertionError(f"{n} kernel launches, expected {expected}")
-    if not torch.isfinite(out).all():
+        raise AssertionError(f"{n} launches of {wrapper.__name__}, "
+                             f"expected {expected}")
+    if not torch.isfinite(result[0]).all():
         raise AssertionError("non-finite logits")
-    return out
+    return result
+
+
+def drive(label, phases):
+    """One main path: every launch count set to 0 just before it and read
+    just after it."""
+    for wrapper in counters().values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    result = [phase() for phase in phases]
+    counts = {name: w.launches for name, w in counters().items()}
+    log(label, f"main path in {time.perf_counter() - t0:.1f} s, kernel "
+               f"launches {counts}")
+    return counts, result
 
 
 def phase_prefill(cfg, params, toks):
-    """(d) Prefill at full width through the kernel (attn_impl="auto") and
+    """(e) Prefill at full width through the kernel (attn_impl="auto") and
     through the chunked path, in fp32 and in the model's bf16.
 
     fp32 holds the kernel path to the chunked one at MODEL_TOL. In bf16 the
@@ -175,25 +271,27 @@ def phase_prefill(cfg, params, toks):
     models = {(dt, impl): build_model(dataclasses.replace(
         cfg, dtype=dt, attn_impl=impl))
         for dt in ("float32", "bfloat16") for impl in ("auto", "chunked")}
+    flash = counters()["flash_attention"]
     pre = {key: run_counted(
-        lambda m=m: m.prefill(params, toks, max_len=s + 8),
-        n_layers if key[1] == "auto" else 0) for key, m in models.items()}
+        lambda m=m: m.prefill(params, toks, max_len=s + 8), flash,
+        n_layers if key[1] == "auto" else 0)[0]
+        for key, m in models.items()}
     err32 = max_norm_err(pre["float32", "auto"], pre["float32", "chunked"])
     err16 = max_norm_err(pre["bfloat16", "auto"], pre["bfloat16", "chunked"])
-    log("d", f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
+    log("e", f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
              f"launches per prefill; logits {tuple(pre['bfloat16', 'auto'].shape)}"
              f" kernel vs chunked max-normalised: float32 {err32:.3e} "
              f"(tol {MODEL_TOL}), bfloat16 {err16:.3e}")
     if err32 > MODEL_TOL:
         raise AssertionError("fp32 prefill through the kernel disagrees")
     fwd = {key: run_counted(lambda m=models[key]: m.forward(params, toks),
-                            n_layers if key[1] == "auto" else 0)
+                            flash, n_layers if key[1] == "auto" else 0)[0]
            for key in (("float32", "chunked"), ("bfloat16", "auto"),
                        ("bfloat16", "chunked"))}
     truth = fwd["float32", "chunked"]
     e_kernel = mean_norm_err(fwd["bfloat16", "auto"], truth)
     e_chunked = mean_norm_err(fwd["bfloat16", "chunked"], truth)
-    log("d", f"bfloat16 forward, mean distance from fp32 logits "
+    log("e", f"bfloat16 forward, mean distance from fp32 logits "
              f"(max-normalised): kernel path {e_kernel:.3e}, chunked path "
              f"{e_chunked:.3e} (kernel may be at most {BF16_RATIO}x)")
     if e_kernel > BF16_RATIO * e_chunked:
@@ -201,8 +299,61 @@ def phase_prefill(cfg, params, toks):
                              "accurate than the chunked path's")
 
 
-def phase_decode(cfg, params, toks, steps):
-    """(e) Prefill, then ``steps`` decode steps, against forward's logits at
+def phase_ssm_prefill(cfg, params, toks):
+    """(h) Prefill at full width on the card, through the SSD kernel, in
+    fp32 against the same weights' prefill on the CPU, which takes the
+    chunked path that tier-1 holds against the JAX package: logits and
+    cache at MODEL_TOL. bf16 is held by its distance from fp32, as in
+    phase_prefill: over every position of a shorter forward, the mean
+    distance of the card's bf16 logits (kernel) from its fp32 logits may
+    be at most BF16_RATIO times the CPU's bf16 logits' (chunked path)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    s = toks.shape[1]
+    n_layers = cfg.num_layers
+    ssd = counters()["ssd_scan"]
+    fp32 = dataclasses.replace(cfg, dtype="float32")
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    card32, card16 = build_model(fp32), build_model(bf16)
+    cpu32, cpu16 = (build_model(c, device="cpu") for c in (fp32, bf16))
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+
+    logits, cache = run_counted(
+        lambda: card32.prefill(params, toks, max_len=s + 8), ssd, n_layers)
+    want, want_cache = cpu32.prefill(params_cpu, toks.cpu(), max_len=s + 8)
+    errs = {"logits": max_norm_err(logits.cpu(), want)}
+    for name in ("conv", "state"):
+        errs[name] = max_norm_err(cache["blocks"]["p0"][name].cpu(),
+                                  want_cache["blocks"]["p0"][name])
+    pre16, _ = run_counted(
+        lambda: card16.prefill(params, toks, max_len=s), ssd, n_layers)
+    log("h", f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
+             f"launches per prefill; logits {tuple(pre16.shape)}; fp32 on "
+             f"the card vs the CPU's plain path, max-normalised: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+             + f" (tol {MODEL_TOL})")
+    if max(errs.values()) > MODEL_TOL:
+        raise AssertionError("fp32 prefill through the kernel disagrees "
+                             "with the CPU's plain path")
+    short = toks[:2, :s // 2]
+    truth, _ = run_counted(lambda: card32.forward(params, short), ssd,
+                           n_layers)
+    got, _ = run_counted(lambda: card16.forward(params, short), ssd,
+                         n_layers)
+    plain, _ = cpu16.forward(params_cpu, short.cpu())
+    e_kernel = mean_norm_err(got, truth)
+    e_plain = mean_norm_err(plain, truth.cpu())
+    log("h", f"bfloat16 forward B{short.shape[0]} S{short.shape[1]}, mean "
+             f"distance from the card's fp32 logits (max-normalised): card "
+             f"(kernel) {e_kernel:.3e}, CPU (chunked path) {e_plain:.3e} "
+             f"(kernel may be at most {BF16_RATIO}x)")
+    if e_kernel > BF16_RATIO * e_plain:
+        raise AssertionError("bf16 logits through the kernel are less "
+                             "accurate than the chunked path's")
+
+
+def phase_decode(label, cfg, params, toks, steps):
+    """Prefill, then ``steps`` decode steps, against forward's logits at
     the same positions: fp32 at MODEL_TOL, as the reference's own
     decode-consistency test. bf16 is held as in phase_prefill: the mean
     distance of its prefill + decode logits from the fp32 forward's may be
@@ -223,24 +374,25 @@ def phase_decode(cfg, params, toks, steps):
             outs.append(dec[:, 0])
         want = full[dtype][:, s - 1:]
         errs = [max_norm_err(o, want[:, t]) for t, o in enumerate(outs)]
-        log("e", f"{cfg.name} {dtype} prefill S{s} + {steps} decode steps "
-                 f"vs forward, max-normalised: "
-                 f"{', '.join(f'{e:.2e}' for e in errs)}"
-                 + (f" (tol {MODEL_TOL})" if dtype == "float32" else ""))
+        log(label, f"{cfg.name} {dtype} prefill S{s} + {steps} decode steps "
+                   f"vs forward, max-normalised: "
+                   f"{', '.join(f'{e:.2e}' for e in errs)}"
+                   + (f" (tol {MODEL_TOL})" if dtype == "float32" else ""))
         if dtype == "float32" and max(errs) > MODEL_TOL:
             raise AssertionError("prefill/decode disagree with forward")
     truth = full["float32"][:, s - 1:]
     e_decode = mean_norm_err(torch.stack(outs, dim=1), truth)
     e_forward = mean_norm_err(full["bfloat16"][:, s - 1:], truth)
-    log("e", f"bfloat16 prefill + decode, mean distance from fp32 forward "
-             f"logits (max-normalised): {e_decode:.3e}, bf16 forward "
-             f"{e_forward:.3e} (decode may be at most {BF16_RATIO}x)")
+    log(label, f"bfloat16 prefill + decode, mean distance from fp32 "
+               f"forward logits (max-normalised): {e_decode:.3e}, bf16 "
+               f"forward {e_forward:.3e} (decode may be at most "
+               f"{BF16_RATIO}x)")
     if e_decode > BF16_RATIO * e_forward:
         raise AssertionError("bf16 prefill + decode logits are less "
                              "accurate than the bf16 forward's")
 
 
-def phase_server(model, params):
+def phase_server(label, model, params):
     from repro_torch.runtime import Request, Server
     rng = np.random.default_rng(0)
     vocab = model.cfg.vocab_size
@@ -254,10 +406,11 @@ def phase_server(model, params):
     dt = time.perf_counter() - t0
     tokens = sum(len(v) for v in done.values())
     prompt = sum(len(r.prompt) for r in reqs)
-    log("f", f"Server batch 4 max_len 256: {len(done)} requests, prompts "
-             f"{min(len(r.prompt) for r in reqs)}-"
-             f"{max(len(r.prompt) for r in reqs)} tokens ({prompt} in all), "
-             f"{tokens} new tokens in {dt:.3f} s = {tokens / dt:.1f} tok/s")
+    log(label, f"{model.cfg.name} Server batch 4 max_len 256: {len(done)} "
+               f"requests, prompts {min(len(r.prompt) for r in reqs)}-"
+               f"{max(len(r.prompt) for r in reqs)} tokens ({prompt} in "
+               f"all), {tokens} new tokens in {dt:.3f} s = "
+               f"{tokens / dt:.1f} tok/s")
     if sorted(done) != list(range(8)) or \
             any(len(v) != 16 for v in done.values()) or \
             any(not 0 <= t < vocab for v in done.values() for t in v):
@@ -265,32 +418,82 @@ def phase_server(model, params):
     return tokens / dt
 
 
-# -- (g) times --------------------------------------------------------------------
+# -- (k) times --------------------------------------------------------------------
 
 
 def phase_step_times(cfg, params, toks):
-    """End to end: one full-width bf16 prefill through the kernel and
-    through the chunked path, and one batch-4 decode step; for each, the
-    card's busy time under the profiler against the unprofiled wall time."""
+    """End to end: one full-width bf16 prefill (for attention models through
+    the kernel and through the chunked path) and one batch-4 decode step;
+    for each, the card's busy time under the profiler against the
+    unprofiled wall time."""
     from repro_torch.kernels.bench import device_profile, eager_ms
     from repro_torch.models import build_model
     s = toks.shape[1]
     steps = {}
-    for impl in ("auto", "chunked"):
+    impls = ("auto", "chunked") if "global" in cfg.pattern else ("auto",)
+    for impl in impls:
         model = build_model(dataclasses.replace(cfg, attn_impl=impl))
-        steps[f"prefill B{toks.shape[0]} S{s} attn_impl={impl}"] = (
-            lambda m=model: m.prefill(params, toks, max_len=s + 1))
+        name = f"prefill B{toks.shape[0]} S{s}" + (
+            f" attn_impl={impl}" if len(impls) > 1 else "")
+        steps[name] = lambda m=model: m.prefill(params, toks, max_len=s + 1)
     _, cache = model.prefill(params, toks, max_len=s + 1)
     steps[f"decode_step B{toks.shape[0]} at pos {s}"] = (
         lambda: model.decode_step(params, cache, toks[:, -1:], s))
     for name, fn in steps.items():
         wall = eager_ms(fn, iters=5)
         prof = device_profile(fn)
-        log("g", f"{cfg.name} bf16 {name}: {wall:.3f} ms wall; card busy "
+        log("k", f"{cfg.name} bf16 {name}: {wall:.3f} ms wall; card busy "
                  f"{prof['busy_ms']:.3f} ms in {prof['launches']} kernels "
                  f"and copies ({100 * (1 - prof['busy_ms'] / wall):.1f}% "
                  f"idle); top: " + "; ".join(
                      f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+
+
+def build_kernels():
+    """(b) nvcc on every kernel source at once; print ptxas's registers and
+    spills."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.ssd import kernel as ssd
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(k.load) for name, k in
+                  (("flash_attention", flash), ("ssd_scan", ssd))}
+        builds = {name: f.result() for name, f in builds.items()}
+    log("b", f"both built in {time.perf_counter() - t0:.1f} s")
+    for name, built in builds.items():
+        log("b", f"{name}: {built.path.name}, nvcc {built.seconds:.1f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("b", line.strip())
+
+
+def model_and_params(cfg, label):
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    n = sum(t.numel() for t in _leaves(params))
+    log(label, f"{cfg.name}: {cfg.num_layers} layers, pattern {cfg.pattern}, "
+               f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n} "
+               f"parameters, {cfg.dtype} over {cfg.param_dtype}; init "
+               f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def record_row(name, source, replaces, launches, err, row, shape):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": shape}
 
 
 def main():
@@ -299,8 +502,7 @@ def main():
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import bench
-    from repro_torch.kernels.flash_attention import kernel
-    from repro_torch.models import build_model
+    start = time.perf_counter()
 
     # fp32 products in full fp32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -309,60 +511,64 @@ def main():
     smi = bench.card()
     log("a", f"{smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
              f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    build_kernels()
+    flash_err = phase_kernel_vs_plain()
+    ssd_err = phase_ssd_vs_plain()
+    log("d", f"kernels held against their plain versions; "
+             f"{time.perf_counter() - start:.1f} s so far")
 
-    t0 = time.perf_counter()
-    built = kernel.load()
-    log("b", f"built {built.path.name} in {built.seconds:.1f} s "
-             f"(load {time.perf_counter() - t0:.1f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("b", line.strip())
-
-    main_err = phase_kernel_vs_plain()
-
-    cfg = get_config("smollm-135m")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator().manual_seed(0))
-    log("d", f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-             f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, "
-             f"vocab {cfg.vocab_size}, {cfg.dtype} over {cfg.param_dtype} "
-             f"params; init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
+    smollm = get_config("smollm-135m")
+    model, params = model_and_params(smollm, "e")
     toks = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S + 8))).cuda()
+        0, smollm.vocab_size, (PREFILL_B, PREFILL_S + 8))).cuda()
+    smollm_counts, (_, _, smollm_tok_s) = drive("g", (
+        lambda: phase_prefill(smollm, params, toks[:, :PREFILL_S]),
+        lambda: phase_decode("f", smollm, params, toks, steps=8),
+        lambda: phase_server("g", model, params)))
+    if smollm_counts["flash_attention"] == 0:
+        raise AssertionError("smollm's path never launched flash_attention")
 
-    kernel.flash_attention.launches = 0          # the main path starts here
-    phase_prefill(cfg, params, toks[:, :PREFILL_S])
-    phase_decode(cfg, params, toks, steps=8)
-    tok_s = phase_server(model, params)
-    main_launches = kernel.flash_attention.launches   # ... and ends here
-    if main_launches == 0:
-        raise AssertionError("the main path never launched flash_attention")
-    log("f", f"main path: flash_attention launched {main_launches} times")
+    mamba = get_config("mamba2-130m")
+    m_model, m_params = model_and_params(mamba, "h")
+    m_toks = torch.from_numpy(rng.integers(
+        0, mamba.vocab_size, (PREFILL_B, PREFILL_S + 8))).cuda()
+    mamba_counts, (_, _, mamba_tok_s) = drive("j", (
+        lambda: phase_ssm_prefill(mamba, m_params, m_toks[:, :PREFILL_S]),
+        lambda: phase_decode("i", mamba, m_params, m_toks, steps=8),
+        lambda: phase_server("j", m_model, m_params)))
+    if mamba_counts["ssd_scan"] == 0:
+        raise AssertionError("mamba2's path never launched ssd_scan")
 
-    rows = {label: bench.time_flash_attention(label) for label in bench.SHAPES}
-    for row in rows.values():
-        log("g", bench.describe(row))
-    phase_step_times(cfg, params, toks[:, :PREFILL_S])
-    log("g", f"Server {tok_s:.1f} tok/s (smollm-135m bf16, batch 4)")
-    row = rows["prefill-512"]          # the shape the main path launches
-    record = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:93",
-        "launches": main_launches,
-        "max_abs_err": main_err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "shape": f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, "
-                 "(B, S, H, D) views",
-    }]}
+    flash_rows = {label: bench.time_flash_attention(label)
+                  for label in bench.SHAPES}
+    for row in flash_rows.values():
+        log("k", bench.describe(row))
+    ssd_rows = {label: bench.time_ssd_scan(label)
+                for label in bench.SSD_SHAPES}
+    for row in ssd_rows.values():
+        log("k", bench.describe_ssd(row))
+    phase_step_times(smollm, params, toks[:, :PREFILL_S])
+    phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
+    log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
+             f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4)")
+    log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
+    # each kernel's row at the shape its main path launches
+    record = {"kernels": [
+        record_row("flash_attention", "src/repro_torch/kernels/"
+                   "flash_attention/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:93",
+                   smollm_counts["flash_attention"], flash_err,
+                   flash_rows["prefill-512"],
+                   f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, "
+                   "(B, S, H, D) views"),
+        record_row("ssd_scan", "src/repro_torch/kernels/ssd/csrc/"
+                   "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:67",
+                   mamba_counts["ssd_scan"], ssd_err,
+                   ssd_rows["prefill-512"],
+                   f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, "
+                   "views of the conv output"),
+    ]}
     print(json.dumps(record))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

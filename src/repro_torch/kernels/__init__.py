@@ -2,9 +2,12 @@
 
 flash_attention -- causal / sliding-window / softcap / GQA attention,
                    forward (replaces the Pallas TPU kernel of the same name)
+ssd             -- the Mamba-2 SSD chunked scan, forward, with its final
+                   state (replaces the Pallas TPU kernel ``ssd_scan``)
 
 Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
 ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA
 tensors, the plain version for CPU tensors) and ref.py (the plain PyTorch
-version the kernel is held against). build.py compiles the sources.
+version the kernel is held against). build.py compiles the sources;
+bench.py times each kernel against its plain version and its bound.
 """

@@ -4,17 +4,19 @@ bound and one PyTorch library call computing the same function.
     PYTHONPATH=src python -m repro_torch.kernels.bench
     PYTHONPATH=src python -m repro_torch.kernels.bench --against OLD.cu
 
-``--against`` builds another version of the flash-attention source (for
-example ``git show REV:src/repro_torch/kernels/flash_attention/csrc/
-flash_attention.cu > OLD.cu``) and times both on the same card in turns
-(old, new, new, old), which is the only fair way to compare two versions.
+``--against`` builds another version of one kernel's source (for example
+``git show REV:src/repro_torch/kernels/ssd/csrc/ssd_scan.cu > OLD.cu``) and
+times both on the same card in turns (old, new, new, old), which is the only
+fair way to compare two versions. The C function the library exports says
+which kernel it is: ``flash_attention_fwd`` or ``ssd_scan_fwd``.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
 the least time the card could take: bytes moved once at the memory rate
 against the operations at the peak rate for their type (H100 SXM data
 sheet, dense, at 700 W), whichever is larger. A card set below 700 W runs
-slower, so every number is printed with the card's power limit.
+slower, so every number is printed with the card's power limit. No PyTorch
+call computes the SSD scan, so it has no library yardstick.
 """
 from __future__ import annotations
 
@@ -34,6 +36,10 @@ PEAK_BYTES = 3.35e12
 # and the (B, S, H, D) views a B 4, S 512 prefill passes
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd"),
           "prefill-512": (4, 9, 3, 512, 64, "bshd")}
+# (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
+# conv output a B 4, S 512 prefill passes, and a longer contiguous batch
+SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
+              "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
 
 
 def card() -> str:
@@ -179,39 +185,130 @@ def describe(row: dict) -> str:
             f"times); one eager call {row['eager_ms']:.4f} ms")
 
 
-def compare(old_source: Path, label: str, seed: int = 1):
-    """Time another build of the flash-attention source against the
-    current one, in turns: old, new, new, old."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel
-    old = kernel.bind(build.load(old_source).lib)
-    b, h, kv, s, d, layout = SHAPES[label]
+def ssd_bound(b, s, h, p, n, chunk, dtype):
+    """(bound ms, "operations" | "bytes", flops) for the SSD scan on these
+    inputs: x, B, C, dt and a_log read and y and the final state written
+    once, against the products of the chunked algorithm at its least: C B^T
+    once per (batch, chunk), as B and C are shared by the heads, on the
+    lower triangle only, as are the intra-chunk products; the carried-state
+    term from the second chunk on (the first one's state is zero); the
+    state update. Chunks of ``min(chunk, S, 128)`` rows, as the kernel's."""
+    q = min(chunk, s, 128)
+    lens = [min(q, s - s0) for s0 in range(0, s, q)]
+    tri = sum(L * (L + 1) // 2 for L in lens)
+    flops = 2.0 * b * n * tri                        # C B^T
+    flops += 2.0 * b * h * p * tri                   # (G) (x dt)
+    flops += 2.0 * b * h * p * n * sum(lens[1:])     # C h
+    flops += 2.0 * b * h * p * n * s                 # B^T (x dt rem)
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (size * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h + b * h * p * n))
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def make_ssd_inputs(gen, b, s, h, p, n, dtype, layout):
+    """Random x (B,S,H,P), dt (B,S,H) (softplus'ed), a_log (H,), b / c
+    (B,S,N) on the card, as tests/test_kernels.py draws them; layout "view"
+    cuts x, b and c out of one (B, S, H P + 2 N) tensor, as the model's
+    conv output."""
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(randn((b, s, h)))
+    a_log = randn((h,)) * 0.5
+    if layout == "view":
+        conv = randn((b, s, h * p + 2 * n)).to(dtype)
+        x = conv[..., :h * p].reshape(b, s, h, p)
+        return x, dt, a_log, conv[..., h * p:h * p + n], \
+            conv[..., h * p + n:]
+    return (randn((b, s, h, p)).to(dtype), dt, a_log,
+            randn((b, s, n)).to(dtype), randn((b, s, n)).to(dtype))
+
+
+def time_ssd_scan(label: str, seed: int = 1) -> dict:
+    """Kernel and plain version at one of SSD_SHAPES (bf16), with the
+    bound; no library call computes this function."""
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    b, s, h, p, n, chunk, layout = SSD_SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
-    out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+    args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
+    bound_ms, bound_by, flops = ssd_bound(b, s, h, p, n, chunk,
+                                          torch.bfloat16)
+    ms = graph_ms(lambda: kernel.ssd_scan(*args, chunk=chunk))
+    return dict(
+        label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+        tflops=flops / ms / 1e9,
+        plain_ms=graph_ms(lambda: ssd_ref(*args), iters=2, warmup=1),
+        library_ms=None,
+        eager_ms=eager_ms(lambda: kernel.ssd_scan(*args, chunk=chunk)))
 
-    def run_old():
-        kernel.launch(old, q, k, v, out, causal=True, window=None,
-                      softcap=None)
 
-    def run_new():
-        return kernel.flash_attention(q, k, v)
+def describe_ssd(row: dict) -> str:
+    b, s, h, p, n, chunk, layout = SSD_SHAPES[row["label"]]
+    return (f"ssd_scan B{b} S{s} H{h} P{p} N{n} chunk {chunk} bf16 "
+            f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
+            f"TFLOP/s), plain {row['plain_ms']:.4f} ms, library call none, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x (device "
+            f"times); one eager call {row['eager_ms']:.4f} ms")
 
-    new = run_new()
-    run_old()
-    torch.cuda.synchronize()
-    diff = (new.float() - out.float()).abs().max().item()
-    old1, new1, new2, old2 = (graph_ms(fn) for fn in
-                              (run_old, run_new, run_new, run_old))
-    print(f"{label}: old {old1:.4f} / {old2:.4f} ms, new {new1:.4f} / "
-          f"{new2:.4f} ms (old, new, new, old); max|new - old| {diff:.3e}",
-          flush=True)
+
+def compare(old_source: Path, seed: int = 1):
+    """Time another build of one kernel's source against the current one,
+    in turns (old, new, new, old), at each of that kernel's shapes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.ssd import kernel as ssd
+    lib = build.load(old_source).lib
+    is_ssd = hasattr(lib, "ssd_scan_fwd")
+    old = (ssd if is_ssd else flash).bind(lib)
+    for label in (SSD_SHAPES if is_ssd else SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if is_ssd:
+            b, s, h, p, n, chunk, layout = SSD_SHAPES[label]
+            args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
+                                   layout)
+            y = torch.empty((b, s, h, p), dtype=torch.bfloat16,
+                            device="cuda")
+            hf = torch.empty((b, h, p, n), device="cuda")
+
+            def run_old():
+                ssd.launch(old, *args, y, hf, chunk=min(chunk, s, 128))
+
+            def run_new():
+                return ssd.ssd_scan(*args, chunk=chunk)[0]
+            out = y
+        else:
+            b, h, kv, s, d, layout = SHAPES[label]
+            q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
+                               layout)
+            out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+
+            def run_old():
+                flash.launch(old, q, k, v, out, causal=True, window=None,
+                             softcap=None)
+
+            def run_new():
+                return flash.flash_attention(q, k, v)
+        new = run_new()
+        run_old()
+        torch.cuda.synchronize()
+        diff = (new.float() - out.float()).abs().max().item()
+        old1, new1, new2, old2 = (graph_ms(fn) for fn in
+                                  (run_old, run_new, run_new, run_old))
+        print(f"{'ssd_scan' if is_ssd else 'flash_attention'} {label}: old "
+              f"{old1:.4f} / {old2:.4f} ms, new {new1:.4f} / {new2:.4f} ms "
+              f"(old, new, new, old); max|new - old| {diff:.3e}", flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path,
-                    help="another version of flash_attention.cu to compare")
+                    help="another version of flash_attention.cu or "
+                         "ssd_scan.cu to compare")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: no CUDA device available", file=sys.stderr)
@@ -219,8 +316,10 @@ def main(argv=None) -> int:
     print(card(), flush=True)
     for label in SHAPES:
         print(describe(time_flash_attention(label)), flush=True)
-        if args.against is not None:
-            compare(args.against, label)
+    for label in SSD_SHAPES:
+        print(describe_ssd(time_ssd_scan(label)), flush=True)
+    if args.against is not None:
+        compare(args.against)
     return 0
 
 

@@ -1,0 +1,130 @@
+"""Binding of the hand-written CUDA SSD scan kernel.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
+``repro.kernels.ssd.kernel.ssd_scan`` and also writes the final state. It
+is built with ``nvcc`` for sm_90a into a shared library with a plain C
+interface (see :mod:`repro_torch.kernels.build`) and called through
+``ctypes`` on PyTorch's current stream. The wrapper allocates the outputs,
+checks what the kernel takes and raises on the rest, and raises when the
+launch reports an error. ``ssd_scan.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+HEAD_DIMS = (16, 32, 64)        # P
+STATE_DIMS = (16, 32, 64, 128)  # N
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 128                 # rows per chunk (QMAX in the source)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument and result types on a library
+    built from this kernel's source."""
+    lib.ssd_scan_fwd.argtypes = _ARGTYPES
+    lib.ssd_scan_fwd.restype = ctypes.c_int
+    lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load() -> build.Built:
+    """Build (at first use) and load the kernel library, once per process:
+    a launch then touches no file."""
+    built = build.load(SOURCE)
+    bind(built.lib)
+    return built
+
+
+def _check(x, dt, a_log, b, c, chunk: int):
+    named = (("x", x), ("dt", dt), ("a_log", a_log), ("b", b), ("c", c))
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError("x, dt, a_log, b and c must be on one device")
+    if x.dim() != 4 or dt.dim() != 3 or a_log.dim() != 1 or \
+            b.dim() != 3 or c.dim() != 3:
+        raise ValueError(
+            f"expected x (B,S,H,P), dt (B,S,H), a_log (H,), b/c (B,S,N); got "
+            f"{[tuple(t.shape) for _, t in named]}")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if dt.shape != (bsz, s, h) or a_log.shape != (h,) or \
+            b.shape != (bsz, s, n) or c.shape != (bsz, s, n):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)} dt {tuple(dt.shape)} a_log "
+            f"{tuple(a_log.shape)} b {tuple(b.shape)} c {tuple(c.shape)}")
+    if x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c must share one dtype, float32 or "
+                        f"bfloat16; got {x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
+        raise TypeError(f"dt and a_log must be float32, got {dt.dtype}, "
+                        f"{a_log.dtype}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride over its last "
+                             f"axis, got strides {t.stride()}")
+    if a_log.stride(0) != 1:
+        raise ValueError("a_log must be contiguous")
+    if p not in HEAD_DIMS or n not in STATE_DIMS:
+        raise ValueError(f"head_dim {p} or state {n} not supported "
+                         f"(P in {HEAD_DIMS}, N in {STATE_DIMS})")
+    if bsz == 0 or s == 0 or h == 0:
+        raise ValueError(f"empty input: x {tuple(x.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128):
+    """x: (B,S,H,P); dt: (B,S,H); a_log: (H,); b/c: (B,S,N) -> (y (B,S,H,P)
+    in x's dtype, h_final (B,H,P,N) float32), on the card. The kernel works
+    in chunks of ``min(chunk, S, 128)`` rows and masks a ragged tail."""
+    _check(x, dt, a_log, b, c, chunk)
+    bsz, s, h, p = x.shape
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    h_final = torch.empty((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+    launch(load().lib, x, dt, a_log, b, c, y, h_final,
+           chunk=min(chunk, s, MAX_CHUNK))
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+def launch(lib: ctypes.CDLL, x, dt, a_log, b, c, y, h_final, *,
+           chunk: int) -> None:
+    """Run the kernel of ``lib`` (bound by :func:`bind`) on checked inputs
+    into ``y`` and ``h_final`` on the current stream, ``chunk`` rows at a
+    time (1..128); raise if the launch reports an error. Counts nothing:
+    :func:`ssd_scan` does."""
+    bsz, s, h, p = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            DTYPES[x.dtype], bsz, s, h, p, b.shape[-1], chunk,
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1), stream)
+    if rc != 0:
+        msg = lib.ssd_scan_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+ssd_scan.launches = 0

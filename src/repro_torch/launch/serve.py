@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --no-reduced
 
 Counterpart of ``repro.launch.serve``. ``--reduced`` (the default) serves
 the tiny same-family config in float32, as the reference does;
@@ -19,7 +21,8 @@ import torch
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="smollm-135m or mamba2-130m (the ported ones)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=4)

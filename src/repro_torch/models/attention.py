@@ -161,14 +161,15 @@ def _attend(q, k, v, cfg):
 # -- KV cache ------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, length: int, dtype, device):
+def cache_specs(cfg, batch: int, length: int) -> Dict[str, Any]:
     kv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((batch, length, kv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, length, kv, hd), dtype=dtype,
-                             device=device),
-            "pos": torch.full((length,), -1, dtype=torch.int32,
-                              device=device)}
+    return {
+        "k": ParamSpec((batch, length, kv, hd),
+                       ("batch", "kv_seq", "kv_heads", "head_dim"), "zeros"),
+        "v": ParamSpec((batch, length, kv, hd),
+                       ("batch", "kv_seq", "kv_heads", "head_dim"), "zeros"),
+        "pos": ParamSpec((length,), ("kv_seq",), "zeros"),
+    }
 
 
 def decode_attention(params, x, cfg, cache, pos: int):

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.registry``. ``build_model`` builds what the
 port has so far: a dense decoder of "global" attention blocks (smollm-135m
-and its kind). Every other architecture raises ``NotImplementedError``
+and its kind) and the attention-free Mamba-2 stack of "ssd" blocks
+(mamba2-130m). Every other architecture raises ``NotImplementedError``
 naming the ROADMAP.md item that will port it.
 """
 from __future__ import annotations
@@ -24,10 +25,12 @@ def _unported(cfg: ModelConfig):
         return f"modality frontends ({_LATER}: paligemma)"
     if cfg.num_experts or "moe" in cfg.pattern:
         return f"mixture-of-experts blocks ({_LATER}: phi3.5, deepseek)"
-    if "ssd" in cfg.pattern:
-        return f"Mamba-2 SSD blocks and their kernel ({_LATER}: mamba2)"
     if "rglru" in cfg.pattern:
         return f"RG-LRU blocks and their kernel ({_LATER}: recurrentgemma)"
+    if (cfg.family, cfg.pattern) == ("ssm", ("ssd",)):
+        return None
+    if "ssd" in cfg.pattern:
+        return f"SSD blocks outside the ssm family ({_LATER})"
     if cfg.pattern != ("global",) or cfg.sliding_window is not None:
         return f"local sliding-window attention ({_LATER}: gemma2)"
     if cfg.attn_logit_softcap is not None:

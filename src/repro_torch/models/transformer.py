@@ -1,19 +1,22 @@
-"""Decoder-only LM over a stack of attention blocks.
+"""Decoder-only LM over a repeating pattern of block kinds.
 
-Counterpart of ``repro.models.transformer.CausalLM`` for the pattern
-``("global",)``. Parameters keep the reference's tree: the block parameters
-are stacked under ``blocks.p0.*`` with a leading layers axis, and the
-reference's ``jax.lax.scan`` over that axis is a loop here. ``loss`` comes
-with the training slice (ROADMAP.md, Queue 1).
+Counterpart of ``repro.models.transformer.CausalLM`` for the block kinds
+ported so far: "global" attention (smollm) and "ssd" (mamba2). Parameters
+and caches keep the reference's tree: ``head{i}`` for the first dense
+layers, the pattern's blocks stacked under ``blocks.p{j}`` with a leading
+layers axis, and an unstacked ``tail{t}`` when the depth is not a multiple
+of the pattern. The reference's ``jax.lax.scan`` over the stacked axis is a
+loop here. ``loss`` comes with the training slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamSpec, embed_apply, embed_specs,
                                        init_from_specs, mlp_apply,
@@ -32,61 +35,147 @@ def layer(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
+def tree_stack(trees):
+    """Trees of one structure -> one tree of tensors stacked on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _unported(kind: str):
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported yet (ROADMAP.md, Queue 1, other "
+        "model families)")
+
+
 # -- block definitions -------------------------------------------------------
 
 
-def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
+                ) -> Dict[str, Any]:
     e = cfg.d_model
-    return {"ln1": ParamSpec((e,), ("embed",), "zeros"),
-            "attn": attn.attention_specs(cfg),
-            "ln2": ParamSpec((e,), ("embed",), "zeros"),
-            "ffn": mlp_specs(cfg)}
+
+    def norm():
+        return ParamSpec((e,), ("embed",), "zeros")
+
+    if kind == "global":
+        return {"ln1": norm(), "attn": attn.attention_specs(cfg),
+                "ln2": norm(), "ffn": mlp_specs(cfg, d_ff=dense_ff)}
+    if kind == "ssd":
+        return {"ln1": norm(), "mixer": ssm_mod.ssd_specs(cfg)}
+    raise _unported(kind)
 
 
-def block_apply(params, x, cfg: ModelConfig):
+def block_apply(params, x, cfg: ModelConfig, kind: str):
     """One block, training / prefill path (full sequence)."""
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + attn.attention_apply(params["attn"], h, cfg)
-    h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + mlp_apply(params["ffn"], h, cfg)
+    if kind == "global":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        x = x + attn.attention_apply(params["attn"], h, cfg)
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg)
+    if kind == "ssd":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        return x + ssm_mod.ssd_apply(params["mixer"], h, cfg)
+    raise _unported(kind)
 
 
-def block_decode(params, x, cfg: ModelConfig, cache, pos: int):
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, cache = attn.decode_attention(params["attn"], h, cfg, cache, pos)
-    x = x + y
-    h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + mlp_apply(params["ffn"], h, cfg), cache
+# -- block caches -------------------------------------------------------------
 
 
-def block_prefill(params, x, cfg: ModelConfig, max_len: int):
+def block_cache_specs(cfg, kind: str, batch: int, max_len: int):
+    if kind == "global":
+        return attn.cache_specs(cfg, batch, max_len)
+    if kind == "ssd":
+        return ssm_mod.ssd_cache_specs(cfg, batch)
+    raise _unported(kind)
+
+
+def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
+    """One-token step; the block's cache is updated in place."""
+    if kind == "global":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = attn.decode_attention(params["attn"], h, cfg, cache, pos)
+        x = x + y
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg), cache
+    if kind == "ssd":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = ssm_mod.ssd_decode(params["mixer"], h, cfg, cache)
+        return x + y, cache
+    raise _unported(kind)
+
+
+def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
     """Full-sequence forward that also fills the block cache."""
-    h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, cache = attn.attention_prefill(params["attn"], h, cfg,
-                                      cache_len=max_len)
-    x = x + y
-    h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + mlp_apply(params["ffn"], h, cfg), cache
+    if kind == "global":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = attn.attention_prefill(params["attn"], h, cfg,
+                                          cache_len=max_len)
+        x = x + y
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg), cache
+    if kind == "ssd":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = ssm_mod.ssd_prefill(params["mixer"], h, cfg)
+        return x + y, cache
+    raise _unported(kind)
 
 
 # -- the model -----------------------------------------------------------------
 
 
 class CausalLM:
-    """Decoder-only LM of "global" attention blocks, on one device."""
+    """Decoder-only LM over ``cfg.pattern``, on one device."""
 
     def __init__(self, cfg: ModelConfig, device=DEFAULT_DEVICE):
         self.cfg = cfg
         self.device = resolve_device(device)
 
+    # ---- layout ----
+
+    def _pattern_layout(self) -> Tuple[int, int]:
+        """(full pattern repeats, tail length) after the first dense layers."""
+        cfg = self.cfg
+        n = cfg.num_layers - cfg.first_dense_layers
+        return n // len(cfg.pattern), n % len(cfg.pattern)
+
+    def _layers(self):
+        """(key, stacked slot or None, kind) of every block, in order:
+        ``head{i}``, then ``blocks`` (slot ``(p{j}, repeat)``), then
+        ``tail{t}``."""
+        cfg = self.cfg
+        reps, tail = self._pattern_layout()
+        for i in range(cfg.first_dense_layers):
+            yield f"head{i}", None, cfg.pattern[0]
+        for r in range(reps):
+            for j, kind in enumerate(cfg.pattern):
+                yield "blocks", (f"p{j}", r), kind
+        for t in range(tail):
+            yield f"tail{t}", None, cfg.pattern[t]
+
+    @staticmethod
+    def _select(tree, key: str, slot):
+        return tree[key] if slot is None else layer(tree[key][slot[0]],
+                                                    slot[1])
+
     # ---- parameters ----
 
     def specs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {"embed": embed_specs(cfg),
-                "blocks": stack_specs({"p0": block_specs(cfg)},
-                                      cfg.num_layers),
-                "final_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros")}
+        reps, tail = self._pattern_layout()
+        specs: Dict[str, Any] = {"embed": embed_specs(cfg)}
+        for i in range(cfg.first_dense_layers):
+            specs[f"head{i}"] = block_specs(
+                cfg, cfg.pattern[0],
+                dense_ff=cfg.first_dense_ff or cfg.d_ff)
+        if reps > 0:
+            unit = {f"p{j}": block_specs(cfg, kind)
+                    for j, kind in enumerate(cfg.pattern)}
+            specs["blocks"] = stack_specs(unit, reps)
+        for t in range(tail):
+            specs[f"tail{t}"] = block_specs(cfg, cfg.pattern[t])
+        specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
+        return specs
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random parameters drawn from ``generator`` (a CPU generator)."""
@@ -98,8 +187,8 @@ class CausalLM:
 
     def _trunk(self, params, x):
         cfg = self.cfg
-        for i in range(cfg.num_layers):
-            x = block_apply(layer(params["blocks"]["p0"], i), x, cfg)
+        for key, slot, kind in self._layers():
+            x = block_apply(self._select(params, key, slot), x, cfg, kind)
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def forward(self, params, tokens):
@@ -111,25 +200,55 @@ class CausalLM:
 
     # ---- serving ----
 
-    def init_cache(self, batch: int, max_len: int):
+    def cache_specs(self, batch: int, max_len: int) -> Dict[str, Any]:
         cfg = self.cfg
-        one = attn.init_cache(cfg, batch, max_len, torch_dtype(cfg.dtype),
-                              self.device)
-        return {"blocks": {"p0": tree_map(
-            lambda t: t.expand(cfg.num_layers, *t.shape).clone(), one)}}
+        reps, tail = self._pattern_layout()
+        out: Dict[str, Any] = {}
+        for i in range(cfg.first_dense_layers):
+            out[f"head{i}"] = block_cache_specs(cfg, cfg.pattern[0], batch,
+                                                max_len)
+        if reps > 0:
+            unit = {f"p{j}": block_cache_specs(cfg, kind, batch, max_len)
+                    for j, kind in enumerate(cfg.pattern)}
+            out["blocks"] = stack_specs(unit, reps)
+        for t in range(tail):
+            out[f"tail{t}"] = block_cache_specs(cfg, cfg.pattern[t], batch,
+                                                max_len)
+        return out
+
+    def init_cache(self, batch: int, max_len: int):
+        """Zeros in the model's dtype, except the positions ("pos", -1) and
+        the recurrent states ("state", "h", fp32)."""
+        dtype = torch_dtype(self.cfg.dtype)
+
+        def build(name, spec):
+            if isinstance(spec, dict):
+                return {k: build(k, v) for k, v in spec.items()}
+            if name == "pos":
+                return torch.full(spec.shape, -1, dtype=torch.int32,
+                                  device=self.device)
+            if name in ("state", "h"):
+                return torch.zeros(spec.shape, dtype=torch.float32,
+                                   device=self.device)
+            return torch.zeros(spec.shape, dtype=dtype, device=self.device)
+
+        return build("", self.cache_specs(batch, max_len))
 
     def prefill(self, params, tokens, max_len: int):
         """Run the full prompt, returning (last-position logits, cache)."""
         cfg = self.cfg
         x = embed_apply(params["embed"], tokens, cfg)
-        caches = []
-        for i in range(cfg.num_layers):
-            x, c = block_prefill(layer(params["blocks"]["p0"], i), x, cfg,
-                                 max_len)
-            caches.append(c)
-        cache = {"blocks": {"p0": {
-            name: torch.stack([c[name] for c in caches])
-            for name in ("k", "v", "pos")}}}
+        cache: Dict[str, Any] = {}
+        for key, slot, kind in self._layers():
+            x, c = block_prefill(self._select(params, key, slot), x, cfg,
+                                 kind, max_len)
+            if slot is None:
+                cache[key] = c
+            else:
+                cache.setdefault(key, {}).setdefault(slot[0], []).append(c)
+        if "blocks" in cache:
+            cache["blocks"] = {pj: tree_stack(cs)
+                               for pj, cs in cache["blocks"].items()}
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed_apply(params["embed"], x[:, -1:], cfg)
         return logits, cache
@@ -139,10 +258,9 @@ class CausalLM:
         is updated in place."""
         cfg = self.cfg
         x = embed_apply(params["embed"], token, cfg)
-        blocks = params["blocks"]["p0"]
-        for i in range(cfg.num_layers):
-            x, _ = block_decode(layer(blocks, i), x, cfg,
-                                layer(cache["blocks"]["p0"], i), pos)
+        for key, slot, kind in self._layers():
+            x, _ = block_decode(self._select(params, key, slot), x, cfg,
+                                kind, self._select(cache, key, slot), pos)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed_apply(params["embed"], x, cfg)
         return logits, cache

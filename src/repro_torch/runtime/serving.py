@@ -1,18 +1,21 @@
 """Batched serving loop: continuous batching over prefill + decode.
 
 Counterpart of ``repro.runtime.serving``, kept a faithful twin so that both
-emit the same tokens from the same weights. That includes three behaviours
-of the reference that the port mirrors rather than fixes:
+emit the same tokens from the same weights. It is generic over the model's
+cache: the KV cache of attention models (smollm-135m) and the conv window
+and SSM state of Mamba-2 (mamba2-130m). That includes three behaviours of
+the reference that the port mirrors rather than fixes:
 
 - ``add`` prefills a slot by stepping its prompt through full-batch decode
   steps with token 0 in every other row, so those steps overwrite the other
-  rows' cache at the same positions;
+  rows' KV cache at the same positions, and advance the other rows' SSM
+  state and conv window by one token each;
 - ``serve_step`` decodes every row at one ``pos``, the largest over the
   active slots;
-- the cache's ``pos`` vector is shared by the whole batch.
+- the KV cache's ``pos`` vector is shared by the whole batch.
 
-A :class:`Server` owns a params copy and a slot-based KV cache; requests
-join free slots, decode steps advance all active slots together, finished
+A :class:`Server` owns a params copy and a slot-based cache; requests join
+free slots, decode steps advance all active slots together, finished
 sequences free their slots.
 """
 from __future__ import annotations

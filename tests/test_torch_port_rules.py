@@ -72,6 +72,7 @@ def test_entry_points_raise_without_card_unless_asked_for_cpu(no_card):
     cfg = reduced_config(get_config("smollm-135m"))
     for call in (lambda: build_model(cfg),
                  lambda: get_model("smollm-135m"),
+                 lambda: get_model("mamba2-130m"),
                  lambda: params_from_jax({"w": [1.0]}),
                  lambda: serve.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -81,7 +82,9 @@ def test_entry_points_raise_without_card_unless_asked_for_cpu(no_card):
 
 def test_serve_launcher_runs_on_cpu_when_asked(capsys):
     from repro_torch.launch import serve
-    assert serve.main(["--device", "cpu", "--requests", "2",
-                       "--new-tokens", "2", "--batch", "2"]) == 0
+    for arch in ([], ["--arch", "mamba2-130m"]):
+        assert serve.main(["--device", "cpu", "--requests", "2",
+                           "--new-tokens", "2", "--batch", "2", *arch]) == 0
     out = capsys.readouterr().out
     assert "smollm-135m on cpu: 4 tokens, 2 requests" in out
+    assert "mamba2-130m on cpu: 4 tokens, 2 requests" in out

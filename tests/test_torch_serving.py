@@ -1,8 +1,9 @@
 """The port's Server against the JAX Server: the six scenarios of
 tests/test_serving.py, driven on both with the same weights (bridged from
-the reference) and the same prompts. Greedy token ids, slot assignments and
-free-slot lists must be identical, and each scenario's own assertions hold
-on the port.
+the reference) and the same prompts, on reduced smollm (a KV cache) and on
+reduced mamba2 (conv and SSM state caches). Greedy token ids, slot
+assignments and free-slot lists must be identical, and each scenario's own
+assertions hold on the port.
 """
 import dataclasses
 
@@ -25,16 +26,16 @@ from repro_torch.runtime import Request, Server  # noqa: E402
 KEY = jax.random.PRNGKey(0)
 
 
-def reference_setup():
-    _, full = jax_get_model("smollm-135m")
+def reference_setup(arch):
+    _, full = jax_get_model(arch)
     cfg = dataclasses.replace(jax_reduced_config(full), dtype="float32")
     model = jax_build_model(cfg)
     return cfg, model, model.init(KEY)
 
 
-def make_servers(batch, max_len):
+def make_servers(batch, max_len, arch="smollm-135m"):
     """(jax server, port server, vocab) on the same weights."""
-    cfg, jmodel, jparams = reference_setup()
+    cfg, jmodel, jparams = reference_setup(arch)
     model = build_model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return (JaxServer(jmodel, jparams, batch=batch, max_len=max_len),
@@ -121,12 +122,15 @@ SCENARIOS = [
     (max_len_evicts_at_cache_end, 1, 8),
     (add_rejects_prompt_longer_than_cache, 1, 4),
 ]
+# smollm's cases keep the bare scenario name as their id
+CASES = [pytest.param(arch, *sc, id=prefix + sc[0].__name__)
+         for arch, prefix in (("smollm-135m", ""), ("mamba2-130m", "mamba2-"))
+         for sc in SCENARIOS]
 
 
-@pytest.mark.parametrize("scenario,batch,max_len", SCENARIOS,
-                         ids=[s[0].__name__ for s in SCENARIOS])
-def test_server_scenario_matches_jax(scenario, batch, max_len):
-    jax_server, server, vocab = make_servers(batch, max_len)
+@pytest.mark.parametrize("arch,scenario,batch,max_len", CASES)
+def test_server_scenario_matches_jax(arch, scenario, batch, max_len):
+    jax_server, server, vocab = make_servers(batch, max_len, arch)
     want = scenario(jax_server, JaxRequest, vocab)
     got = scenario(server, Request, vocab)
     assert got == want
