@@ -61,9 +61,9 @@ CASES = {
 # the case's layers. The reference's init takes a stacked weight's layers
 # axis as its fan-in, so mamba2's 2 layers drawn on their own get weights
 # sqrt(12) times mamba2-130m's: dt reaches 60, and the reference's fp32
-# chunk sums (the port's are fp64) put the two packages' logits 9.6e-5
-# apart (ROADMAP.md, Queue 3). Drawn for 24 layers, as mamba2-130m's are,
-# they are 3.2e-5 apart.
+# chunk sums (the port's are fp64) put the two packages' logits at the
+# edge of the 1e-4 tolerance (ROADMAP.md, Queue 3). Drawn for 24 layers, as
+# mamba2-130m's are, they sit well inside it.
 INIT_DEPTH = {"mamba2-widths-2-layers": 24}
 
 
