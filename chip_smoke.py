@@ -6,11 +6,15 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   (a) device   -- the card's name and power limit (nvidia-smi)
-  (b) build    -- nvcc builds the flash-attention and SSD-scan kernels from
-                  src/, both at once
-  (c) flash    -- the flash-attention kernel against its plain version
+  (b) build    -- nvcc builds the flash-attention, SSD-scan and RG-LRU scan
+                  kernels from src/, all at once
+  (c) flash    -- the flash-attention kernel against its plain version, at
+                  head_dim 32-256 (recurrentgemma's local layers: D 256,
+                  window 2048)
   (d) ssd      -- the SSD-scan kernel against its plain version and the
                   chunked path (y and the final state)
+  (l) rglru    -- the RG-LRU scan kernel against its plain version (ragged
+                  S, S 1, an initial state)
   smollm-135m at full width (seeded random weights):
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
@@ -22,14 +26,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                   its distance from fp32; exactly 24 launches per prefill
   (i) decode   -- prefill, then decode steps, against forward's logits
   (j) server   -- Server.run as (g)
+  recurrentgemma-9b at full width, cut to 8 layers (two (rglru, rglru,
+  local) units and the 2-layer rglru tail of the 38-layer model), seeded
+  random weights at the 38-layer model's scale:
+  (m) prefill  -- B 4, S 512 bf16: exactly 2 flash-attention and 6 RG-LRU
+                  launches per prefill; then one unit, fp32, B 1, S 2304
+                  (the window bites, the ring wraps) on the card against
+                  the same weights' plain path on the CPU: the logits, and
+                  each block from the same input, its output and every
+                  cache leaf
+  (n) decode   -- prefill of 2100 tokens (a wrapped ring), then decode
+                  steps, against forward's logits: the first unit alone
+                  (fp32 at the tolerance, bf16 by its distance), then all 8
+                  layers (bf16 by its distance; fp32 printed: the recurrent
+                  state carries each step's rounding through gates that
+                  saturate at this init, PERF.md)
+  (o) server   -- Server.run as (g)
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention as a yardstick the port
                   never calls; each model's prefill and decode step, with
                   the card's busy share; the Servers' tokens/s
 
-Phases (e)-(g) and (h)-(j) are the main paths: every kernel launch count is
-set to 0 just before each path and read just after it. The last lines are
-the kernels' JSON record, the card's name and power limit, and
+Phases (e)-(g), (h)-(j) and (m)-(o) are the main paths: every kernel launch
+count is set to 0 just before each path and read just after it. The last
+lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
 """
@@ -62,6 +82,12 @@ SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 MODEL_TOL = 1e-4
 BF16_RATIO = 1.5
 PREFILL_B, PREFILL_S = 4, 512
+# RG-LRU kernel vs plain, elementwise, the reference's own tolerance for its
+# kernel (tests/test_kernels.py)
+RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
+# recurrentgemma-9b: its depth, and the 8 layers (two units and the tail)
+# that chip_smoke draws and drives
+RG_DEPTH, RG_LAYERS = 38, 8
 
 
 def log(phase, msg):
@@ -102,18 +128,33 @@ def kernel_cases():
         # the main path's prefill call: smollm heads, (B, S, H, D) views
         (PREFILL_B, 9, 3, PREFILL_S, PREFILL_S, 64, True, None, None, bf16,
          "bshd"),
-        # smollm at its full context, as phase (g) times it
+        # smollm at its full context, as phase (k) times it
         (8, 9, 3, 2048, 2048, 64, True, None, None, bf16, "bhsd"),
+        # recurrentgemma's local layers: 16 query heads on 1 KV head, D 256,
+        # window 2048. The main path's prefill call ((B, S, H, D) views),
+        # S 4096 where the window bites, a ragged S, and phase (m)'s fp32
+        # unit (S 2304)
+        (PREFILL_B, 16, 1, PREFILL_S, PREFILL_S, 256, True, 2048, None,
+         bf16, "bshd"),
+        (PREFILL_B, 16, 1, PREFILL_S, PREFILL_S, 256, True, 2048, None,
+         f32, "bshd"),
+        (1, 16, 1, 4096, 4096, 256, True, 2048, None, bf16, "bshd"),
+        (1, 16, 1, 4096, 4096, 256, True, 2048, None, f32, "bshd"),
+        (2, 16, 1, 1000, 1000, 256, True, 300, None, bf16, "bhsd"),
+        (2, 16, 1, 1000, 1000, 256, True, 300, None, f32, "bhsd"),
+        (1, 16, 1, 2304, 2304, 256, True, 2048, None, f32, "bshd"),
     ]
     return cases
 
 
 def phase_kernel_vs_plain():
+    """Returns {head_dim: max |kernel - plain|} at the main paths' prefill
+    calls (bf16, B 4, S 512, (B, S, H, D) views)."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_err = None
+    main_err = {}
     for case in kernel_cases():
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
@@ -137,8 +178,8 @@ def phase_kernel_vs_plain():
                  f"({held})")
         if not torch.isfinite(out).all() or bad.any():
             raise AssertionError(f"kernel disagrees with plain: {name}")
-        if layout == "bshd":
-            main_err = err.max().item()
+        if layout == "bshd" and dtype == torch.bfloat16 and sq == PREFILL_S:
+            main_err[d] = err.max().item()
     return main_err
 
 
@@ -204,7 +245,46 @@ def phase_ssd_vs_plain():
     return main_err
 
 
-# -- (e)-(j) the main paths ------------------------------------------------------
+# -- (l) RG-LRU kernel against plain -------------------------------------------
+
+# (b, s, w, with h0): tests/test_kernels.py's shapes, the main path's B 4,
+# S 512, W 4096, a ragged S, S 1, a long S, and an initial state (also with
+# a W that no block width divides)
+def rglru_cases():
+    main = (PREFILL_B, PREFILL_S, 4096)
+    return [(1, 32, 64, False), (2, 64, 128, False), (3, 128, 256, False),
+            (*main, False), (2, 500, 4096, False), (2, 1, 4096, False),
+            (1, 4096, 4096, False), (*main, True), (2, 37, 1000, True)]
+
+
+def phase_rglru_vs_plain():
+    """The kernel against ref.py's sequential recurrence at RGLRU_ATOL /
+    RGLRU_RTOL; returns the largest |error| at the main path's shape."""
+    from repro_torch.kernels.bench import make_rglru_inputs
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    main_err = None
+    for b, s, w, with_h0 in rglru_cases():
+        a, bb = make_rglru_inputs(gen, b, s, w)
+        h0 = torch.randn((b, w), generator=gen, device="cuda") \
+            if with_h0 else None
+        h = kernel.rglru_scan(a, bb, h0)
+        torch.cuda.synchronize()
+        ref = rglru_ref(a, bb, h0)
+        err = (h - ref).abs().max().item()
+        name = f"B{b} S{s} W{w} fp32" + (" with h0" if with_h0 else "")
+        log("l", f"{name}: max|kernel - plain| {err:.3e} (atol "
+                 f"{RGLRU_ATOL}, rtol {RGLRU_RTOL})")
+        if not torch.isfinite(h).all() or not torch.allclose(
+                h, ref, atol=RGLRU_ATOL, rtol=RGLRU_RTOL):
+            raise AssertionError(f"rglru_scan disagrees with plain: {name}")
+        if (b, s, w, with_h0) == (PREFILL_B, PREFILL_S, 4096, False):
+            main_err = err
+    return main_err
+
+
+# -- (e)-(j), (m)-(o) the main paths ---------------------------------------------
 
 
 def max_norm_err(got, want):
@@ -220,21 +300,26 @@ def mean_norm_err(got, want):
 def counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
     return {"flash_attention": flash.flash_attention,
-            "ssd_scan": ssd.ssd_scan}
+            "ssd_scan": ssd.ssd_scan,
+            "rglru_scan": rglru.rglru_scan}
 
 
-def run_counted(fn, wrapper, expected):
+def run_counted(fn, wrapper, expected, also=None):
     """Call fn, which returns (logits, ...), and check it launched
-    ``wrapper``'s kernel ``expected`` times; returns what fn returned."""
-    before = wrapper.launches
+    ``wrapper``'s kernel ``expected`` times (and each wrapper of ``also``,
+    {wrapper: count}, its count); returns what fn returned."""
+    expect = {wrapper: expected, **(also or {})}
+    before = {w: w.launches for w in expect}
     result = fn()
     torch.cuda.synchronize()
-    n = wrapper.launches - before
-    if n != expected:
-        raise AssertionError(f"{n} launches of {wrapper.__name__}, "
-                             f"expected {expected}")
+    for w, want in expect.items():
+        n = w.launches - before[w]
+        if n != want:
+            raise AssertionError(f"{n} launches of {w.__name__}, "
+                                 f"expected {want}")
     if not torch.isfinite(result[0]).all():
         raise AssertionError("non-finite logits")
     return result
@@ -352,12 +437,127 @@ def phase_ssm_prefill(cfg, params, toks):
                              "accurate than the chunked path's")
 
 
-def phase_decode(label, cfg, params, toks, steps):
+def layer_kinds(cfg):
+    """The block kind of every layer, in order (no first dense layers)."""
+    reps, tail = cfg.pattern_repeats
+    return list(cfg.pattern) * reps + list(cfg.pattern[:tail])
+
+
+def tree_paths(tree, prefix=()):
+    """{key path: leaf} of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items()
+                for p, v in tree_paths(sub, prefix + (k,)).items()}
+    return {prefix: tree}
+
+
+def check_ring(pos, s):
+    """A local layer's ring after a prefill of ``s`` tokens holds the last
+    len(ring) positions, each in its slot p % len(ring)."""
+    ring = pos.reshape(-1, pos.shape[-1])[0]
+    n = ring.shape[0]
+    held = torch.arange(max(0, s - n), s, dtype=ring.dtype)
+    if not torch.equal(ring[held % n], held):
+        raise AssertionError(f"the ring does not hold positions "
+                             f"{held[0].item()}..{s - 1}")
+    return held[0].item()
+
+
+def first_unit(cfg, params):
+    """(config, parameters) of the model's first pattern unit alone: the
+    first repeat of each stacked block (views of ``params``)."""
+    from repro_torch.models.layers import tree_map
+    unit = dataclasses.replace(cfg, num_layers=len(cfg.pattern))
+    return unit, {"embed": params["embed"],
+                  "final_norm": params["final_norm"],
+                  "blocks": tree_map(lambda t: t[:1], params["blocks"])}
+
+
+def phase_hybrid_prefill(cfg, params, toks, unit_toks):
+    """(m) recurrentgemma's prefill at full width. In bf16 at the main
+    path's B 4, S 512, through both kernels: exactly one flash-attention
+    launch per "local" layer and one RG-LRU launch per "rglru" layer.
+
+    Then its first unit (rglru, rglru, local) in fp32 at B 1 and
+    ``unit_toks``' length (beyond the window, so it bites and the local
+    ring wraps), on the card against the same weights' plain path on the
+    CPU, which tier-1 holds against the JAX package: the unit's logits at
+    MODEL_TOL, and each block run from the same input on both, its output
+    and every cache leaf at MODEL_TOL, the ring's positions exactly. The
+    whole unit's cache leaves are printed too: from the second RG-LRU
+    layer on they carry the first layer's rounding through gates that
+    saturate at this init, where the sigmoid's log turns the
+    pre-activation's absolute error into a relative one (PERF.md)."""
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.layers import embed_apply, tree_map
+    flash, rglru = counters()["flash_attention"], counters()["rglru_scan"]
+    kinds = layer_kinds(cfg)
+    n_local, n_rglru = kinds.count("local"), kinds.count("rglru")
+    s = toks.shape[1]
+    model = build_model(cfg)
+    logits, _ = run_counted(
+        lambda: model.prefill(params, toks, max_len=s + 8), flash, n_local,
+        also={rglru: n_rglru})
+    log("m", f"{cfg.name} {cfg.dtype} prefill B{toks.shape[0]} S{s}: "
+             f"{n_local} flash_attention and {n_rglru} rglru_scan launches "
+             f"per prefill; logits {tuple(logits.shape)}")
+
+    unit, card_params = first_unit(cfg, params)
+    unit = dataclasses.replace(unit, dtype="float32")
+    cpu_params = tree_map(lambda t: t.cpu(), card_params)
+    s = unit_toks.shape[1]
+    max_len = s + 8
+    got, got_cache = run_counted(
+        lambda: build_model(unit).prefill(card_params, unit_toks,
+                                          max_len=max_len),
+        flash, unit.pattern.count("local"),
+        also={rglru: unit.pattern.count("rglru")})
+    want, want_cache = build_model(unit, device="cpu").prefill(
+        cpu_params, unit_toks.cpu(), max_len=max_len)
+    errs = {"logits": max_norm_err(got.cpu(), want)}
+    got_leaves = tree_paths(got_cache)
+    whole = {"/".join(path): max_norm_err(got_leaves[path].cpu(), w)
+             for path, w in tree_paths(want_cache).items()
+             if path[-1] != "pos"}
+
+    x = embed_apply(cpu_params["embed"], unit_toks.cpu(), unit)
+    dev = unit_toks.device
+    for j, kind in enumerate(unit.pattern):
+        def block(tree, j=j):
+            return transformer.layer(tree["blocks"][f"p{j}"], 0)
+        y_card, c_card = run_counted(
+            lambda: transformer.block_prefill(block(card_params), x.to(dev),
+                                              unit, kind, max_len),
+            flash, int(kind == "local"), also={rglru: int(kind == "rglru")})
+        y, c = transformer.block_prefill(block(cpu_params), x, unit, kind,
+                                         max_len)
+        errs[f"p{j} {kind} out"] = max_norm_err(y_card.cpu(), y)
+        for name, w in c.items():
+            if name == "pos":
+                if not torch.equal(c_card[name].cpu(), w):
+                    raise AssertionError(f"p{j}: the ring's positions differ")
+                first = check_ring(w, s)
+            else:
+                errs[f"p{j}/{name}"] = max_norm_err(c_card[name].cpu(), w)
+        x = y
+    log("m", f"one unit fp32 prefill B1 S{s} (window {cfg.sliding_window}; "
+             f"the ring holds positions {first}..{s - 1}, equal on both), "
+             f"card vs the CPU's plain path, max-normalised: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+             + f" (tol {MODEL_TOL}); the whole unit's cache, not held: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in whole.items()))
+    if max(errs.values()) > MODEL_TOL:
+        raise AssertionError("fp32 prefill through the kernels disagrees "
+                             "with the CPU's plain path")
+
+
+def phase_decode(label, cfg, params, toks, steps, hold_fp32=True):
     """Prefill, then ``steps`` decode steps, against forward's logits at
     the same positions: fp32 at MODEL_TOL, as the reference's own
-    decode-consistency test. bf16 is held as in phase_prefill: the mean
-    distance of its prefill + decode logits from the fp32 forward's may be
-    at most BF16_RATIO times the bf16 forward's own."""
+    decode-consistency test (printed, not held, when ``hold_fp32`` is
+    False). bf16 is held as in phase_prefill: the mean distance of its
+    prefill + decode logits from the fp32 forward's may be at most
+    BF16_RATIO times the bf16 forward's own."""
     from repro_torch.models import build_model
     s = toks.shape[1] - steps
     full = {}
@@ -374,11 +574,13 @@ def phase_decode(label, cfg, params, toks, steps):
             outs.append(dec[:, 0])
         want = full[dtype][:, s - 1:]
         errs = [max_norm_err(o, want[:, t]) for t, o in enumerate(outs)]
-        log(label, f"{cfg.name} {dtype} prefill S{s} + {steps} decode steps "
+        log(label, f"{cfg.name} ({cfg.num_layers} layers) {dtype} prefill "
+                   f"B{toks.shape[0]} S{s} + {steps} decode steps "
                    f"vs forward, max-normalised: "
                    f"{', '.join(f'{e:.2e}' for e in errs)}"
-                   + (f" (tol {MODEL_TOL})" if dtype == "float32" else ""))
-        if dtype == "float32" and max(errs) > MODEL_TOL:
+                   + ("" if dtype != "float32" else f" (tol {MODEL_TOL})"
+                      if hold_fp32 else " (not held)"))
+        if dtype == "float32" and hold_fp32 and max(errs) > MODEL_TOL:
             raise AssertionError("prefill/decode disagree with forward")
     truth = full["float32"][:, s - 1:]
     e_decode = mean_norm_err(torch.stack(outs, dim=1), truth)
@@ -453,30 +655,58 @@ def build_kernels():
     """(b) nvcc on every kernel source at once; print ptxas's registers and
     spills."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
+    kernels = (("flash_attention", flash), ("ssd_scan", ssd),
+               ("rglru_scan", rglru))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(k.load) for name, k in
-                  (("flash_attention", flash), ("ssd_scan", ssd))}
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        builds = {name: pool.submit(k.load) for name, k in kernels}
         builds = {name: f.result() for name, f in builds.items()}
-    log("b", f"both built in {time.perf_counter() - t0:.1f} s")
+    log("b", f"all {len(builds)} built in {time.perf_counter() - t0:.1f} s")
     for name, built in builds.items():
         log("b", f"{name}: {built.path.name}, nvcc {built.seconds:.1f} s")
         for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or \
+                    "spill" in line:
                 log("b", line.strip())
 
 
-def model_and_params(cfg, label):
+def init_at_depth(model, generator, depth):
+    """Parameters of ``model`` drawn as a ``depth``-layer model of its
+    config would draw its layers. The reference's init takes a stacked
+    weight's fan-in from the layers axis, so a model cut from 38 layers to
+    8 would draw its block weights sqrt(12 / 2) times larger than the 38-layer
+    model's; each stacked normal weight's scale undoes that. Nothing else
+    changes."""
+    from repro_torch.models.layers import (init_from_specs, torch_dtype,
+                                           tree_map)
+    cfg = model.cfg
+    reps = cfg.pattern_repeats[0]
+    full = dataclasses.replace(cfg, num_layers=depth).pattern_repeats[0]
+    specs = model.specs()
+    specs["blocks"] = tree_map(
+        lambda sp: dataclasses.replace(sp, scale=sp.scale * (reps / full)
+                                       ** 0.5) if sp.init == "normal"
+        else sp, specs["blocks"])
+    return init_from_specs(generator, specs, torch_dtype(cfg.param_dtype),
+                           model.device)
+
+
+def model_and_params(cfg, label, init_depth=None):
     from repro_torch.models import build_model
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    params = (model.init(gen) if init_depth is None
+              else init_at_depth(model, gen, init_depth))
     n = sum(t.numel() for t in _leaves(params))
-    log(label, f"{cfg.name}: {cfg.num_layers} layers, pattern {cfg.pattern}, "
-               f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n} "
-               f"parameters, {cfg.dtype} over {cfg.param_dtype}; init "
-               f"{time.perf_counter() - t0:.1f} s")
+    depth = "" if init_depth is None else \
+        f" (drawn at the {init_depth}-layer model's scale)"
+    log(label, f"{cfg.name}: {cfg.num_layers} layers{depth}, pattern "
+               f"{cfg.pattern}, d_model {cfg.d_model}, vocab "
+               f"{cfg.vocab_size}, {n} parameters, {cfg.dtype} over "
+               f"{cfg.param_dtype}; init {time.perf_counter() - t0:.1f} s")
     return model, params
 
 
@@ -514,7 +744,8 @@ def main():
     build_kernels()
     flash_err = phase_kernel_vs_plain()
     ssd_err = phase_ssd_vs_plain()
-    log("d", f"kernels held against their plain versions; "
+    rglru_err = phase_rglru_vs_plain()
+    log("l", f"kernels held against their plain versions; "
              f"{time.perf_counter() - start:.1f} s so far")
 
     rng = np.random.default_rng(0)
@@ -540,6 +771,28 @@ def main():
     if mamba_counts["ssd_scan"] == 0:
         raise AssertionError("mamba2's path never launched ssd_scan")
 
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                             num_layers=RG_LAYERS)
+    rg_model, rg_params = model_and_params(rg, "m", init_depth=RG_DEPTH)
+    window = rg.sliding_window
+    rg_toks = torch.from_numpy(rng.integers(
+        0, rg.vocab_size, (PREFILL_B, PREFILL_S))).cuda()
+    unit_toks = torch.from_numpy(rng.integers(
+        0, rg.vocab_size, (1, window + 256))).cuda()
+    long_toks = torch.from_numpy(rng.integers(
+        0, rg.vocab_size, (2, window + 52 + 8))).cuda()
+    rg_counts, (_, _, _, rg_tok_s) = drive("o", (
+        lambda: phase_hybrid_prefill(rg, rg_params, rg_toks, unit_toks),
+        lambda: phase_decode("n", *first_unit(rg, rg_params), long_toks,
+                             steps=8),
+        lambda: phase_decode("n", rg, rg_params, long_toks, steps=8,
+                             hold_fp32=False),
+        lambda: phase_server("o", rg_model, rg_params)))
+    for name in ("flash_attention", "rglru_scan"):
+        if rg_counts[name] == 0:
+            raise AssertionError(f"recurrentgemma's path never launched "
+                                 f"{name}")
+
     flash_rows = {label: bench.time_flash_attention(label)
                   for label in bench.SHAPES}
     for row in flash_rows.values():
@@ -548,26 +801,51 @@ def main():
                 for label in bench.SSD_SHAPES}
     for row in ssd_rows.values():
         log("k", bench.describe_ssd(row))
+    rglru_rows = {label: bench.time_rglru_scan(label)
+                  for label in bench.RGLRU_SHAPES}
+    for row in rglru_rows.values():
+        log("k", bench.describe_rglru(row))
     phase_step_times(smollm, params, toks[:, :PREFILL_S])
     phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
+    phase_step_times(rg, rg_params, rg_toks)
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
-             f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4)")
+             f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
+             f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
+             f"layers, bf16, batch 4)")
     log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
-    # each kernel's row at the shape its main path launches
+    # each kernel's row at the shape its first main path launches; flash
+    # attention runs on two paths: its launches are both paths', and its
+    # row at recurrentgemma's shape (D 256, window 2048) rides along
+    flash_row = record_row(
+        "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:93",
+        smollm_counts["flash_attention"] + rg_counts["flash_attention"],
+        flash_err[64], flash_rows["prefill-512"],
+        f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
+        "views")
+    flash_row["launches_by_path"] = {
+        "smollm-135m": smollm_counts["flash_attention"],
+        "recurrentgemma-9b": rg_counts["flash_attention"]}
+    flash_row["recurrentgemma"] = record_row(
+        "flash_attention", flash_row["source"], flash_row["replaces"],
+        rg_counts["flash_attention"], flash_err[256],
+        flash_rows["recurrentgemma-512"],
+        f"B{PREFILL_B} H16 KV1 S{PREFILL_S} D256 bf16 causal, window "
+        f"{window}, (B, S, H, D) views")
     record = {"kernels": [
-        record_row("flash_attention", "src/repro_torch/kernels/"
-                   "flash_attention/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention/kernel.py:93",
-                   smollm_counts["flash_attention"], flash_err,
-                   flash_rows["prefill-512"],
-                   f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, "
-                   "(B, S, H, D) views"),
+        flash_row,
         record_row("ssd_scan", "src/repro_torch/kernels/ssd/csrc/"
                    "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:67",
                    mamba_counts["ssd_scan"], ssd_err,
                    ssd_rows["prefill-512"],
                    f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, "
                    "views of the conv output"),
+        record_row("rglru_scan", "src/repro_torch/kernels/rglru/csrc/"
+                   "rglru_scan.cu", "src/repro/kernels/rglru/kernel.py:39",
+                   rg_counts["rglru_scan"], rglru_err,
+                   rglru_rows["prefill-512"],
+                   f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of "
+                   "every rglru layer"),
     ]}
     print(json.dumps(record))
     print(bench.card())

@@ -4,6 +4,9 @@ flash_attention -- causal / sliding-window / softcap / GQA attention,
                    forward (replaces the Pallas TPU kernel of the same name)
 ssd             -- the Mamba-2 SSD chunked scan, forward, with its final
                    state (replaces the Pallas TPU kernel ``ssd_scan``)
+rglru           -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t,
+                   with an optional initial state (replaces the Pallas TPU
+                   kernel ``rglru_scan_pallas``)
 
 Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
 ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA

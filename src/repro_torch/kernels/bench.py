@@ -8,7 +8,9 @@ bound and one PyTorch library call computing the same function.
 ``git show REV:src/repro_torch/kernels/ssd/csrc/ssd_scan.cu > OLD.cu``) and
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
-which kernel it is: ``flash_attention_fwd`` or ``ssd_scan_fwd``.
+which kernel it is: ``flash_attention_fwd``, ``ssd_scan_fwd`` or
+``rglru_scan_fwd``. A shape the old source does not take is reported and
+skipped.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
@@ -16,7 +18,8 @@ the least time the card could take: bytes moved once at the memory rate
 against the operations at the peak rate for their type (H100 SXM data
 sheet, dense, at 700 W), whichever is larger. A card set below 700 W runs
 slower, so every number is printed with the card's power limit. No PyTorch
-call computes the SSD scan, so it has no library yardstick.
+call computes the SSD scan or the RG-LRU scan, so they have no library
+yardstick.
 """
 from __future__ import annotations
 
@@ -32,14 +35,18 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# (B, H, KV, S, D, layout) of smollm-135m's attention: at its full context,
-# and the (B, S, H, D) views a B 4, S 512 prefill passes
-SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd"),
-          "prefill-512": (4, 9, 3, 512, 64, "bshd")}
+# (B, H, KV, S, D, layout, window) of smollm-135m's attention: at its full
+# context, and the (B, S, H, D) views a B 4, S 512 prefill passes; and of
+# recurrentgemma-9b's local layers in the same prefill (window 2048)
+SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
+          "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
+          "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048)}
 # (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
 # conv output a B 4, S 512 prefill passes, and a longer contiguous batch
 SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
               "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
+# (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill
+RGLRU_SHAPES = {"prefill-512": (4, 512, 4096)}
 
 
 def card() -> str:
@@ -148,34 +155,42 @@ def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
 
 
 def sdpa(q, k, v):
-    """The library yardstick; the port never calls it."""
+    """The library yardstick; the port never calls it. Causal only: it
+    computes the kernel's function where a window does not bite."""
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)
 
 
 def time_flash_attention(label: str, seed: int = 1) -> dict:
     """Kernel, plain version and library call at one of SHAPES (bf16,
-    causal), with the bound."""
+    causal, within the shape's window), with the bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, s, d, layout = SHAPES[label]
+    b, h, kv, s, d, layout, window = SHAPES[label]
+    if window is not None and window < s:
+        raise ValueError(f"{label}: scaled_dot_product_attention's causal "
+                         f"mask is not a window of {window} at S {s}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     bound_ms, bound_by, flops = attention_bound(b, h, kv, s, s, d,
-                                                torch.bfloat16)
-    ms = graph_ms(lambda: kernel.flash_attention(q, k, v))
+                                                torch.bfloat16,
+                                                window=window)
+    ms = graph_ms(lambda: kernel.flash_attention(q, k, v, window=window))
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9,
-        plain_ms=graph_ms(lambda: attention_ref(q, k, v), iters=3),
+        plain_ms=graph_ms(lambda: attention_ref(q, k, v, window=window),
+                          iters=3),
         library_ms=graph_ms(lambda: sdpa(qc, kc, vc)),
-        eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v)))
+        eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v,
+                                                         window=window)))
 
 
 def describe(row: dict) -> str:
-    b, h, kv, s, d, layout = SHAPES[row["label"]]
-    return (f"flash_attention B{b} H{h} KV{kv} S{s} D{d} bf16 causal "
+    b, h, kv, s, d, layout, window = SHAPES[row["label"]]
+    win = f" window {window}" if window is not None else ""
+    return (f"flash_attention B{b} H{h} KV{kv} S{s} D{d} bf16 causal{win} "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
             f"TFLOP/s), plain {row['plain_ms']:.4f} ms, "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms, "
@@ -256,18 +271,80 @@ def describe_ssd(row: dict) -> str:
             f"times); one eager call {row['eager_ms']:.4f} ms")
 
 
+def rglru_bound(b, s, w):
+    """(bound ms, "operations" | "bytes", flops) for the RG-LRU scan on
+    these inputs: a and b read and h written once (fp32), against one
+    multiply-add per element at the fp32 rate."""
+    flops = 2.0 * b * s * w
+    nbytes = 3 * 4 * b * s * w
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def make_rglru_inputs(gen, b, s, w):
+    """Random decays a in (0, 0.99) and inputs b, (B, S, W) fp32 on the
+    card, as tests/test_kernels.py draws them."""
+    a = torch.sigmoid(torch.randn((b, s, w), generator=gen,
+                                  device="cuda")) * 0.99
+    return a, torch.randn((b, s, w), generator=gen, device="cuda")
+
+
+def time_rglru_scan(label: str, seed: int = 1) -> dict:
+    """Kernel and plain version at one of RGLRU_SHAPES (fp32), with the
+    bound; no library call computes this function."""
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    b, s, w = RGLRU_SHAPES[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, bb = make_rglru_inputs(gen, b, s, w)
+    bound_ms, bound_by, flops = rglru_bound(b, s, w)
+    ms = graph_ms(lambda: kernel.rglru_scan(a, bb))
+    return dict(
+        label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+        gbps=3 * 4 * b * s * w / ms / 1e6,
+        plain_ms=graph_ms(lambda: rglru_ref(a, bb), iters=2, warmup=1),
+        library_ms=None,
+        eager_ms=eager_ms(lambda: kernel.rglru_scan(a, bb)))
+
+
+def describe_rglru(row: dict) -> str:
+    b, s, w = RGLRU_SHAPES[row["label"]]
+    return (f"rglru_scan B{b} S{s} W{w} fp32: kernel {row['ms']:.4f} ms "
+            f"({row['gbps']:.0f} GB/s), plain {row['plain_ms']:.4f} ms, "
+            f"library call none, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x (device times); one eager "
+            f"call {row['eager_ms']:.4f} ms")
+
+
 def compare(old_source: Path, seed: int = 1):
     """Time another build of one kernel's source against the current one,
     in turns (old, new, new, old), at each of that kernel's shapes."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
     lib = build.load(old_source).lib
-    is_ssd = hasattr(lib, "ssd_scan_fwd")
-    old = (ssd if is_ssd else flash).bind(lib)
-    for label in (SSD_SHAPES if is_ssd else SHAPES):
+    if hasattr(lib, "ssd_scan_fwd"):
+        name, module, shapes = "ssd_scan", ssd, SSD_SHAPES
+    elif hasattr(lib, "rglru_scan_fwd"):
+        name, module, shapes = "rglru_scan", rglru, RGLRU_SHAPES
+    else:
+        name, module, shapes = "flash_attention", flash, SHAPES
+    old = module.bind(lib)
+    for label in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        if is_ssd:
+        if name == "rglru_scan":
+            a, bb = make_rglru_inputs(gen, *shapes[label])
+            out = torch.empty_like(a)
+
+            def run_old():
+                rglru.launch(old, a, bb, None, out)
+
+            def run_new():
+                return rglru.rglru_scan(a, bb)
+        elif name == "ssd_scan":
             b, s, h, p, n, chunk, layout = SSD_SHAPES[label]
             args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
                                    layout)
@@ -282,24 +359,29 @@ def compare(old_source: Path, seed: int = 1):
                 return ssd.ssd_scan(*args, chunk=chunk)[0]
             out = y
         else:
-            b, h, kv, s, d, layout = SHAPES[label]
+            b, h, kv, s, d, layout, window = SHAPES[label]
             q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
                                layout)
             out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
 
             def run_old():
-                flash.launch(old, q, k, v, out, causal=True, window=None,
+                flash.launch(old, q, k, v, out, causal=True, window=window,
                              softcap=None)
 
             def run_new():
-                return flash.flash_attention(q, k, v)
+                return flash.flash_attention(q, k, v, window=window)
         new = run_new()
-        run_old()
+        try:
+            run_old()
+        except RuntimeError as err:   # e.g. a head_dim the old one lacks
+            print(f"{name} {label}: the old source does not run this "
+                  f"shape ({err}); skipped", flush=True)
+            continue
         torch.cuda.synchronize()
         diff = (new.float() - out.float()).abs().max().item()
         old1, new1, new2, old2 = (graph_ms(fn) for fn in
                                   (run_old, run_new, run_new, run_old))
-        print(f"{'ssd_scan' if is_ssd else 'flash_attention'} {label}: old "
+        print(f"{name} {label}: old "
               f"{old1:.4f} / {old2:.4f} ms, new {new1:.4f} / {new2:.4f} ms "
               f"(old, new, new, old); max|new - old| {diff:.3e}", flush=True)
 
@@ -307,8 +389,8 @@ def compare(old_source: Path, seed: int = 1):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path,
-                    help="another version of flash_attention.cu or "
-                         "ssd_scan.cu to compare")
+                    help="another version of flash_attention.cu, "
+                         "ssd_scan.cu or rglru_scan.cu to compare")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: no CUDA device available", file=sys.stderr)
@@ -318,6 +400,8 @@ def main(argv=None) -> int:
         print(describe(time_flash_attention(label)), flush=True)
     for label in SSD_SHAPES:
         print(describe_ssd(time_ssd_scan(label)), flush=True)
+    for label in RGLRU_SHAPES:
+        print(describe_rglru(time_rglru_scan(label)), flush=True)
     if args.against is not None:
         compare(args.against)
     return 0

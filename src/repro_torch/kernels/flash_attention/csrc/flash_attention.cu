@@ -8,10 +8,12 @@
 // accumulation. Query row i sits at position i + Sk - Sq (the right
 // alignment of ref.py); the model calls it with Sq == Sk.
 //
-// What bounds it on this card: at the model's shapes (S 512-2048, D 64)
+// What bounds it on this card: at smollm's shapes (S 512-2048, D 64)
 // attention does ~S/2 multiply-adds per byte it must move, far above the
 // H100's ~295 operations per byte, so it is bound by operations: the two
 // products of each tile, which only the tensor cores run at speed.
+// recurrentgemma's local layers (16 query heads on 1 KV head, D 256,
+// window 2048) are bound by operations too.
 //
 // What the design does about it:
 //  - One block per (batch * head, q tile of 64 rows). The TPU kernel walks
@@ -20,8 +22,10 @@
 //    causal / window range, so masked tiles cost nothing.
 //  - bf16 (the model's type): the two products run on the tensor cores with
 //    mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each of the four warps
-//    owns 16 query rows; its Q fragments stay in registers, the scores stay
-//    in registers and are re-packed as the A operand of P V (P rounded to
+//    owns 16 query rows; up to D 128 its Q fragments stay in registers (at
+//    D 256 the output alone takes 128 registers a thread, so Q is read
+//    again from shared memory for each KV tile), the scores stay in
+//    registers and are re-packed as the A operand of P V (P rounded to
 //    bf16, as the reference's chunked path does), and each row's m / l live
 //    in the four lanes that hold it. K and V tiles are double-buffered in
 //    shared memory by cp.async (the next tile's copy overlaps this tile's
@@ -349,6 +353,17 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+// The A fragment of Q for rows r0, r0 + 8 and head dims [16 kd, 16 kd + 16)
+// from shared memory (row stride ld).
+__device__ __forceinline__ void q_fragment(uint32_t (&f)[4], const bf16* Qs,
+                                           int ld, int r0, int kd, int t) {
+  const int c = kd * 16 + 2 * t;
+  f[0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * ld + c]);
+  f[1] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * ld + c]);
+  f[2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * ld + c + 8]);
+  f[3] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * ld + c + 8]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_bf16(const Params p) {
@@ -393,15 +408,14 @@ flash_fwd_bf16(const Params p) {
   __syncthreads();
 
   const int r0 = warp * 16 + g;  // this lane's rows: r0 and r0 + 8
-  uint32_t qf[KD][4];
+  // D <= 128: the Q fragments stay in registers for the whole KV loop. At
+  // D 256 they would take 64 registers beside the output's 128, so they are
+  // read again from shared memory (where Q stays) for each KV tile.
+  constexpr bool Q_IN_REGS = D <= 128;
+  uint32_t qf[Q_IN_REGS ? KD : 1][4];
+  if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int c = kd * 16 + 2 * t;
-    qf[kd][0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * LD + c]);
-    qf[kd][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * LD + c]);
-    qf[kd][2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * LD + c + 8]);
-    qf[kd][3] =
-        *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * LD + c + 8]);
+    for (int kd = 0; kd < KD; ++kd) q_fragment(qf[kd], Qs, LD, r0, kd, t);
   }
 
   // scores are kept in base-2 units: y = x log2(e), p = 2^(y - m)
@@ -438,15 +452,27 @@ flash_fwd_bf16(const Params p) {
     // S = Q K^T: n-tile j holds keys k0 + 8 j + 2 t (+1) of rows r0, r0 + 8
     float s[NK][4];
 #pragma unroll
-    for (int j = 0; j < NK; ++j) {
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kd = 0; kd < KD; kd += 2) {
+    for (int kd = 0; kd < KD; kd += 2) {
+      uint32_t qs[2][4];
+      if constexpr (!Q_IN_REGS) {
+        q_fragment(qs[0], Qs, LD, r0, kd, t);
+        q_fragment(qs[1], Qs, LD, r0, kd + 1, t);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
         uint32_t kf[4];
         ldmatrix_x4(kf, Kb + j * 8 * LD + kd * 16 + k_off);
-        mma_16816(s[j], qf[kd], kf[0], kf[1]);
-        mma_16816(s[j], qf[kd + 1], kf[2], kf[3]);
+        if constexpr (Q_IN_REGS) {
+          mma_16816(s[j], qf[kd], kf[0], kf[1]);
+          mma_16816(s[j], qf[kd + 1], kf[2], kf[3]);
+        } else {
+          mma_16816(s[j], qs[0], kf[0], kf[1]);
+          mma_16816(s[j], qs[1], kf[2], kf[3]);
+        }
       }
     }
 
@@ -609,6 +635,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 32: err = launch_dtype<32>(dtype, p, s); break;
     case 64: err = launch_dtype<64>(dtype, p, s); break;
     case 128: err = launch_dtype<128>(dtype, p, s); break;
+    case 256: err = launch_dtype<256>(dtype, p, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_TILE = 64          # query rows per CUDA block (BQ in the source)
 MAX_Q_TILES = 65535  # the grid's second axis

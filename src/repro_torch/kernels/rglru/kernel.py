@@ -1,0 +1,101 @@
+"""Binding of the hand-written CUDA RG-LRU scan kernel.
+
+The kernel (``csrc/rglru_scan.cu``) replaces the Pallas TPU kernel
+``repro.kernels.rglru.kernel.rglru_scan_pallas`` and also takes an initial
+state. It is built with ``nvcc`` for sm_90a into a shared library with a
+plain C interface (see :mod:`repro_torch.kernels.build`) and called through
+``ctypes`` on PyTorch's current stream. The wrapper allocates the output,
+checks what the kernel takes and raises on the rest, and raises when the
+launch reports an error. ``rglru_scan.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
+MAX_BATCH = 65535     # the grid's second axis
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument and result types on a library
+    built from this kernel's source."""
+    lib.rglru_scan_fwd.argtypes = _ARGTYPES
+    lib.rglru_scan_fwd.restype = ctypes.c_int
+    lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load() -> build.Built:
+    """Build (at first use) and load the kernel library, once per process:
+    a launch then touches no file."""
+    built = build.load(SOURCE)
+    bind(built.lib)
+    return built
+
+
+def _check(a, b, h0):
+    named = (("a", a), ("b", b)) + ((("h0", h0),) if h0 is not None else ())
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError("a, b and h0 must be on one device")
+    if a.dim() != 3 or a.shape != b.shape:
+        raise ValueError(f"expected a and b of one shape (B, S, W), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    bsz, s, w = a.shape
+    if bsz == 0 or s == 0 or w == 0 or bsz > MAX_BATCH:
+        raise ValueError(f"unsupported sizes: a {tuple(a.shape)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have unit stride over its last "
+                             f"axis, got strides {t.stride()}")
+    if h0 is not None and (h0.shape != (bsz, w) or not h0.is_contiguous()):
+        raise ValueError(f"h0 must be a contiguous (B, W) = {(bsz, w)}, "
+                         f"got {tuple(h0.shape)} strides {h0.stride()}")
+
+
+def rglru_scan(a, b, h0=None):
+    """a, b: (B, S, W) float32; h0: (B, W) float32 or None -> h (B, S, W)
+    float32, on the card."""
+    _check(a, b, h0)
+    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    launch(load().lib, a, b, h0, h)
+    rglru_scan.launches += 1
+    return h
+
+
+def launch(lib: ctypes.CDLL, a, b, h0, h) -> None:
+    """Run the kernel of ``lib`` (bound by :func:`bind`) on checked inputs
+    into ``h`` on the current stream; raise if the launch reports an
+    error. Counts nothing: :func:`rglru_scan` does."""
+    bsz, s, w = a.shape
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.rglru_scan_fwd(
+            a.data_ptr(), b.data_ptr(),
+            h0.data_ptr() if h0 is not None else None, h.data_ptr(),
+            bsz, s, w, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
+            stream)
+    if rc != 0:
+        msg = lib.rglru_scan_error_string(rc).decode()
+        raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
+rglru_scan.launches = 0

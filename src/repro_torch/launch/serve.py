@@ -4,11 +4,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --no-reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --no-reduced
 
 Counterpart of ``repro.launch.serve``. ``--reduced`` (the default) serves
 the tiny same-family config in float32, as the reference does;
-``--no-reduced`` serves the published widths. Runs on ``--device``
-(default ``cuda``).
+``--no-reduced`` serves the published widths (recurrentgemma-9b's 38
+layers take 37.6 GB of fp32 parameters, drawn on the host first). Runs on
+``--device`` (default ``cuda``); on the card it also prints the peak of
+allocated device memory.
 """
 import argparse
 import dataclasses
@@ -22,7 +26,8 @@ import torch
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
-                    help="smollm-135m or mamba2-130m (the ported ones)")
+                    help="smollm-135m, mamba2-130m or recurrentgemma-9b "
+                         "(the ported ones)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -40,7 +45,9 @@ def main(argv=None):
     if args.reduced:
         cfg = dataclasses.replace(reduced_config(cfg), dtype="float32")
     model = build_model(cfg, device=args.device)
+    t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
     server = Server(model, params, batch=args.batch, max_len=args.max_len)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 8),
@@ -52,6 +59,13 @@ def main(argv=None):
     tokens = sum(len(v) for v in done.values())
     print(f"{cfg.name} on {model.device}: {tokens} tokens, {len(done)} "
           f"requests, {tokens/dt:.1f} tok/s")
+    memory = ""
+    if model.device.type == "cuda":
+        memory = (f", peak device memory "
+                  f"{torch.cuda.max_memory_allocated(model.device) / 2**30:.2f}"
+                  f" GiB")
+    print(f"{cfg.name}: {cfg.num_layers} layers, init {init_s:.1f} s"
+          f"{memory}")
     return 0
 
 

@@ -1,15 +1,17 @@
 """Attention: GQA projections, chunked causal attention, the flash kernel
-behind ``attn_impl``, and the KV cache.
+behind ``attn_impl``, local sliding windows, and the KV caches.
 
-Counterpart of ``repro.models.attention`` for the "global" kind. The
-prefill / forward attention takes the hand-written CUDA flash kernel for
-CUDA tensors (``attn_impl="auto"``) and the chunked online-softmax path,
-ported from the reference, on the CPU. Decode attends over the cache in
-plain torch, as the reference computes it outside any kernel.
+Counterpart of ``repro.models.attention`` for the "global" and "local"
+kinds. The prefill / forward attention takes the hand-written CUDA flash
+kernel for CUDA tensors (``attn_impl="auto"``) and the chunked
+online-softmax path, ported from the reference, on the CPU; a "local"
+layer passes its sliding window to either. Decode attends over the cache in
+plain torch, as the reference computes it outside any kernel. A "local"
+layer's cache is a ring buffer of the window's size: position p sits in
+slot p % window.
 
-The "local" (sliding-window ring buffer) and "cross" kinds are not ported
-yet: they raise ``NotImplementedError`` (ROADMAP.md, Queue 1, other model
-families: gemma2 and seamless).
+The "cross" kind is not ported yet: it raises ``NotImplementedError``
+(ROADMAP.md, Queue 1, other model families: seamless).
 """
 from __future__ import annotations
 
@@ -25,11 +27,22 @@ NEG_INF = -2.0 ** 30
 ATTN_IMPLS = ("auto", "chunked")
 
 
-def _global_only(kind: str):
-    if kind != "global":
+KINDS = ("global", "local")
+
+
+def window_of(cfg, kind: str) -> Optional[int]:
+    """The sliding window of a ``kind`` layer: None for "global"."""
+    if kind not in KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (ROADMAP.md, "
-            "Queue 1, other model families: gemma2 / seamless)")
+            "Queue 1, other model families: seamless)")
+    return cfg.sliding_window if kind == "local" else None
+
+
+def cache_length(cfg, kind: str, max_len: int) -> int:
+    """Slots of a ``kind`` layer's KV cache: ``max_len``, or for a local
+    layer a ring of its window's size when that is shorter."""
+    return min(window_of(cfg, kind) or max_len, max_len)
 
 
 def attention_specs(cfg) -> Dict[str, Any]:
@@ -142,18 +155,19 @@ def chunked_attention(q, k, v, cfg, *, causal: bool, window: Optional[int]):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
 
 
-def _attend(q, k, v, cfg):
-    """Causal attention on (B, S, H, D) tensors, by ``attn_impl``:
-    "auto" takes the flash kernel for CUDA tensors and the chunked path on
-    the CPU; "chunked" always takes the chunked path."""
+def _attend(q, k, v, cfg, window: Optional[int]):
+    """Causal attention on (B, S, H, D) tensors, within ``window`` keys when
+    it is set, by ``attn_impl``: "auto" takes the flash kernel for CUDA
+    tensors and the chunked path on the CPU; "chunked" always takes the
+    chunked path."""
     impl = cfg.attn_impl
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} {ATTN_IMPLS}")
     if impl == "chunked" or (impl == "auto" and not q.is_cuda):
-        return chunked_attention(q, k, v, cfg, causal=True, window=None)
+        return chunked_attention(q, k, v, cfg, causal=True, window=window)
     # (B, S, H, D) viewed as (B, H, S, D): the kernel takes the strides
     out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True,
+                             v.transpose(1, 2), causal=True, window=window,
                              softcap=cfg.attn_logit_softcap)
     return out.transpose(1, 2)
 
@@ -172,8 +186,12 @@ def cache_specs(cfg, batch: int, length: int) -> Dict[str, Any]:
     }
 
 
-def decode_attention(params, x, cfg, cache, pos: int):
-    """One-token decode: write the cache at ``pos`` and attend over it.
+def decode_attention(params, x, cfg, cache, pos: int, *,
+                     window: Optional[int] = None):
+    """One-token decode: write the cache at slot ``pos % length`` (a ring
+    buffer for a local layer's window; a global cache is as long as the
+    sequence) and attend over the positions it holds, within ``window``
+    when it is set.
 
     x: (B, 1, E); pos: int. The cache is updated in place (the reference
     returns a new one) and returned. The ``pos`` vector is shared by the
@@ -196,6 +214,8 @@ def decode_attention(params, x, cfg, cache, pos: int):
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float()
     logits = softcap(logits * scale, cfg.attn_logit_softcap)
     valid = (pos_arr >= 0) & (pos_arr <= pos)
+    if window is not None:
+        valid &= pos_arr > pos - window
     logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(x.dtype), v_cache)
@@ -205,25 +225,42 @@ def decode_attention(params, x, cfg, cache, pos: int):
 
 
 def attention_apply(params, x, cfg, *, kind: str = "global"):
-    """Training / prefill attention for the "global" kind."""
-    _global_only(kind)
+    """Training / prefill attention. kind: "global" | "local"."""
+    window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg)
+    out = _attend(q, k, v, cfg, window)
     return torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
 
 
 def attention_prefill(params, x, cfg, *, kind: str = "global",
                       cache_len: int):
-    """Full-sequence attention that also returns the filled KV cache: all S
-    positions, padded up to ``cache_len``."""
-    _global_only(kind)
+    """Full-sequence attention that also returns the filled KV cache.
+
+    Global layers keep all S positions (padded up to ``cache_len``); local
+    layers keep the trailing ``w = min(window, cache_len)`` positions in
+    ring-buffer order (position p in slot p % w, unfilled slots at position
+    -1), so that :func:`decode_attention` steps continue seamlessly.
+    """
+    window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg)
+    out = _attend(q, k, v, cfg, window)
     y = torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
+    if kind == "local":
+        w = cache_length(cfg, kind, cache_len)
+        m = min(s, w)
+        kept = torch.arange(s - m, s, device=x.device)
+        slots = kept % w
+        k_keep = k.new_zeros((b, w) + k.shape[2:])
+        v_keep = v.new_zeros((b, w) + v.shape[2:])
+        k_keep[:, slots] = k[:, s - m:]
+        v_keep[:, slots] = v[:, s - m:]
+        pos = torch.full((w,), -1, dtype=torch.int32, device=x.device)
+        pos[slots] = kept.to(torch.int32)
+        return y, {"k": k_keep, "v": v_keep, "pos": pos}
     pad = cache_len - s
     k_keep = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
     v_keep = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 class ParamSpec:
     shape: tuple
     logical: tuple                 # logical axis names, same rank as shape
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | lru_a
     scale: float = 1.0
 
     def __post_init__(self):
@@ -37,11 +37,18 @@ def tree_map(fn, tree):
 def init_param(generator: torch.Generator, spec: ParamSpec,
                dtype: torch.dtype) -> torch.Tensor:
     """Draw one parameter from ``generator``: a fan-in scaled normal, as
-    ``repro.models.layers.init_param`` (the fan-in is the leading axis)."""
+    ``repro.models.layers.init_param`` (the fan-in is the leading axis), or
+    the RG-LRU's ``lru_a``."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype)
+    if spec.init == "lru_a":
+        # the inverse softplus of -8 log u, u uniform in [0.9, 0.999), so
+        # the recurrence's decay starts near 0.9-0.999 (Griffin, sec. 2.4)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32)
+        u = 0.9 + (0.999 - 0.9) * u
+        return torch.log(torch.expm1(-torch.log(u) * 8.0)).to(dtype)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[0], 1)

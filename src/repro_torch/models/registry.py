@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.models.registry``. ``build_model`` builds what the
 port has so far: a dense decoder of "global" attention blocks (smollm-135m
-and its kind) and the attention-free Mamba-2 stack of "ssd" blocks
-(mamba2-130m). Every other architecture raises ``NotImplementedError``
+and its kind), the attention-free Mamba-2 stack of "ssd" blocks
+(mamba2-130m) and the hybrid ("rglru", "rglru", "local") pattern of
+recurrentgemma-9b. Every other architecture raises ``NotImplementedError``
 naming the ROADMAP.md item that will port it.
 """
 from __future__ import annotations
@@ -25,12 +26,19 @@ def _unported(cfg: ModelConfig):
         return f"modality frontends ({_LATER}: paligemma)"
     if cfg.num_experts or "moe" in cfg.pattern:
         return f"mixture-of-experts blocks ({_LATER}: phi3.5, deepseek)"
-    if "rglru" in cfg.pattern:
-        return f"RG-LRU blocks and their kernel ({_LATER}: recurrentgemma)"
-    if (cfg.family, cfg.pattern) == ("ssm", ("ssd",)):
+    if (cfg.family, cfg.pattern) in (("ssm", ("ssd",)),
+                                     ("hybrid", ("rglru", "rglru", "local"))):
         return None
     if "ssd" in cfg.pattern:
         return f"SSD blocks outside the ssm family ({_LATER})"
+    if "rglru" in cfg.pattern:
+        return f"RG-LRU blocks outside recurrentgemma's pattern ({_LATER})"
+    if "local" in cfg.pattern:
+        # the local kind, its ring cache, windows and softcaps in the kernel
+        # are ported (recurrentgemma); a registry entry and parity tests
+        # for the local + global layout are not
+        return (f"local + global attention with logit softcaps: a registry "
+                f"entry and parity tests ({_LATER}: gemma2)")
     if cfg.pattern != ("global",) or cfg.sliding_window is not None:
         return f"local sliding-window attention ({_LATER}: gemma2)"
     if cfg.attn_logit_softcap is not None:

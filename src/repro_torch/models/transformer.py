@@ -1,7 +1,8 @@
 """Decoder-only LM over a repeating pattern of block kinds.
 
 Counterpart of ``repro.models.transformer.CausalLM`` for the block kinds
-ported so far: "global" attention (smollm) and "ssd" (mamba2). Parameters
+ported so far: "global" attention (smollm), "ssd" (mamba2), and "rglru"
+with "local" sliding-window attention (recurrentgemma). Parameters
 and caches keep the reference's tree: ``head{i}`` for the first dense
 layers, the pattern's blocks stacked under ``blocks.p{j}`` with a leading
 layers axis, and an unstacked ``tail{t}`` when the depth is not a multiple
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamSpec, embed_apply, embed_specs,
@@ -58,24 +60,32 @@ def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
     def norm():
         return ParamSpec((e,), ("embed",), "zeros")
 
-    if kind == "global":
+    if kind in attn.KINDS:
         return {"ln1": norm(), "attn": attn.attention_specs(cfg),
                 "ln2": norm(), "ffn": mlp_specs(cfg, d_ff=dense_ff)}
     if kind == "ssd":
         return {"ln1": norm(), "mixer": ssm_mod.ssd_specs(cfg)}
+    if kind == "rglru":
+        return {"ln1": norm(), "mixer": rglru_mod.rglru_specs(cfg),
+                "ln2": norm(), "ffn": mlp_specs(cfg)}
     raise _unported(kind)
 
 
 def block_apply(params, x, cfg: ModelConfig, kind: str):
     """One block, training / prefill path (full sequence)."""
-    if kind == "global":
+    if kind in attn.KINDS:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
-        x = x + attn.attention_apply(params["attn"], h, cfg)
+        x = x + attn.attention_apply(params["attn"], h, cfg, kind=kind)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg)
     if kind == "ssd":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         return x + ssm_mod.ssd_apply(params["mixer"], h, cfg)
+    if kind == "rglru":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        x = x + rglru_mod.rglru_mixer_apply(params["mixer"], h, cfg)
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg)
     raise _unported(kind)
 
 
@@ -83,18 +93,22 @@ def block_apply(params, x, cfg: ModelConfig, kind: str):
 
 
 def block_cache_specs(cfg, kind: str, batch: int, max_len: int):
-    if kind == "global":
-        return attn.cache_specs(cfg, batch, max_len)
+    if kind in attn.KINDS:
+        return attn.cache_specs(cfg, batch,
+                                attn.cache_length(cfg, kind, max_len))
     if kind == "ssd":
         return ssm_mod.ssd_cache_specs(cfg, batch)
+    if kind == "rglru":
+        return rglru_mod.rglru_cache_specs(cfg, batch)
     raise _unported(kind)
 
 
 def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
     """One-token step; the block's cache is updated in place."""
-    if kind == "global":
+    if kind in attn.KINDS:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
-        y, cache = attn.decode_attention(params["attn"], h, cfg, cache, pos)
+        y, cache = attn.decode_attention(params["attn"], h, cfg, cache, pos,
+                                         window=attn.window_of(cfg, kind))
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg), cache
@@ -102,14 +116,20 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, cache = ssm_mod.ssd_decode(params["mixer"], h, cfg, cache)
         return x + y, cache
+    if kind == "rglru":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = rglru_mod.rglru_decode(params["mixer"], h, cfg, cache)
+        x = x + y
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg), cache
     raise _unported(kind)
 
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
     """Full-sequence forward that also fills the block cache."""
-    if kind == "global":
+    if kind in attn.KINDS:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
-        y, cache = attn.attention_prefill(params["attn"], h, cfg,
+        y, cache = attn.attention_prefill(params["attn"], h, cfg, kind=kind,
                                           cache_len=max_len)
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
@@ -118,6 +138,12 @@ def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, cache = ssm_mod.ssd_prefill(params["mixer"], h, cfg)
         return x + y, cache
+    if kind == "rglru":
+        h = rms_norm(x, params["ln1"], cfg.norm_eps)
+        y, cache = rglru_mod.rglru_prefill(params["mixer"], h, cfg)
+        x = x + y
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        return x + mlp_apply(params["ffn"], h, cfg), cache
     raise _unported(kind)
 
 

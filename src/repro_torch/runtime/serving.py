@@ -2,14 +2,16 @@
 
 Counterpart of ``repro.runtime.serving``, kept a faithful twin so that both
 emit the same tokens from the same weights. It is generic over the model's
-cache: the KV cache of attention models (smollm-135m) and the conv window
-and SSM state of Mamba-2 (mamba2-130m). That includes three behaviours of
-the reference that the port mirrors rather than fixes:
+cache: the KV cache of attention models (smollm-135m), the conv window
+and SSM state of Mamba-2 (mamba2-130m), and recurrentgemma-9b's conv
+window and recurrent state ``h`` beside its local layers' ring-buffer KV
+cache (the window's size, position p in slot p % window). That includes
+three behaviours of the reference that the port mirrors rather than fixes:
 
 - ``add`` prefills a slot by stepping its prompt through full-batch decode
   steps with token 0 in every other row, so those steps overwrite the other
-  rows' KV cache at the same positions, and advance the other rows' SSM
-  state and conv window by one token each;
+  rows' KV cache at the same positions, and advance the other rows'
+  recurrent states (SSM state, ``h``) and conv windows by one token each;
 - ``serve_step`` decodes every row at one ``pos``, the largest over the
   active slots;
 - the KV cache's ``pos`` vector is shared by the whole batch.

@@ -62,6 +62,24 @@ def test_flash_matches_jax_ref_and_interpret_kernel(
         np.testing.assert_allclose(as_np(out), j_kernel, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("jdtype", [jnp.float32, jnp.bfloat16])
+def test_flash_matches_jax_at_recurrentgemma_heads(jdtype):
+    """recurrentgemma's local attention: 16 query heads on 1 KV head,
+    head_dim 256, causal within a window (128 here, so it bites at S
+    256), which the CUDA kernel runs at D 256 on the card."""
+    (jq, jk, jv), (q, k, v) = make_inputs(1, 16, 1, 256, 256, 256, jdtype)
+    kw = dict(causal=True, window=128)
+    j_ref = as_np(jax_attention_ref(jq, jk, jv, **kw))
+    j_kernel = as_np(jax_flash_op(jq, jk, jv, block_q=128, block_k=128,
+                                  impl="interpret", **kw))
+    tol = TOLS[q.dtype]
+    assert 256 in kernel.HEAD_DIMS
+    out = flash_attention_op(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    np.testing.assert_allclose(as_np(out), j_ref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(as_np(out), j_kernel, atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
                                            (False, None)])
 def test_flash_right_aligns_queries_when_sq_lt_sk(causal, window):

@@ -6,10 +6,14 @@ query / 3 KV heads, d_ff 1536) cut to 2 layers and a 2048 vocab (the 9/3
 head layout is the odd GQA group that the reduced 4/1 never exercises), the
 reduced qwen3 (qk_norm) and granite, and mamba2 reduced and at its true
 widths (d_inner 1536, 24 SSD heads of 64, state 128, chunk 128) cut to 2
-layers and a 2048 vocab. On the CPU ``attn_impl="auto"`` takes the chunked
-attention, which is also held against the plain attention here, and the
-SSD mixer takes the chunked scan; the kernel branches run only on the card,
-where ``chip_smoke.py`` holds them against the CPU paths.
+layers and a 2048 vocab, and recurrentgemma reduced (8 layers: two
+(rglru, rglru, local) units and the 2-layer tail, window 64, a prompt of 80
+so that the local ring wraps) and at its attention's true shape (16 query
+heads on 1 KV head, head_dim 256) cut to one unit. On the CPU
+``attn_impl="auto"`` takes the chunked attention, which is also held
+against the plain attention here, the SSD mixer takes the chunked scan and
+the RG-LRU mixer its log-depth scan; the kernel branches run only on the
+card, where ``chip_smoke.py`` holds them against the CPU paths.
 """
 import dataclasses
 import functools
@@ -34,7 +38,7 @@ from repro_torch.models import ModelConfig, build_model  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 
 KEY = jax.random.PRNGKey(1)
-T = 5            # decode steps after the prefill
+T = 5            # decode steps after the prefill, unless STEPS says
 # max-normalised, as tests/test_decode_consistency.py holds the reference
 TOL = 1e-4
 
@@ -56,44 +60,79 @@ CASES = {
     "mamba2-reduced": ("mamba2-130m", reduced_fp32, 2, 32),
     "mamba2-widths-2-layers": ("mamba2-130m", lambda full: dataclasses.replace(
         full, num_layers=2, vocab_size=2048, dtype="float32"), 2, 64),
+    # rglru + local blocks: a prompt beyond the window of 64, decode on
+    # the wrapped ring
+    "recurrentgemma-reduced": ("recurrentgemma-9b", lambda full:
+                               dataclasses.replace(reduced_fp32(full),
+                                                   num_layers=8), 2, 80),
+    "recurrentgemma-heads-256": ("recurrentgemma-9b", lambda full:
+                                 dataclasses.replace(
+                                     reduced_fp32(full), num_layers=3,
+                                     num_heads=16, num_kv_heads=1,
+                                     head_dim=256), 2, 80),
 }
+# Decode steps of the recurrentgemma cases: the forward pass spans 96
+# tokens, which the attention's chunk of 64 halves to 32 (at 85 it would
+# halve to 1 and the reference would trace thousands of chunk pairs).
+STEPS = {"recurrentgemma-reduced": 16, "recurrentgemma-heads-256": 16}
+# Cases whose reference runs under jax.jit: eagerly, the RG-LRU's
+# associative scan and the unit's scan run op by op for minutes.
+JIT = {"recurrentgemma-reduced", "recurrentgemma-heads-256"}
 # Cases whose weights are drawn at the architecture's own depth and cut to
 # the case's layers. The reference's init takes a stacked weight's layers
 # axis as its fan-in, so mamba2's 2 layers drawn on their own get weights
 # sqrt(12) times mamba2-130m's: dt reaches 60, and the reference's fp32
 # chunk sums (the port's are fp64) put the two packages' logits at the
 # edge of the 1e-4 tolerance (ROADMAP.md, Queue 3). Drawn for 24 layers, as
-# mamba2-130m's are, they sit well inside it.
-INIT_DEPTH = {"mamba2-widths-2-layers": 24}
+# mamba2-130m's are, they sit well inside it. recurrentgemma's units drawn
+# for 8 layers (or 3) get weights sqrt(6) (or sqrt(12)) times
+# recurrentgemma-9b's: the recurrence gate's pre-activation z grows with
+# them, r = sigmoid(z) saturates, and there log a = -8 r softplus(lam)
+# turns z's absolute rounding error into a relative error of the gated
+# input (and 1 - exp(2 log a) cancels). The two packages' fp32 logits then
+# differ by 2.5e-4 (1.2e-4 at 3 layers). Drawn for 38 layers, as
+# recurrentgemma-9b's are, they agree to 6e-6 (ROADMAP.md, Queue 3).
+INIT_DEPTH = {"mamba2-widths-2-layers": 24, "recurrentgemma-reduced": 38,
+              "recurrentgemma-heads-256": 38}
 
 
 def init_params(case, cfg):
+    """The reference's init for ``cfg``, or the first layers of its init at
+    INIT_DEPTH (the stacked units and the tail the cut model has)."""
     depth = INIT_DEPTH.get(case)
     if depth is None:
         return jax_build_model(cfg).init(KEY)
     deep = jax_build_model(dataclasses.replace(cfg, num_layers=depth)).init(KEY)
-    return {**deep, "blocks": jax.tree.map(lambda a: a[:cfg.num_layers],
-                                           deep["blocks"])}
+    reps = cfg.pattern_repeats[0]
+    keep = jax_build_model(cfg).specs()
+    return {k: jax.tree.map(lambda a: a[:reps], deep[k]) if k == "blocks"
+            else deep[k] for k in keep}
 
 
 @functools.lru_cache(maxsize=None)
 def reference(case: str):
     """The JAX model's outputs for one case, as numpy."""
     arch, make_cfg, b, s = CASES[case]
+    steps = STEPS.get(case, T)
     cfg = make_cfg(jax_get_model(arch)[1])
     model = jax_build_model(cfg)
     params = init_params(case, cfg)
+    forward, prefill, decode_step = (model.forward, model.prefill,
+                                     model.decode_step)
+    if case in JIT:
+        forward, decode_step = jax.jit(forward), jax.jit(decode_step)
+        prefill = jax.jit(prefill, static_argnames="max_len")
     toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, s + T)).astype(np.int32)
-    fwd, _ = model.forward(params, jnp.asarray(toks))
-    pre, cache = model.prefill(params, jnp.asarray(toks[:, :s]),
-                               max_len=s + T)
+        0, cfg.vocab_size, (b, s + steps)).astype(np.int32)
+    fwd, _ = forward(params, jnp.asarray(toks))
+    pre, cache = prefill(params, jnp.asarray(toks[:, :s]),
+                         max_len=s + steps)
     out = {"cfg": cfg, "params": jax.tree.map(np.asarray, params),
            "tokens": toks, "forward": np.asarray(fwd),
            "prefill": np.asarray(pre),
            "cache": jax.tree.map(np.asarray, cache), "decode": []}
-    for t in range(T):
-        dec, cache = model.decode_step(
+    for t in range(steps):
+        dec, cache = decode_step(
             params, cache, jnp.asarray(toks[:, s + t:s + t + 1]),
             jnp.int32(s + t))
         out["decode"].append(np.asarray(dec))
@@ -122,6 +161,7 @@ def leaves(tree, prefix=()):
 def test_forward_prefill_decode_match_jax(case):
     ref = reference(case)
     _, _, b, s = CASES[case]
+    steps = STEPS.get(case, T)
     model = build_model(port_config(ref["cfg"]), device="cpu")
     params = params_from_jax(ref["params"], device="cpu")
     toks = torch.from_numpy(ref["tokens"])
@@ -131,7 +171,7 @@ def test_forward_prefill_decode_match_jax(case):
     assert fwd.dtype == torch.float32 and fwd.shape == ref["forward"].shape
     close(fwd, ref["forward"], scale)
 
-    pre, cache = model.prefill(params, toks[:, :s], max_len=s + T)
+    pre, cache = model.prefill(params, toks[:, :s], max_len=s + steps)
     close(pre, ref["prefill"], scale)
     want = leaves(ref["cache"])
     got = {path: t.numpy() for path, t in leaves(cache).items()}
@@ -143,7 +183,7 @@ def test_forward_prefill_decode_match_jax(case):
         else:
             close(got[path], w, float(np.abs(w).max()) + 1e-6)
 
-    for t in range(T):
+    for t in range(steps):
         dec, cache = model.decode_step(params, cache,
                                        toks[:, s + t:s + t + 1], s + t)
         close(dec, ref["decode"][t], scale)
@@ -193,11 +233,13 @@ def test_config_copy_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(jax_list_archs()))
 def test_build_model_builds_dense_global_and_names_roadmap_otherwise(arch):
-    """Dense "global" configs and mamba2's "ssd" stack build, at their
-    published widths; every other architecture names its ROADMAP item."""
+    """Dense "global" configs, mamba2's "ssd" stack and recurrentgemma's
+    (rglru, rglru, local) pattern build, at their published widths; every
+    other architecture names its ROADMAP item."""
     cfg = get_config(arch)
     if (cfg.family, cfg.pattern) in (("dense", ("global",)),
-                                     ("ssm", ("ssd",))):
+                                     ("ssm", ("ssd",)),
+                                     ("hybrid", ("rglru", "rglru", "local"))):
         assert build_model(cfg, device="cpu").cfg is cfg
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

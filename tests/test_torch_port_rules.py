@@ -88,3 +88,19 @@ def test_serve_launcher_runs_on_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "smollm-135m on cpu: 4 tokens, 2 requests" in out
     assert "mamba2-130m on cpu: 4 tokens, 2 requests" in out
+
+
+def test_serve_launcher_runs_recurrentgemma_on_cpu(no_card, capsys):
+    """The reduced recurrentgemma (rglru + local blocks) serves through the
+    launcher on the CPU, and a card-less host refuses to build it on the
+    default device."""
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("recurrentgemma-9b")
+    assert serve.main(["--device", "cpu", "--arch", "recurrentgemma-9b",
+                       "--requests", "3", "--new-tokens", "2",
+                       "--batch", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "recurrentgemma-9b on cpu: 6 tokens, 3 requests" in out
+    assert "recurrentgemma-9b: 6 layers, init" in out

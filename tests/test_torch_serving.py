@@ -1,9 +1,10 @@
 """The port's Server against the JAX Server: the six scenarios of
 tests/test_serving.py, driven on both with the same weights (bridged from
-the reference) and the same prompts, on reduced smollm (a KV cache) and on
-reduced mamba2 (conv and SSM state caches). Greedy token ids, slot
-assignments and free-slot lists must be identical, and each scenario's own
-assertions hold on the port.
+the reference) and the same prompts, on reduced smollm (a KV cache), on
+reduced mamba2 (conv and SSM state caches) and on reduced recurrentgemma
+(conv and RG-LRU state caches beside a local layer's ring-buffer KV cache).
+Greedy token ids, slot assignments and free-slot lists must be identical,
+and each scenario's own assertions hold on the port.
 """
 import dataclasses
 
@@ -124,7 +125,8 @@ SCENARIOS = [
 ]
 # smollm's cases keep the bare scenario name as their id
 CASES = [pytest.param(arch, *sc, id=prefix + sc[0].__name__)
-         for arch, prefix in (("smollm-135m", ""), ("mamba2-130m", "mamba2-"))
+         for arch, prefix in (("smollm-135m", ""), ("mamba2-130m", "mamba2-"),
+                              ("recurrentgemma-9b", "recurrentgemma-"))
          for sc in SCENARIOS]
 
 
