@@ -11,8 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   (c) flash    -- the flash-attention kernel against its plain version, at
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
                   window 2048)
-  (d) ssd      -- the SSD-scan kernel against its plain version and the
-                  chunked path (y and the final state)
+  (d) ssd      -- the SSD-scan kernel (three CUDA kernels a call) against
+                  its plain version and the chunked path (y and the final
+                  state), up to B 8, S 2048 (16 chunks of state passing)
   (l) rglru    -- the RG-LRU scan kernel against its plain version (ragged
                   S, S 1, an initial state)
   smollm-135m at full width (seeded random weights):
@@ -186,7 +187,8 @@ def phase_kernel_vs_plain():
 # -- (d) SSD kernel against plain and chunked ----------------------------------
 
 # (b, s, h, p, n, chunk, dtype, layout); layout "view": x, b and c cut out of
-# one (B, S, H P + 2 N) tensor, as the model passes its conv output
+# one (B, S, H P + 2 N) tensor, as the model passes its conv output;
+# "unaligned": rows the kernel cannot read 16 bytes at a time
 def ssd_cases():
     f32, bf16 = torch.float32, torch.bfloat16
     m = (24, 64, 128, 128)          # mamba2-130m: H, P, N, chunk
@@ -207,6 +209,12 @@ def ssd_cases():
         (2, 100, *m, f32, "view"),
         (2, 1, *m, f32, "view"),
         (2, 1, *m, bf16, "view"),
+        # 16 chunks: the state passing carries far
+        (8, 2048, *m, f32, "contiguous"),
+        (8, 2048, *m, bf16, "contiguous"),
+        # rows not 16-byte aligned, a ragged S
+        (2, 300, 3, 16, 32, 64, f32, "unaligned"),
+        (2, 300, 3, 16, 32, 64, bf16, "unaligned"),
     ]
 
 
@@ -801,6 +809,9 @@ def main():
                 for label in bench.SSD_SHAPES}
     for row in ssd_rows.values():
         log("k", bench.describe_ssd(row))
+        if row["cuda_kernels"] < 1:
+            raise AssertionError(f"the profiler saw no CUDA kernel of "
+                                 f"ssd_scan at {row['label']}")
     rglru_rows = {label: bench.time_rglru_scan(label)
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
@@ -832,21 +843,27 @@ def main():
         flash_rows["recurrentgemma-512"],
         f"B{PREFILL_B} H16 KV1 S{PREFILL_S} D256 bf16 causal, window "
         f"{window}, (B, S, H, D) views")
-    record = {"kernels": [
-        flash_row,
-        record_row("ssd_scan", "src/repro_torch/kernels/ssd/csrc/"
-                   "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:67",
-                   mamba_counts["ssd_scan"], ssd_err,
-                   ssd_rows["prefill-512"],
-                   f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, "
-                   "views of the conv output"),
-        record_row("rglru_scan", "src/repro_torch/kernels/rglru/csrc/"
-                   "rglru_scan.cu", "src/repro/kernels/rglru/kernel.py:39",
-                   rg_counts["rglru_scan"], rglru_err,
-                   rglru_rows["prefill-512"],
-                   f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of "
-                   "every rglru layer"),
-    ]}
+    ssd_row = record_row(
+        "ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd/kernel.py:67", mamba_counts["ssd_scan"],
+        ssd_err, ssd_rows["prefill-512"],
+        f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, views of "
+        "the conv output")
+    ssd_row["launches_by_path"] = {"mamba2-130m": mamba_counts["ssd_scan"]}
+    # CUDA kernels one wrapper call launched at this shape, under the
+    # profiler in this run (the passes: chunk states, state passing, chunk
+    # outputs)
+    ssd_row["cuda_kernels_per_launch"] = ssd_rows["prefill-512"][
+        "cuda_kernels"]
+    rglru_row = record_row(
+        "rglru_scan", "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru/kernel.py:39", rg_counts["rglru_scan"],
+        rglru_err, rglru_rows["prefill-512"],
+        f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of every rglru "
+        "layer")
+    rglru_row["launches_by_path"] = {
+        "recurrentgemma-9b": rg_counts["rglru_scan"]}
+    record = {"kernels": [flash_row, ssd_row, rglru_row]}
     print(json.dumps(record))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,19 @@ bound and one PyTorch library call computing the same function.
 
     PYTHONPATH=src python -m repro_torch.kernels.bench
     PYTHONPATH=src python -m repro_torch.kernels.bench --against OLD.cu
+    PYTHONPATH=src python -m repro_torch.kernels.bench --profile
 
 ``--against`` builds another version of one kernel's source (for example
 ``git show REV:src/repro_torch/kernels/ssd/csrc/ssd_scan.cu > OLD.cu``) and
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
 which kernel it is: ``flash_attention_fwd``, ``ssd_scan_fwd`` or
-``rglru_scan_fwd``. A shape the old source does not take is reported and
-skipped.
+``rglru_scan_fwd``. A library that also exports ``flash_attention_abi`` or
+``ssd_scan_abi`` has the current C interface; sources from before the
+output strides and the SSD workspace export neither and are called with
+their own (``launch_v1``). Both write the same logical layout, which
+``max|new - old|`` compares. A shape the old source does not take is
+reported and skipped.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
@@ -24,6 +29,9 @@ yardstick.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import math
+import re
 import subprocess
 import sys
 import time
@@ -96,8 +104,9 @@ def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_profile(fn, top: int = 6) -> dict:
     """One call of ``fn`` under torch.profiler: the card's busy time (the
-    sum of its kernels and copies), the profiled wall time, and the kernels
-    that took the most device time."""
+    sum of its kernels and copies), the profiled wall time, the number of
+    kernels and copies (``launches``) and of kernels alone (``kernels``),
+    and the kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -117,6 +126,8 @@ def device_profile(fn, top: int = 6) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(busy_ms=busy_ms, wall_ms=wall * 1e3,
                 launches=sum(n for _, n in by_name.values()),
+                kernels=sum(n for name, (_, n) in by_name.items()
+                            if not name.startswith(("Memcpy", "Memset"))),
                 top=[(name[:60], us / 1e3, n) for name, (us, n) in ranked])
 
 
@@ -228,23 +239,26 @@ def make_ssd_inputs(gen, b, s, h, p, n, dtype, layout):
     """Random x (B,S,H,P), dt (B,S,H) (softplus'ed), a_log (H,), b / c
     (B,S,N) on the card, as tests/test_kernels.py draws them; layout "view"
     cuts x, b and c out of one (B, S, H P + 2 N) tensor, as the model's
-    conv output."""
+    conv output, and "unaligned" out of one with a column more, whose rows
+    are not 16-byte aligned."""
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda")
     dt = torch.nn.functional.softplus(randn((b, s, h)))
     a_log = randn((h,)) * 0.5
-    if layout == "view":
-        conv = randn((b, s, h * p + 2 * n)).to(dtype)
+    if layout in ("view", "unaligned"):
+        extra = int(layout == "unaligned")
+        conv = randn((b, s, h * p + 2 * n + extra)).to(dtype)
         x = conv[..., :h * p].reshape(b, s, h, p)
         return x, dt, a_log, conv[..., h * p:h * p + n], \
-            conv[..., h * p + n:]
+            conv[..., h * p + n:h * p + 2 * n]
     return (randn((b, s, h, p)).to(dtype), dt, a_log,
             randn((b, s, n)).to(dtype), randn((b, s, n)).to(dtype))
 
 
 def time_ssd_scan(label: str, seed: int = 1) -> dict:
     """Kernel and plain version at one of SSD_SHAPES (bf16), with the
-    bound; no library call computes this function."""
+    bound and the CUDA kernels one call launches (torch.profiler); no
+    library call computes this function."""
     from repro_torch.kernels.ssd import kernel
     from repro_torch.kernels.ssd.ref import ssd_ref
     b, s, h, p, n, chunk, layout = SSD_SHAPES[label]
@@ -256,6 +270,8 @@ def time_ssd_scan(label: str, seed: int = 1) -> dict:
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9,
+        cuda_kernels=device_profile(
+            lambda: kernel.ssd_scan(*args, chunk=chunk))["kernels"],
         plain_ms=graph_ms(lambda: ssd_ref(*args), iters=2, warmup=1),
         library_ms=None,
         eager_ms=eager_ms(lambda: kernel.ssd_scan(*args, chunk=chunk)))
@@ -265,7 +281,8 @@ def describe_ssd(row: dict) -> str:
     b, s, h, p, n, chunk, layout = SSD_SHAPES[row["label"]]
     return (f"ssd_scan B{b} S{s} H{h} P{p} N{n} chunk {chunk} bf16 "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
-            f"TFLOP/s), plain {row['plain_ms']:.4f} ms, library call none, "
+            f"TFLOP/s, {row['cuda_kernels']} CUDA kernels a call), plain "
+            f"{row['plain_ms']:.4f} ms, library call none, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
             f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x (device "
             f"times); one eager call {row['eager_ms']:.4f} ms")
@@ -318,6 +335,107 @@ def describe_rglru(row: dict) -> str:
             f"call {row['eager_ms']:.4f} ms")
 
 
+def ptxas_report(log: str) -> list:
+    """["entry: N registers, S bytes spill stores", ...] from nvcc's
+    ``-Xptxas -v`` output."""
+    out, entry, spill = [], None, "0"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append(f"{entry}: {m.group(1)} registers, {spill} bytes "
+                       "spill stores")
+            entry, spill = None, "0"
+    return out
+
+
+def profile_kernels(seed: int = 1) -> None:
+    """One call of each kernel at each of its shapes under torch.profiler:
+    the device time of every CUDA kernel it launched (the SSD scan
+    launches three)."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as rglru
+    from repro_torch.kernels.ssd import kernel as ssd
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    calls = {}
+    for label, (b, h, kv, s, d, layout, window) in SHAPES.items():
+        q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+        calls[f"flash_attention {label}"] = (
+            lambda q=q, k=k, v=v, w=window: flash.flash_attention(
+                q, k, v, window=w))
+    for label, (b, s, h, p, n, chunk, layout) in SSD_SHAPES.items():
+        args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
+        calls[f"ssd_scan {label}"] = (
+            lambda a=args, c=chunk: ssd.ssd_scan(*a, chunk=c))
+    for label, shape in RGLRU_SHAPES.items():
+        a, bb = make_rglru_inputs(gen, *shape)
+        calls[f"rglru_scan {label}"] = (
+            lambda a=a, bb=bb: rglru.rglru_scan(a, bb))
+    for name, fn in calls.items():
+        prof = device_profile(fn, top=8)
+        print(f"profile {name}: " + "; ".join(
+            f"{k} {ms * 1e3:.1f} us x{n}" for k, ms, n in prof["top"]),
+            flush=True)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C interfaces of flash_attention.cu and ssd_scan.cu before the output
+# strides and the SSD workspace (version 1): flash attention wrote a
+# contiguous (B, H, Sq, D) output, the SSD scan took no workspace
+V1_ARGTYPES = {"flash_attention": (_P, _P, _P, _P, *(_I,) * 7, *(_L,) * 9,
+                                   _I, _I, ctypes.c_float, ctypes.c_float,
+                                   _P),
+               "ssd_scan": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 10, _P)}
+
+
+def interface_version(lib: ctypes.CDLL, name: str) -> int:
+    """The C interface version of a library built from some version of
+    ``name``'s source: what its ``<name>_abi`` returns, or 1 where it
+    exports none."""
+    if not hasattr(lib, f"{name}_abi"):
+        return 1
+    fn = getattr(lib, f"{name}_abi")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def launch_v1(name: str, lib: ctypes.CDLL, *args) -> None:
+    """Call a version-1 library of ``name`` on the current stream:
+    flash_attention (q, k, v, out, window), causal, ``out`` contiguous;
+    ssd_scan (x, dt, a_log, b, c, y, h_final, chunk)."""
+    fwd = getattr(lib, f"{name}_fwd")
+    fwd.argtypes, fwd.restype = V1_ARGTYPES[name], ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "flash_attention":
+        q, k, v, out, window = args
+        if not out.is_contiguous():
+            raise ValueError("a version-1 library writes a contiguous out")
+        b, h, sq, d = q.shape
+        rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1],
+                 sq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], 1, window or 0, 0.0, 1.0 / math.sqrt(d),
+                 stream)
+    else:
+        x, dt, a_log, b, c, y, h_final, chunk = args
+        bsz, s, h, p = x.shape
+        rc = fwd(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
+                 b.data_ptr(), c.data_ptr(), y.data_ptr(),
+                 h_final.data_ptr(), 1 if x.dtype == torch.bfloat16 else 0,
+                 bsz, s, h, p, b.shape[-1], chunk, *x.stride()[:3],
+                 *dt.stride(), *b.stride()[:2], *c.stride()[:2], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({err(rc).decode()})")
+
+
 def compare(old_source: Path, seed: int = 1):
     """Time another build of one kernel's source against the current one,
     in turns (old, new, new, old), at each of that kernel's shapes."""
@@ -325,14 +443,23 @@ def compare(old_source: Path, seed: int = 1):
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
-    lib = build.load(old_source).lib
+    built = build.load(old_source)
+    print(f"{old_source}: " + "; ".join(ptxas_report(built.log)), flush=True)
+    lib = built.lib
     if hasattr(lib, "ssd_scan_fwd"):
         name, module, shapes = "ssd_scan", ssd, SSD_SHAPES
     elif hasattr(lib, "rglru_scan_fwd"):
         name, module, shapes = "rglru_scan", rglru, RGLRU_SHAPES
     else:
         name, module, shapes = "flash_attention", flash, SHAPES
-    old = module.bind(lib)
+    version = interface_version(lib, name)  # rglru_scan's never changed
+    if version not in (1, 2):
+        raise ValueError(f"{old_source}: unknown C interface version "
+                         f"{version}")
+    if version == 2 or name == "rglru_scan":
+        module.bind(lib)
+    print(f"{old_source}: {name}, C interface version {version}",
+          flush=True)
     for label in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         if name == "rglru_scan":
@@ -340,7 +467,7 @@ def compare(old_source: Path, seed: int = 1):
             out = torch.empty_like(a)
 
             def run_old():
-                rglru.launch(old, a, bb, None, out)
+                rglru.launch(lib, a, bb, None, out)
 
             def run_new():
                 return rglru.rglru_scan(a, bb)
@@ -351,9 +478,16 @@ def compare(old_source: Path, seed: int = 1):
             y = torch.empty((b, s, h, p), dtype=torch.bfloat16,
                             device="cuda")
             hf = torch.empty((b, h, p, n), device="cuda")
+            rows = ssd.chunk_rows(s, chunk)
+            ws = torch.empty(ssd.workspace_numel(b, s, h, p, n, chunk,
+                                                 torch.bfloat16),
+                             device="cuda")
 
             def run_old():
-                ssd.launch(old, *args, y, hf, chunk=min(chunk, s, 128))
+                if version == 1:
+                    launch_v1(name, lib, *args, y, hf, rows)
+                else:
+                    ssd.launch(lib, *args, y, hf, ws, chunk=rows)
 
             def run_new():
                 return ssd.ssd_scan(*args, chunk=chunk)[0]
@@ -365,8 +499,11 @@ def compare(old_source: Path, seed: int = 1):
             out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
 
             def run_old():
-                flash.launch(old, q, k, v, out, causal=True, window=window,
-                             softcap=None)
+                if version == 1:
+                    launch_v1(name, lib, q, k, v, out, window)
+                else:
+                    flash.launch(lib, q, k, v, out, causal=True,
+                                 window=window, softcap=None)
 
             def run_new():
                 return flash.flash_attention(q, k, v, window=window)
@@ -388,9 +525,13 @@ def compare(old_source: Path, seed: int = 1):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", type=Path,
-                    help="another version of flash_attention.cu, "
-                         "ssd_scan.cu or rglru_scan.cu to compare")
+    ap.add_argument("--against", type=Path, nargs="+", default=[],
+                    help="other versions of flash_attention.cu, "
+                         "ssd_scan.cu or rglru_scan.cu to compare, each "
+                         "in turns with the current one")
+    ap.add_argument("--profile", action="store_true",
+                    help="also the device time of each CUDA kernel one "
+                         "call launches (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: no CUDA device available", file=sys.stderr)
@@ -402,8 +543,10 @@ def main(argv=None) -> int:
         print(describe_ssd(time_ssd_scan(label)), flush=True)
     for label in RGLRU_SHAPES:
         print(describe_rglru(time_rglru_scan(label)), flush=True)
-    if args.against is not None:
-        compare(args.against)
+    if args.profile:
+        profile_kernels()
+    for old_source in args.against:
+        compare(old_source)
     return 0
 
 

@@ -23,15 +23,14 @@ from repro_torch.kernels import build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-Q_TILE = 64          # query rows per CUDA block (BQ in the source)
+Q_TILE = 64          # query rows per fp32 block (BQ in the source)
 MAX_Q_TILES = 65535  # the grid's second axis
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _L, _L, _L, _L, _L, _L, _L, _L, _L,
-             _I, _I, ctypes.c_float, ctypes.c_float, _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
+              _I, _I, ctypes.c_float, ctypes.c_float, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -81,7 +80,7 @@ def _check(q, k, v, causal: bool, window: Optional[int],
     if sq == 0 or sk == 0 or -(-sq // Q_TILE) > MAX_Q_TILES:
         raise ValueError(f"unsupported sizes: Sq {sq}, Sk {sk}")
     if q.dtype == torch.bfloat16:
-        # the tensor-core path copies rows 16 bytes at a time
+        # TMA: 16-byte aligned base and strides
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
                 raise ValueError(f"{name}: bfloat16 rows must be 16-byte "
@@ -99,11 +98,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D), on the card."""
     _check(q, k, v, causal, window, softcap)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = output_buffer(q)
     launch(load().lib, q, k, v, out, causal=causal, window=window,
            softcap=softcap)
     flash_attention.launches += 1
     return out
+
+
+def output_buffer(q) -> torch.Tensor:
+    """The output for q (B, H, Sq, D): a (B, Sq, H, D) tensor viewed as
+    (B, H, Sq, D), the layout the model's o-projection reads, so the
+    model's transpose back is free and its reshape copies nothing."""
+    b, h, sq, d = q.shape
+    return torch.empty((b, sq, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
 
 
 def launch(lib: ctypes.CDLL, q, k, v, out, *, causal: bool,
@@ -121,6 +129,7 @@ def launch(lib: ctypes.CDLL, q, k, v, out, *, causal: bool,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
             int(causal), window or 0, float(softcap or 0.0),
             1.0 / math.sqrt(d), stream)
     if rc != 0:

@@ -4,9 +4,12 @@ The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.ssd.kernel.ssd_scan`` and also writes the final state. It
 is built with ``nvcc`` for sm_90a into a shared library with a plain C
 interface (see :mod:`repro_torch.kernels.build`) and called through
-``ctypes`` on PyTorch's current stream. The wrapper allocates the outputs,
-checks what the kernel takes and raises on the rest, and raises when the
-launch reports an error. ``ssd_scan.launches`` counts the launches.
+``ctypes`` on PyTorch's current stream. One call runs the chunked
+algorithm's three passes as three CUDA kernels (chunk states, state
+passing, chunk outputs; ``ref.ssd_passes`` is their plain mirror). The
+wrapper allocates the outputs and the passes' workspace, checks what the
+kernel takes and raises on the rest, and raises when a launch reports an
+error. ``ssd_scan.launches`` counts the calls.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ MAX_CHUNK = 128                 # rows per chunk (QMAX in the source)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+              *(_L,) * 10, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -39,6 +42,23 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def chunk_rows(s: int, chunk: int) -> int:
+    """Rows per chunk the kernel works in: ``min(chunk, S, 128)``."""
+    return min(chunk, s, MAX_CHUNK)
+
+
+def workspace_numel(bsz: int, s: int, h: int, p: int, n: int,
+                    chunk: int, dtype: torch.dtype) -> int:
+    """Floats of the passes' workspace: each (batch, chunk, head)'s P x N
+    fp32 state (the chunk's own contribution, then for fp32 inputs its
+    incoming state), for bf16 inputs the incoming states rounded to bf16,
+    and each one's seg total."""
+    q = chunk_rows(s, chunk)
+    slots = bsz * (-(-s // q)) * h
+    half = p * n // 2 if dtype == torch.bfloat16 else 0
+    return slots * (p * n + half + 1)
 
 
 @functools.cache
@@ -96,27 +116,32 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     in chunks of ``min(chunk, S, 128)`` rows and masks a ragged tail."""
     _check(x, dt, a_log, b, c, chunk)
     bsz, s, h, p = x.shape
+    n = b.shape[-1]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
-    h_final = torch.empty((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+    h_final = torch.empty((bsz, h, p, n), dtype=torch.float32,
                           device=x.device)
-    launch(load().lib, x, dt, a_log, b, c, y, h_final,
-           chunk=min(chunk, s, MAX_CHUNK))
+    workspace = torch.empty(workspace_numel(bsz, s, h, p, n, chunk, x.dtype),
+                            dtype=torch.float32, device=x.device)
+    launch(load().lib, x, dt, a_log, b, c, y, h_final, workspace,
+           chunk=chunk_rows(s, chunk))
     ssd_scan.launches += 1
     return y, h_final
 
 
-def launch(lib: ctypes.CDLL, x, dt, a_log, b, c, y, h_final, *,
+def launch(lib: ctypes.CDLL, x, dt, a_log, b, c, y, h_final, workspace, *,
            chunk: int) -> None:
     """Run the kernel of ``lib`` (bound by :func:`bind`) on checked inputs
     into ``y`` and ``h_final`` on the current stream, ``chunk`` rows at a
-    time (1..128); raise if the launch reports an error. Counts nothing:
-    :func:`ssd_scan` does."""
+    time (1..128), with ``workspace`` (:func:`workspace_numel` floats);
+    raise if a launch reports an error. Counts nothing: :func:`ssd_scan`
+    does."""
     bsz, s, h, p = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            workspace.data_ptr(),
             DTYPES[x.dtype], bsz, s, h, p, b.shape[-1], chunk,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),

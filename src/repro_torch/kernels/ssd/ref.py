@@ -1,11 +1,21 @@
-"""Plain version of the SSD scan: the naive step-by-step SSM recurrence.
+"""Plain versions of the SSD scan.
 
-Counterpart of ``repro.kernels.ssd.ref.ssd_ref``; it also returns the final
-state, which the CUDA kernel writes too.
+``ssd_ref``: the naive step-by-step SSM recurrence, counterpart of
+``repro.kernels.ssd.ref.ssd_ref``; it also returns the final state, which
+the CUDA kernel writes too. The CUDA kernel is held against it.
+
+``ssd_passes``: the CUDA kernel's three passes (chunk states, state
+passing, chunk outputs) in plain PyTorch, with seg = cumsum(dt * a) summed
+in fp64 within each chunk as the kernel sums it, and ragged S padded with
+zeros as the kernel masks it. Tests hold it against the reference, so the
+kernel's decomposition stays under test on hosts without a card; nothing
+on the main path calls it.
 """
 from __future__ import annotations
 
 import torch
+
+MAX_CHUNK = 128
 
 
 def ssd_ref(x, dt, a_log, b, c):
@@ -30,3 +40,70 @@ def ssd_ref(x, dt, a_log, b, c):
         state = state * da[..., None, None] + bx
         ys.append(torch.einsum("bn,bhpn->bhp", cf[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _chunked(t, q: int):
+    """(B, S, ...) -> (B, NC, q, ...), rows past S as zeros."""
+    s = t.shape[1]
+    nc = -(-s // q)
+    pad = torch.zeros((t.shape[0], nc * q - s, *t.shape[2:]), dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, pad], dim=1).reshape(t.shape[0], nc, q,
+                                              *t.shape[2:])
+
+
+def _segments(dt, a_log, q: int):
+    """seg (B, NC, q, H) fp64: the within-chunk cumsum of fp32(dt * a)."""
+    a = -torch.exp(a_log.float())
+    return (_chunked(dt.float(), q) * a).double().cumsum(dim=2)
+
+
+def chunk_states(x, dt, a_log, b, q: int):
+    """Pass 1: each chunk's own contribution to the state,
+    B^T ((x dt) exp(seg_last - seg)), (B, NC, H, P, N) fp32, and each
+    chunk's total seg_last (B, NC, H) fp32."""
+    seg = _segments(dt, a_log, q)
+    total = seg[:, :, -1]                                      # (B,NC,H)
+    rem = torch.exp((total[:, :, None] - seg).float())         # (B,NC,q,H)
+    xdt = _chunked(x.float() * dt.float()[..., None], q)       # (B,NC,q,H,P)
+    states = torch.einsum("bcqhp,bcqn->bchpn", xdt * rem[..., None],
+                          _chunked(b.float(), q))
+    return states, total.float()
+
+
+def state_passing(states, totals):
+    """Pass 2: h_in[c + 1] = exp(seg_last[c]) h_in[c] + S[c] in fp32, from
+    h_in[0] = 0. Returns (h_in (B, NC, H, P, N), h_final (B, H, P, N))."""
+    h = torch.zeros_like(states[:, 0])
+    h_in = []
+    for ci in range(states.shape[1]):
+        h_in.append(h)
+        h = h * torch.exp(totals[:, ci])[..., None, None] + states[:, ci]
+    return torch.stack(h_in, dim=1), h
+
+
+def chunk_outputs(x, dt, a_log, b, c, h_in, q: int):
+    """Pass 3: y = ((C B^T) exp(seg_i - seg_j) on j <= i) (x dt)
+    + exp(seg_i) C h_in, (B, S, H, P) in x's dtype."""
+    s = x.shape[1]
+    seg = _segments(dt, a_log, q)                              # (B,NC,q,H)
+    cc, bc = _chunked(c.float(), q), _chunked(b.float(), q)
+    xdt = _chunked(x.float() * dt.float()[..., None], q)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]       # (B,NC,q,q,H)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  -torch.inf).float())
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    y = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay, xdt)
+    y = y + torch.einsum("bcin,bchpn->bcihp", cc, h_in) * \
+        torch.exp(seg.float())[..., None]
+    return y.reshape(x.shape[0], -1, *x.shape[2:])[:, :s].to(x.dtype)
+
+
+def ssd_passes(x, dt, a_log, b, c, *, chunk: int = 128):
+    """The CUDA kernel's decomposition, in chunks of ``min(chunk, S, 128)``
+    rows: (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) fp32)."""
+    q = min(chunk, x.shape[1], MAX_CHUNK)
+    states, totals = chunk_states(x, dt, a_log, b, q)
+    h_in, h_final = state_passing(states, totals)
+    return chunk_outputs(x, dt, a_log, b, c, h_in, q), h_final

@@ -165,7 +165,8 @@ def _attend(q, k, v, cfg, window: Optional[int]):
         raise ValueError(f"unknown attn_impl {impl!r} {ATTN_IMPLS}")
     if impl == "chunked" or (impl == "auto" and not q.is_cuda):
         return chunked_attention(q, k, v, cfg, causal=True, window=window)
-    # (B, S, H, D) viewed as (B, H, S, D): the kernel takes the strides
+    # (B, S, H, D) viewed as (B, H, S, D): the kernel takes the strides, and
+    # writes into a (B, S, H, D) buffer, so the transpose back is free
     out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=True, window=window,
                              softcap=cfg.attn_logit_softcap)

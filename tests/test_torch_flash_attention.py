@@ -107,3 +107,20 @@ def test_flash_op_rejects_unknown_impl():
     _, (q, k, v) = make_inputs(1, 2, 1, 64, 64, 64, jnp.float32)
     with pytest.raises(ValueError, match="impl"):
         flash_attention_op(q, k, v, impl="pallas")
+
+
+@pytest.mark.parametrize("b,h,s,d", [(4, 9, 512, 64), (4, 16, 512, 256),
+                                     (1, 3, 1000, 32)])
+def test_kernel_output_buffer_is_the_models_layout(b, h, s, d):
+    """The kernel writes its (B, H, S, D) output through strides into a
+    (B, S, H, D) buffer: transposed back, as the model does, it is
+    contiguous, so the o-projection's reshape copies nothing."""
+    q = torch.empty((b, h, s, d), dtype=torch.bfloat16)
+    out = kernel.output_buffer(q)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.stride() == (s * h * d, d, h * d, 1)
+    model_view = out.transpose(1, 2)
+    assert model_view.is_contiguous()
+    assert model_view.reshape(b, s, h * d).data_ptr() == out.data_ptr()
+    # TMA: every stride of the buffer is a multiple of 16 bytes
+    assert all(st * out.element_size() % 16 == 0 for st in out.stride()[:3])

@@ -27,7 +27,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.ssd import kernel  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_op  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_passes, ssd_ref  # noqa: E402
 from repro_torch.models import ModelConfig, build_model  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.layers import tree_map  # noqa: E402
@@ -115,6 +115,81 @@ def test_ssd_chunked_and_final_state_match_jax_chunked(b, s, h, p, n, chunk,
     y_ref, h_final = ssd_ref(*torch_in)
     assert max_norm_err(h_final, j_state) < tol
     assert max_norm_err(y_ref, j_y) < tol
+
+
+# (b, s, h, p, n, chunk, dtype): tests/test_kernels.py's SSD shapes, then
+# ragged S (a short last chunk), S < chunk, S = 1, and a chunk above the
+# kernel's 128 rows (cut to 128)
+PASSES_CASES = [case[:-1] for case in SSD_CASES] + [
+    (2, 100, 3, 16, 32, 32, jnp.float32),
+    (1, 300, 2, 32, 16, 128, jnp.float32),
+    (2, 20, 2, 16, 32, 64, jnp.float32),
+    (2, 1, 2, 16, 16, 16, jnp.float32),
+    (1, 300, 2, 16, 16, 256, jnp.float32),
+    (2, 100, 3, 16, 32, 32, jnp.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,jdtype", PASSES_CASES)
+def test_ssd_passes_match_jax_ref_and_chunked(b, s, h, p, n, chunk, jdtype):
+    """The CUDA kernel's three passes (chunk states, state passing, chunk
+    outputs), mirrored in plain PyTorch, against the JAX sequential oracle
+    (y) and the port's chunked path (y and the final state), and their
+    final state against the port's sequential plain version's."""
+    jax_in, torch_in = make_inputs(b, s, h, p, n, jdtype, seed=2)
+    tol = TOLS[torch_in[0].dtype]
+    y, h_final = ssd_passes(*torch_in, chunk=chunk)
+    assert y.dtype == torch_in[0].dtype and y.shape == (b, s, h, p)
+    assert h_final.dtype == torch.float32 and h_final.shape == (b, h, p, n)
+    assert max_norm_err(y, jax_ssd_ref(*jax_in)) < tol
+    y_chunked, state = ssm.ssd_chunked(*torch_in, chunk)
+    assert max_norm_err(y, y_chunked) < tol
+    assert max_norm_err(h_final, state) < tol
+    assert max_norm_err(h_final, ssd_ref(*torch_in)[1]) < tol
+
+
+def test_ssd_passes_sum_decays_in_fp64_over_long_chunks():
+    """At mamba2-130m's init seg reaches -1e3 within a chunk of 128; the
+    passes sum it in fp64 as the CUDA kernel does, and agree with the
+    port's chunked path (also fp64) to fp32 rounding."""
+    rng = np.random.default_rng(5)
+    b, s, h, p, n = 1, 256, 4, 16, 32
+    args = [torch.from_numpy(v).float() for v in (
+        rng.standard_normal((b, s, h, p)),
+        np.logaddexp(0.0, 3.0 * rng.standard_normal((b, s, h)) + 4.0),
+        np.zeros(h), rng.standard_normal((b, s, n)),
+        rng.standard_normal((b, s, n)))]
+    y, h_final = ssd_passes(*args, chunk=128)
+    y_chunked, state = ssm.ssd_chunked(*args, 128)
+    assert max_norm_err(y, y_chunked) < 1e-6
+    assert max_norm_err(h_final, state) < 1e-6
+
+
+@pytest.mark.parametrize("s,chunk,rows,chunks", [
+    (512, 128, 128, 4), (2048, 128, 128, 16), (500, 128, 128, 4),
+    (100, 128, 100, 1), (1, 128, 1, 1), (300, 256, 128, 3), (40, 16, 16, 3)])
+def test_wrapper_plans_chunks_and_workspace(s, chunk, rows, chunks):
+    """The wrapper's plan for the kernel: chunks of min(chunk, S, 128) rows,
+    and a workspace that holds what the plain mirror's passes hand on: each
+    chunk's fp32 state and seg total (chunk_states), and for bf16 inputs
+    the incoming states (state_passing) in bf16 besides."""
+    from repro_torch.kernels.ssd.ref import chunk_states, state_passing
+    assert kernel.chunk_rows(s, chunk) == rows
+    b, h, p, n = 2, 3, 16, 32
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)))
+    dt = torch.from_numpy(rng.random((b, s, h)))
+    a_log = torch.from_numpy(rng.standard_normal(h))
+    bb = torch.from_numpy(rng.standard_normal((b, s, n)))
+    states, totals = chunk_states(x, dt, a_log, bb, rows)
+    h_in, _ = state_passing(states, totals)
+    assert states.shape[1] == chunks
+    fp32 = states.numel() + totals.numel()
+    assert kernel.workspace_numel(b, s, h, p, n, chunk, torch.float32) == \
+        fp32
+    h_in_bf16 = h_in.to(torch.bfloat16)
+    assert kernel.workspace_numel(b, s, h, p, n, chunk, torch.bfloat16) * \
+        4 == fp32 * 4 + h_in_bf16.numel() * h_in_bf16.element_size()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing():
