@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's serving paths on one NVIDIA card and check them.
+"""Drive the PyTorch / CUDA port's serving and training paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   (a) device   -- the card's name and power limit (nvidia-smi)
-  (b) build    -- nvcc builds the flash-attention, SSD-scan and RG-LRU scan
-                  kernels from src/, all at once
+  (b) build    -- nvcc builds the flash-attention forward and backward,
+                  SSD-scan and RG-LRU scan kernels from src/, all at once
   (c) flash    -- the flash-attention kernel against its plain version, at
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
                   window 2048)
+  (p) backward -- the flash-attention backward kernel (dq, dk, dv from the
+                  forward's log-sum-exp) against torch autograd of the
+                  plain version, on (c)'s cases and smollm's training call;
+                  the forward's log-sum-exp against the plain scores
   (d) ssd      -- the SSD-scan kernel (three CUDA kernels a call) against
                   its plain version and the chunked path (y and the final
                   state), up to B 8, S 2048 (16 chunks of state passing)
@@ -21,6 +25,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                   attn_impl="chunked"; exactly 30 launches per prefill
   (f) decode   -- prefill, then decode steps, against forward's logits
   (g) server   -- Server.run: 8 requests, batch 4, max_len 256, 16 tokens
+  (q) train    -- B 8, S 2048: one fp32 train step (loss and every
+                  gradient) through the kernels against attn_impl="chunked";
+                  20 bf16 steps of ElasticTrainer.train, the loss falling;
+                  exactly 60 forward and 30 backward flash launches a step
+                  (remat recomputes each layer's forward); mamba2's
+                  loss.backward() on the card raises (its SSD kernel has no
+                  backward yet)
   mamba2-130m at full width (seeded random weights):
   (h) prefill  -- B 4, S 512: fp32 logits and cache through the kernel
                   against the same weights' plain path on the CPU; bf16 by
@@ -35,20 +46,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                   (the window bites, the ring wraps) on the card against
                   the same weights' plain path on the CPU: the logits, and
                   each block from the same input, its output and every
-                  cache leaf
+                  cache leaf; the unit end to end at a per-layer fan-in
   (n) decode   -- prefill of 2100 tokens (a wrapped ring), then decode
                   steps, against forward's logits: the first unit alone
                   (fp32 at the tolerance, bf16 by its distance), then all 8
                   layers (bf16 by its distance; fp32 printed: the recurrent
                   state carries each step's rounding through gates that
-                  saturate at this init, PERF.md)
+                  saturate at this init, PERF.md), and all 8 with the same
+                  weights at a per-layer fan-in (fp32 at the tolerance:
+                  there the gates do not saturate)
   (o) server   -- Server.run as (g)
   (k) times    -- each kernel, its plain version, its bound and (flash
-                  only) scaled_dot_product_attention as a yardstick the port
-                  never calls; each model's prefill and decode step, with
-                  the card's busy share; the Servers' tokens/s
+                  only) scaled_dot_product_attention (forward and backward)
+                  as a yardstick the port never calls; each model's prefill
+                  and decode step and smollm's train step, with the card's
+                  busy share; the Servers' tokens/s
 
-Phases (e)-(g), (h)-(j) and (m)-(o) are the main paths: every kernel launch
+Phases (e)-(g), (q), (h)-(j) and (m)-(o) are the main paths: every kernel launch
 count is set to 0 just before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
@@ -89,6 +103,8 @@ RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
 # recurrentgemma-9b: its depth, and the 8 layers (two units and the tail)
 # that chip_smoke draws and drives
 RG_DEPTH, RG_LAYERS = 38, 8
+# smollm-135m training: batch, sequence length and bf16 steps of phase (q)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 20
 
 
 def log(phase, msg):
@@ -146,6 +162,71 @@ def kernel_cases():
         (1, 16, 1, 2304, 2304, 256, True, 2048, None, f32, "bshd"),
     ]
     return cases
+
+
+# -- (p) flash backward against plain ----------------------------------------------
+
+# backward kernel vs the plain fp32 gradients (torch autograd of
+# attention_ref on the inputs in fp32), max |kernel - plain| over the
+# largest |plain| of each of dq, dk, dv. fp32: the kernel sums the same
+# terms in fp32 in another order (dq by atomics, in an order that changes
+# from run to run); over up to 4096 keys (or a group of query rows) the
+# rounding stays near sqrt(4096) 2^-24 = 4e-6 of the largest gradient, so
+# 1e-4 leaves 25x; a key tile dropped or counted twice moves a gradient by
+# a whole tile's share (over 1% even at S 4096). bf16: the inputs are the
+# same bf16 values on both sides, the kernel rounds P and dS to bf16 for
+# its products (2^-9 relative each) and its outputs (2^-9 of the largest
+# value); dS = P (dP - delta) cancels, so its rounding adds up in dq and dk
+# to a few times 2^-9 = 2e-3: 2e-2 leaves several times that, and a wrong
+# tile still moves a gradient by more. The forward's log-sum-exp against
+# torch.logsumexp of the plain scores: 1e-4 (absolute, on values of 1-10;
+# the kernel's exp2 and log2 are accurate to 2^-22).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-4
+
+
+def phase_flash_bwd_vs_plain():
+    """Returns {(head_dim, S): max |kernel - plain| over dq, dk and dv} at
+    smollm's training call (bf16, B 8, S 2048, (B, S, H, D) views) and the
+    case table's other bf16 calls on such views."""
+    from repro_torch.kernels.bench import make_qkv
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import (attention_lse,
+                                                         attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main_err = {}
+    cases = kernel_cases() + [
+        # smollm-135m's train step: B 8, S 2048, (B, S, H, D) views
+        (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd")]
+    for case in cases:
+        b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
+        q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
+        do = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)[0]
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
+        grads = kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves,
+                                   do.float())
+        lse_err = (lse - attention_lse(q, k, **kw)).abs().max().item()
+        errs = [max_norm_err(g, w) for g, w in zip(grads, want)]
+        name = (f"B{b} H{h} KV{kv} Sq{sq} Sk{sk} D{d} causal={causal} "
+                f"window={window} softcap={softcap} {str(dtype)[6:]} "
+                f"{layout}")
+        log("p", f"{name}: dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+                 f"{errs[2]:.3e} (max-normalised, tol {BWD_TOL[dtype]}); "
+                 f"lse {lse_err:.3e} (tol {LSE_TOL})")
+        finite = all(torch.isfinite(g).all() for g in grads)
+        if (not finite or max(errs) > BWD_TOL[dtype] or lse_err > LSE_TOL
+                or any(g.shape != t.shape or g.stride() != t.stride()
+                       for g, t in zip(grads, (q, k, v)))):
+            raise AssertionError(f"backward kernel disagrees with plain: "
+                                 f"{name}")
+        if dtype == torch.bfloat16 and layout == "bshd":
+            main_err[(d, sq)] = max((g.float() - w).abs().max().item()
+                                    for g, w in zip(grads, want))
+    return main_err
 
 
 def phase_kernel_vs_plain():
@@ -311,8 +392,22 @@ def counters():
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
     return {"flash_attention": flash.flash_attention,
+            "flash_attention_bwd": flash.flash_attention_bwd,
             "ssd_scan": ssd.ssd_scan,
             "rglru_scan": rglru.rglru_scan}
+
+
+def counted_launches(fn, want):
+    """Call fn and check it launched each wrapper of ``want`` ({name:
+    count}) exactly that often; returns what fn returned."""
+    wrappers = counters()
+    before = {name: wrappers[name].launches for name in want}
+    result = fn()
+    torch.cuda.synchronize()
+    got = {name: wrappers[name].launches - before[name] for name in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    return result
 
 
 def run_counted(fn, wrapper, expected, also=None):
@@ -320,14 +415,7 @@ def run_counted(fn, wrapper, expected, also=None):
     ``wrapper``'s kernel ``expected`` times (and each wrapper of ``also``,
     {wrapper: count}, its count); returns what fn returned."""
     expect = {wrapper: expected, **(also or {})}
-    before = {w: w.launches for w in expect}
-    result = fn()
-    torch.cuda.synchronize()
-    for w, want in expect.items():
-        n = w.launches - before[w]
-        if n != want:
-            raise AssertionError(f"{n} launches of {w.__name__}, "
-                                 f"expected {want}")
+    result = counted_launches(fn, {w.__name__: n for w, n in expect.items()})
     if not torch.isfinite(result[0]).all():
         raise AssertionError("non-finite logits")
     return result
@@ -481,6 +569,27 @@ def first_unit(cfg, params):
                   "blocks": tree_map(lambda t: t[:1], params["blocks"])}
 
 
+def at_per_layer_fan_in(model, params, drawn_layers):
+    """``params`` of ``model``, drawn by the reference's rule (a stacked
+    weight's fan-in is its layers axis, here ``drawn_layers`` long), with
+    each stacked normal weight rescaled to one layer's fan-in: the axes a
+    product sums over (all but the last of a projection back to the
+    embedding, such as wo's heads x head_dim; else the first, such as wq's
+    embed or the conv's taps). These are the same random numbers that a
+    draw with ParamSpec.scale sqrt(drawn_layers / fan_in) gives."""
+    def rescale(spec, t):
+        if isinstance(spec, dict):
+            return {k: rescale(spec[k], t[k]) for k in spec}
+        if spec.init != "normal":
+            return t
+        one, axes = spec.shape[1:], spec.logical[1:]
+        fan = (int(np.prod(one[:-1])) if len(one) > 1 and axes[-1] == "embed"
+               else one[0])
+        return t * (drawn_layers / fan) ** 0.5
+    return dict(params, blocks=rescale(model.specs()["blocks"],
+                                       params["blocks"]))
+
+
 def phase_hybrid_prefill(cfg, params, toks, unit_toks):
     """(m) recurrentgemma's prefill at full width. In bf16 at the main
     path's B 4, S 512, through both kernels: exactly one flash-attention
@@ -558,6 +667,25 @@ def phase_hybrid_prefill(cfg, params, toks, unit_toks):
         raise AssertionError("fp32 prefill through the kernels disagrees "
                              "with the CPU's plain path")
 
+    # the same unit end to end at a per-layer fan-in (ROADMAP.md, Queue 3):
+    # do the gates still saturate, and the card and the CPU still part?
+    pl = at_per_layer_fan_in(build_model(unit), card_params,
+                             RG_DEPTH // len(cfg.pattern))
+    got, got_cache = build_model(unit).prefill(pl, unit_toks,
+                                               max_len=max_len)
+    want, want_cache = build_model(unit, device="cpu").prefill(
+        tree_map(lambda t: t.cpu(), pl), unit_toks.cpu(), max_len=max_len)
+    got_leaves = tree_paths(got_cache)
+    pl_errs = {"logits": max_norm_err(got.cpu(), want)}
+    pl_errs.update({"/".join(path): max_norm_err(got_leaves[path].cpu(), w)
+                    for path, w in tree_paths(want_cache).items()
+                    if path[-1] != "pos"})
+    log("m", f"the same unit drawn at a per-layer fan-in, card vs the "
+             f"CPU's plain path end to end, max-normalised: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in pl_errs.items())
+             + f"; largest {max(pl_errs.values()):.3e}, against "
+             f"{max(whole.values()):.3e} at the reference's init")
+
 
 def phase_decode(label, cfg, params, toks, steps, hold_fp32=True):
     """Prefill, then ``steps`` decode steps, against forward's logits at
@@ -628,6 +756,163 @@ def phase_server(label, model, params):
     return tokens / dt
 
 
+# -- (q) smollm-135m training -----------------------------------------------------
+
+
+def with_grad(params):
+    """Leaves of ``params`` that require a gradient (sharing storage)."""
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def flash_per_step(cfg):
+    """Flash forward and backward launches one train step of ``cfg`` makes:
+    a backward per layer, a forward per layer, twice under remat (the
+    checkpointed units run again in the backward pass)."""
+    n = cfg.num_layers
+    return {"flash_attention": n * (2 if cfg.remat == "nothing_saveable"
+                                    else 1),
+            "flash_attention_bwd": n}
+
+
+def train_grads(cfg, params, batch, want, **changes):
+    """(loss, {leaf path: gradient}) of one fp32 train step of ``cfg`` with
+    ``changes``, checking its flash launches against ``want``."""
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(cfg, dtype="float32",
+                                            **changes))
+    leaves = with_grad(params)
+
+    def step():
+        loss, _ = model.loss(leaves, batch)
+        loss.backward()
+        return loss.detach()
+    loss = counted_launches(step, want)
+    return loss, {path: t.grad for path, t in tree_paths(leaves).items()}
+
+
+def grad_errs(got, want):
+    """Max-normalised distance of the loss and of each gradient leaf."""
+    errs = {"loss": max_norm_err(got[0], want[0])}
+    errs.update({"/".join(path): max_norm_err(g, want[1][path])
+                 for path, g in got[1].items()})
+    return errs
+
+
+def phase_train_fp32(cfg, model, params, batch):
+    """(q) One fp32 train step at full width, the loss and every gradient
+    leaf, through the kernels (attn_impl="auto": the flash forward with the
+    log-sum-exp, the backward kernel) against attn_impl="chunked" on the
+    card, from the same parameters and batch, max-normalised at MODEL_TOL,
+    with the weights drawn at a per-layer fan-in. At the reference's init
+    (stacked weights take the layers axis as fan-in, std 1/sqrt(30)) the
+    model is chaotic and gradients carry rounding far up: there the two
+    paths are printed beside the chunked path against itself at another
+    chunk size (the same function summed in another order), the floor of
+    any comparison at that init."""
+    n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+    sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
+    held = grad_errs(train_grads(cfg, sane, batch, flash_per_step(cfg)),
+                     train_grads(cfg, sane, batch, n_off,
+                                 attn_impl="chunked"))
+    kernel = train_grads(cfg, params, batch, flash_per_step(cfg))
+    chunked = train_grads(cfg, params, batch, n_off, attn_impl="chunked")
+    floor = grad_errs(train_grads(cfg, params, batch, n_off,
+                                  attn_impl="chunked", attn_chunk=256),
+                      chunked)
+    seen = grad_errs(kernel, chunked)
+    log("q", f"{cfg.name} fp32 train step {shape} (remat {cfg.remat}, "
+             f"{flash_per_step(cfg)} launches), weights at a per-layer "
+             f"fan-in: through the kernels vs chunked, max-normalised "
+             + ", ".join(f"{k} {e:.3e}" for k, e in held.items())
+             + f" (tol {MODEL_TOL})")
+    log("q", f"at the reference's init (not held): loss "
+             f"{kernel[0].item():.6f} through the kernels, "
+             f"{chunked[0].item():.6f} chunked; kernels vs chunked, largest "
+             f"leaf {max(seen.values()):.3e}; chunked at attn_chunk 256 vs "
+             f"512 (the rounding floor) {max(floor.values()):.3e}")
+    if not all(torch.isfinite(g).all() for g in kernel[1].values()) or \
+            max(held.values()) > MODEL_TOL:
+        raise AssertionError("the fp32 train step through the kernels "
+                             "disagrees with the chunked path")
+
+
+def phase_train_bf16(cfg, params, data_cfg, steps):
+    """(q) ``steps`` bf16 steps of ElasticTrainer.train at lr 3e-3 from
+    ``params``: every loss finite, the last below the first, and exactly
+    the flash launches the layer count and remat imply per step. Returns
+    one more step, for phase_train_step_time."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    model = build_model(cfg)
+    trainer = ElasticTrainer(
+        model, AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps),
+        data_cfg, TrainerConfig(steps=steps, log_period=1))
+    per_step = flash_per_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = counted_launches(
+        lambda: trainer.train(state=trainer.init_state(params=params)),
+        {name: steps * n for name, n in per_step.items()})
+    seconds = time.perf_counter() - t0
+    losses = [m["loss"] for m in trainer.metrics]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("q", f"{cfg.name} {cfg.dtype} ElasticTrainer.train, {steps} steps "
+             f"B{data_cfg.global_batch} S{data_cfg.seq_len} in "
+             f"{seconds:.1f} s ({per_step} launches a step); losses "
+             + ", ".join(f"{x:.4f}" for x in losses)
+             + f"; peak device memory {peak:.2f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            int(state["step"]) != steps:
+        raise AssertionError("bf16 training did not bring the loss down")
+    batch = trainer.data.batch(steps)
+    return lambda: trainer.train_step(state, batch)
+
+
+def phase_train_step_time(cfg, step, data_cfg):
+    """(k) One more bf16 train step: its wall time (host clock around 3
+    steps ending in a synchronise), the card's busy time in one step under
+    torch.profiler, and tokens/s. It runs after every other profile: a
+    profile of a step, whose backward runs on autograd's own thread, has
+    left later profiles without device events."""
+    from repro_torch.kernels.bench import device_profile
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    prof = device_profile(step)
+    tokens = data_cfg.global_batch * data_cfg.seq_len
+    log("k", f"{cfg.name} bf16 train step B{data_cfg.global_batch} "
+             f"S{data_cfg.seq_len}: {wall:.3f} ms wall, card busy "
+             f"{prof['busy_ms']:.3f} ms in {prof['launches']} kernels and "
+             f"copies ({100 * (1 - prof['busy_ms'] / wall):.1f}% idle), "
+             f"{tokens / wall * 1e3:.0f} tokens/s; top: " + "; ".join(
+                 f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+
+
+def phase_ssd_grad_raises(cfg, params):
+    """(q) mamba2's SSD kernel has no backward yet: a loss.backward() on the
+    card raises NotImplementedError instead of dropping the gradients."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    toks = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+    try:
+        loss, _ = model.loss(with_grad(params), {"tokens": toks,
+                                                 "labels": toks})
+        loss.backward()
+    except NotImplementedError as err:
+        log("q", f"{cfg.name} loss.backward() on the card raises "
+                 f"NotImplementedError: {err}")
+        return
+    raise AssertionError(f"{cfg.name}: a backward through the SSD kernel "
+                         "did not raise")
+
+
 # -- (k) times --------------------------------------------------------------------
 
 
@@ -665,11 +950,12 @@ def build_kernels():
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
-    kernels = (("flash_attention", flash), ("ssd_scan", ssd),
-               ("rglru_scan", rglru))
+    kernels = (("flash_attention", flash.load),
+               ("flash_attention_bwd", flash.load_bwd),
+               ("ssd_scan", ssd.load), ("rglru_scan", rglru.load))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        builds = {name: pool.submit(k.load) for name, k in kernels}
+        builds = {name: pool.submit(load) for name, load in kernels}
         builds = {name: f.result() for name, f in builds.items()}
     log("b", f"all {len(builds)} built in {time.perf_counter() - t0:.1f} s")
     for name, built in builds.items():
@@ -739,6 +1025,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import bench
     start = time.perf_counter()
 
@@ -751,6 +1038,7 @@ def main():
              f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     build_kernels()
     flash_err = phase_kernel_vs_plain()
+    bwd_err = phase_flash_bwd_vs_plain()
     ssd_err = phase_ssd_vs_plain()
     rglru_err = phase_rglru_vs_plain()
     log("l", f"kernels held against their plain versions; "
@@ -768,6 +1056,18 @@ def main():
     if smollm_counts["flash_attention"] == 0:
         raise AssertionError("smollm's path never launched flash_attention")
 
+    data_cfg = DataConfig(vocab_size=smollm.vocab_size, seq_len=TRAIN_S,
+                          global_batch=TRAIN_B)
+    train_batch = {k: t.cuda()
+                   for k, t in SyntheticLMData(data_cfg).batch(0).items()}
+    train_counts, (_, train_step) = drive("q", (
+        lambda: phase_train_fp32(smollm, model, params, train_batch),
+        lambda: phase_train_bf16(smollm, params, data_cfg, TRAIN_STEPS)))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if train_counts[name] == 0:
+            raise AssertionError(f"smollm's training path never launched "
+                                 f"{name}")
+
     mamba = get_config("mamba2-130m")
     m_model, m_params = model_and_params(mamba, "h")
     m_toks = torch.from_numpy(rng.integers(
@@ -778,6 +1078,7 @@ def main():
         lambda: phase_server("j", m_model, m_params)))
     if mamba_counts["ssd_scan"] == 0:
         raise AssertionError("mamba2's path never launched ssd_scan")
+    phase_ssd_grad_raises(mamba, m_params)
 
     rg = dataclasses.replace(get_config("recurrentgemma-9b"),
                              num_layers=RG_LAYERS)
@@ -789,12 +1090,15 @@ def main():
         0, rg.vocab_size, (1, window + 256))).cuda()
     long_toks = torch.from_numpy(rng.integers(
         0, rg.vocab_size, (2, window + 52 + 8))).cuda()
-    rg_counts, (_, _, _, rg_tok_s) = drive("o", (
+    rg_counts, (*_, rg_tok_s) = drive("o", (
         lambda: phase_hybrid_prefill(rg, rg_params, rg_toks, unit_toks),
         lambda: phase_decode("n", *first_unit(rg, rg_params), long_toks,
                              steps=8),
         lambda: phase_decode("n", rg, rg_params, long_toks, steps=8,
                              hold_fp32=False),
+        lambda: phase_decode("n", rg, at_per_layer_fan_in(
+            rg_model, rg_params, RG_DEPTH // len(rg.pattern)), long_toks,
+            steps=8),
         lambda: phase_server("o", rg_model, rg_params)))
     for name in ("flash_attention", "rglru_scan"):
         if rg_counts[name] == 0:
@@ -816,9 +1120,14 @@ def main():
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
         log("k", bench.describe_rglru(row))
+    bwd_rows = {label: bench.time_flash_attention_bwd(label)
+                for label in bench.BWD_SHAPES}
+    for row in bwd_rows.values():
+        log("k", bench.describe_bwd(row))
     phase_step_times(smollm, params, toks[:, :PREFILL_S])
     phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
     phase_step_times(rg, rg_params, rg_toks)
+    phase_train_step_time(smollm, train_step, data_cfg)
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -830,12 +1139,14 @@ def main():
     flash_row = record_row(
         "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:93",
-        smollm_counts["flash_attention"] + rg_counts["flash_attention"],
+        smollm_counts["flash_attention"] + train_counts["flash_attention"]
+        + rg_counts["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
     flash_row["launches_by_path"] = {
         "smollm-135m": smollm_counts["flash_attention"],
+        "smollm-135m training": train_counts["flash_attention"],
         "recurrentgemma-9b": rg_counts["flash_attention"]}
     flash_row["recurrentgemma"] = record_row(
         "flash_attention", flash_row["source"], flash_row["replaces"],
@@ -863,7 +1174,18 @@ def main():
         "layer")
     rglru_row["launches_by_path"] = {
         "recurrentgemma-9b": rg_counts["rglru_scan"]}
-    record = {"kernels": [flash_row, ssd_row, rglru_row]}
+    b, h, kv, s, d, _ = bench.BWD_SHAPES["train-2048"]
+    bwd_row = record_row(
+        "flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
+        "csrc/flash_attention_bwd.cu", "none: the Pallas kernel has no "
+        "backward; the reference trains through XLA's autodiff of "
+        "chunked_attention (src/repro/models/attention.py:94)",
+        train_counts["flash_attention_bwd"], bwd_err[(d, s)],
+        bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
+        "(B, S, H, D) views, dq / dk / dv from the forward's lse")
+    bwd_row["launches_by_path"] = {
+        "smollm-135m training": train_counts["flash_attention_bwd"]}
+    record = {"kernels": [flash_row, bwd_row, ssd_row, rglru_row]}
     print(json.dumps(record))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-"""Carry parameters from the JAX reference to the port.
+"""Carry parameters and train states from the JAX reference to the port.
 
 The reference draws its weights from ``jax.random``, which torch cannot
-reproduce, so parity tests take the reference's own parameters through
-numpy. Both packages keep one parameter tree (the same key paths and
-shapes), so the conversion is one to one.
+reproduce, so parity tests take the reference's own parameters (or whole
+TrainState) through numpy. Both packages keep one parameter tree (the same
+key paths and shapes), so the conversion is one to one.
 """
 from __future__ import annotations
 
@@ -25,3 +25,15 @@ def params_from_jax(tree, device=DEFAULT_DEVICE):
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
     return convert(tree)
+
+
+def state_from_jax(state, device=DEFAULT_DEVICE):
+    """The reference's TrainState as numpy (``params``, ``opt`` with ``mu``,
+    ``nu`` and ``step``, ``step``; e.g. ``jax.tree.map(np.asarray,
+    state)``) -> the port's TrainState on ``device``. The reference's
+    ``rng`` leaf, which no step reads, is dropped."""
+    opt = state["opt"]
+    return {"params": params_from_jax(state["params"], device),
+            "opt": params_from_jax({"mu": opt["mu"], "nu": opt["nu"],
+                                    "step": opt["step"]}, device),
+            "step": params_from_jax(state["step"], device)}

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a).
 
 flash_attention -- causal / sliding-window / softcap / GQA attention,
-                   forward (replaces the Pallas TPU kernel of the same name)
+                   forward (replaces the Pallas TPU kernel of the same name;
+                   also writes the rows' log-sum-exp for training) and
+                   backward (dq, dk, dv; the Pallas kernel has none)
 ssd             -- the Mamba-2 SSD chunked scan, forward, with its final
                    state (replaces the Pallas TPU kernel ``ssd_scan``)
 rglru           -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t,
@@ -10,7 +12,10 @@ rglru           -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t,
 
 Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
 ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA
-tensors, the plain version for CPU tensors) and ref.py (the plain PyTorch
-version the kernel is held against). build.py compiles the sources;
-bench.py times each kernel against its plain version and its bound.
+tensors, the plain version for CPU tensors; flash attention's through a
+``torch.autograd.Function`` when a gradient is needed) and ref.py (the
+plain PyTorch version the kernel is held against). The SSD and RG-LRU ops
+raise rather than cut a gradient (forward_only.py). build.py compiles the
+sources; bench.py times each kernel against its plain version and its
+bound.
 """

@@ -10,12 +10,17 @@ bound and one PyTorch library call computing the same function.
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
 which kernel it is: ``flash_attention_fwd``, ``ssd_scan_fwd`` or
-``rglru_scan_fwd``. A library that also exports ``flash_attention_abi`` or
-``ssd_scan_abi`` has the current C interface; sources from before the
-output strides and the SSD workspace export neither and are called with
-their own (``launch_v1``). Both write the same logical layout, which
+``rglru_scan_fwd``. ``flash_attention_abi`` / ``ssd_scan_abi`` say which C
+interface it has (none: version 1); sources with an older one than the
+wrappers' (before the output strides and the SSD workspace, version 1; the
+flash forward before its log-sum-exp output, version 2) are called with
+their own (``launch_old``). All write the same logical layout, which
 ``max|new - old|`` compares. A shape the old source does not take is
 reported and skipped.
+
+The flash-attention backward is timed at smollm-135m's training shape
+beside its plain version (torch autograd of ``attention_ref``) and the
+backward of ``scaled_dot_product_attention``.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
@@ -55,6 +60,9 @@ SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
               "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
 # (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill
 RGLRU_SHAPES = {"prefill-512": (4, 512, 4096)}
+# (B, H, KV, S, D, layout) of smollm-135m's attention in a B 8, S 2048
+# train step, for the backward
+BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd")}
 
 
 def card() -> str:
@@ -151,6 +159,25 @@ def attention_bound(b, h, kv, sq, sk, d, dtype, causal=True, window=None):
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
+def attention_bwd_bound(b, h, kv, sq, sk, d, dtype, causal=True,
+                        window=None):
+    """(bound ms, "operations" | "bytes", flops) for the attention backward
+    on these inputs: q, k, v, o, do and the fp32 lse read and dq, dk, dv
+    written once, against five products of 2 D flops (Q K^T, dO V^T,
+    P^T dO, dS^T Q, dS K) for each (query, key) pair the mask lets
+    through."""
+    _, _, fwd_flops = attention_bound(b, h, kv, sq, sk, d, dtype, causal,
+                                      window)
+    flops = 2.5 * fwd_flops
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (size * (4 * b * h * sq * d + 4 * b * kv * sk * d)
+              + 4 * b * h * sq)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
 def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
     """Random q (B, H, Sq, D), k / v (B, KV, Sk, D) on the card; layout
     "bshd" stores them as (B, S, H, D) and returns the transposed views,
@@ -196,6 +223,56 @@ def time_flash_attention(label: str, seed: int = 1) -> dict:
         library_ms=graph_ms(lambda: sdpa(qc, kc, vc)),
         eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v,
                                                          window=window)))
+
+
+def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
+    """The backward kernel at one of BWD_SHAPES (bf16, causal) from the
+    forward kernel's output and log-sum-exp, its plain version (torch
+    autograd of ``attention_ref``) and the backward of
+    ``scaled_dot_product_attention`` (each graph kept and its backward
+    replayed), with the bound."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    b, h, kv, s, d, layout = BWD_SHAPES[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+    do = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)[0]
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True)
+    bound_ms, bound_by, flops = attention_bwd_bound(b, h, kv, s, s, d,
+                                                    torch.bfloat16)
+
+    def run():
+        return kernel.flash_attention_bwd(q, k, v, out, lse, do)
+
+    def backward_of(fn, inputs):
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        res = fn(*leaves)
+        return lambda: torch.autograd.grad(res, leaves, do,
+                                           retain_graph=True)
+
+    ms = graph_ms(run)
+    plain = backward_of(attention_ref, (q, k, v))
+    plain_ms = eager_ms(plain, iters=2, warmup=1)
+    del plain
+    return dict(
+        label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+        tflops=flops / ms / 1e9, plain_ms=plain_ms,
+        library_ms=eager_ms(backward_of(
+            sdpa, (q.contiguous(), k.contiguous(), v.contiguous()))),
+        eager_ms=eager_ms(run))
+
+
+def describe_bwd(row: dict) -> str:
+    b, h, kv, s, d, layout = BWD_SHAPES[row["label"]]
+    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 causal "
+            f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
+            f"TFLOP/s), plain (autograd of attention_ref) "
+            f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention's "
+            f"backward {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x, kernel/library "
+            f"{row['ms'] / row['library_ms']:.2f}x; one eager call "
+            f"{row['eager_ms']:.4f} ms")
 
 
 def describe(row: dict) -> str:
@@ -356,8 +433,8 @@ def ptxas_report(log: str) -> list:
 
 def profile_kernels(seed: int = 1) -> None:
     """One call of each kernel at each of its shapes under torch.profiler:
-    the device time of every CUDA kernel it launched (the SSD scan
-    launches three)."""
+    the device time of every CUDA kernel it launched (the SSD scan and the
+    flash backward launch three)."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
@@ -376,6 +453,12 @@ def profile_kernels(seed: int = 1) -> None:
         a, bb = make_rglru_inputs(gen, *shape)
         calls[f"rglru_scan {label}"] = (
             lambda a=a, bb=bb: rglru.rglru_scan(a, bb))
+    for label, (b, h, kv, s, d, layout) in BWD_SHAPES.items():
+        q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+        do = torch.randn_like(q)
+        out, lse = flash.flash_attention(q, k, v, return_lse=True)
+        calls[f"flash_attention_bwd {label}"] = (
+            lambda a=(q, k, v, out, lse, do): flash.flash_attention_bwd(*a))
     for name, fn in calls.items():
         prof = device_profile(fn, top=8)
         print(f"profile {name}: " + "; ".join(
@@ -384,13 +467,20 @@ def profile_kernels(seed: int = 1) -> None:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The C interfaces of flash_attention.cu and ssd_scan.cu before the output
-# strides and the SSD workspace (version 1): flash attention wrote a
-# contiguous (B, H, Sq, D) output, the SSD scan took no workspace
-V1_ARGTYPES = {"flash_attention": (_P, _P, _P, _P, *(_I,) * 7, *(_L,) * 9,
-                                   _I, _I, ctypes.c_float, ctypes.c_float,
-                                   _P),
-               "ssd_scan": (*(_P,) * 7, *(_I,) * 7, *(_L,) * 10, _P)}
+# The C interfaces older than the wrappers': flash_attention.cu and
+# ssd_scan.cu before the output strides and the SSD workspace (version 1:
+# flash attention wrote a contiguous (B, H, Sq, D) output, the SSD scan
+# took no workspace), and flash_attention.cu before the log-sum-exp output
+# (version 2)
+OLD_ARGTYPES = {("flash_attention", 1): (_P, _P, _P, _P, *(_I,) * 7,
+                                         *(_L,) * 9, _I, _I, ctypes.c_float,
+                                         ctypes.c_float, _P),
+                ("flash_attention", 2): (_P, _P, _P, _P, *(_I,) * 7,
+                                         *(_L,) * 12, _I, _I, ctypes.c_float,
+                                         ctypes.c_float, _P),
+                ("ssd_scan", 1): (*(_P,) * 7, *(_I,) * 7, *(_L,) * 10, _P)}
+# the C interface versions the wrappers call
+CURRENT = {"flash_attention": 3, "ssd_scan": 2}
 
 
 def interface_version(lib: ctypes.CDLL, name: str) -> int:
@@ -404,25 +494,27 @@ def interface_version(lib: ctypes.CDLL, name: str) -> int:
     return fn()
 
 
-def launch_v1(name: str, lib: ctypes.CDLL, *args) -> None:
-    """Call a version-1 library of ``name`` on the current stream:
-    flash_attention (q, k, v, out, window), causal, ``out`` contiguous;
-    ssd_scan (x, dt, a_log, b, c, y, h_final, chunk)."""
+def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
+    """Call a library of ``name`` with an older C interface on the current
+    stream: flash_attention (q, k, v, out, window), causal (version 1:
+    ``out`` contiguous; version 2: through its strides, no log-sum-exp);
+    ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk)."""
     fwd = getattr(lib, f"{name}_fwd")
-    fwd.argtypes, fwd.restype = V1_ARGTYPES[name], ctypes.c_int
+    fwd.argtypes, fwd.restype = OLD_ARGTYPES[name, version], ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     stream = torch.cuda.current_stream().cuda_stream
     if name == "flash_attention":
         q, k, v, out, window = args
-        if not out.is_contiguous():
+        if version == 1 and not out.is_contiguous():
             raise ValueError("a version-1 library writes a contiguous out")
         b, h, sq, d = q.shape
+        out_strides = () if version == 1 else out.stride()[:3]
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1],
                  sq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], 1, window or 0, 0.0, 1.0 / math.sqrt(d),
-                 stream)
+                 *v.stride()[:3], *out_strides, 1, window or 0, 0.0,
+                 1.0 / math.sqrt(d), stream)
     else:
         x, dt, a_log, b, c, y, h_final, chunk = args
         bsz, s, h, p = x.shape
@@ -450,19 +542,40 @@ def compare(old_source: Path, seed: int = 1):
         name, module, shapes = "ssd_scan", ssd, SSD_SHAPES
     elif hasattr(lib, "rglru_scan_fwd"):
         name, module, shapes = "rglru_scan", rglru, RGLRU_SHAPES
+    elif hasattr(lib, "flash_attention_bwd"):
+        name, module, shapes = "flash_attention_bwd", flash, BWD_SHAPES
+        flash.bind_bwd(lib)
     else:
         name, module, shapes = "flash_attention", flash, SHAPES
-    version = interface_version(lib, name)  # rglru_scan's never changed
-    if version not in (1, 2):
+    # rglru_scan's and flash_attention_bwd's never changed
+    version = interface_version(lib, name)
+    current = version == CURRENT.get(name, 1)
+    if not current and (name, version) not in OLD_ARGTYPES:
         raise ValueError(f"{old_source}: unknown C interface version "
                          f"{version}")
-    if version == 2 or name == "rglru_scan":
+    if current and name != "flash_attention_bwd":
         module.bind(lib)
     print(f"{old_source}: {name}, C interface version {version}",
           flush=True)
     for label in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        if name == "rglru_scan":
+        if name == "flash_attention_bwd":
+            b, h, kv, s, d, layout = BWD_SHAPES[label]
+            q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
+                               layout)
+            do = torch.randn_like(q)
+            o, lse = flash.flash_attention(q, k, v, return_lse=True)
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            ws = torch.empty(b * h * s * (d + 1), device="cuda")
+
+            def run_old():
+                flash.launch_bwd(lib, q, k, v, o, lse, do, *grads, ws,
+                                 causal=True, window=None, softcap=None)
+
+            def run_new():
+                return flash.flash_attention_bwd(q, k, v, o, lse, do)
+            out = grads
+        elif name == "rglru_scan":
             a, bb = make_rglru_inputs(gen, *shapes[label])
             out = torch.empty_like(a)
 
@@ -484,8 +597,8 @@ def compare(old_source: Path, seed: int = 1):
                              device="cuda")
 
             def run_old():
-                if version == 1:
-                    launch_v1(name, lib, *args, y, hf, rows)
+                if not current:
+                    launch_old(name, version, lib, *args, y, hf, rows)
                 else:
                     ssd.launch(lib, *args, y, hf, ws, chunk=rows)
 
@@ -499,8 +612,8 @@ def compare(old_source: Path, seed: int = 1):
             out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
 
             def run_old():
-                if version == 1:
-                    launch_v1(name, lib, q, k, v, out, window)
+                if not current:
+                    launch_old(name, version, lib, q, k, v, out, window)
                 else:
                     flash.launch(lib, q, k, v, out, causal=True,
                                  window=window, softcap=None)
@@ -515,7 +628,9 @@ def compare(old_source: Path, seed: int = 1):
                   f"shape ({err}); skipped", flush=True)
             continue
         torch.cuda.synchronize()
-        diff = (new.float() - out.float()).abs().max().item()
+        diff = max((n.float() - o.float()).abs().max().item() for n, o in
+                   zip(*((t,) if torch.is_tensor(t) else t
+                         for t in (new, out))))
         old1, new1, new2, old2 = (graph_ms(fn) for fn in
                                   (run_old, run_new, run_new, run_old))
         print(f"{name} {label}: old "
@@ -543,6 +658,8 @@ def main(argv=None) -> int:
         print(describe_ssd(time_ssd_scan(label)), flush=True)
     for label in RGLRU_SHAPES:
         print(describe_rglru(time_rglru_scan(label)), flush=True)
+    for label in BWD_SHAPES:
+        print(describe_bwd(time_flash_attention_bwd(label)), flush=True)
     if args.profile:
         profile_kernels()
     for old_source in args.against:

@@ -49,6 +49,11 @@
 //  - fp32: the tensor cores would round to TF32, so fp32 runs on the CUDA
 //    cores (67 TFLOP/s): tiles staged in shared memory, each thread keeping
 //    a 4x4 block of scores and a 4 x D/16 block of the output.
+//  - For training, the caller may pass an fp32 (B, H, Sq) buffer for the
+//    row log-sum-exp, log sum_j exp(s_ij) of the scaled, capped, masked
+//    scores s: m + log(l) of the online softmax, written once per row after
+//    the last tile. flash_attention_bwd.cu recomputes P = exp(s - lse) from
+//    it. A null pointer writes nothing (serving).
 //  - The kernel launches on the caller's stream and allocates nothing.
 #include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_runtime.h>
@@ -70,6 +75,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) contiguous, or null: not written
   int B, H, KV, Sq, Sk;
   long long q_sb, q_sh, q_ss;  // element strides of q over (batch, head, seq)
   long long k_sb, k_sh, k_ss;
@@ -120,6 +126,13 @@ __device__ __forceinline__ int q_tile(const Params& p) {
 // m = -inf; subtract 0 then, so exp gives 0 and not NaN.
 __device__ __forceinline__ float exp_base(float m) {
   return m == -INFINITY ? 0.f : m;
+}
+
+// The natural log-sum-exp of a row from its running max m and sum l (both
+// in natural units). A row that saw no key (l = 0) gets +inf, so that the
+// backward's exp(s - lse) is 0 there, as this kernel's output is.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -274,6 +287,9 @@ flash_fwd_f32(const Params p) {
     }
   }
 
+  if (p.lse != nullptr && tid < BQ && q0 + tid < p.Sq)
+    p.lse[static_cast<long long>(bh) * p.Sq + q0 + tid] = row_lse(
+        m_s[tid], l_s[tid]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -297,6 +313,7 @@ constexpr int CONSUMER_REGS = 232;
 // TURN + wg the turn of consumer wg to issue its products
 constexpr int TURN = 3;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // A block: NWG consumer warpgroups of 64 query rows, then a producer
 // warpgroup. ptxas allocates registers for __launch_bounds__'s thread count
@@ -867,6 +884,13 @@ flash_fwd_bf16(const __grid_constant__ Maps maps, const Params p) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    // the rows' log-sum-exp: m is in base-2 units, so m ln 2 is the
+    // natural max
+    if (p.lse != nullptr && t == 0) {
+      float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
+      if (q0 + r0 < p.Sq) lse[q0 + r0] = row_lse(m[0] * LN2, l0);
+      if (q0 + r0 + 8 < p.Sq) lse[q0 + r0 + 8] = row_lse(m[1] * LN2, l1);
+    }
     // O in bf16 over this warpgroup's rows of Q (no product reads them
     // any more), swizzled as the output map's box expects
 #pragma unroll
@@ -999,16 +1023,18 @@ int launch_dtype(int dtype, const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// The version of this C interface: 2 added the output strides (o_*).
-int flash_attention_abi(void) { return 2; }
+// The version of this C interface: 2 added the output strides (o_*), 3
+// the row log-sum-exp (lse).
+int flash_attention_abi(void) { return 3; }
 
 // dtype: 0 = float32, 1 = bfloat16. q, o: (B, H, Sq, D), k/v: (B, KV, Sk,
 // D), each with unit stride over D and the given element strides over the
-// other axes (bf16: 16-byte aligned rows and strides, as TMA needs).
+// other axes (bf16: 16-byte aligned rows and strides, as TMA needs). lse:
+// null, or a contiguous fp32 (B, H, Sq) buffer for the rows' log-sum-exp.
 // Returns 0, a CUDA error code, or one of this file's own codes (see
 // flash_attention_error_string).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int H, int KV, int Sq, int Sk, int D,
+                        float* lse, int dtype, int B, int H, int KV, int Sq, int Sk, int D,
                         long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
@@ -1018,7 +1044,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, o, B, H, KV, Sq, Sk,
+  const Params p{q, k, v, o, lse, B, H, KV, Sq, Sk,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  o_sb, o_sh, o_ss, causal, window, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

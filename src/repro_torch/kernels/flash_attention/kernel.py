@@ -1,12 +1,17 @@
-"""Binding of the hand-written CUDA flash-attention kernel.
+"""Binding of the hand-written CUDA flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro.kernels.flash_attention.kernel.flash_attention``. It is built with
-``nvcc`` for sm_90a into a shared library with a plain C interface (see
-:mod:`repro_torch.kernels.build`) and called through ``ctypes`` on
-PyTorch's current stream. The wrapper allocates the output, checks what the
-kernel takes and raises on the rest, and raises when the launch reports an
-error. ``flash_attention.launches`` counts the launches.
+The forward (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.kernel.flash_attention``; for training it
+also writes the rows' log-sum-exp. The backward
+(``csrc/flash_attention_bwd.cu``, a source of its own, so serving builds
+only the forward) has no Pallas counterpart: the reference trains through
+XLA's autodiff. Each is built with ``nvcc`` for sm_90a into a shared
+library with a plain C interface (see :mod:`repro_torch.kernels.build`) and
+called through ``ctypes`` on PyTorch's current stream. The wrappers
+allocate the outputs and workspace, check what the kernels take and raise
+on the rest, and raise when a launch reports an error.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+the launches.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_TILE = 64          # query rows per fp32 block (BQ in the source)
@@ -29,8 +35,10 @@ MAX_Q_TILES = 65535  # the grid's second axis
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
               _I, _I, ctypes.c_float, ctypes.c_float, _P)
+_BWD_ARGTYPES = (*(_P,) * 10, *(_I,) * 7, *(_L,) * 24, _I, _I,
+                 ctypes.c_float, ctypes.c_float, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -43,12 +51,29 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The same for a library built from the backward's source."""
+    lib.flash_attention_bwd.argtypes = _BWD_ARGTYPES
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def load() -> build.Built:
-    """Build (at first use) and load the kernel library, once per process:
-    a launch then touches no file."""
+    """Build (at first use) and load the forward's library, once per
+    process: a launch then touches no file."""
     built = build.load(SOURCE)
     bind(built.lib)
+    return built
+
+
+@functools.cache
+def load_bwd() -> build.Built:
+    """The same for the backward's library."""
+    built = build.load(BWD_SOURCE)
+    bind_bwd(built.lib)
     return built
 
 
@@ -95,14 +120,19 @@ def _check(q, k, v, causal: bool, window: Optional[int],
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D), on the card."""
+                    softcap: Optional[float] = None, return_lse: bool = False):
+    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D), on the card;
+    with ``return_lse`` also the rows' log-sum-exp, fp32 (B, H, Sq), which
+    :func:`flash_attention_bwd` takes."""
     _check(q, k, v, causal, window, softcap)
     out = output_buffer(q)
+    lse = None
+    if return_lse:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     launch(load().lib, q, k, v, out, causal=causal, window=window,
-           softcap=softcap)
+           softcap=softcap, lse=lse)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def output_buffer(q) -> torch.Tensor:
@@ -115,16 +145,20 @@ def output_buffer(q) -> torch.Tensor:
 
 
 def launch(lib: ctypes.CDLL, q, k, v, out, *, causal: bool,
-           window: Optional[int], softcap: Optional[float]) -> None:
+           window: Optional[int], softcap: Optional[float],
+           lse: Optional[torch.Tensor] = None) -> None:
     """Run the kernel of ``lib`` (bound by :func:`bind`) on checked inputs
-    into ``out`` on the current stream; raise if the launch reports an
-    error. Counts nothing: :func:`flash_attention` does."""
+    into ``out`` (and the rows' log-sum-exp into ``lse``, a contiguous fp32
+    (B, H, Sq) tensor, unless it is None) on the current stream; raise if
+    the launch reports an error. Counts nothing: :func:`flash_attention`
+    does."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], b, h, kvh, sq, sk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -138,4 +172,75 @@ def launch(lib: ctypes.CDLL, q, k, v, out, *, causal: bool,
                            f"{rc} ({msg})")
 
 
+def aligned(t: torch.Tensor) -> bool:
+    """Whether the backward can read ``t`` (B, heads, S, D) 16 bytes at a
+    time: unit stride over D, 16-byte aligned base and strides."""
+    per = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per == 0 for s in t.stride()[:3]))
+
+
+def _check_bwd(q, k, v, o, lse, do, causal, window, softcap):
+    _check(q, k, v, causal, window, softcap)
+    b, h, sq, d = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must match q: {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not aligned(t):
+            raise ValueError(f"{name}: rows must be 16-byte aligned, with "
+                             f"unit stride over head_dim (strides "
+                             f"{t.stride()})")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)} "
+                         f"tensor on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if b * h > 65535:
+        raise ValueError(f"unsupported sizes: B {b} x H {h}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention`'s output ``o`` with
+    respect to q, k and v, given the output's gradient ``do`` and the
+    forward's ``lse``, on the card; dq, dk and dv have the strides of q, k
+    and v."""
+    _check_bwd(q, k, v, o, lse, do, causal, window, softcap)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    b, h, sq, d = q.shape
+    workspace = torch.empty(b * h * sq * (d + 1), dtype=torch.float32,
+                            device=q.device)
+    launch_bwd(load_bwd().lib, q, k, v, o, lse, do, dq, dk, dv, workspace,
+               causal=causal, window=window, softcap=softcap)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def launch_bwd(lib: ctypes.CDLL, q, k, v, o, lse, do, dq, dk, dv, workspace,
+               *, causal: bool, window: Optional[int],
+               softcap: Optional[float]) -> None:
+    """Run the backward of ``lib`` (bound by :func:`bind_bwd`) on checked
+    inputs on the current stream; raise if the launch reports an error.
+    Counts nothing: :func:`flash_attention_bwd` does."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                     workspace)),
+            DTYPES[q.dtype], b, h, kvh, sq, sk, d, *strides,
+            int(causal), window or 0, float(softcap or 0.0),
+            1.0 / math.sqrt(d), stream)
+    if rc != 0:
+        msg = lib.flash_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc} ({msg})")
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -27,11 +27,20 @@ class ParamSpec:
             raise ValueError(f"rank mismatch: {self.shape} {self.logical}")
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of nested dicts."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a tree of nested dicts (and to the
+    leaves at the same paths of ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of nested dicts, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
 
 
 def init_param(generator: torch.Generator, spec: ParamSpec,

@@ -7,13 +7,18 @@ and caches keep the reference's tree: ``head{i}`` for the first dense
 layers, the pattern's blocks stacked under ``blocks.p{j}`` with a leading
 layers axis, and an unstacked ``tail{t}`` when the depth is not a multiple
 of the pattern. The reference's ``jax.lax.scan`` over the stacked axis is a
-loop here. ``loss`` comes with the training slice (ROADMAP.md, Queue 1).
+loop here, and its ``jax.checkpoint`` of each pattern unit (``cfg.remat``)
+is ``torch.utils.checkpoint``. ``loss`` is the training objective: masked
+next-token cross-entropy, optionally over sequence chunks so that the
+(B, S, V) logits never materialise.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
@@ -211,10 +216,39 @@ class CausalLM:
 
     # ---- forward (training / prefill trunk) ----
 
+    def _remat(self, unit):
+        """``unit`` under ``cfg.remat`` when torch records a graph:
+        "nothing_saveable" keeps only the unit's input and recomputes the
+        rest in the backward pass (the reference's ``jax.checkpoint`` with
+        ``nothing_saveable``); "none" saves activations as usual. Remat
+        moves memory only, not numbers."""
+        remat = self.cfg.remat
+        if remat == "none" or not torch.is_grad_enabled():
+            return unit
+        if remat == "nothing_saveable":
+            return lambda *args: checkpoint(unit, *args, use_reentrant=False)
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save only the matrix products) is not ported "
+                "yet (ROADMAP.md, Queue 1: the training slice)")
+        raise ValueError(f"unknown remat {remat!r}")
+
     def _trunk(self, params, x):
         cfg = self.cfg
-        for key, slot, kind in self._layers():
-            x = block_apply(self._select(params, key, slot), x, cfg, kind)
+        reps, tail = self._pattern_layout()
+        for i in range(cfg.first_dense_layers):
+            x = block_apply(params[f"head{i}"], x, cfg, cfg.pattern[0])
+
+        def unit(x, unit_params):
+            for j, kind in enumerate(cfg.pattern):
+                x = block_apply(unit_params[f"p{j}"], x, cfg, kind)
+            return x
+
+        unit = self._remat(unit)
+        for r in range(reps):
+            x = unit(x, layer(params["blocks"], r))
+        for t in range(tail):
+            x = block_apply(params[f"tail{t}"], x, cfg, cfg.pattern[t])
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def forward(self, params, tokens):
@@ -223,6 +257,42 @@ class CausalLM:
         x = self._trunk(params, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return unembed_apply(params["embed"], x, self.cfg), aux
+
+    def loss(self, params, batch):
+        """batch: tokens (B, S), labels (B, S) [-1 = masked] -> (loss +
+        aux, {"ce", "aux"}): the mean fp32 cross-entropy over unmasked
+        labels (at least one in the denominator). With ``cfg.ce_chunk`` the
+        trunk runs once, then the unembedding and log-softmax per chunk of
+        that many positions, so the (B, S, V) logits never materialise."""
+        cfg = self.cfg
+        if batch.get("frontend") is not None:
+            raise NotImplementedError(
+                "modality frontends are not ported yet (ROADMAP.md, Queue 1, "
+                "other model families: paligemma)")
+        labels = batch["labels"]
+        mask = labels >= 0
+        labels = labels.clamp_min(0).long()
+        denom = mask.sum().clamp_min(1)
+
+        def nll(logits, labels, mask):
+            lp = F.log_softmax(logits.float(), dim=-1)
+            ll = lp.gather(-1, labels[..., None])[..., 0]
+            return -(ll * mask).sum()
+
+        if cfg.ce_chunk:
+            x = embed_apply(params["embed"], batch["tokens"], cfg)
+            x = self._trunk(params, x)
+            c = cfg.ce_chunk
+            total = sum(nll(unembed_apply(params["embed"], x[:, i:i + c],
+                                          cfg),
+                            labels[:, i:i + c], mask[:, i:i + c])
+                        for i in range(0, x.shape[1], c))
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            logits, aux = self.forward(params, batch["tokens"])
+            total = nll(logits, labels, mask)
+        loss = total / denom
+        return loss + aux, {"ce": loss, "aux": aux}
 
     # ---- serving ----
 

@@ -327,3 +327,47 @@ def test_short_prompt_leaves_a_conv_cache_decode_refuses(s):
     assert conv.shape[2] < cfg.conv_width - 1
     with pytest.raises(ValueError, match="conv cache holds"):
         model.decode_step(params, cache, torch.from_numpy(toks[:, s:]), s)
+
+
+def per_layer_fan_in_draw(specs, init, rng):
+    """Numpy weights for a stacked parameter tree, each normal weight drawn
+    at one layer's fan-in (the axes a product sums over: all but the last
+    of a projection back to the embedding, else the first), the rest
+    (zeros, lru_a) taken from ``init``, the reference's own draw."""
+    if isinstance(specs, dict):
+        return {k: per_layer_fan_in_draw(specs[k], init[k], rng)
+                for k in specs}
+    if specs.init != "normal":
+        return np.asarray(init)
+    one, axes = specs.shape[1:], specs.logical[1:]
+    fan = (int(np.prod(one[:-1])) if len(one) > 1 and axes[-1] == "embed"
+           else one[0])
+    return (rng.standard_normal(specs.shape) / np.sqrt(fan)).astype(
+        np.float32)
+
+
+def test_unit_agrees_with_jax_at_a_per_layer_fan_in():
+    """One (rglru, rglru, local) unit in fp32, its stacked weights drawn by
+    numpy at a per-layer fan-in and carried to both packages by the bridge
+    (chip_smoke.py draws the same way on the card, ROADMAP.md Queue 3): the
+    forward's logits and the prefill cache's recurrent states agree to
+    MODEL_TOL, max-normalised, beyond the window (prompt 80, window 64)."""
+    cfg = reduced_cfg(num_layers=3)
+    model = jax_build_model(cfg)
+    ref_init = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(2)))
+    np_params = dict(ref_init, blocks=per_layer_fan_in_draw(
+        model.specs()["blocks"], ref_init["blocks"],
+        np.random.default_rng(3)))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 80))
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    want, _ = jax.jit(model.forward)(jparams, jnp.asarray(toks))
+    _, want_cache = jax.jit(model.prefill, static_argnames="max_len")(
+        jparams, jnp.asarray(toks), max_len=88)
+    port = build_model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
+    params = params_from_jax(np_params, device="cpu")
+    got, _ = port.forward(params, torch.from_numpy(toks))
+    _, got_cache = port.prefill(params, torch.from_numpy(toks), max_len=88)
+    assert max_norm_err(got, np.asarray(want)) < MODEL_TOL
+    for j in ("p0", "p1"):
+        assert max_norm_err(got_cache["blocks"][j]["h"], np.asarray(
+            want_cache["blocks"][j]["h"])) < MODEL_TOL
