@@ -962,7 +962,7 @@ def build_kernels():
         log("b", f"{name}: {built.path.name}, nvcc {built.seconds:.1f} s")
         for line in built.log.splitlines():
             if "Compiling entry" in line or "registers" in line or \
-                    "spill" in line:
+                    "spill" in line or "wgmma" in line:
                 log("b", line.strip())
 
 
@@ -1185,6 +1185,10 @@ def main():
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     bwd_row["launches_by_path"] = {
         "smollm-135m training": train_counts["flash_attention_bwd"]}
+    # the library's backward in device time (a CUDA graph, like the
+    # kernel's), its eager call, and the backend PyTorch picked
+    bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
+    bwd_row["library_backend"] = bwd_rows["train-2048"]["library_backend"]
     record = {"kernels": [flash_row, bwd_row, ssd_row, rglru_row]}
     print(json.dumps(record))
     print(bench.card())

@@ -9,18 +9,24 @@ bound and one PyTorch library call computing the same function.
 ``git show REV:src/repro_torch/kernels/ssd/csrc/ssd_scan.cu > OLD.cu``) and
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
-which kernel it is: ``flash_attention_fwd``, ``ssd_scan_fwd`` or
-``rglru_scan_fwd``. ``flash_attention_abi`` / ``ssd_scan_abi`` say which C
+which kernel it is: ``flash_attention_fwd``, ``flash_attention_bwd``,
+``ssd_scan_fwd`` or ``rglru_scan_fwd``. ``<name>_abi`` says which C
 interface it has (none: version 1); sources with an older one than the
 wrappers' (before the output strides and the SSD workspace, version 1; the
-flash forward before its log-sum-exp output, version 2) are called with
-their own (``launch_old``). All write the same logical layout, which
+flash forward before its log-sum-exp output, version 2; the flash backward
+before its tiled workspace, version 1) are called with their own
+(``launch_old``). All write the same logical layout, which
 ``max|new - old|`` compares. A shape the old source does not take is
 reported and skipped.
 
 The flash-attention backward is timed at smollm-135m's training shape
 beside its plain version (torch autograd of ``attention_ref``) and the
-backward of ``scaled_dot_product_attention``.
+backward of ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its
+output, captured in a CUDA graph like the kernel, so both are device times;
+the eager call is printed beside it, named so, with the backend PyTorch
+picks). ``--profile`` also lists the library backward's kernels by device
+time, last, as a profile of autograd's backward left later profiles in the
+same process without device events.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
@@ -73,16 +79,17 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn`` (CUDA graph of ``iters`` calls)."""
-    side = torch.cuda.Stream()
+def graph_ms(fn, iters: int = 20, warmup: int = 3, stream=None) -> float:
+    """Device time of one call of ``fn`` (CUDA graph of ``iters`` calls),
+    warmed up and captured on ``stream`` (default: a new one)."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -225,12 +232,36 @@ def time_flash_attention(label: str, seed: int = 1) -> dict:
                                                          window=window)))
 
 
+def sdpa_backend(q, k, v) -> str:
+    """The backend PyTorch picks for :func:`sdpa` on these inputs (flash,
+    efficient, cuDNN or math)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, is_causal=True, enable_gqa=True)).name
+
+
+def library_backward(q, k, v, do):
+    """(fn, stream): ``fn`` computes the gradients of :func:`sdpa` on q, k,
+    v (contiguous copies) for the output gradient ``do``, replaying the
+    backward of one forward kept on ``stream``. Autograd runs each
+    backward op on its forward's stream, so the forward runs there and a
+    CUDA graph of ``fn`` is captured on it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [x.detach().contiguous().requires_grad_(True)
+                  for x in (q, k, v)]
+        res = sdpa(*leaves)
+    return (lambda: torch.autograd.grad(res, leaves, do,
+                                        retain_graph=True)), stream
+
+
 def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     """The backward kernel at one of BWD_SHAPES (bf16, causal) from the
     forward kernel's output and log-sum-exp, its plain version (torch
-    autograd of ``attention_ref``) and the backward of
-    ``scaled_dot_product_attention`` (each graph kept and its backward
-    replayed), with the bound."""
+    autograd of ``attention_ref``, its graph kept and the backward
+    replayed, eager) and the backward of ``scaled_dot_product_attention``
+    (device time from a CUDA graph, and one eager call), with the bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     b, h, kv, s, d, layout = BWD_SHAPES[label]
@@ -254,11 +285,14 @@ def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     plain = backward_of(attention_ref, (q, k, v))
     plain_ms = eager_ms(plain, iters=2, warmup=1)
     del plain
+    library, stream = library_backward(q, k, v, do)
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9, plain_ms=plain_ms,
-        library_ms=eager_ms(backward_of(
-            sdpa, (q.contiguous(), k.contiguous(), v.contiguous()))),
+        library_ms=graph_ms(library, stream=stream),
+        library_eager_ms=eager_ms(library),
+        library_backend=sdpa_backend(q.contiguous(), k.contiguous(),
+                                     v.contiguous()),
         eager_ms=eager_ms(run))
 
 
@@ -266,13 +300,14 @@ def describe_bwd(row: dict) -> str:
     b, h, kv, s, d, layout = BWD_SHAPES[row["label"]]
     return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 causal "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
-            f"TFLOP/s), plain (autograd of attention_ref) "
+            f"TFLOP/s), plain (autograd of attention_ref, eager) "
             f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention's "
-            f"backward {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel/bound "
-            f"{row['ms'] / row['bound_ms']:.2f}x, kernel/library "
-            f"{row['ms'] / row['library_ms']:.2f}x; one eager call "
-            f"{row['eager_ms']:.4f} ms")
+            f"backward ({row['library_backend']}) {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x, "
+            f"kernel/library {row['ms'] / row['library_ms']:.2f}x (device "
+            f"times); one eager call: kernel {row['eager_ms']:.4f} ms, "
+            f"library {row['library_eager_ms']:.4f} ms")
 
 
 def describe(row: dict) -> str:
@@ -414,8 +449,9 @@ def describe_rglru(row: dict) -> str:
 
 def ptxas_report(log: str) -> list:
     """["entry: N registers, S bytes spill stores", ...] from nvcc's
-    ``-Xptxas -v`` output."""
+    ``-Xptxas -v`` output, then its notes on wgmma (products serialised)."""
     out, entry, spill = [], None, "0"
+    notes = [line.strip() for line in log.splitlines() if "wgmma" in line]
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -428,13 +464,13 @@ def ptxas_report(log: str) -> list:
             out.append(f"{entry}: {m.group(1)} registers, {spill} bytes "
                        "spill stores")
             entry, spill = None, "0"
-    return out
+    return out + notes
 
 
 def profile_kernels(seed: int = 1) -> None:
     """One call of each kernel at each of its shapes under torch.profiler:
     the device time of every CUDA kernel it launched (the SSD scan and the
-    flash backward launch three)."""
+    flash backward launch three); last, the library backward's kernels."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
@@ -459,28 +495,45 @@ def profile_kernels(seed: int = 1) -> None:
         out, lse = flash.flash_attention(q, k, v, return_lse=True)
         calls[f"flash_attention_bwd {label}"] = (
             lambda a=(q, k, v, out, lse, do): flash.flash_attention_bwd(*a))
+        calls[f"scaled_dot_product_attention backward {label}"] = \
+            library_backward(q, k, v, do)[0]
     for name, fn in calls.items():
         prof = device_profile(fn, top=8)
-        print(f"profile {name}: " + "; ".join(
-            f"{k} {ms * 1e3:.1f} us x{n}" for k, ms, n in prof["top"]),
-            flush=True)
+        print(f"profile {name}: busy {prof['busy_ms'] * 1e3:.1f} us; "
+              + "; ".join(f"{k} {ms * 1e3:.1f} us x{n}"
+                          for k, ms, n in prof["top"]), flush=True)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C interfaces older than the wrappers': flash_attention.cu and
 # ssd_scan.cu before the output strides and the SSD workspace (version 1:
 # flash attention wrote a contiguous (B, H, Sq, D) output, the SSD scan
-# took no workspace), and flash_attention.cu before the log-sum-exp output
-# (version 2)
+# took no workspace), flash_attention.cu before the log-sum-exp output
+# (version 2), and flash_attention_bwd.cu before its tiled workspace
+# (version 1: the same arguments, a workspace of delta (B, H, Sq), then
+# dQ's sums (B, H, Sq, D))
 OLD_ARGTYPES = {("flash_attention", 1): (_P, _P, _P, _P, *(_I,) * 7,
                                          *(_L,) * 9, _I, _I, ctypes.c_float,
                                          ctypes.c_float, _P),
                 ("flash_attention", 2): (_P, _P, _P, _P, *(_I,) * 7,
                                          *(_L,) * 12, _I, _I, ctypes.c_float,
                                          ctypes.c_float, _P),
-                ("ssd_scan", 1): (*(_P,) * 7, *(_I,) * 7, *(_L,) * 10, _P)}
+                ("ssd_scan", 1): (*(_P,) * 7, *(_I,) * 7, *(_L,) * 10, _P),
+                ("flash_attention_bwd", 1): (*(_P,) * 10, *(_I,) * 7,
+                                             *(_L,) * 24, _I, _I,
+                                             ctypes.c_float, ctypes.c_float,
+                                             _P)}
 # the C interface versions the wrappers call
-CURRENT = {"flash_attention": 3, "ssd_scan": 2}
+CURRENT = {"flash_attention": 3, "ssd_scan": 2, "flash_attention_bwd": 2}
+# each kernel's C entry point
+ENTRY = {"flash_attention": "flash_attention_fwd", "ssd_scan": "ssd_scan_fwd",
+         "rglru_scan": "rglru_scan_fwd",
+         "flash_attention_bwd": "flash_attention_bwd"}
+
+
+def old_bwd_workspace_numel(b: int, h: int, sq: int, d: int) -> int:
+    """fp32 elements of a version-1 backward's workspace."""
+    return b * h * sq * (d + 1)
 
 
 def interface_version(lib: ctypes.CDLL, name: str) -> int:
@@ -498,13 +551,26 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
     """Call a library of ``name`` with an older C interface on the current
     stream: flash_attention (q, k, v, out, window), causal (version 1:
     ``out`` contiguous; version 2: through its strides, no log-sum-exp);
-    ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk)."""
-    fwd = getattr(lib, f"{name}_fwd")
+    ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk);
+    flash_attention_bwd version 1 (q, k, v, o, lse, do, dq, dk, dv,
+    workspace of ``old_bwd_workspace_numel``), causal."""
+    fwd = getattr(lib, ENTRY[name])
     fwd.argtypes, fwd.restype = OLD_ARGTYPES[name, version], ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     stream = torch.cuda.current_stream().cuda_stream
-    if name == "flash_attention":
+    if name == "flash_attention_bwd":
+        q, k, v, o, lse, do, dq, dk, dv, ws = args
+        b, h, sq, d = q.shape
+        if ws.numel() < old_bwd_workspace_numel(b, h, sq, d):
+            raise ValueError("a version-1 backward needs a larger workspace")
+        rc = fwd(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                           ws)),
+                 1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1], sq,
+                 k.shape[2], d, *(st for t in (q, k, v, o, do, dq, dk, dv)
+                                  for st in t.stride()[:3]),
+                 1, 0, 0.0, 1.0 / math.sqrt(d), stream)
+    elif name == "flash_attention":
         q, k, v, out, window = args
         if version == 1 and not out.is_contiguous():
             raise ValueError("a version-1 library writes a contiguous out")
@@ -544,17 +610,17 @@ def compare(old_source: Path, seed: int = 1):
         name, module, shapes = "rglru_scan", rglru, RGLRU_SHAPES
     elif hasattr(lib, "flash_attention_bwd"):
         name, module, shapes = "flash_attention_bwd", flash, BWD_SHAPES
-        flash.bind_bwd(lib)
     else:
         name, module, shapes = "flash_attention", flash, SHAPES
-    # rglru_scan's and flash_attention_bwd's never changed
+    # rglru_scan's has not changed: it exports no version
     version = interface_version(lib, name)
     current = version == CURRENT.get(name, 1)
     if not current and (name, version) not in OLD_ARGTYPES:
         raise ValueError(f"{old_source}: unknown C interface version "
                          f"{version}")
-    if current and name != "flash_attention_bwd":
-        module.bind(lib)
+    if current:
+        (flash.bind_bwd if name == "flash_attention_bwd"
+         else module.bind)(lib)
     print(f"{old_source}: {name}, C interface version {version}",
           flush=True)
     for label in shapes:
@@ -566,11 +632,17 @@ def compare(old_source: Path, seed: int = 1):
             do = torch.randn_like(q)
             o, lse = flash.flash_attention(q, k, v, return_lse=True)
             grads = [torch.empty_like(t) for t in (q, k, v)]
-            ws = torch.empty(b * h * s * (d + 1), device="cuda")
+            ws = torch.empty(
+                (flash.bwd_workspace_numel if current
+                 else old_bwd_workspace_numel)(b, h, s, d), device="cuda")
 
             def run_old():
-                flash.launch_bwd(lib, q, k, v, o, lse, do, *grads, ws,
-                                 causal=True, window=None, softcap=None)
+                if not current:
+                    launch_old(name, version, lib, q, k, v, o, lse, do,
+                               *grads, ws)
+                else:
+                    flash.launch_bwd(lib, q, k, v, o, lse, do, *grads, ws,
+                                     causal=True, window=None, softcap=None)
 
             def run_new():
                 return flash.flash_attention_bwd(q, k, v, o, lse, do)
@@ -642,8 +714,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
                     help="other versions of flash_attention.cu, "
-                         "ssd_scan.cu or rglru_scan.cu to compare, each "
-                         "in turns with the current one")
+                         "flash_attention_bwd.cu, ssd_scan.cu or "
+                         "rglru_scan.cu to compare, each in turns with the "
+                         "current one")
     ap.add_argument("--profile", action="store_true",
                     help="also the device time of each CUDA kernel one "
                          "call launches (torch.profiler)")

@@ -25,32 +25,65 @@
 // What bounds it on this card: five products of 2 D flops for each (query,
 // key) pair the mask lets through, against reading q, k, v, o, do, lse and
 // writing dq, dk, dv once: at smollm's training shape (S 2048, D 64) it is
-// bound by operations (~0.1 ms at the dense bf16 rate).
+// bound by operations (~0.1 ms at the dense bf16 rate), which only the
+// tensor cores reach, and only through wgmma.
 //
-// What the design does about it (a first, simple design; wgmma and TMA
-// are later work):
-//  - One block of 8 warps per (batch, KV head, tile of BN keys). It keeps
-//    its K and V tiles in shared memory and dK, dV in registers, and walks
-//    every query head of the KV head's group and every query tile that can
-//    see its keys (causal and window ranges: masked tiles are skipped), so
-//    dK and dV are summed over the group without atomics and written once.
-//  - dQ is summed over key tiles by fp32 atomics (two neighbouring head
-//    dims per atomic, sm_90's float2 atomicAdd) into a workspace, zeroed by
-//    the delta pass, then rounded into dq by a third pass.
-//  - bf16: the products run on the tensor cores as mma.sync m16n8k16 (fp32
-//    accumulate), their fragments loaded by ldmatrix, transposed where the
-//    operand is read k-major (P^T, dS^T; dO, Q and K as B). P and dS are
-//    rounded to bf16 for their products, as FlashAttention-2 does.
-//  - fp32: the tensor cores would round to TF32, so the same routine runs
-//    the products on the CUDA cores, each thread computing the elements an
-//    mma.sync accumulator would hold. Tiles of 32 at D >= 128 keep shared
-//    memory under the block's limit.
-//  - Each query tile's Q, dO, lse and delta are copied in by cp.async
-//    while the previous tile is in use (two buffers). No mbarrier: a
-//    cp.async wait covers only the thread's own copies, which complete, and
-//    the block synchronises with __syncthreads, so no wait can hang.
-//  - The kernels launch on the caller's stream and allocate nothing: the
-//    wrapper passes the workspace (delta, then dQ's fp32 sums).
+// Three kernels a call, on the caller's stream:
+//  1. delta: per 64-row query tile, delta = rowsum(do * o) and the rows'
+//     lse into one 512-byte record (64 lse, then 64 delta; rows past Sq get
+//     lse = +inf, so exp(s - lse) is 0 there), and zeros into the tile's
+//     fp32 dQ sums. 16-byte loads and stores.
+//  2. dK / dV (and dQ's sums): one block per (batch, KV head, tile of
+//     keys) keeps its K and V in shared memory and dK, dV in registers and
+//     walks every query head of the KV head's group and every query tile
+//     the masks let through, so dK and dV are summed over the group without
+//     atomics and written once. Causal key tiles near 0 see the most query
+//     tiles: they start first.
+//  3. dq: the fp32 sums rounded into dq through its strides, 16 bytes a
+//     thread.
+// dQ's sums live in the workspace by 64-row tile, each tile's 64 x D fp32 as
+// column blocks of 32 head dims, a row's eight 16-byte chunks XOR-swizzled
+// by the row (so the wgmma kernel's staging is free of bank conflicts and
+// one bulk copy moves a tile); the records follow.
+//
+// Pass 2 has two designs, chosen at compile time by type and head_dim:
+//  - bf16 at D 64 and 128 (smollm's training, and the head_dim of gemma2,
+//    qwen3, phi3.5 and deepseek): wgmma fed by TMA, warp-specialised
+//    (flash_bwd_wgmma). A producer warp, one thread of which issues TMA
+//    loads: K and V once, then each query tile's Q and dO (64 rows) and its
+//    record into a ring of two stages, each signalled by an mbarrier and
+//    freed by one the consumers arrive on. Consumer warpgroups own 64 keys
+//    each (two at D 64, one at D 128, whose dK and dV take 128 registers a
+//    thread). A consumer computes S^T = K Q^T and dP^T = V dO^T (wgmma
+//    m64n64k16, both operands K-major in shared memory), so P^T = exp(S^T -
+//    lse) and dS^T = P^T (dP^T - delta) sit in the accumulator layout of its
+//    key rows; rounded to bf16 they are the register A operands of dV +=
+//    P^T dO and dK += dS^T Q (dO and Q read transposed from shared memory):
+//    P never goes through shared memory. dS^T alone does, double-buffered,
+//    for dQ = dS K (A = dS^T read transposed, B = K read transposed), which
+//    the consumers take in turns, over all the block's keys, after a named
+//    barrier; the turn's consumer stages its 64 x D fp32 tile in shared
+//    memory and one thread adds it to dQ's sums by one bulk reduce-add
+//    (cp.reduce.async.bulk .add.f32), with no per-element atomics. Tiles are
+//    stored as TMA writes them: rows of 128 bytes (64 head dims, or 64
+//    query columns of dS^T) with the 128-byte swizzle, one column block
+//    after another, and the wgmma descriptors use the same swizzle. Every
+//    mbarrier wait traps after 4 s, so a broken pipeline fails the launch
+//    instead of holding the card. One block an SM: 288 threads at D 64
+//    (224 registers a thread at most), 160 at D 128.
+//  - bf16 at D 32 and 256, and fp32 at every D: a block of 8 warps runs the
+//    products as mma.sync m16n8k16 (fp32 accumulate), fragments loaded by
+//    ldmatrix (bf16), or on the CUDA cores (fp32: the tensor cores would
+//    round to TF32), each thread computing the elements an mma.sync
+//    accumulator would hold (flash_bwd_dkdv). P and dS go through shared
+//    memory; each query tile's Q, dO and record are copied in by cp.async
+//    while the previous tile is used (two buffers; no mbarrier, so no wait
+//    can hang); dQ is added to its sums by sm_90's float2 atomics. Tiles of
+//    32 at fp32 D >= 128 keep shared memory under the block's limit.
+// P and dS are rounded to bf16 for their products (bf16 inputs), as
+// FlashAttention-2 does. The kernels allocate nothing: the wrapper passes
+// the workspace (dQ's sums, then the records).
+#include <cuda.h>  // CUtensorMap and its enums (the encoder: at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -60,8 +93,15 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;            // flash_bwd_dkdv and the passes
 constexpr int THREADS = 32 * WARPS;
+constexpr int QTILE = 64;           // rows of a dQ tile and of a record
+constexpr int REC = 2 * QTILE;      // floats of a record: lse, then delta
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Errors of our own, beside CUDA's codes
+constexpr int kErrNoEncoder = 2001;  // cuTensorMapEncodeTiled not found
+constexpr int kErrEncode = 2002;     // a tensor map was refused
 
 struct Params {
   const void* q;
@@ -73,9 +113,10 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* delta;   // workspace: (B, H, Sq)
-  float* dq_acc;  // workspace: (B, H, Sq, D) contiguous fp32
+  float* dq_acc;  // workspace: (B, H, QT) tiles of 64 x D fp32, swizzled
+  float* rec;     // workspace: (B, H, QT) records of 64 lse, 64 delta
   int B, H, KV, Sq, Sk;
+  int QT;         // 64-row query tiles: ceil(Sq / 64)
   long long q_sb, q_sh, q_ss;  // element strides over (batch, head, seq)
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -101,31 +142,83 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Where element (r, c) of a 64 x D tile of dQ's sums sits in the tile:
+// column block c / 32 (2048 floats), row r (32 floats), its 4-float chunk
+// XOR-swizzled by r % 8. Two neighbouring columns 2i, 2i + 1 stay
+// neighbours.
+__device__ __forceinline__ int acc_offset(int r, int c) {
+  return (c >> 5) * 2048 + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// The first float of query tile qt's dQ sums, and of its record
+__device__ __forceinline__ float* acc_tile(const Params& p, long long bh,
+                                           int qt, int D) {
+  return p.dq_acc + (bh * p.QT + qt) * QTILE * D;
+}
+__device__ __forceinline__ float* rec_tile(const Params& p, long long bh,
+                                           int qt) {
+  return p.rec + (bh * p.QT + qt) * REC;
+}
+
+// sum over 16 bytes of x and y of x_i y_i
+__device__ __forceinline__ float dot16(const float4& x, const float4& y,
+                                       float) {
+  return x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+}
+__device__ __forceinline__ float dot16(const float4& x, const float4& y,
+                                       bf16) {
+  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(a[i]), w = __bfloat1622float2(b[i]);
+    s = fmaf(u.x, w.x, fmaf(u.y, w.y, s));
+  }
+  return s;
+}
+
 // ---------------------------------------------------------------------------
-// pass 1: delta = rowsum(do * o); zero dQ's fp32 sums. A warp per row.
+// pass 1: per 64-row query tile, the record (lse, delta = rowsum(do * o))
+// and zeros into dQ's sums
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_delta(const Params p) {
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= p.Sq) return;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh +
-               row * p.o_ss;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb +
-                  h * p.do_sh + row * p.do_ss;
-  float* acc = p.dq_acc + (static_cast<long long>(bh) * p.Sq + row) * D;
-  float sum = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    sum += to_f32(dout[d]) * to_f32(o[d]);
-    acc[d] = 0.f;
-  }
+  constexpr int VEC = 16 / sizeof(T);      // elements per 16 bytes
+  constexpr int CH = D / VEC;              // 16-byte chunks per row
+  constexpr int LPR = CH < 32 ? CH : 32;   // lanes per row
+  constexpr int RPP = THREADS / LPR;       // rows per pass
+  static_assert(QTILE % RPP == 0, "rows");
+  const long long bh = blockIdx.y;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int qt = blockIdx.x, m0 = qt * QTILE;
+  const int part = threadIdx.x % LPR;
+  float* rec = rec_tile(p, bh, qt);
+  for (int r = threadIdx.x / LPR; r < QTILE; r += RPP) {
+    const int i = m0 + r;
+    float sum = 0.f;
+    if (i < p.Sq) {
+      const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh +
+                   i * p.o_ss;
+      const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb +
+                      h * p.do_sh + i * p.do_ss;
+      for (int c = part; c < CH; c += LPR)
+        sum += dot16(*reinterpret_cast<const float4*>(o + c * VEC),
+                     *reinterpret_cast<const float4*>(dout + c * VEC), T());
+    }
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) p.delta[static_cast<long long>(bh) * p.Sq + row] = sum;
+    for (int off = LPR / 2; off > 0; off /= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (part == 0) {
+      rec[r] = i < p.Sq ? p.lse[bh * p.Sq + i] : INFINITY;
+      rec[QTILE + r] = sum;
+    }
+  }
+  float4* acc = reinterpret_cast<float4*>(acc_tile(p, bh, qt, D));
+  for (int c = threadIdx.x; c < QTILE * D / 4; c += THREADS)
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -134,19 +227,48 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_delta(const Params p) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq(const Params p) {
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= p.Sq) return;
-  const float* acc =
-      p.dq_acc + (static_cast<long long>(bh) * p.Sq + row) * D;
-  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss;
-  for (int d = lane; d < D; d += 32) dq[d] = from_f32<T>(acc[d]);
+  const long long bh = blockIdx.y;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int qt = blockIdx.x, m0 = qt * QTILE;
+  const float4* acc = reinterpret_cast<const float4*>(acc_tile(p, bh, qt, D));
+  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  for (int c = threadIdx.x; c < QTILE * D / 4; c += THREADS) {
+    // chunk c: column block c / 512, row (c / 8) % 64, stored chunk c % 8
+    const int r = (c >> 3) & (QTILE - 1);
+    const int col = (c >> 9) * 32 + (((c & 7) ^ (r & 7)) << 2);
+    if (m0 + r >= p.Sq) continue;
+    const float4 x = acc[c];
+    T* dst = dq + (m0 + r) * p.dq_ss + col;
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float4*>(dst) = x;
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst) = packed;
+    }
+  }
+}
+
+// The query rows [lo, hi) that can see some key of [n0, n_end): causal
+// rows from the first key's position on, window rows up to the last key's
+// position + window - 1.
+__device__ __forceinline__ void q_range(const Params& p, int n0, int n_end,
+                                        int& lo, int& hi) {
+  const int offset = p.Sk - p.Sq;
+  lo = p.causal ? max(0, n0 - offset) : 0;
+  hi = p.window > 0 ? min(p.Sq, n_end - 1 + p.window - offset) : p.Sq;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---------------------------------------------------------------------------
-// pass 2: dK, dV (and dQ's sums)
+// pass 2, mma.sync / CUDA cores (bf16 at D 32 and 256, fp32): dK, dV and
+// dQ's sums
 // ---------------------------------------------------------------------------
 
 // A warp's part of a (rows x cols) product: a group of 16 rows and a chunk
@@ -176,11 +298,8 @@ struct Tile {
   static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
   static_assert(WARPS % (BM / 16) == 0 && WARPS % (BN / 16) == 0, "tiles");
   static_assert(WS % 8 == 0 && WKV % 8 == 0 && WQ % 8 == 0, "warp tiles");
+  static_assert(QTILE % BM == 0, "query tiles within a dQ tile");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 and receives row l / 4, columns 2 (l % 4) + {0, 1} of each.
@@ -312,16 +431,6 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld,
   }
 }
 
-// The query rows [lo, hi) that can see some key of [n0, n_end): causal
-// rows from the first key's position on, window rows up to the last key's
-// position + window - 1.
-__device__ __forceinline__ void q_range(const Params& p, int n0, int n_end,
-                                        int& lo, int& hi) {
-  const int offset = p.Sk - p.Sq;
-  lo = p.causal ? max(0, n0 - offset) : 0;
-  hi = p.window > 0 ? min(p.Sq, n_end - 1 + p.window - offset) : p.Sq;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, Tile<T, D>::MIN_BLOCKS)
 flash_bwd_dkdv(const Params p) {
@@ -373,12 +482,11 @@ flash_bwd_dkdv(const Params p) {
     load_rows<T, BM, D, LD>(dOs + buf * BM * LD,
                             static_cast<const T*>(p.dout) + b * p.do_sb +
                             h * p.do_sh, p.do_ss, m0, p.Sq);
-    if (threadIdx.x < BM) {
-      const int i = m0 + threadIdx.x;
-      const bool valid = i < p.Sq;
-      const long long at = bh * p.Sq + (valid ? i : 0);
-      cp_async<4>(lse_s + buf * BM + threadIdx.x, p.lse + at, valid);
-      cp_async<4>(delta_s + buf * BM + threadIdx.x, p.delta + at, valid);
+    if (threadIdx.x < BM) {  // the record covers every row of the tile
+      const float* rec = rec_tile(p, bh, m0 / QTILE) + m0 % QTILE;
+      cp_async<4>(lse_s + buf * BM + threadIdx.x, rec + threadIdx.x, true);
+      cp_async<4>(delta_s + buf * BM + threadIdx.x,
+                  rec + QTILE + threadIdx.x, true);
     }
     cp_async_commit();
   };
@@ -446,13 +554,14 @@ flash_bwd_dkdv(const Params p) {
     warp_gemm<T, BM, WKV / 8, 1, LP, LD, 1>(dv, Ps + kr, dOb + kc, g, t);
     warp_gemm<T, BM, WKV / 8, 1, LP, LD, 1>(dk, dSs + kr, Qb + kc, g, t);
     // dQ += dS K, QN head dims at a time, summed over key tiles by atomics
+    float* acc = acc_tile(p, bh, m0 / QTILE, D);
+    const int ar = m0 % QTILE;  // this tile's first row in the dQ tile
 #pragma unroll 1
     for (int c0 = qc; c0 < qc + WQ; c0 += QN) {
       float dq[QN / 8][4];
       zero(dq);
       warp_gemm<T, BN, QN / 8, LP, 1, LD, 1>(dq, dSs + qr * LP, Ks + c0, g,
                                              t);
-      float* acc = p.dq_acc + (bh * p.Sq + m0) * D;
 #pragma unroll
       for (int j = 0; j < QN / 8; ++j) {
 #pragma unroll
@@ -460,7 +569,7 @@ flash_bwd_dkdv(const Params p) {
           const int r = qr + g + 8 * (e >> 1);
           const int c = c0 + 8 * j + 2 * t;
           if (m0 + r < p.Sq)
-            atomicAdd(reinterpret_cast<float2*>(acc + r * D + c),
+            atomicAdd(reinterpret_cast<float2*>(acc + acc_offset(ar + r, c)),
                       make_float2(dq[j][e], dq[j][e + 1]));
         }
       }
@@ -487,25 +596,678 @@ flash_bwd_dkdv(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// pass 2, wgmma + TMA, warp-specialised (bf16 at D 64 and 128): dK, dV and
+// dQ's sums
+// ---------------------------------------------------------------------------
+
+constexpr int STAGES = 2;  // query tiles in flight
+constexpr int ROWB = 128;  // bytes of a shared-memory row: 64 bf16
+// named barriers: 0 is __syncthreads, DS_READY the consumers' dS^T of a
+// query tile in shared memory, STAGED + wg consumer wg's dQ tile staged
+constexpr int DS_READY = 1;
+constexpr int STAGED = 2;
+
+// A block: NWG consumer warpgroups of 64 keys, then a producer warp.
+// __launch_bounds__(THREADS, 1) leaves ptxas 65536 / THREADS registers a
+// thread: 224 at D 64 (two consumers: dK and dV 64 fp32 registers, S^T
+// and dP^T 64 more), 255 at D 128 (one consumer: dK and dV alone take 128).
+template <int D>
+struct Wg {
+  static constexpr int NWG = D == 64 ? 2 : 1;
+  static constexpr int NK = 64 * NWG;             // keys per block
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int CB = D / 64;               // column blocks of 64
+  static constexpr int QT_BYTES = QTILE * D * 2;  // one Q or dO tile
+  static constexpr int KV_BYTES = NK * D * 2;     // K or V
+  static constexpr int DS_BYTES = NK * QTILE * 2; // dS^T of one query tile
+  static constexpr int ACC_BYTES = QTILE * D * 4; // one staged dQ tile
+  static constexpr int REC_BYTES = REC * 4;
+  // byte offsets from the 1024-byte aligned base (swizzled tiles need it)
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + KV_BYTES;
+  static constexpr int OFF_Q = OFF_V + KV_BYTES;              // STAGES
+  static constexpr int OFF_DO = OFF_Q + STAGES * QT_BYTES;    // STAGES
+  static constexpr int OFF_DS = OFF_DO + STAGES * QT_BYTES;   // 2
+  static constexpr int OFF_ACC = OFF_DS + 2 * DS_BYTES;       // NWG
+  static constexpr int OFF_REC = OFF_ACC + NWG * ACC_BYTES;   // STAGES
+  static constexpr int OFF_BAR = OFF_REC + STAGES * REC_BYTES;
+  // K and V loaded; per stage: query tile loaded, query tile free
+  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+// A wait that never ends is a bug in the pipeline: after 4 s, trap, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  uint64_t start = 0;
+  for (uint32_t polls = 1;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls % 4096 == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (start == 0) start = now;
+      else if (now - start > 4000000000ull) __trap();
+    }
+  }
+}
+
+// TMA: the box of ``map`` at coordinates (c0, c1, c2, c3) into shared
+// memory at dst; its bytes complete a transaction of the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared at dst, both 16-byte aligned;
+// they complete a transaction of the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// global[dst + i] += shared[src + i] for bytes / 4 floats, as one
+// asynchronous bulk operation (a bulk group of this thread).
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Make this thread's writes to shared memory visible to the async proxy
+// (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), 128-byte swizzle. K-major (rows of 64
+// elements along k): the leading offset is unused, the stride is 8 rows.
+// MN-major (rows along k, 64 elements of m or n each): the leading offset
+// is the stride of the next 64 of m or n, the stride 8 rows.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x (the hardware's approximation, relative error 2^-22; 0 for -inf)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keep the compiler from moving accesses of accumulator registers across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both in shared memory:
+// K-major when TA / TB is 0, MN-major (read transposed) when 1; d is
+// overwritten when accumulate is 0.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16) B (16 x 128), both in shared memory:
+// K-major when TA / TB is 0, MN-major (read transposed) when 1; d is
+// overwritten when accumulate is 0.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, MN-major in
+// shared memory, read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, registers) B (16 x 128, MN-major in
+// shared memory, read transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+
+// An accumulator of 64 x 64 (n8 block j: a[4 j .. 4 j + 3]: rows r0, r0 +
+// 8, columns 8 j + 2 t + {0, 1}), rounded to bf16, as the register A
+// operands of a product over its columns: 16 at a time.
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4],
+                                       const float (&a)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(a[8 * kk], a[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(a[8 * kk + 2], a[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(a[8 * kk + 4], a[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(a[8 * kk + 6], a[8 * kk + 7]);
+  }
+}
+
+struct Maps {
+  CUtensorMap q, k, v, dout;  // 4-d over (D, S, heads, B)
+};
+
+template <int D>
+__global__ void __launch_bounds__(Wg<D>::THREADS, 1)
+flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
+  using W = Wg<D>;
+  constexpr int NWG = W::NWG, NK = W::NK, CB = W::CB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + W::OFF_K, sV = base + W::OFF_V;
+  auto sQ = [&](int s) { return base + W::OFF_Q + s * W::QT_BYTES; };
+  auto sdO = [&](int s) { return base + W::OFF_DO + s * W::QT_BYTES; };
+  auto sDS = [&](int i) { return base + W::OFF_DS + i * W::DS_BYTES; };
+  auto sRec = [&](int s) { return base + W::OFF_REC + s * W::REC_BYTES; };
+  const uint32_t kv_full = base + W::OFF_BAR;
+  auto q_full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto q_free = [&](int s) { return kv_full + 8u * (1 + STAGES + s); };
+
+  // key tile blockIdx.y: under a causal mask tile 0 sees the most query
+  // tiles, and blocks start in order
+  const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
+  const int n0 = blockIdx.y * NK;
+  const int group = p.H / p.KV;
+  int q_lo, q_hi;
+  q_range(p, n0, min(n0 + NK, p.Sk), q_lo, q_hi);
+  const int m_first = (q_lo / QTILE) * QTILE;
+  const int per_head =
+      q_hi > m_first ? (q_hi - m_first + QTILE - 1) / QTILE : 0;
+  const int n_tiles = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(q_free(s), NWG * 128);  // every consumer thread releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    // producer: one thread loads K and V, then keeps the ring of query
+    // tiles (Q, dO and the record) full
+    if (threadIdx.x == NWG * 128 && n_tiles > 0) {
+      mbar_expect_tx(kv_full, 2 * W::KV_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+        tma_load(sK + cb * NK * ROWB, &maps.k, kv_full, cb * 64, n0, kvh, b);
+        tma_load(sV + cb * NK * ROWB, &maps.v, kv_full, cb * 64, n0, kvh, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, use = it / STAGES;
+        const int h = kvh * group + it / per_head;
+        const int m0 = m_first + (it % per_head) * QTILE;
+        if (use > 0) mbar_wait(q_free(s), (use - 1) & 1);
+        mbar_expect_tx(q_full(s), 2 * W::QT_BYTES + W::REC_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb) {
+          tma_load(sQ(s) + cb * QTILE * ROWB, &maps.q, q_full(s), cb * 64,
+                   m0, h, b);
+          tma_load(sdO(s) + cb * QTILE * ROWB, &maps.dout, q_full(s),
+                   cb * 64, m0, h, b);
+        }
+        bulk_load(sRec(s),
+                  rec_tile(p, static_cast<long long>(b) * p.H + h,
+                           m0 / QTILE),
+                  W::REC_BYTES, q_full(s));
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys [nw, nw + 64) of the block
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2;  // accumulator row group
+  const int t = lane & 3;   // thread in group
+  const int offset = p.Sk - p.Sq;
+  const int nw = n0 + 64 * wg;
+  const int kr0 = 64 * wg + 16 * warp + g;  // this thread's key rows in the
+  const int key0 = n0 + kr0, key1 = key0 + 8;  // block: kr0, kr0 + 8
+  const bool has_softcap = p.softcap > 0.f;
+  const float scale2 = p.scale * LOG2E;
+  const unsigned char* smem_gen = smem_raw + (base - raw);
+
+  float dk[D / 2], dv[D / 2];  // n8 block j: [4 j .. 4 j + 3], as s below
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float s[32], dp[32];  // S^T, dP^T: rows key0 (e < 2), key1; n8 block j:
+                        // query columns m0 + 8 j + 2 t + (e & 1)
+  uint32_t pa[4][4], da[4][4];
+
+  if (n_tiles > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES;
+    const int h = kvh * group + it / per_head;
+    const int m0 = m_first + (it % per_head) * QTILE;
+    const bool dq_turn = it % NWG == wg;
+    mbar_wait(q_full(st), (it / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, over head_dim 16 at a time: A the
+    // warpgroup's 64 key rows, B the query tile, both K-major
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t cb = kk / 4, off = (kk % 4) * 32;
+      const uint32_t kv_at = cb * NK * ROWB + wg * 64 * ROWB + off;
+      const uint32_t q_at = cb * QTILE * ROWB + off;
+      wgmma_ss<0, 0>(s, wgmma_desc(sK + kv_at, 16, 8 * ROWB),
+                     wgmma_desc(sQ(st) + q_at, 16, 8 * ROWB), kk > 0);
+      wgmma_ss<0, 0>(dp, wgmma_desc(sV + kv_at, 16, 8 * ROWB),
+                     wgmma_desc(sdO(st) + q_at, 16, 8 * ROWB), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale, in place;
+    // masked only where some (key, query) pair of the tile cannot see
+    // another (rows past Sq have lse = +inf: P is 0 there)
+    const float* rec =
+        reinterpret_cast<const float*>(smem_gen + (sRec(st) - base));
+    const bool whole =
+        nw + 64 <= p.Sk && (!p.causal || nw + 63 <= m0 + offset) &&
+        (p.window <= 0 || min(m0 + QTILE, p.Sq) - 1 + offset - nw < p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float2 lse = *reinterpret_cast<const float2*>(rec + c);
+      const float2 delta = *reinterpret_cast<const float2*>(rec + QTILE + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float nl = -((e & 1) ? lse.y : lse.x) * LOG2E;
+        float pr, th = 0.f;
+        if (has_softcap) {
+          th = tanhf(s[i] * p.scale / p.softcap);
+          pr = fast_exp2(fmaf(p.softcap * th, LOG2E, nl));
+        } else {
+          pr = fast_exp2(fmaf(s[i], scale2, nl));
+        }
+        if (!whole) {
+          const int qpos = m0 + c + (e & 1) + offset;
+          const int key = (e & 2) ? key1 : key0;
+          bool ok = key < p.Sk;
+          if (p.causal) ok = ok && key <= qpos;
+          if (p.window > 0) ok = ok && qpos - key < p.window;
+          if (!ok) pr = 0.f;
+        }
+        float ds = pr * (dp[i] - ((e & 1) ? delta.y : delta.x));
+        if (has_softcap) ds *= 1.f - th * th;
+        s[i] = pr;
+        dp[i] = ds * p.scale;
+      }
+    }
+    pack_a(pa, s);
+    pack_a(da, dp);
+
+    // dS^T into shared memory, rows of 64 query columns, swizzled as the
+    // descriptors read it
+    const uint32_t ds_buf = sDS(it & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t off0 = kr0 * ROWB + (16 * kk + 8 * half + 2 * t) * 2;
+        const uint32_t off1 = off0 + 8 * ROWB;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         ds_buf + (off0 ^ (((off0 >> 7) & 7) << 4))),
+                     "r"(da[kk][2 * half])
+                     : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         ds_buf + (off1 ^ (((off1 >> 7) & 7) << 4))),
+                     "r"(da[kk][2 * half + 1])
+                     : "memory");
+      }
+    }
+    fence_async_shared();
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, 16 at a
+    // time; dO and Q (queries x D) read transposed
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(dv, pa[kk], wgmma_desc(sdO(st) + kk * 16 * ROWB,
+                                      QTILE * ROWB, 8 * ROWB));
+      wgmma_rs(dk, da[kk], wgmma_desc(sQ(st) + kk * 16 * ROWB,
+                                      QTILE * ROWB, 8 * ROWB));
+    }
+    wgmma_commit();
+
+    // the block's dS^T is complete; the record was read. The turn's
+    // consumer has staged its last dQ tile (the bulk copy has read it)
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(DS_READY, NWG * 128);
+    if (dq_turn) {
+      // dQ = dS K over the block's keys, 16 at a time: A = dS^T (keys x
+      // queries) and B = K (keys x D), both read transposed
+      float dq[D / 2];
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)
+        wgmma_ss<1, 1>(dq, wgmma_desc(ds_buf + kk * 16 * ROWB, NK * ROWB,
+                                      8 * ROWB),
+                       wgmma_desc(sK + kk * 16 * ROWB, NK * ROWB, 8 * ROWB),
+                       kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // dV and dK are done: the stage is free
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(q_free(st));
+      wgmma_wait<0>();
+      fence_regs(dq);
+      // stage the tile as dQ's sums lay it out, then one thread adds it
+      const uint32_t acc_buf = base + W::OFF_ACC + wg * W::ACC_BYTES;
+      const int r0 = 16 * warp + g;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         acc_buf + 4 * acc_offset(r0, c)),
+                     "f"(dq[4 * j]), "f"(dq[4 * j + 1])
+                     : "memory");
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         acc_buf + 4 * acc_offset(r0 + 8, c)),
+                     "f"(dq[4 * j + 2]), "f"(dq[4 * j + 3])
+                     : "memory");
+      }
+      fence_async_shared();
+      named_sync(STAGED + wg, 128);
+      if (tid == 0)
+        bulk_reduce_add(acc_tile(p, static_cast<long long>(b) * p.H + h,
+                                 m0 / QTILE, D),
+                        acc_buf, W::ACC_BYTES);
+    } else {
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(q_free(st));
+    }
+  }
+  // the last bulk reduce-add has completed
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+  // dK and dV of this warpgroup's keys, summed over the group's heads
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (key0 < p.Sk) {
+      *reinterpret_cast<uint32_t*>(dkp + key0 * p.dk_ss + c) =
+          pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + key0 * p.dv_ss + c) =
+          pack_bf16(dv[4 * j], dv[4 * j + 1]);
+    }
+    if (key1 < p.Sk) {
+      *reinterpret_cast<uint32_t*>(dkp + key1 * p.dk_ss + c) =
+          pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dvp + key1 * p.dv_ss + c) =
+          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
-  using TL = Tile<T, D>;
-  const dim3 rows((p.Sq + WARPS - 1) / WARPS, p.B * p.H);
-  flash_bwd_delta<T, D><<<rows, THREADS, 0, stream>>>(p);
-  cudaError_t e = cudaGetLastError();
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, found through the runtime, so the
+// library links against the runtime alone.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 (B, heads, S, D) tensor with the given element strides (unit
+// stride over D) as a 4-d map over (D, S, heads, B), boxes of 64 head dims
+// (128 bytes, 128-byte swizzle) by ``rows``; rows past S read as zeros.
+int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
+           long long ss, long long sh, long long sb, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <int D>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  using W = Wg<D>;
+  Maps maps;
+  int err = encode(&maps.q, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
+                   QTILE);
+  if (!err)
+    err = encode(&maps.dout, p.dout, D, p.Sq, p.H, p.B, p.do_ss, p.do_sh,
+                 p.do_sb, QTILE);
+  if (!err)
+    err = encode(&maps.k, p.k, D, p.Sk, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb,
+                 W::NK);
+  if (!err)
+    err = encode(&maps.v, p.v, D, p.Sk, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb,
+                 W::NK);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           TL::SMEM);
+  const dim3 grid(p.B * p.KV, (p.Sk + W::NK - 1) / W::NK);
+  flash_bwd_wgmma<D><<<grid, W::THREADS, W::SMEM, stream>>>(maps, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkdv(const Params& p, cudaStream_t stream) {
+  using TL = Tile<T, D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TL::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 tiles((p.Sk + TL::BN - 1) / TL::BN, p.B * p.KV);
   flash_bwd_dkdv<T, D><<<tiles, THREADS, TL::SMEM, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq<T, D><<<rows, THREADS, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 at D 64 and 128 take the wgmma kernel, every other (type, head_dim)
+// the mma.sync / CUDA-core one: by shape, at compile time
+template <typename T, int D>
+constexpr bool uses_wgmma() {
+  return std::is_same<T, bf16>::value && (D == 64 || D == 128);
+}
+
+template <typename T, int D>
+int launch(const Params& p, cudaStream_t stream) {
+  const dim3 tiles(p.QT, p.B * p.H);
+  flash_bwd_delta<T, D><<<tiles, THREADS, 0, stream>>>(p);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  if constexpr (uses_wgmma<T, D>())
+    err = launch_wgmma<D>(p, stream);
+  else
+    err = launch_dkdv<T, D>(p, stream);
+  if (err) return err;
+  flash_bwd_dq<T, D><<<tiles, THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,14 +1282,16 @@ int launch_dtype(int dtype, const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// The version of this C interface.
-int flash_attention_bwd_abi(void) { return 1; }
+// The version of this C interface: 2 changed the workspace (dQ's sums by
+// 64-row tile, then the records of lse and delta).
+int flash_attention_bwd_abi(void) { return 2; }
 
 // dtype: 0 = float32, 1 = bfloat16. q, o, do, dq: (B, H, Sq, D); k, v, dk,
 // dv: (B, KV, Sk, D); each with unit stride over D, the given element
 // strides over the other axes, 16-byte aligned rows and strides. lse: the
-// forward's fp32 (B, H, Sq), contiguous. workspace: B H Sq (D + 1) fp32.
-// Returns 0 or a CUDA error code.
+// forward's fp32 (B, H, Sq), contiguous. workspace: 16-byte aligned fp32,
+// B H ceil(Sq / 64) 64 (D + 2) of them. Returns 0, a CUDA error code, or one
+// of this file's own codes (see flash_attention_bwd_error_string).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         void* dq, void* dk, void* dv, float* workspace,
@@ -545,10 +1309,11 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       B * H > 65535 || B * KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* delta = workspace;
-  float* dq_acc = workspace + static_cast<long long>(B) * H * Sq;
-  const Params p{q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc,
-                 B, H, KV, Sq, Sk,
+  const int QT = (Sq + QTILE - 1) / QTILE;
+  float* dq_acc = workspace;
+  float* rec = workspace + static_cast<long long>(B) * H * QT * QTILE * D;
+  const Params p{q, k, v, o, dout, lse, dq, dk, dv, dq_acc, rec,
+                 B, H, KV, Sq, Sk, QT,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  o_sb, o_sh, o_ss, do_sb, do_sh, do_ss,
                  dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
@@ -564,6 +1329,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 const char* flash_attention_bwd_error_string(int err) {
+  if (err == kErrNoEncoder)
+    return "the driver's cuTensorMapEncodeTiled was not found";
+  if (err == kErrEncode)
+    return "cuTensorMapEncodeTiled refused a tensor map (alignment, strides)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -31,6 +31,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_TILE = 64          # query rows per fp32 block (BQ in the source)
 MAX_Q_TILES = 65535  # the grid's second axis
+BWD_QTILE = 64       # query rows of a tile of the backward's workspace
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -201,6 +202,13 @@ def _check_bwd(q, k, v, o, lse, do, causal, window, softcap):
         raise ValueError(f"unsupported sizes: B {b} x H {h}")
 
 
+def bwd_workspace_numel(b: int, h: int, sq: int, d: int) -> int:
+    """fp32 elements of the backward's workspace for q (B, H, Sq, D): per
+    64-row query tile (``BWD_QTILE``), dQ's fp32 sums (64 x D) and a record
+    of the rows' lse and delta (2 x 64)."""
+    return b * h * -(-sq // BWD_QTILE) * BWD_QTILE * (d + 2)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None):
@@ -210,9 +218,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     and v."""
     _check_bwd(q, k, v, o, lse, do, causal, window, softcap)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    b, h, sq, d = q.shape
-    workspace = torch.empty(b * h * sq * (d + 1), dtype=torch.float32,
-                            device=q.device)
+    workspace = torch.empty(bwd_workspace_numel(*q.shape),
+                            dtype=torch.float32, device=q.device)
     launch_bwd(load_bwd().lib, q, k, v, o, lse, do, dq, dk, dv, workspace,
                causal=causal, window=window, softcap=softcap)
     flash_attention_bwd.launches += 1

@@ -12,33 +12,43 @@
 // model's prefill (B 4, S 512, W 4096) that is 100.7 MB, 0.030 ms at
 // 3.35 TB/s.
 //
-// What the design does about it:
+// What the design does about it (version 2, chunk-parallel in one pass):
 //  - The TPU kernel walks S as a sequential grid axis with the state in
-//    VMEM scratch. Here one thread owns one (batch, channel) and walks S in
-//    a loop with the state in a register: nothing is carried between
-//    blocks, and neighbouring threads read neighbouring channels, so every
-//    load and store is coalesced along W.
-//  - At B 4, W 4096 that is only 16,384 threads, a few warps an SM, so
-//    occupancy cannot hide the memory latency; loads in flight must. The
-//    time loop runs in steps of U = 8, and the loads of a and b for the
-//    next step are issued before the dependent multiply-adds of this one
-//    (they do not depend on h), so each thread keeps 2 x 8 loads in flight
-//    while it computes.
-//  - Any S >= 1 and any W: the ragged tail of S and the last block's
-//    channels past W are masked (the Pallas kernel asserts that its chunk
-//    divides S and its block divides W).
+//    VMEM scratch. Version 1 gave one thread to each (batch, channel) and
+//    walked S in a loop: 16,384 threads at B 4, W 4096, a few warps an SM,
+//    too few loads in flight to reach the memory rate.
+//  - Here a block takes 32 channels (the lanes: every load and store is a
+//    128-byte row) and 8 warps, each warp a segment of L steps of a window
+//    of 8 L steps. Per window each thread loads its L steps of a and b into
+//    registers, scans them from 0 (the segment's product of a and local
+//    state) and publishes the pair in shared memory. After one barrier each
+//    thread combines the segments before its own with the carry of the
+//    previous window (at most 8 multiply-adds), rescans its L steps from
+//    that carry (the same sequential multiply-adds as version 1) and writes
+//    h. The pairs are double-buffered by window, so one barrier a window
+//    suffices. The next window's loads go out before this window's
+//    arithmetic. At B 4, W 4096 that is 512 blocks of 256 threads, all
+//    resident at once (at most 64 registers a thread), each with 2 L loads
+//    in flight. Each element is still read and written once.
+//  - The carry into a segment is a_last...a_first h + local state instead
+//    of the step-by-step sum, so h rounds differently from version 1 by a
+//    few ulps of its magnitude (|a| < 1 damps them).
+//  - Any S >= 1 and any W: steps past S act as a = 1, b = 0 and are not
+//    written; channels past W are neither read nor written (the Pallas
+//    kernel asserts that its chunk divides S and its block divides W).
 //  - a and b are read through element strides over batch and sequence
 //    (unit stride over W); h and h0 are contiguous. The kernel launches on
 //    the caller's stream and allocates nothing.
-// A chunk-parallel design (a scan within chunks, then a carry pass) would
-// put more threads on the card; it is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;  // channels per block
-constexpr int U = 8;          // time steps per register batch
+constexpr int LANES = 32;            // channels per block
+constexpr int SEGS = 8;              // warps per block: segments of a window
+constexpr int THREADS = LANES * SEGS;
+constexpr int L = 8;                 // steps per segment
+constexpr int WINDOW = SEGS * L;     // steps per window
 
 struct Params {
   const float* a;
@@ -50,45 +60,65 @@ struct Params {
   long long b_sb, b_ss;
 };
 
-// The U steps from t0: a and b of channel w, or nothing past S.
-__device__ __forceinline__ void load_steps(const Params& p, const float* a,
-                                           const float* b, int t0,
-                                           float (&ra)[U], float (&rb)[U]) {
+// The L steps of this thread's segment from t0: a and b of its channel, or
+// the identity (a = 1, b = 0) past S or W.
+__device__ __forceinline__ void load_segment(const Params& p, const float* a,
+                                             const float* b, bool live,
+                                             int t0, float (&ra)[L],
+                                             float (&rb)[L]) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
+  for (int u = 0; u < L; ++u) {
     const int t = t0 + u;
-    if (t < p.S) {
-      ra[u] = __ldg(a + t * p.a_ss);
-      rb[u] = __ldg(b + t * p.b_ss);
-    }
+    const bool in = live && t < p.S;
+    ra[u] = in ? __ldg(a + t * p.a_ss) : 1.f;
+    rb[u] = in ? __ldg(b + t * p.b_ss) : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(THREADS) rglru_scan_f32(const Params p) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
+__global__ void __launch_bounds__(THREADS, 4) rglru_scan_f32(const Params p) {
+  __shared__ float2 seg[2][SEGS][LANES];  // (product of a, local state)
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / LANES;
+  const int w = blockIdx.x * LANES + lane;
   const int bi = blockIdx.y;
-  if (w >= p.W) return;
-  const float* a = p.a + bi * p.a_sb + w;
-  const float* b = p.b + bi * p.b_sb + w;
+  const bool live = w < p.W;
+  const float* a = p.a + bi * p.a_sb + (live ? w : 0);
+  const float* b = p.b + bi * p.b_sb + (live ? w : 0);
   float* h = p.h + static_cast<long long>(bi) * p.S * p.W + w;
-  float state =
-      p.h0 != nullptr ? p.h0[static_cast<long long>(bi) * p.W + w] : 0.f;
+  // the state entering the current window, the same in every warp
+  float carry = p.h0 != nullptr && live
+                    ? p.h0[static_cast<long long>(bi) * p.W + w] : 0.f;
 
-  float ra[U] = {}, rb[U] = {}, na[U] = {}, nb[U] = {};
-  load_steps(p, a, b, 0, ra, rb);
-  for (int t0 = 0; t0 < p.S; t0 += U) {
-    // the next step's loads go out before this step's multiply-adds
-    if (t0 + U < p.S) load_steps(p, a, b, t0 + U, na, nb);
+  float ra[L], rb[L], na[L], nb[L];
+  load_segment(p, a, b, live, warp * L, ra, rb);
+  for (int t0 = 0, win = 0; t0 < p.S; t0 += WINDOW, ++win) {
+    // the next window's loads go out before this window's arithmetic
+    if (t0 + WINDOW < p.S)
+      load_segment(p, a, b, live, t0 + WINDOW + warp * L, na, nb);
+    float prod = 1.f, local = 0.f;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = t0 + u;
-      if (t < p.S) {
-        state = fmaf(ra[u], state, rb[u]);
-        h[static_cast<long long>(t) * p.W] = state;
-      }
+    for (int u = 0; u < L; ++u) {
+      prod *= ra[u];
+      local = fmaf(ra[u], local, rb[u]);
+    }
+    float2 (*pairs)[LANES] = seg[win & 1];
+    pairs[warp][lane] = make_float2(prod, local);
+    __syncthreads();
+    // the carry into this segment, and into the next window
+    float state = carry;
+#pragma unroll
+    for (int s = 0; s < SEGS; ++s) {
+      if (s == warp) state = carry;
+      const float2 q = pairs[s][lane];
+      carry = fmaf(q.x, carry, q.y);
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < L; ++u) {
+      const int t = t0 + warp * L + u;
+      state = fmaf(ra[u], state, rb[u]);
+      if (live && t < p.S) h[static_cast<long long>(t) * p.W] = state;
+    }
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
       ra[u] = na[u];
       rb[u] = nb[u];
     }
@@ -111,7 +141,7 @@ int rglru_scan_fwd(const void* a, const void* b, const void* h0, void* h,
   const Params p{static_cast<const float*>(a), static_cast<const float*>(b),
                  static_cast<const float*>(h0), static_cast<float*>(h),
                  B, S, W, a_sb, a_ss, b_sb, b_ss};
-  const dim3 grid((W + THREADS - 1) / THREADS, B);
+  const dim3 grid((W + LANES - 1) / LANES, B);
   rglru_scan_f32<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
