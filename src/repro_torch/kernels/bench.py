@@ -451,7 +451,8 @@ def ptxas_report(log: str) -> list:
     """["entry: N registers, S bytes spill stores", ...] from nvcc's
     ``-Xptxas -v`` output, then its notes on wgmma (products serialised)."""
     out, entry, spill = [], None, "0"
-    notes = [line.strip() for line in log.splitlines() if "wgmma" in line]
+    notes = [line.strip() for line in log.splitlines()
+             if "wgmma.mma_async" in line]
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -731,10 +732,12 @@ def main(argv=None) -> int:
         print(describe_ssd(time_ssd_scan(label)), flush=True)
     for label in RGLRU_SHAPES:
         print(describe_rglru(time_rglru_scan(label)), flush=True)
-    for label in BWD_SHAPES:
-        print(describe_bwd(time_flash_attention_bwd(label)), flush=True)
     if args.profile:
         profile_kernels()
+    # after every profile: autograd's backward (the library yardstick) has
+    # left later profiles in the same process without device events
+    for label in BWD_SHAPES:
+        print(describe_bwd(time_flash_attention_bwd(label)), flush=True)
     for old_source in args.against:
         compare(old_source)
     return 0

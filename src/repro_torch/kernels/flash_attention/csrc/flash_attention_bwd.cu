@@ -48,29 +48,38 @@
 //
 // Pass 2 has two designs, chosen at compile time by type and head_dim:
 //  - bf16 at D 64 and 128 (smollm's training, and the head_dim of gemma2,
-//    qwen3, phi3.5 and deepseek): wgmma fed by TMA, warp-specialised
-//    (flash_bwd_wgmma). A producer warp, one thread of which issues TMA
-//    loads: K and V once, then each query tile's Q and dO (64 rows) and its
-//    record into a ring of two stages, each signalled by an mbarrier and
-//    freed by one the consumers arrive on. Consumer warpgroups own 64 keys
-//    each (two at D 64, one at D 128, whose dK and dV take 128 registers a
-//    thread). A consumer computes S^T = K Q^T and dP^T = V dO^T (wgmma
-//    m64n64k16, both operands K-major in shared memory), so P^T = exp(S^T -
-//    lse) and dS^T = P^T (dP^T - delta) sit in the accumulator layout of its
-//    key rows; rounded to bf16 they are the register A operands of dV +=
-//    P^T dO and dK += dS^T Q (dO and Q read transposed from shared memory):
-//    P never goes through shared memory. dS^T alone does, double-buffered,
-//    for dQ = dS K (A = dS^T read transposed, B = K read transposed), which
-//    the consumers take in turns, over all the block's keys, after a named
-//    barrier; the turn's consumer stages its 64 x D fp32 tile in shared
-//    memory and one thread adds it to dQ's sums by one bulk reduce-add
+//    qwen3, phi3.5 and deepseek): wgmma fed by TMA (flash_bwd_wgmma). A
+//    block has consumer warpgroups of 64 keys each: two at D 64 (128 keys,
+//    256 threads), one at D 128, whose dK and dV alone take 128 registers a
+//    thread. Its thread 0 issues every load by TMA: K and V once, then each
+//    query tile's Q and dO (64 rows) and its record (a bulk copy) into a
+//    ring of three stages, each signalled by an mbarrier; a stage takes its
+//    next tile once both consumers are past a named barrier that follows
+//    their last read of it. Every mbarrier wait traps after 4 s, so a broken
+//    pipeline fails the launch instead of holding the card.
+//    A consumer computes S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16;
+//    at D 64 its rows of K and V sit in registers as the A operands, loaded
+//    once by ldmatrix; at D 128 both operands are K-major in shared
+//    memory), so P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) sit in
+//    the accumulator layout of its key rows; rounded to bf16 they are the
+//    register A operands of dV += P^T dO and dK += dS^T Q (dO and Q read
+//    transposed from shared memory): P never goes through shared memory.
+//    dS^T alone does, double-buffered: once both consumers have stored
+//    their rows (a named barrier), each computes dQ = dS K over the block's
+//    keys for its share of the head dims, half at D 64 (A = dS^T and B = K
+//    both read transposed; K is stored in 64-byte rows, 32 head dims, so a
+//    half is whole rows), stages that 64-row fp32 tile in shared memory and one
+//    thread adds it to dQ's sums by one bulk reduce-add
 //    (cp.reduce.async.bulk .add.f32), with no per-element atomics. Tiles are
 //    stored as TMA writes them: rows of 128 bytes (64 head dims, or 64
-//    query columns of dS^T) with the 128-byte swizzle, one column block
-//    after another, and the wgmma descriptors use the same swizzle. Every
-//    mbarrier wait traps after 4 s, so a broken pipeline fails the launch
-//    instead of holding the card. One block an SM: 288 threads at D 64
-//    (224 registers a thread at most), 160 at D 128.
+//    query columns of dS^T) with the 128-byte swizzle, or of 64 bytes (K)
+//    with the 64-byte swizzle, one column block after another, and the
+//    wgmma descriptors use the same swizzles. The softmax-like step runs as
+//    straight-line code, its masks in a loop of their own for the tiles
+//    that need them. ptxas allocates registers for a wgmma kernel as if its
+//    block were a whole number of warpgroups: a producer warp beside two
+//    consumers left 168 a thread (384 threads' share) and spilled, so the
+//    consumers issue the loads themselves (at most 255 registers).
 //  - bf16 at D 32 and 256, and fp32 at every D: a block of 8 warps runs the
 //    products as mma.sync m16n8k16 (fp32 accumulate), fragments loaded by
 //    ldmatrix (bf16), or on the CUDA cores (fp32: the tensor cores would
@@ -131,8 +140,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -301,13 +308,17 @@ struct Tile {
   static_assert(QTILE % BM == 0, "query tiles within a dQ tile");
 };
 
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives row l / 4, columns 2 (l % 4) + {0, 1} of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+// Four 8x8 bf16 matrices; lane l gives the (shared) address of row l % 8
+// of matrix l / 8 and receives row l / 4, columns 2 (l % 4) + {0, 1} of
+// each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t at) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(at));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  ldmatrix_x4(r, smem_u32(p));
 }
 
 // The same, transposed: lane l receives rows 2 (l % 4) + {0, 1}, column
@@ -600,27 +611,31 @@ flash_bwd_dkdv(const Params p) {
 // dQ's sums
 // ---------------------------------------------------------------------------
 
-constexpr int STAGES = 2;  // query tiles in flight
+constexpr int STAGES = 3;  // query tiles in flight
 constexpr int ROWB = 128;  // bytes of a shared-memory row: 64 bf16
+constexpr int KROWB = 64;  // K's rows: 32 bf16, so dQ's products split D
 // named barriers: 0 is __syncthreads, DS_READY the consumers' dS^T of a
 // query tile in shared memory, STAGED + wg consumer wg's dQ tile staged
 constexpr int DS_READY = 1;
 constexpr int STAGED = 2;
 
-// A block: NWG consumer warpgroups of 64 keys, then a producer warp.
-// __launch_bounds__(THREADS, 1) leaves ptxas 65536 / THREADS registers a
-// thread: 224 at D 64 (two consumers: dK and dV 64 fp32 registers, S^T
-// and dP^T 64 more), 255 at D 128 (one consumer: dK and dV alone take 128).
+// A block: NWG consumer warpgroups of 64 keys; thread 0 also issues the
+// loads (at most 255 registers a thread). At D 64 (two consumers) a thread
+// holds dK and dV (64 fp32 registers), S^T and dP^T (64), and its rows of K
+// and V as the A operands of S^T and dP^T (32); at D 128 (one consumer) dK
+// and dV alone take 128, and K and V stay in shared memory.
 template <int D>
 struct Wg {
   static constexpr int NWG = D == 64 ? 2 : 1;
   static constexpr int NK = 64 * NWG;             // keys per block
-  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr bool KV_REGS = D == 64;        // K, V as register A
   static constexpr int CB = D / 64;               // column blocks of 64
   static constexpr int QT_BYTES = QTILE * D * 2;  // one Q or dO tile
   static constexpr int KV_BYTES = NK * D * 2;     // K or V
   static constexpr int DS_BYTES = NK * QTILE * 2; // dS^T of one query tile
-  static constexpr int ACC_BYTES = QTILE * D * 4; // one staged dQ tile
+  static constexpr int DQ = D / NWG;              // dQ's columns a consumer
+  static constexpr int ACC_BYTES = QTILE * DQ * 4;  // its staged dQ tile
   static constexpr int REC_BYTES = REC * 4;
   // byte offsets from the 1024-byte aligned base (swizzled tiles need it)
   static constexpr int OFF_K = 0;
@@ -631,8 +646,8 @@ struct Wg {
   static constexpr int OFF_ACC = OFF_DS + 2 * DS_BYTES;       // NWG
   static constexpr int OFF_REC = OFF_ACC + NWG * ACC_BYTES;   // STAGES
   static constexpr int OFF_BAR = OFF_REC + STAGES * REC_BYTES;
-  // K and V loaded; per stage: query tile loaded, query tile free
-  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
+  // K and V loaded; per stage, its query tile loaded
+  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + STAGES);
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -651,11 +666,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
 }
 
 // Wait until the phase of parity ``parity`` of the barrier has completed.
@@ -729,15 +739,18 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), 128-byte swizzle. K-major (rows of 64
-// elements along k): the leading offset is unused, the stride is 8 rows.
-// MN-major (rows along k, 64 elements of m or n each): the leading offset
-// is the stride of the next 64 of m or n, the stride 8 rows.
+// byte offsets (16-byte units), swizzle (SW128: rows of 128 bytes, 64
+// bf16; SW64: rows of 64 bytes, 32 bf16). K-major (rows along m or n, k
+// contiguous): the leading offset is unused, the stride is 8 rows.
+// MN-major (rows along k, m or n contiguous): the leading offset is the
+// stride of the next row's worth of m or n, the stride 8 rows.
+constexpr uint64_t SW128 = 1, SW64 = 2;
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+                                               uint32_t sbo,
+                                               uint64_t layout = SW128) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -765,6 +778,24 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 32, fp32) (+)= A (64 x 16) B (16 x 32), both in shared memory:
+// K-major when TA / TB is 0, MN-major (read transposed) when 1; d is
+// overwritten when accumulate is 0.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both in shared memory:
@@ -819,32 +850,39 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, MN-major in
-// shared memory, read transposed).
+// d (64 x 64, fp32) (+)= A (64 x 16, registers) B (16 x 64, in shared
+// memory: K-major when TB is 0, MN-major (read transposed) when 1); d is
+// overwritten when accumulate is 0.
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate) {
   asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
 }
 
-// d (64 x 128, fp32) += A (64 x 16, registers) B (16 x 128, MN-major in
-// shared memory, read transposed).
+// d (64 x 128, fp32) (+)= A (64 x 16, registers) B (16 x 128, in shared
+// memory: K-major when TB is 0, MN-major (read transposed) when 1); d is
+// overwritten when accumulate is 0.
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int accumulate) {
   asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
@@ -852,7 +890,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
       " %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -864,9 +902,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
 }
-
 
 // An accumulator of 64 x 64 (n8 block j: a[4 j .. 4 j + 3]: rows r0, r0 +
 // 8, columns 8 j + 2 t + {0, 1}), rounded to bf16, as the register A
@@ -901,7 +939,6 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
   auto sRec = [&](int s) { return base + W::OFF_REC + s * W::REC_BYTES; };
   const uint32_t kv_full = base + W::OFF_BAR;
   auto q_full = [&](int s) { return kv_full + 8u * (1 + s); };
-  auto q_free = [&](int s) { return kv_full + 8u * (1 + STAGES + s); };
 
   // key tile blockIdx.y: under a causal mask tile 0 sees the most query
   // tiles, and blocks start in order
@@ -915,50 +952,48 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
       q_hi > m_first ? (q_hi - m_first + QTILE - 1) / QTILE : 0;
   const int n_tiles = group * per_head;
 
+  // query tile it: Q, dO (TMA) and its record (a bulk copy) into stage
+  // it % STAGES, completing that stage's barrier
+  auto load_tile = [&](int it) {
+    const int s = it % STAGES;
+    const int h = kvh * group + it / per_head;
+    const int m0 = m_first + (it % per_head) * QTILE;
+    mbar_expect_tx(q_full(s), 2 * W::QT_BYTES + W::REC_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {
+      tma_load(sQ(s) + cb * QTILE * ROWB, &maps.q, q_full(s), cb * 64, m0,
+               h, b);
+      tma_load(sdO(s) + cb * QTILE * ROWB, &maps.dout, q_full(s), cb * 64,
+               m0, h, b);
+    }
+    bulk_load(sRec(s),
+              rec_tile(p, static_cast<long long>(b) * p.H + h, m0 / QTILE),
+              W::REC_BYTES, q_full(s));
+  };
+
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(q_full(s), 1);
-      mbar_init(q_free(s), NWG * 128);  // every consumer thread releases
-    }
+    for (int s = 0; s < STAGES; ++s) mbar_init(q_full(s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == NWG) {
-    // producer: one thread loads K and V, then keeps the ring of query
-    // tiles (Q, dO and the record) full
-    if (threadIdx.x == NWG * 128 && n_tiles > 0) {
-      mbar_expect_tx(kv_full, 2 * W::KV_BYTES);
+  // thread 0 issues every load: K and V once, the first STAGES query
+  // tiles now, each later one as a stage frees up (below)
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(kv_full, 2 * W::KV_BYTES);
 #pragma unroll
-      for (int cb = 0; cb < CB; ++cb) {
-        tma_load(sK + cb * NK * ROWB, &maps.k, kv_full, cb * 64, n0, kvh, b);
-        tma_load(sV + cb * NK * ROWB, &maps.v, kv_full, cb * 64, n0, kvh, b);
-      }
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % STAGES, use = it / STAGES;
-        const int h = kvh * group + it / per_head;
-        const int m0 = m_first + (it % per_head) * QTILE;
-        if (use > 0) mbar_wait(q_free(s), (use - 1) & 1);
-        mbar_expect_tx(q_full(s), 2 * W::QT_BYTES + W::REC_BYTES);
-#pragma unroll
-        for (int cb = 0; cb < CB; ++cb) {
-          tma_load(sQ(s) + cb * QTILE * ROWB, &maps.q, q_full(s), cb * 64,
-                   m0, h, b);
-          tma_load(sdO(s) + cb * QTILE * ROWB, &maps.dout, q_full(s),
-                   cb * 64, m0, h, b);
-        }
-        bulk_load(sRec(s),
-                  rec_tile(p, static_cast<long long>(b) * p.H + h,
-                           m0 / QTILE),
-                  W::REC_BYTES, q_full(s));
-      }
+    for (int cb = 0; cb < CB; ++cb) {
+      tma_load(sK + 2 * cb * NK * KROWB, &maps.k, kv_full, cb * 64, n0, kvh,
+               b);
+      tma_load(sK + (2 * cb + 1) * NK * KROWB, &maps.k, kv_full,
+               cb * 64 + 32, n0, kvh, b);
+      tma_load(sV + cb * NK * ROWB, &maps.v, kv_full, cb * 64, n0, kvh, b);
     }
-    return;
+    for (int it = 0; it < STAGES && it < n_tiles; ++it) load_tile(it);
   }
 
   // consumer warpgroup wg: keys [nw, nw + 64) of the block
+  const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2;  // accumulator row group
@@ -977,71 +1012,112 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
   float s[32], dp[32];  // S^T, dP^T: rows key0 (e < 2), key1; n8 block j:
                         // query columns m0 + 8 j + 2 t + (e & 1)
   uint32_t pa[4][4], da[4][4];
+  // at D 64: this warp's 16 rows of K and V as wgmma A operands (the
+  // layout of pa), head_dim 16 at a time, by ldmatrix from the swizzled
+  // tiles
+  uint32_t kf[W::KV_REGS ? 4 : 1][4], vf[W::KV_REGS ? 4 : 1][4];
 
-  if (n_tiles > 0) mbar_wait(kv_full, 0);
+  if (n_tiles > 0) {
+    mbar_wait(kv_full, 0);
+    if constexpr (W::KV_REGS) {
+      // 16-byte chunk c of row r: K's in column block c / 4 of 64-byte
+      // rows (64-byte swizzle), V's in 128-byte rows (128-byte swizzle)
+      const uint32_t r = 64 * wg + 16 * warp + (lane & 15);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t c = 2 * kk + (lane >> 4);
+        ldmatrix_x4(kf[kk], sK + (c / 4) * NK * KROWB + r * KROWB +
+                                (((c % 4) ^ ((r >> 1) & 3)) << 4));
+        ldmatrix_x4(vf[kk], sV + r * ROWB + ((c ^ (r & 7)) << 4));
+      }
+    }
+  }
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it % STAGES;
     const int h = kvh * group + it / per_head;
     const int m0 = m_first + (it % per_head) * QTILE;
-    const bool dq_turn = it % NWG == wg;
     mbar_wait(q_full(st), (it / STAGES) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T, over head_dim 16 at a time: A the
-    // warpgroup's 64 key rows, B the query tile, both K-major
+    // warpgroup's 64 key rows, B the query tile (K-major)
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t cb = kk / 4, off = (kk % 4) * 32;
-      const uint32_t kv_at = cb * NK * ROWB + wg * 64 * ROWB + off;
       const uint32_t q_at = cb * QTILE * ROWB + off;
-      wgmma_ss<0, 0>(s, wgmma_desc(sK + kv_at, 16, 8 * ROWB),
-                     wgmma_desc(sQ(st) + q_at, 16, 8 * ROWB), kk > 0);
-      wgmma_ss<0, 0>(dp, wgmma_desc(sV + kv_at, 16, 8 * ROWB),
-                     wgmma_desc(sdO(st) + q_at, 16, 8 * ROWB), kk > 0);
+      if constexpr (W::KV_REGS) {
+        wgmma_rs<0>(s, kf[kk], wgmma_desc(sQ(st) + q_at, 16, 8 * ROWB),
+                    kk > 0);
+        wgmma_rs<0>(dp, vf[kk], wgmma_desc(sdO(st) + q_at, 16, 8 * ROWB),
+                    kk > 0);
+      } else {
+        const uint32_t k_at =
+            (kk / 2) * NK * KROWB + wg * 64 * KROWB + (kk % 2) * 32;
+        const uint32_t v_at = cb * NK * ROWB + wg * 64 * ROWB + off;
+        wgmma_ss<0, 0>(s, wgmma_desc(sK + k_at, 16, 8 * KROWB, SW64),
+                       wgmma_desc(sQ(st) + q_at, 16, 8 * ROWB), kk > 0);
+        wgmma_ss<0, 0>(dp, wgmma_desc(sV + v_at, 16, 8 * ROWB),
+                       wgmma_desc(sdO(st) + q_at, 16, 8 * ROWB), kk > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     fence_regs(dp);
 
-    // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale, in place;
-    // masked only where some (key, query) pair of the tile cannot see
-    // another (rows past Sq have lse = +inf: P is 0 there)
+    // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale, in place,
+    // then zeros where the mask bites: three loops, each free of branches
+    // per element (rows past Sq have lse = +inf: P is 0 there)
     const float* rec =
         reinterpret_cast<const float*>(smem_gen + (sRec(st) - base));
+    if (has_softcap) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 lse = *reinterpret_cast<const float2*>(rec + c);
+        const float2 delta = *reinterpret_cast<const float2*>(rec + QTILE + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float th = tanhf(s[i] * p.scale / p.softcap);
+          const float pr = fast_exp2(
+              (p.softcap * th - ((e & 1) ? lse.y : lse.x)) * LOG2E);
+          s[i] = pr;
+          dp[i] = pr * (dp[i] - ((e & 1) ? delta.y : delta.x)) *
+                  (1.f - th * th) * p.scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 lse = *reinterpret_cast<const float2*>(rec + c);
+        const float2 delta = *reinterpret_cast<const float2*>(rec + QTILE + c);
+        const float nl0 = -lse.x * LOG2E, nl1 = -lse.y * LOG2E;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float pr = fast_exp2(fmaf(s[i], scale2, (e & 1) ? nl1 : nl0));
+          s[i] = pr;
+          dp[i] = pr * (dp[i] - ((e & 1) ? delta.y : delta.x)) * p.scale;
+        }
+      }
+    }
     const bool whole =
         nw + 64 <= p.Sk && (!p.causal || nw + 63 <= m0 + offset) &&
         (p.window <= 0 || min(m0 + QTILE, p.Sq) - 1 + offset - nw < p.window);
+    if (!whole) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * t;
-      const float2 lse = *reinterpret_cast<const float2*>(rec + c);
-      const float2 delta = *reinterpret_cast<const float2*>(rec + QTILE + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e;
-        const float nl = -((e & 1) ? lse.y : lse.x) * LOG2E;
-        float pr, th = 0.f;
-        if (has_softcap) {
-          th = tanhf(s[i] * p.scale / p.softcap);
-          pr = fast_exp2(fmaf(p.softcap * th, LOG2E, nl));
-        } else {
-          pr = fast_exp2(fmaf(s[i], scale2, nl));
-        }
-        if (!whole) {
-          const int qpos = m0 + c + (e & 1) + offset;
-          const int key = (e & 2) ? key1 : key0;
-          bool ok = key < p.Sk;
-          if (p.causal) ok = ok && key <= qpos;
-          if (p.window > 0) ok = ok && qpos - key < p.window;
-          if (!ok) pr = 0.f;
-        }
-        float ds = pr * (dp[i] - ((e & 1) ? delta.y : delta.x));
-        if (has_softcap) ds *= 1.f - th * th;
-        s[i] = pr;
-        dp[i] = ds * p.scale;
+      for (int i = 0; i < 32; ++i) {
+        const int qpos = m0 + 8 * (i / 4) + 2 * t + (i & 1) + offset;
+        const int key = (i & 2) ? key1 : key0;
+        bool ok = key < p.Sk;
+        if (p.causal) ok = ok && key <= qpos;
+        if (p.window > 0) ok = ok && qpos - key < p.window;
+        s[i] = ok ? s[i] : 0.f;
+        dp[i] = ok ? dp[i] : 0.f;
       }
     }
     pack_a(pa, s);
@@ -1075,41 +1151,48 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs(dv, pa[kk], wgmma_desc(sdO(st) + kk * 16 * ROWB,
-                                      QTILE * ROWB, 8 * ROWB));
-      wgmma_rs(dk, da[kk], wgmma_desc(sQ(st) + kk * 16 * ROWB,
-                                      QTILE * ROWB, 8 * ROWB));
+      wgmma_rs<1>(dv, pa[kk], wgmma_desc(sdO(st) + kk * 16 * ROWB,
+                                         QTILE * ROWB, 8 * ROWB), 1);
+      wgmma_rs<1>(dk, da[kk], wgmma_desc(sQ(st) + kk * 16 * ROWB,
+                                         QTILE * ROWB, 8 * ROWB), 1);
     }
     wgmma_commit();
 
-    // the block's dS^T is complete; the record was read. The turn's
-    // consumer has staged its last dQ tile (the bulk copy has read it)
-    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    // the block's dS^T is complete. Every product of tile it - 1 has
+    // completed and its record was read, so its stage takes tile it - 1 +
+    // STAGES; this consumer's last staged dQ tile was read by its bulk copy
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_sync(DS_READY, NWG * 128);
-    if (dq_turn) {
-      // dQ = dS K over the block's keys, 16 at a time: A = dS^T (keys x
-      // queries) and B = K (keys x D), both read transposed
-      float dq[D / 2];
+    if (threadIdx.x == 0 && it >= 1 && it - 1 + STAGES < n_tiles)
+      load_tile(it - 1 + STAGES);
+    {
+      // dQ = dS K over the block's keys, 16 at a time, for this consumer's
+      // DQ head dims: A = dS^T (keys x queries) and B = K (keys x D), both
+      // read transposed
+      constexpr int DQ = W::DQ;
+      float dq[DQ / 2];
       fence_regs(dq);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk)
         wgmma_ss<1, 1>(dq, wgmma_desc(ds_buf + kk * 16 * ROWB, NK * ROWB,
                                       8 * ROWB),
-                       wgmma_desc(sK + kk * 16 * ROWB, NK * ROWB, 8 * ROWB),
+                       wgmma_desc(sK + (wg * DQ / 32) * NK * KROWB +
+                                      kk * 16 * KROWB, NK * KROWB,
+                                  8 * KROWB, SW64),
                        kk > 0);
       wgmma_commit();
-      wgmma_wait<1>();  // dV and dK are done: the stage is free
-      fence_regs(dv);
-      fence_regs(dk);
-      mbar_arrive(q_free(st));
       wgmma_wait<0>();
       fence_regs(dq);
-      // stage the tile as dQ's sums lay it out, then one thread adds it
+      fence_regs(dv);
+      fence_regs(dk);
+      // stage the tile as dQ's sums lay out its column blocks, then one
+      // thread adds it
       const uint32_t acc_buf = base + W::OFF_ACC + wg * W::ACC_BYTES;
       const int r0 = 16 * warp + g;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DQ / 8; ++j) {
         const int c = 8 * j + 2 * t;
         asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
                          acc_buf + 4 * acc_offset(r0, c)),
@@ -1124,13 +1207,8 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
       named_sync(STAGED + wg, 128);
       if (tid == 0)
         bulk_reduce_add(acc_tile(p, static_cast<long long>(b) * p.H + h,
-                                 m0 / QTILE, D),
+                                 m0 / QTILE, D) + wg * DQ * QTILE,
                         acc_buf, W::ACC_BYTES);
-    } else {
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-      mbar_arrive(q_free(st));
     }
   }
   // the last bulk reduce-add has completed
@@ -1189,10 +1267,11 @@ EncodeTiled encode_tiled() {
 }
 
 // A bf16 (B, heads, S, D) tensor with the given element strides (unit
-// stride over D) as a 4-d map over (D, S, heads, B), boxes of 64 head dims
-// (128 bytes, 128-byte swizzle) by ``rows``; rows past S read as zeros.
+// stride over D) as a 4-d map over (D, S, heads, B), boxes of ``cols`` head
+// dims (64: 128 bytes, 128-byte swizzle; 32: 64 bytes, 64-byte swizzle) by
+// ``rows``; rows past S read as zeros.
 int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
-           long long ss, long long sh, long long sb, int rows) {
+           long long ss, long long sh, long long sb, int cols, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -1202,12 +1281,14 @@ int encode(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
@@ -1217,16 +1298,16 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   using W = Wg<D>;
   Maps maps;
   int err = encode(&maps.q, p.q, D, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
-                   QTILE);
+                   64, QTILE);
   if (!err)
     err = encode(&maps.dout, p.dout, D, p.Sq, p.H, p.B, p.do_ss, p.do_sh,
-                 p.do_sb, QTILE);
+                 p.do_sb, 64, QTILE);
   if (!err)
     err = encode(&maps.k, p.k, D, p.Sk, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb,
-                 W::NK);
+                 32, W::NK);
   if (!err)
     err = encode(&maps.v, p.v, D, p.Sk, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb,
-                 W::NK);
+                 64, W::NK);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

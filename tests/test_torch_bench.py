@@ -1,0 +1,144 @@
+"""CPU checks of the kernel bench's arithmetic and interface tables.
+
+The bench (``repro_torch.kernels.bench``) times the kernels on the card; what
+it computes without one is checked here: the bounds at the recorded shapes,
+the C interface versions and argument counts it calls older libraries by,
+the backward's workspace size, and how it reports a row.
+"""
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import bench  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.rglru import kernel as rglru  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd  # noqa: E402
+
+CSRC = Path(flash.__file__).resolve().parents[1]
+
+
+def test_backward_bound_at_the_train_shape():
+    """B8 H9 KV3 S2048 D64 bf16 causal: five products of 2 D flops per
+    visible (query, key) pair, 9.67e10 flop, bound by operations at 989
+    TFLOP/s: 0.0978 ms."""
+    b, h, kv, s, d, _ = bench.BWD_SHAPES["train-2048"]
+    ms, by, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
+                                              torch.bfloat16)
+    pairs = s * (s + 1) // 2
+    assert flops == 5 * 2 * d * b * h * pairs
+    assert flops == pytest.approx(9.67e10, rel=1e-3)
+    assert by == "operations"
+    assert ms == pytest.approx(0.0978, abs=5e-5)
+    # the bytes it must move (q, k, v, o, do read, dq, dk, dv written, the
+    # fp32 lse, 101 MB) would take under a third of that
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * kv * s * d) + 4 * b * h * s
+    assert 1e3 * nbytes / bench.PEAK_BYTES < ms / 3
+
+
+def test_rglru_bound_at_the_prefill_shape():
+    """B4 S512 W4096 fp32: a and b read, h written, 100.7 MB, bound by
+    bytes at 3.35 TB/s: 0.030 ms."""
+    b, s, w = bench.RGLRU_SHAPES["prefill-512"]
+    ms, by, flops = bench.rglru_bound(b, s, w)
+    nbytes = 3 * 4 * b * s * w
+    assert nbytes == pytest.approx(100.7e6, rel=1e-3)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / bench.PEAK_BYTES)
+    assert ms == pytest.approx(0.0300, abs=1e-4)
+    assert flops == 2 * b * s * w
+
+
+@pytest.mark.parametrize("key, count", [
+    (("flash_attention", 1), 25),
+    (("flash_attention", 2), 28),
+    (("ssd_scan", 1), 25),
+    (("flash_attention_bwd", 1), 46),
+])
+def test_old_interface_argument_counts(key, count):
+    assert len(bench.OLD_ARGTYPES[key]) == count
+
+
+@pytest.mark.parametrize("name, argtypes, count", [
+    ("flash_attention", flash._ARGTYPES, 29),
+    ("flash_attention_bwd", flash._BWD_ARGTYPES, 46),
+    ("ssd_scan", ssd._ARGTYPES, None),
+    ("rglru_scan", rglru._ARGTYPES, 12),
+])
+def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
+                                                         count):
+    """The wrappers call version CURRENT[name] (1 for a source that exports
+    no version); every entry of OLD_ARGTYPES is older, and the backward's
+    version 1 takes the same arguments as version 2 (only its workspace
+    changed)."""
+    current = bench.CURRENT.get(name, 1)
+    assert all(v < current for n, v in bench.OLD_ARGTYPES if n == name)
+    if count is not None:
+        assert len(argtypes) == count
+    if name == "flash_attention_bwd":
+        assert bench.OLD_ARGTYPES[name, 1] == tuple(argtypes)
+    assert name in bench.ENTRY
+
+
+@pytest.mark.parametrize("source, name", [
+    ("flash_attention/csrc/flash_attention.cu", "flash_attention"),
+    ("flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd"),
+    ("ssd/csrc/ssd_scan.cu", "ssd_scan"),
+])
+def test_sources_export_the_versions_the_bench_expects(source, name):
+    text = (CSRC / source).read_text()
+    found = re.search(rf"int {name}_abi\(void\) {{ return (\d+); }}", text)
+    assert found and int(found.group(1)) == bench.CURRENT[name]
+    assert f"{bench.ENTRY[name]}(" in text
+
+
+def test_rglru_source_exports_no_version():
+    text = (CSRC / "rglru/csrc/rglru_scan.cu").read_text()
+    assert "rglru_scan_abi" not in text
+    assert "int rglru_scan_fwd(" in text
+
+
+@pytest.mark.parametrize("b, h, sq, d", [
+    (8, 9, 2048, 64), (1, 3, 1000, 64), (2, 6, 300, 128), (1, 16, 37, 256),
+    (1, 1, 1, 32)])
+def test_bwd_workspace_holds_tiles_of_sums_and_records(b, h, sq, d):
+    """Per 64-row query tile (rows past Sq included): 64 x D fp32 sums of
+    dQ and a record of 64 lse and 64 delta."""
+    tiles = b * h * math.ceil(sq / 64)
+    assert flash.bwd_workspace_numel(b, h, sq, d) == tiles * (64 * d + 128)
+    assert bench.old_bwd_workspace_numel(b, h, sq, d) == b * h * sq * (d + 1)
+
+
+def test_bwd_workspace_at_the_train_shape():
+    assert flash.bwd_workspace_numel(8, 9, 2048, 64) == 9_732_096
+
+
+def test_describe_bwd_compares_device_times():
+    """kernel / library is taken from the two device times; the eager
+    library call is reported beside it, named as eager."""
+    row = dict(label="train-2048", ms=0.3, tflops=322.3, plain_ms=8.2,
+               library_ms=0.4, library_eager_ms=0.5,
+               library_backend="FLASH_ATTENTION", bound_ms=0.0978,
+               bound_by="operations", eager_ms=0.35)
+    text = bench.describe_bwd(row)
+    assert "kernel/library 0.75x (device times)" in text
+    assert "library 0.5000 ms" in text and "FLASH_ATTENTION" in text
+    assert "kernel/bound 3.07x" in text
+
+
+def test_ptxas_report_reads_registers_spills_and_wgmma_notes():
+    log = """ptxas info    : Compiling entry function '_Z3fooi' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooi
+    8 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized
+ptxas info    : Used 40 registers
+"""
+    report = bench.ptxas_report(log)
+    assert report[:2] == ["_Z3fooi: 168 registers, 16 bytes spill stores",
+                          "_Z3barv: 40 registers, 0 bytes spill stores"]
+    assert len(report) == 3 and "wgmma.mma_async" in report[2]
