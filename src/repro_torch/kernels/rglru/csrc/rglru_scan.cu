@@ -12,11 +12,11 @@
 // model's prefill (B 4, S 512, W 4096) that is 100.7 MB, 0.030 ms at
 // 3.35 TB/s.
 //
-// What the design does about it (version 2, chunk-parallel in one pass):
+// What the design does about it (chunk-parallel, in one pass):
 //  - The TPU kernel walks S as a sequential grid axis with the state in
-//    VMEM scratch. Version 1 gave one thread to each (batch, channel) and
-//    walked S in a loop: 16,384 threads at B 4, W 4096, a few warps an SM,
-//    too few loads in flight to reach the memory rate.
+//    VMEM scratch. One thread per (batch, channel) walking S would be
+//    16,384 threads at B 4, W 4096, a few warps an SM: too few loads in
+//    flight to reach the memory rate.
 //  - Here a block takes 32 channels (the lanes: every load and store is a
 //    128-byte row) and 8 warps, each warp a segment of L steps of a window
 //    of 8 L steps. Per window each thread loads its L steps of a and b into
@@ -24,15 +24,15 @@
 //    state) and publishes the pair in shared memory. After one barrier each
 //    thread combines the segments before its own with the carry of the
 //    previous window (at most 8 multiply-adds), rescans its L steps from
-//    that carry (the same sequential multiply-adds as version 1) and writes
+//    that carry (the recurrence's own sequential multiply-adds) and writes
 //    h. The pairs are double-buffered by window, so one barrier a window
 //    suffices. The next window's loads go out before this window's
 //    arithmetic. At B 4, W 4096 that is 512 blocks of 256 threads, all
 //    resident at once (at most 64 registers a thread), each with 2 L loads
 //    in flight. Each element is still read and written once.
 //  - The carry into a segment is a_last...a_first h + local state instead
-//    of the step-by-step sum, so h rounds differently from version 1 by a
-//    few ulps of its magnitude (|a| < 1 damps them).
+//    of the step-by-step sum, so h rounds differently from the sequential
+//    recurrence by a few ulps of its magnitude (|a| < 1 damps them).
 //  - Any S >= 1 and any W: steps past S act as a = 1, b = 0 and are not
 //    written; channels past W are neither read nor written (the Pallas
 //    kernel asserts that its chunk divides S and its block divides W).
