@@ -1246,8 +1246,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The driver's tensor-map encoder, found through the runtime, so the
-// library links against the runtime alone.
+// cuTensorMapEncodeTiled, found through the runtime, so the library links
+// against the runtime alone.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
@@ -1411,7 +1411,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 
 const char* flash_attention_bwd_error_string(int err) {
   if (err == kErrNoEncoder)
-    return "the driver's cuTensorMapEncodeTiled was not found";
+    return "cuTensorMapEncodeTiled was not found";
   if (err == kErrEncode)
     return "cuTensorMapEncodeTiled refused a tensor map (alignment, strides)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
