@@ -843,7 +843,7 @@ def phase_train_bf16(cfg, params, data_cfg, steps):
     """(q) ``steps`` bf16 steps of ElasticTrainer.train at lr 3e-3 from
     ``params``: every loss finite, the last below the first, and exactly
     the flash launches the layer count and remat imply per step. Returns
-    one more step, for phase_train_step_time."""
+    (trainer, state, the next batch), for phase_train_step_time."""
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import ElasticTrainer, TrainerConfig
@@ -868,32 +868,86 @@ def phase_train_bf16(cfg, params, data_cfg, steps):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
             int(state["step"]) != steps:
         raise AssertionError("bf16 training did not bring the loss down")
-    batch = trainer.data.batch(steps)
-    return lambda: trainer.train_step(state, batch)
+    return trainer, state, trainer.data.batch(steps)
 
 
-def phase_train_step_time(cfg, step, data_cfg):
-    """(k) One more bf16 train step: its wall time (host clock around 3
+def profile_split(fns):
+    """One torch.profiler session over ``fns`` ({name: fn}), each called
+    once between synchronises and marks: {name: (card busy ms, kernels and
+    copies)}, each device event counted in the interval between the marks
+    its start falls in. One session serves them all: a profile of a train
+    step, whose backward runs on autograd's own thread, has left later
+    profiles in the process without device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    names = list(fns)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, name in enumerate(names):
+            torch.cuda.synchronize()
+            with record_function(f"chip_smoke_mark_{i}"):
+                pass
+            fns[name]()
+        torch.cuda.synchronize()
+        with record_function(f"chip_smoke_mark_{len(names)}"):
+            pass
+    events = prof.events()
+    marks = sorted(ev.time_range.start for ev in events
+                   if ev.name.startswith("chip_smoke_mark_"))
+    out = {name: [0.0, 0] for name in names}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = ev.time_range.start
+        for i, name in enumerate(names):
+            if marks[i] <= t < marks[i + 1]:
+                out[name][0] += ev.self_device_time_total / 1e3
+                out[name][1] += 1
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def phase_train_step_time(cfg, trainer, state, batch, data_cfg):
+    """(k) One bf16 train step at 1, 2 and 4 slices of the card (the
+    trained state resharded from 1): the wall time (host clock around 3
     steps ending in a synchronise), the card's busy time in one step under
-    torch.profiler, and tokens/s. It runs after every other profile: a
-    profile of a step, whose backward runs on autograd's own thread, has
-    left later profiles without device events."""
-    from repro_torch.kernels.bench import device_profile
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
+    torch.profiler, and tokens/s. It runs after every other profile (see
+    profile_split)."""
+    from repro_torch.core import make_mesh, reshard, slice_devices
+    from repro_torch.runtime import ElasticTrainer
+    steps = {}
+    for n in (1, 2, 4):
+        if n == 1:
+            tr, st = trainer, state
+        else:
+            tr = ElasticTrainer(trainer.model, trainer.opt_cfg, trainer.data,
+                                dataclasses.replace(trainer.cfg,
+                                                    max_slices=n),
+                                devices=slice_devices(n))
+            st = reshard(state, tr._state_shardings(make_mesh(
+                n, 1, devices=tr.devices)))
+        steps[n] = (lambda tr=tr, st=st: tr.train_step(st, batch))
+    walls = {}
+    for n, step in steps.items():
         step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
-    prof = device_profile(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        walls[n] = (time.perf_counter() - t0) / 3 * 1e3
+    busy = profile_split({n: fn for n, fn in steps.items()})
     tokens = data_cfg.global_batch * data_cfg.seq_len
-    log("k", f"{cfg.name} bf16 train step B{data_cfg.global_batch} "
-             f"S{data_cfg.seq_len}: {wall:.3f} ms wall, card busy "
-             f"{prof['busy_ms']:.3f} ms in {prof['launches']} kernels and "
-             f"copies ({100 * (1 - prof['busy_ms'] / wall):.1f}% idle), "
-             f"{tokens / wall * 1e3:.0f} tokens/s; top: " + "; ".join(
-                 f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+    for n in steps:
+        ms, launches = busy[n]
+        log("k", f"{cfg.name} bf16 train step B{data_cfg.global_batch} "
+                 f"S{data_cfg.seq_len} at {n} slice(s) of the card: "
+                 f"{walls[n]:.3f} ms wall, card busy {ms:.3f} ms in "
+                 f"{launches} kernels and copies "
+                 f"({100 * (1 - ms / walls[n]):.1f}% idle), "
+                 f"{tokens / walls[n] * 1e3:.0f} tokens/s")
+        if launches == 0:
+            raise AssertionError(f"the profile saw no device work of the "
+                                 f"step at {n} slices")
 
 
 def phase_ssd_grad_raises(cfg, params):
@@ -912,6 +966,351 @@ def phase_ssd_grad_raises(cfg, params):
         return
     raise AssertionError(f"{cfg.name}: a backward through the SSD kernel "
                          "did not raise")
+
+
+# -- (r) smollm-135m elastic: virtual slices of the card -----------------------------
+
+# the elastic path: up to 4 virtual slices of the card; the fp32 comparison's
+# steps; the bf16 loop's steps, reconfiguration and checkpoint periods, the
+# step the rival job is queued and finished at, and the state step whose
+# first try fails
+ELASTIC_SLICES = 4
+ELASTIC_FP32_STEPS = 4
+LOOP_STEPS, LOOP_CHECK, LOOP_CKPT = 12, 3, 4
+RIVAL_QUEUED, RIVAL_DONE, FAULT_AT = 2, 5, 9
+# elastic against fixed, the reference's bound (tests/test_multidevice.py:
+# 140); one batch at 1, 2 and 4 slices, test_grad_accum_equivalence's
+ELASTIC_TOL, SLICES_TOL = 0.05, 5e-3
+
+
+class ScriptedRMS:
+    """Answers the n-th reconfiguration request from ``script``."""
+
+    def __init__(self, script):
+        self.script, self.calls = dict(script), 0
+
+    def request_reconfig(self, job_id, *, current, minimum, maximum,
+                         factor, preferred):
+        from repro_torch.core import Action, Decision
+        self.calls += 1
+        return self.script.get(self.calls,
+                               Decision(Action.NO_ACTION, current))
+
+    def confirm_resize(self, job_id, decision, timeout_s):
+        return True, 0.0
+
+
+def elastic_trainer(cfg, data, steps, slices, rms=None, **changes):
+    """An ElasticTrainer of ``cfg`` on ELASTIC_SLICES virtual slices of the
+    card, starting at ``slices``, lr 3e-3 with one warmup step."""
+    from repro_torch.core import slice_devices
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    return ElasticTrainer(
+        build_model(cfg), AdamWConfig(lr=3e-3, warmup_steps=1,
+                                      total_steps=steps),
+        data, TrainerConfig(steps=steps, max_slices=ELASTIC_SLICES,
+                            log_period=1, **changes),
+        rms=rms, devices=slice_devices(ELASTIC_SLICES), slices=slices)
+
+
+def storage_of(t):
+    s = t.untyped_storage()
+    return s.data_ptr(), s.data_ptr() + s.nbytes()
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def checked_reshard(state, shardings):
+    """reshard, leaf by leaf, checking that every leaf keeps its bits and
+    that a new block shares an old buffer only as a view kept in place by
+    the plan's one local transfer to its slice: every other block is a new
+    buffer on the card, including each non-local transfer's. Returns (the
+    new state, {"moved": bytes of non-local transfers, "local": bytes
+    copied on the slice itself, "kept": blocks left in place, "copies":
+    non-local transfers})."""
+    from repro_torch.core import gather, reshard
+    from repro_torch.models.layers import tree_map
+    stats = dict(moved=0, local=0, kept=0, copies=0)
+
+    def leaf(x, sh):
+        log_ = []
+        y = reshard(x, sh, transfers=log_)
+        if not same_bits(gather(y), gather(x)):
+            raise AssertionError(f"reshard changed a leaf {x}")
+        olds = [storage_of(t) for t in x.shards.values()]
+        for c, t in y.shards.items():
+            if t.device.type != "cuda":
+                raise AssertionError(f"block {c} is not on the card")
+            r = storage_of(t)
+            k = c[0]
+            into = [tr for tr in log_ if tr.dst == k]
+            if any(r[0] < o[1] and o[0] < r[1] for o in olds):
+                if r not in olds or len(into) != 1 or not into[0].local:
+                    raise AssertionError(f"block {c} of {x} shares an old "
+                                         f"buffer without a local transfer")
+                stats["kept"] += 1
+        for tr in log_:
+            if not tr.local:
+                stats["moved"] += tr.nbytes
+                stats["copies"] += 1
+        stats["local"] += sum(tr.nbytes for tr in log_ if tr.local) - sum(
+            t.numel() * t.element_size() for c, t in y.shards.items()
+            if storage_of(t) in olds)
+        return y
+
+    return tree_map(leaf, state, shardings), stats
+
+
+def phase_reshard(cfg, params, data_cfg):
+    """(r) The whole TrainState of smollm-135m at full width (params,
+    random moments, rng, step) expanded from 2 to 4 virtual slices of the
+    card and shrunk back, every leaf bit-equal, a copy on the card for
+    every non-local transfer; ownership per Listing 3; migrate_slice.
+    Returns the trainer and both states, for phase (k)."""
+    from repro_torch.core import (NamedSharding, PartitionSpec, gather,
+                                  make_mesh, migrate_slice, ownership_map,
+                                  place, reshard, slice_devices)
+    from repro_torch.core.sharding import distinct_blocks
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.prng import fold_in
+    tr = elastic_trainer(cfg, data_cfg, 1, 2)
+    state = tr.init_state(params=params)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name in ("mu", "nu"):
+        state["opt"][name] = tree_map(lambda x: x.map(lambda t: torch.randn(
+            t.shape, generator=gen, device=t.device).abs()),
+            state["opt"][name])
+    state["rng"] = state["rng"].map(lambda k: fold_in(k, 7))
+    state["step"] = state["step"].map(lambda t: t + 5)
+    devices = slice_devices(ELASTIC_SLICES)
+    m4 = make_mesh(4, 1, devices=devices)
+    sh4 = tr._state_shardings(m4)
+    s4, grow = checked_reshard(state, sh4)
+    s2, shrink = checked_reshard(s4, tr._state_shardings(tr.mesh))
+    for a, b in zip(tree_leaves(state), tree_leaves(s2)):
+        if not same_bits(gather(a), gather(b)):
+            raise AssertionError("expand then shrink changed a leaf")
+    # Listing 3: each sharded moment's new blocks start at the quarters of
+    # its sharded dimension
+    for mu in tree_leaves(s4["opt"]["mu"]):
+        blocks = distinct_blocks(mu)
+        if len(blocks) != 4:
+            raise AssertionError(f"{mu} not cut in four")
+        dim = next(i for i, s in enumerate(blocks[0][0])
+                   if s.stop - s.start != mu.shape[i])
+        starts = sorted(idx[dim].start for idx in ownership_map(mu).values())
+        if starts != [q * mu.shape[dim] // 4 for q in range(4)]:
+            raise AssertionError(f"{mu}: starts {starts}")
+    x = torch.arange(64.0, device="cuda").reshape(8, 8)
+    x4 = reshard(place(x, NamedSharding(make_mesh(2, 1, devices=devices),
+                                        PartitionSpec("data"))),
+                 NamedSharding(m4, PartitionSpec("data")))
+    starts = sorted(idx[0].start for idx in ownership_map(x4).values())
+    rows = torch.arange(4.0, device="cuda")[:, None].repeat(1, 3)
+    swapped = gather(migrate_slice(place(rows, NamedSharding(
+        m4, PartitionSpec("data"))), m4, 0, 2))[:, 0].tolist()
+    n = len(tree_leaves(state))
+    log("r", f"{cfg.name} TrainState ({n} leaves, "
+             f"{sum(x.nbytes for x in tree_leaves(state['params'])) / 1e9:.3f}"
+             f" GB of parameters on each slice, ZeRO-1 moments) expand 2 -> 4"
+             f" virtual slices: {grow['copies']} copies on the card, "
+             f"{grow['moved'] / 1e9:.3f} GB moved, {grow['kept']} blocks "
+             f"kept in place; shrink 4 -> 2: {shrink['copies']} copies, "
+             f"{shrink['moved'] / 1e9:.3f} GB moved, "
+             f"{shrink['local'] / 1e9:.3f} GB copied on the receivers, "
+             f"{shrink['kept']} blocks kept; every leaf bit-equal; 8x8 "
+             f"expand starts {starts}; migrate_slice(0, 2) rows {swapped}")
+    if grow["copies"] != 2 * n or grow["kept"] != 2 * n or \
+            starts != [0, 2, 4, 6] or swapped != [2.0, 1.0, 0.0, 3.0] or \
+            not torch.equal(gather(x4), x):
+        raise AssertionError("resharding does not follow Listing 3")
+    return tr, state, s4
+
+
+def phase_elastic_fp32(cfg, model, params, data_cfg):
+    """(r) fp32 at full width, weights at a per-layer fan-in: a run that
+    expands 2 -> 4 slices at its first reconfiguration point against the
+    same steps at 4 slices from the same state, the losses within
+    ELASTIC_TOL; the first steps at 1, 2 and 4 slices within SLICES_TOL."""
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    from repro_torch.core import Action, Decision
+    sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
+
+    def run(slices, steps, rms=None):
+        tr = elastic_trainer(f32, data_cfg, steps, slices, rms=rms,
+                             check_period=2)
+        tr.train(state=tr.init_state(params=sane))
+        return [m["loss"] for m in tr.metrics], tr
+
+    fixed, _ = run(4, ELASTIC_FP32_STEPS)
+    elastic, tr = run(2, ELASTIC_FP32_STEPS,
+                      ScriptedRMS({1: Decision(Action.EXPAND, 4)}))
+    one, _ = run(1, 2)
+    diff = max(abs(a - b) for a, b in zip(fixed, elastic))
+    spread = max(abs(a - b) for run_ in (one, elastic[:2])
+                 for a, b in zip(run_, fixed[:2]))
+    log("r", f"{cfg.name} fp32 B{data_cfg.global_batch} S{data_cfg.seq_len} "
+             f"(per-layer fan-in): losses at 4 slices "
+             + ", ".join(f"{x:.6f}" for x in fixed) + "; 2 -> 4 "
+             + ", ".join(f"{x:.6f}" for x in elastic)
+             + f" (resize {tr.resize_log}); largest difference {diff:.3e} "
+             f"(tol {ELASTIC_TOL}); first two steps at 1, 2 and 4 slices "
+             f"within {spread:.3e} (tol {SLICES_TOL})")
+    if [(r["action"], r["from"], r["to"]) for r in tr.resize_log] != \
+            [("EXPAND", 2, 4)] or diff > ELASTIC_TOL or spread > SLICES_TOL:
+        raise AssertionError("elastic training does not match fixed")
+
+
+class ScriptedCluster:
+    """The synthetic stream beside a scripted cluster (examples/
+    elastic_train.py): a rival job of 2 nodes is queued before step
+    RIVAL_QUEUED's batch, started by the RMS as soon as it fits, and
+    finished before step RIVAL_DONE's."""
+
+    def __init__(self, data, rms):
+        from repro_torch.rms import Job
+        self.data, self.rms = data, rms
+        self.rival = Job(job_id=1, app="lm:rival", submit_time=0.0, work=1e9,
+                         min_nodes=2, max_nodes=2, preferred=None,
+                         requested_nodes=2)
+        self.events = []
+
+    def batch(self, step):
+        from repro_torch.rms import JobState
+        rival, rms = self.rival, self.rms
+        if step == RIVAL_QUEUED and rival not in rms.jobs:
+            rms.submit(rival)
+            self.events.append((step, "rival queued"))
+        if rival.state is JobState.PENDING and rival in rms.jobs and \
+                rival.requested_nodes <= rms.cluster.free_nodes:
+            rms.cluster.allocate(rival.job_id, rival.requested_nodes)
+            rival.state, rival.nodes = JobState.RUNNING, 2
+            self.events.append((step, "rival started"))
+        if step == RIVAL_DONE and rival.state is JobState.RUNNING:
+            rms.finish(rival.job_id)
+            self.events.append((step, "rival finished"))
+        return self.data.batch(step)
+
+
+def phase_elastic_loop(cfg, params, data_cfg):
+    """(r) The paper's loop in bf16: LocalRMS with the reference's policy
+    over 4 nodes, the job on all 4. The queued rival makes the policy
+    SHRINK it; when the rival finishes, it EXPANDs back. Checkpoints every
+    LOOP_CKPT steps into a temporary directory; the first try of state
+    step FAULT_AT raises, and the trainer restores the latest checkpoint
+    and goes on: exactly one recovery. Every step launches 60 forward and
+    30 backward flash kernels per slice; the loss falls."""
+    import tempfile
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.rms import Job
+    from repro_torch.runtime import LocalRMS
+    rms = LocalRMS(num_nodes=ELASTIC_SLICES)
+    rms.submit(Job(job_id=0, app=f"lm:{cfg.name}", submit_time=0.0,
+                   work=LOOP_STEPS, min_nodes=1, max_nodes=ELASTIC_SLICES,
+                   preferred=None, requested_nodes=ELASTIC_SLICES),
+               start=True)
+    cluster = ScriptedCluster(SyntheticLMData(data_cfg), rms)
+    (ROOT / "build").mkdir(exist_ok=True)
+    per_step = flash_per_step(cfg)
+    wrappers = counters()
+    calls, faults = [], []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
+        tr = elastic_trainer(cfg, cluster, LOOP_STEPS, ELASTIC_SLICES,
+                             rms=rms, check_period=LOOP_CHECK,
+                             ckpt_period=LOOP_CKPT, ckpt_dir=ckpt)
+        step_fn = tr.train_step
+
+        def step(state, batch):
+            at = int(state["step"])
+            if at == FAULT_AT and not faults:
+                faults.append(at)
+                raise RuntimeError(f"fault injected at step {at}")
+            before = {n: wrappers[n].launches for n in per_step}
+            out = step_fn(state, batch)
+            calls.append((at, tr.slices, {n: wrappers[n].launches
+                                          - before[n] for n in per_step}))
+            return out
+
+        tr.train_step = step
+        t0 = time.perf_counter()
+        state = tr.train(state=tr.init_state(params=params))
+        seconds = time.perf_counter() - t0
+        saved = sorted(p.name for p in Path(ckpt).glob("ckpt_*"))
+    losses = [m["loss"] for m in tr.metrics]
+    log("r", f"{cfg.name} bf16 B{data_cfg.global_batch} S{data_cfg.seq_len}"
+             f", LocalRMS of {ELASTIC_SLICES} nodes: {LOOP_STEPS} steps in "
+             f"{seconds:.1f} s; cluster {cluster.events}; resizes "
+             + "; ".join(f"{r['action']} {r['from']} -> {r['to']} at step "
+                         f"{r['step']} in {r['resize_s'] * 1e3:.3f} ms"
+                         for r in tr.resize_log)
+             + f"; recoveries {tr.recoveries}; checkpoints kept {saved}; "
+             f"slices by step {[m['slices'] for m in tr.metrics]}; losses "
+             + ", ".join(f"{x:.4f}" for x in losses))
+    actions = [r["action"] for r in tr.resize_log]
+    bad = [c for c in calls
+           if c[2] != {n: c[1] * k for n, k in per_step.items()}]
+    if "SHRINK" not in actions or "EXPAND" not in actions:
+        raise AssertionError(f"the loop did not shrink and expand: "
+                             f"{tr.resize_log}")
+    if len(faults) != 1 or len(tr.recoveries) != 1 or \
+            tr.recoveries[0]["failed"] != FAULT_AT:
+        raise AssertionError(f"recoveries {tr.recoveries} for faults "
+                             f"{faults}")
+    if bad or not calls:
+        raise AssertionError(f"flash launches per step {bad}, expected "
+                             f"{per_step} per slice")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            int(state["step"]) != LOOP_STEPS:
+        raise AssertionError("the elastic loop did not bring the loss down")
+
+
+def phase_reshard_times(cfg, trainer, s2, s4):
+    """(k) timed_reshard against timed_reshard(impl=checkpoint_reshard) for
+    the TrainState's expand 2 -> 4 and shrink 4 -> 2, three of each, with
+    the plan's bytes (non-local transfers) and the rate they imply; then
+    migrate_slice(0, 2) of every leaf of the 4-slice state."""
+    from repro_torch.core import (checkpoint_reshard, make_mesh,
+                                  migrate_slice, reshard, slice_devices,
+                                  timed_reshard)
+    from repro_torch.core.reshard import synchronize
+    from repro_torch.models.layers import tree_leaves, tree_map
+    m4 = make_mesh(4, 1, devices=slice_devices(ELASTIC_SLICES))
+    cases = {"expand 2 -> 4": (s2, trainer._state_shardings(m4)),
+             "shrink 4 -> 2": (s4, trainer._state_shardings(trainer.mesh))}
+    for name, (src, sh) in cases.items():
+        plan = []
+        reshard(src, sh, transfers=plan)
+        moved = sum(t.nbytes for t in plan if not t.local)
+        times = {}
+        for impl in (reshard, checkpoint_reshard):
+            times[impl.__name__] = [timed_reshard(src, sh, impl=impl)[1]
+                                    * 1e3 for _ in range(3)]
+        best = min(times["reshard"])
+        slow = min(times["checkpoint_reshard"])
+        log("k", f"{cfg.name} TrainState {name} virtual slices: reshard "
+                 + ", ".join(f"{t:.3f}" for t in times["reshard"])
+                 + f" ms ({moved / 1e9:.3f} GB of non-local transfers, "
+                 f"{moved / best / 1e6:.1f} GB/s at the best); "
+                 f"checkpoint_reshard "
+                 + ", ".join(f"{t:.3f}" for t in times["checkpoint_reshard"])
+                 + f" ms (to the host and back, pageable memory), "
+                 f"{slow / best:.1f}x the reshard; on-card copies, not the "
+                 f"paper's links between nodes")
+    synchronize(s4)
+    t0 = time.perf_counter()
+    out = tree_map(lambda x: migrate_slice(x, x.sharding.mesh, 0, 2), s4)
+    synchronize(out)
+    ms = (time.perf_counter() - t0) * 1e3
+    moved = sum(2 * x.shards[(0, 0)].numel() * x.dtype.itemsize
+                for x in tree_leaves(s4))
+    log("k", f"{cfg.name} migrate_slice(0, 2) of every leaf at 4 slices: "
+             f"{ms:.3f} ms, {moved / 1e9:.3f} GB swapped, "
+             f"{moved / ms / 1e6:.1f} GB/s")
 
 
 # -- (k) times --------------------------------------------------------------------
@@ -1061,12 +1460,20 @@ def main():
                           global_batch=TRAIN_B)
     train_batch = {k: t.cuda()
                    for k, t in SyntheticLMData(data_cfg).batch(0).items()}
-    train_counts, (_, train_step) = drive("q", (
+    train_counts, (_, trained) = drive("q", (
         lambda: phase_train_fp32(smollm, model, params, train_batch),
         lambda: phase_train_bf16(smollm, params, data_cfg, TRAIN_STEPS)))
     for name in ("flash_attention", "flash_attention_bwd"):
         if train_counts[name] == 0:
             raise AssertionError(f"smollm's training path never launched "
+                                 f"{name}")
+    elastic_counts, (resharded, *_) = drive("r", (
+        lambda: phase_reshard(smollm, params, data_cfg),
+        lambda: phase_elastic_fp32(smollm, model, params, data_cfg),
+        lambda: phase_elastic_loop(smollm, params, data_cfg)))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if elastic_counts[name] == 0:
+            raise AssertionError(f"smollm's elastic path never launched "
                                  f"{name}")
 
     mamba = get_config("mamba2-130m")
@@ -1124,7 +1531,9 @@ def main():
     phase_step_times(smollm, params, toks[:, :PREFILL_S])
     phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
     phase_step_times(rg, rg_params, rg_toks)
-    phase_train_step_time(smollm, train_step, data_cfg)
+    phase_reshard_times(smollm, *resharded)
+    del resharded
+    phase_train_step_time(smollm, *trained, data_cfg)
     # the backward last: its library yardstick is autograd's backward in a
     # CUDA graph, after which no profile runs
     bwd_rows = {label: bench.time_flash_attention_bwd(label)
@@ -1143,13 +1552,14 @@ def main():
         "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:93",
         smollm_counts["flash_attention"] + train_counts["flash_attention"]
-        + rg_counts["flash_attention"],
+        + elastic_counts["flash_attention"] + rg_counts["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
     flash_row["launches_by_path"] = {
         "smollm-135m": smollm_counts["flash_attention"],
         "smollm-135m training": train_counts["flash_attention"],
+        "smollm-135m elastic training": elastic_counts["flash_attention"],
         "recurrentgemma-9b": rg_counts["flash_attention"]}
     flash_row["recurrentgemma"] = record_row(
         "flash_attention", flash_row["source"], flash_row["replaces"],
@@ -1183,11 +1593,14 @@ def main():
         "csrc/flash_attention_bwd.cu", "none: the Pallas kernel has no "
         "backward; the reference trains through XLA's autodiff of "
         "chunked_attention (src/repro/models/attention.py:94)",
-        train_counts["flash_attention_bwd"], bwd_err[(d, s)],
+        train_counts["flash_attention_bwd"]
+        + elastic_counts["flash_attention_bwd"], bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     bwd_row["launches_by_path"] = {
-        "smollm-135m training": train_counts["flash_attention_bwd"]}
+        "smollm-135m training": train_counts["flash_attention_bwd"],
+        "smollm-135m elastic training":
+            elastic_counts["flash_attention_bwd"]}
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]

@@ -10,7 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import place
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models.layers import tree_map
 
 
 def params_from_jax(tree, device=DEFAULT_DEVICE):
@@ -27,13 +29,18 @@ def params_from_jax(tree, device=DEFAULT_DEVICE):
     return convert(tree)
 
 
-def state_from_jax(state, device=DEFAULT_DEVICE):
+def state_from_jax(state, device=DEFAULT_DEVICE, shardings=None):
     """The reference's TrainState as numpy (``params``, ``opt`` with ``mu``,
-    ``nu`` and ``step``, ``step``; e.g. ``jax.tree.map(np.asarray,
-    state)``) -> the port's TrainState on ``device``. The reference's
-    ``rng`` leaf, which no step reads, is dropped."""
+    ``nu`` and ``step``, the ``rng`` key and ``step``; e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's TrainState on
+    ``device``, or, given ``shardings`` (e.g. a trainer's
+    ``_state_shardings(mesh)``), placed on their mesh."""
     opt = state["opt"]
-    return {"params": params_from_jax(state["params"], device),
-            "opt": params_from_jax({"mu": opt["mu"], "nu": opt["nu"],
-                                    "step": opt["step"]}, device),
-            "step": params_from_jax(state["step"], device)}
+    out = {"params": params_from_jax(state["params"], device),
+           "opt": params_from_jax({"mu": opt["mu"], "nu": opt["nu"],
+                                   "step": opt["step"]}, device),
+           "rng": params_from_jax(state["rng"], device),
+           "step": params_from_jax(state["step"], device)}
+    if shardings is not None:
+        out = tree_map(place, out, shardings)
+    return out

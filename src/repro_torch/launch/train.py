@@ -1,15 +1,25 @@
-"""Training launcher for the ported architectures, on one device.
+"""Training launcher for the ported architectures, optionally elastic.
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --no-reduced \
       --seq-len 2048 --global-batch 8 --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --no-reduced \
+      --seq-len 2048 --global-batch 8 --slices 2 --devices 4 --elastic
 
 Counterpart of ``repro.launch.train``. ``--reduced`` (the default) trains
 the tiny same-family config; ``--no-reduced`` the published widths. Runs on
-``--device`` (default ``cuda``), where it also prints the wall time of a
-step and the peak of allocated device memory. Elasticity (``--elastic``,
-``--devices``, ``--slices`` > 1, ``--model-ways`` > 1) and checkpoints
-(``--ckpt-dir``) are not ported yet and raise.
+``--device`` (default ``cuda``). ``--devices N`` gives the job N virtual
+slices of that one device (``core.meshes.slice_devices``), as the
+reference's ``--devices`` gives it N host devices of one CPU; the first
+line says so. The job starts on ``--slices`` of them. ``--elastic``
+attaches a ``LocalRMS`` of ``max(devices // model_ways, 1)`` nodes and
+honours its DMR decisions at a reconfiguration point every ``max(steps //
+10, 1)`` steps, up to that many slices (the reference caps the job at
+``--slices``, so its launcher never expands). ``--ckpt-dir`` checkpoints
+every 50 steps. It prints the per-step lines, the ``resize_log`` and, on
+the card, each resize's time, the wall time of the steps and the peak of
+allocated device memory. ``--model-ways`` > 1 (tensor parallelism inside a
+slice) is not ported yet and raises.
 """
 import argparse
 import sys
@@ -30,27 +40,42 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--slices", type=int, default=1)
     ap.add_argument("--model-ways", type=int, default=1)
-    ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--elastic", action="store_true")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="N virtual slices of --device")
+    ap.add_argument("--elastic", action="store_true",
+                    help="attach a LocalRMS and honour DMR decisions")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.elastic or args.devices:
-        raise NotImplementedError(
-            "--elastic and --devices are not ported yet (ROADMAP.md, Queue "
-            "1 items 2-3: resharding and the elastic trainer)")
 
     from repro_torch.configs import get_config
+    from repro_torch.core import slice_devices
     from repro_torch.data import DataConfig
     from repro_torch.models import build_model, reduced_config
     from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    from repro_torch.rms import Job
+    from repro_torch.runtime import ElasticTrainer, LocalRMS, TrainerConfig
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, device=args.device)
+    devices = slice_devices(max(args.devices, 1), args.device)
+    if args.devices:
+        card = devices[0].type == "cuda"
+        name = f", {torch.cuda.get_device_name(devices[0])}" if card else ""
+        print(f"{args.devices} virtual slices of one "
+              f"{'card' if card else 'device'} ({devices[0]}{name}), each "
+              f"with buffers of its own")
+    nodes = max(len(devices) // args.model_ways, 1)
+    rms = None
+    if args.elastic:
+        rms = LocalRMS(num_nodes=nodes)
+        rms.submit(Job(job_id=0, app=f"lm:{cfg.name}", submit_time=0.0,
+                       work=args.steps, min_nodes=1,
+                       max_nodes=rms.cluster.num_nodes, preferred=None,
+                       requested_nodes=args.slices), start=True)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch,
                       frontend=cfg.frontend,
@@ -58,13 +83,15 @@ def main(argv=None):
                       d_model=cfg.d_model, enc_dec=cfg.family == "encdec")
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                       total_steps=args.steps)
+    period = max(args.steps // 10, 1)
     trainer = ElasticTrainer(
         model, opt, data,
         TrainerConfig(steps=args.steps, grad_accum=args.grad_accum,
                       model_ways=args.model_ways,
-                      max_slices=max(args.slices, 1),
-                      log_period=max(args.steps // 10, 1),
-                      ckpt_dir=args.ckpt_dir))
+                      max_slices=nodes if args.elastic else args.slices,
+                      check_period=period, log_period=period,
+                      ckpt_dir=args.ckpt_dir),
+        rms=rms, job_id=0, devices=devices, slices=args.slices)
     t0 = time.perf_counter()
     trainer.train(seed=args.seed)
     if model.device.type == "cuda":
@@ -73,6 +100,12 @@ def main(argv=None):
     for m in trainer.metrics:
         print(f"step {m['step']:5d} loss {m['loss']:.4f} "
               f"slices {m['slices']}")
+    if trainer.resize_log:
+        print("resizes:", trainer.resize_log)
+    if model.device.type == "cuda":
+        for r in trainer.resize_log:
+            print(f"resize {r['action']} {r['from']} -> {r['to']} slices at "
+                  f"step {r['step']}: {r['resize_s'] * 1e3:.3f} ms")
     tokens = args.steps * args.global_batch * args.seq_len
     line = (f"{cfg.name} on {model.device}: {args.steps} steps in "
             f"{dt:.1f} s, {tokens / dt:.0f} tokens/s")

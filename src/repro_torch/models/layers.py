@@ -75,6 +75,11 @@ def init_from_specs(generator: torch.Generator, specs, dtype: torch.dtype,
         lambda s: init_param(generator, s, dtype).to(device), specs)
 
 
+def logical_tree(specs):
+    """The logical axis names of every leaf of a spec tree."""
+    return tree_map(lambda s: s.logical, specs)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 

@@ -26,7 +26,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamSpec, embed_apply, embed_specs,
-                                       init_from_specs, mlp_apply,
+                                       init_from_specs, logical_tree,
+                                       mlp_apply,
                                        mlp_specs, rms_norm, torch_dtype,
                                        tree_map, unembed_apply)
 
@@ -207,6 +208,11 @@ class CausalLM:
             specs[f"tail{t}"] = block_specs(cfg, cfg.pattern[t])
         specs["final_norm"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
         return specs
+
+    def logical(self):
+        """The logical axis names of every parameter, the tree of
+        ``specs()``."""
+        return logical_tree(self.specs())
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random parameters drawn from ``generator`` (a CPU generator)."""

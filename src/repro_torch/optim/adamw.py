@@ -1,4 +1,4 @@
-"""AdamW with a warmup + cosine schedule and global-norm clipping.
+"""AdamW with a warmup + cosine schedule, global-norm clipping, ZeRO-1.
 
 Counterpart of ``repro.optim.adamw`` on trees (nested dicts) of tensors.
 Like the reference it is functional: ``apply_updates`` returns new
@@ -6,10 +6,12 @@ parameters and a new state and leaves its arguments as they are. The
 moments are fp32 whatever the parameters' dtype, weight decay is applied to
 tensors of two or more dimensions only, and the step is an int32 tensor.
 
-The reference's ZeRO-1 layout (``zero1_logical``, ``state_logical``) needs
-the sharding rules, which come with resharding (ROADMAP.md, Queue 1 item
-2); ``AdamWConfig.zero1`` is accepted and has no effect on one rank, as the
-moments of one rank are whole.
+``zero1_logical`` gives each moment the ``zero1`` logical axis (the data
+axes) on its largest dimension the parameter's spec leaves unsharded, as
+the reference does. Over a mesh, ``apply_sharded_updates`` is the update
+that XLA derives from that layout in the reference: every slice updates the
+block of the parameters its moments hold, then every replica gathers the
+updated blocks.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.sharding import (ShardedTensor, distinct_blocks,
+                                       relative_index)
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -66,33 +70,125 @@ def global_norm(tree) -> torch.Tensor:
         [x.float().square().sum() for x in tree_leaves(tree)]).sum())
 
 
+def _clip_scale(cfg: AdamWConfig, gnorm):
+    if cfg.clip_norm is None:
+        return None
+    return torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+
+
+def _coefficients(cfg: AdamWConfig, step):
+    """(lr, 1 - beta1^t, 1 - beta2^t) at the new ``step``, on its device."""
+    lr = schedule(cfg, step).to(step.device)
+    t = step.float()
+    return lr, 1 - cfg.beta1 ** t, 1 - cfg.beta2 ** t
+
+
+def _update(cfg: AdamWConfig, p, g, mu, nu, coef, scale):
+    """One leaf (or block of one): (new p, new mu, new nu)."""
+    lr, c1, c2 = coef
+    b1, b2 = cfg.beta1, cfg.beta2
+    if scale is not None:
+        g = g * scale
+    g = g.float()
+    mu = b1 * mu + (1 - b1) * g
+    nu = b2 * nu + (1 - b2) * g.square()
+    u = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    if p.ndim >= 2:   # decoupled weight decay on matrices only
+        u = u + cfg.weight_decay * p.float()
+    return (p.float() - lr * u).to(p.dtype), mu, nu
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state):
     """Returns (new_params, new_state, {"lr", "grad_norm"})."""
     step = state["step"] + 1
-    lr = schedule(cfg, step).to(step.device)
+    coef = _coefficients(cfg, step)
     gnorm = global_norm(grads)
-    scale = None
-    if cfg.clip_norm is not None:
-        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-
-    b1, b2 = cfg.beta1, cfg.beta2
-    t = step.float()
-    c1 = 1 - b1 ** t
-    c2 = 1 - b2 ** t
-
-    def upd(p, g, mu, nu):
-        if scale is not None:
-            g = g * scale
-        g = g.float()
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g.square()
-        u = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        if p.ndim >= 2:   # decoupled weight decay on matrices only
-            u = u + cfg.weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype), mu, nu
-
-    out = tree_map(upd, params, grads, state["mu"], state["nu"])
+    scale = _clip_scale(cfg, gnorm)
+    out = tree_map(lambda p, g, mu, nu: _update(cfg, p, g, mu, nu, coef,
+                                                scale),
+                   params, grads, state["mu"], state["nu"])
     new = [tree_map(lambda o, i=i: o[i], out) for i in range(3)]
     return new[0], {"mu": new[1], "nu": new[2], "step": step}, \
-        {"lr": lr, "grad_norm": gnorm}
+        {"lr": coef[0], "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def apply_sharded_updates(cfg: AdamWConfig, params, grads, state):
+    """ZeRO-1 AdamW over a mesh. ``params``: ShardedTensors replicated over
+    the slices; ``grads``: the all-reduced gradients, whole tensors on one
+    device; ``state``: ``mu`` and ``nu`` laid out by :func:`state_logical`
+    and a replicated ``step``. The gradient norm and the clipping scale
+    come from the whole gradients, once. Each mesh coordinate updates the
+    block of the parameters its moments hold (weight decay by the leaf's
+    rank, which a block keeps); each replica then gathers the updated
+    blocks. Returns (new_params, new_state, {"lr", "grad_norm"}), the
+    metrics on the gradients' device."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(cfg, gnorm)
+    step = state["step"].map(lambda t: t + 1)
+    coef = {c: _coefficients(cfg, t) for c, t in step.shards.items()}
+
+    def leaf(p: ShardedTensor, g, mu: ShardedTensor, nu: ShardedTensor):
+        updated, mus, nus = {}, {}, {}
+        for c, m in mu.shards.items():
+            box, pbox = mu.index(c), p.index(c)
+            updated[c], mus[c], nus[c] = _update(
+                cfg, p.shards[c][relative_index(box, pbox)],
+                g[box].to(m.device), m, nu.shards[c], coef[c],
+                None if scale is None else scale.to(m.device))
+        blocks = distinct_blocks(mu)
+        out = {}
+        for c, own in p.shards.items():
+            pbox = p.index(c)
+            if mu.index(c) == pbox:
+                out[c] = updated[c]
+                continue
+            out[c] = torch.empty_like(own)
+            for idx, src in blocks:
+                out[c][relative_index(idx, pbox)].copy_(updated[src])
+        return (ShardedTensor(p.shape, p.dtype, p.sharding, out),
+                ShardedTensor(mu.shape, mu.dtype, mu.sharding, mus),
+                ShardedTensor(nu.shape, nu.dtype, nu.sharding, nus))
+
+    res = tree_map(leaf, params, grads, state["mu"], state["nu"])
+    new = [tree_map(lambda o, i=i: o[i], res) for i in range(3)]
+    first = next(iter(coef))
+    return new[0], {"mu": new[1], "nu": new[2], "step": step}, \
+        {"lr": coef[first][0].to(gnorm.device), "grad_norm": gnorm}
+
+
+# -- ZeRO-1 logical specs --------------------------------------------------------
+
+
+def zero1_logical(param_logical, param_shape, mesh, rules):
+    """Moment spec = param spec + 'data' sharding on the largest dim that the
+    param spec leaves unsharded and that the data axes divide evenly."""
+    data_ways = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.shape:
+            data_ways *= mesh.shape[ax]
+    used = rules.spec_for(param_logical, param_shape, mesh)
+    best, best_size = None, 0
+    for i, (name, dim) in enumerate(zip(param_logical, param_shape)):
+        already = i < len(used) and used[i] is not None
+        if already or name == "layers":
+            continue
+        if dim % data_ways == 0 and dim > best_size:
+            best, best_size = i, dim
+    if best is None:
+        return tuple(param_logical)
+    out = list(param_logical)
+    out[best] = "zero1"
+    return tuple(out)
+
+
+def state_logical(params_logical, params_shapes, mesh, rules,
+                  zero1: bool = True):
+    """Logical specs for the optimizer state tree."""
+    if zero1:
+        mom = tree_map(lambda lg, sh: zero1_logical(lg, sh, mesh, rules),
+                       params_logical, params_shapes)
+    else:
+        mom = params_logical
+    return {"mu": mom, "nu": mom, "step": ()}

@@ -1,116 +1,274 @@
-"""Elastic trainer, at one slice for now.
+"""Elastic trainer: the runtime that drives a malleable job.
 
-Counterpart of ``repro.runtime.trainer``: ``ElasticTrainer`` owns a
-TrainState (``params``, AdamW's ``opt``, ``step``) and runs the train step,
-``model.loss`` with ``loss.backward()`` over ``grad_accum`` micro-batches
-(their gradients and losses averaged, as the reference's scan sums them and
-divides), then ``apply_updates``. ``train`` logs ``loss``, ``lr``,
-``grad_norm``, ``step`` and ``slices`` every ``log_period`` steps.
+Counterpart of ``repro.runtime.trainer``. ``ElasticTrainer`` owns a
+TrainState (``params``, AdamW's ``opt``, the ``rng`` key and ``step``) laid
+out on a mesh of data-parallel slices: the parameters replicated, the
+moments ZeRO-1 sharded (``optim.state_logical``), each leaf a
+``ShardedTensor``. The train step runs every slice's share of the batch in
+turn (``model.loss``, ``backward()`` over ``grad_accum`` micro-batches),
+sums the slices' gradients in slice order, and applies
+``apply_sharded_updates``. Each slice's loss is scaled by its share of the
+global batch's unmasked labels, so the gradients and the reported loss are
+the global batch's mean, as in the reference's jitted step.
 
-This slice trains on one device. What makes the trainer elastic is not
-ported yet and raises: the DMR reconfiguration points (``rms``), more than
-one slice or model-parallel ways (resharding, ROADMAP.md Queue 1 item 2)
-and checkpoints (item 3). The reference's ``rng`` leaf, which no step
-reads, is left out, as are the options of those parts (``check_period``,
-``min_slices``, ``factor``, ``preferred``, ``ckpt_period``, the sharding
-``rules``, ``donate``) and ``job_id``.
+The training loop exposes *reconfiguration points* at step boundaries:
+every ``check_period`` steps it calls the DMR API; on EXPAND or SHRINK it
+builds a mesh of the granted slice count and reshards the whole TrainState
+(``core.reshard``: runtime data redistribution, not a checkpoint restart).
+Checkpoint/restart is the *fault* path: a step that raises restores the
+latest checkpoint onto the current mesh; the same step failing again after
+that restore raises, so a fault that repeats (a kernel that cannot build or
+launch) is not retried forever. ``recoveries`` lists every restore.
+
+The slices of a mesh may be cards or virtual slices of one card
+(``core.meshes.slice_devices``). Tensor parallelism inside a slice
+(``model_ways > 1``) is not ported yet and raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
+                              ShardingRules, make_mesh, place, reshard)
+from repro_torch.core.reshard import synchronize
+from repro_torch.core.sharding import logical_to_sharding, zeros
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.models.layers import tree_map
-from repro_torch.optim import AdamWConfig, apply_updates, init_state
+from repro_torch.optim import (AdamWConfig, apply_sharded_updates,
+                               state_logical)
+from repro_torch.prng import fold_in, prng_key
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
     grad_accum: int = 1
-    max_slices: int = 1
+    check_period: int = 10            # steps between reconfiguration points
+    min_slices: int = 1
+    max_slices: int = 8
+    factor: int = 2
+    preferred: Optional[int] = None
     model_ways: int = 1               # TP width inside a slice
     ckpt_dir: Optional[str] = None
+    ckpt_period: int = 50
     log_period: int = 10
+    rules: ShardingRules = TP_DP_RULES
+    donate: bool = True
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for the kernels launched on it."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class ElasticTrainer:
     """``data`` is a :class:`DataConfig` (the synthetic stream) or any
-    object with ``batch(step)`` returning {"tokens", "labels"}."""
+    object with ``batch(step)`` returning {"tokens", "labels"}.
+    ``devices`` lists the devices slices may take, in order (default: the
+    model's device, once); ``slices`` the job's starting slice count
+    (default: as many as ``devices`` and ``cfg.max_slices`` allow); ``rms``
+    an ``RMSProtocol`` to ask at each reconfiguration point."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, data, cfg: TrainerConfig,
-                 rms=None):
-        not_yet = []
-        if rms is not None:
-            not_yet.append("DMR reconfiguration (rms)")
-        if cfg.max_slices > 1 or cfg.model_ways > 1:
-            not_yet.append(f"{cfg.max_slices} slices x {cfg.model_ways} "
-                           "model ways (resharding, ROADMAP.md Queue 1 "
-                           "item 2)")
-        if cfg.ckpt_dir is not None:
-            not_yet.append("checkpoints (ROADMAP.md Queue 1 item 3)")
-        if not_yet:
+                 rms=None, job_id: int = 0, devices=None,
+                 slices: Optional[int] = None):
+        if cfg.model_ways > 1:
             raise NotImplementedError(
-                "not ported yet: " + "; ".join(not_yet) + " (ROADMAP.md, "
-                "Queue 1 items 2-3)")
+                f"model_ways={cfg.model_ways}: tensor parallelism inside a "
+                "slice is not ported yet (ROADMAP.md, Queue 1 item 10)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.data = (SyntheticLMData(data) if isinstance(data, DataConfig)
                      else data)
         self.cfg = cfg
-        self.slices = 1
+        self.devices = (list(devices) if devices is not None
+                        else [model.device])
+        self.slices = min(cfg.max_slices, len(self.devices) // cfg.model_ways)
+        if slices is not None:
+            if not 0 < slices <= self.slices:
+                raise ValueError(f"{slices} slices: at most {self.slices}")
+            self.slices = slices
+        self.mesh = make_mesh(self.slices, cfg.model_ways,
+                              devices=self.devices)
+        self.dmr = DMR(rms, job_id, current_slices=self.slices) \
+            if rms is not None else None
+        self.store = CheckpointStore(cfg.ckpt_dir) if cfg.ckpt_dir else None
         self.metrics: list = []
+        self.resize_log: list = []
+        self.recoveries: list = []
+
+    # -- sharding ------------------------------------------------------------
+
+    def _state_shardings(self, mesh):
+        shapes = tree_map(lambda s: s.shape, self.model.specs())
+        logical = self.model.logical()
+        tree_logical = {
+            "params": logical,
+            "opt": state_logical(logical, shapes, mesh, self.cfg.rules,
+                                 zero1=self.opt_cfg.zero1),
+            "rng": (None,),
+            "step": (),
+        }
+        tree_shapes = {"params": shapes,
+                       "opt": {"mu": shapes, "nu": shapes, "step": ()},
+                       "rng": (2,), "step": ()}
+        return logical_to_sharding(tree_logical, tree_shapes, mesh,
+                                   self.cfg.rules)
+
+    def on_mesh(self, state):
+        """``state`` laid out on the trainer's mesh: a state of plain
+        tensors (e.g. from ``bridge.state_from_jax``) is placed there."""
+        if isinstance(state["step"], ShardedTensor):
+            return state
+        return tree_map(place, state, self._state_shardings(self.mesh))
 
     # -- state ---------------------------------------------------------------
 
     def init_state(self, seed: int = 0, params=None):
-        """A fresh TrainState: ``params`` (drawn from ``seed`` unless
-        given), zero AdamW moments, step 0."""
+        """A fresh TrainState on the mesh: ``params`` (drawn from ``seed``
+        unless given) on every slice, zero AdamW moments, the key
+        ``prng_key(seed + 1)`` and step 0."""
         if params is None:
             params = self.model.init(torch.Generator().manual_seed(seed))
-        return {"params": params, "opt": init_state(params),
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.model.device)}
+        sh = self._state_shardings(self.mesh)
+
+        def moments():
+            return tree_map(lambda p, s: zeros(p.shape, torch.float32, s),
+                            params, sh["opt"]["mu"])
+
+        def step0(s):
+            return zeros((), torch.int32, s)
+
+        return {"params": tree_map(place, params, sh["params"]),
+                "opt": {"mu": moments(), "nu": moments(),
+                        "step": step0(sh["opt"]["step"])},
+                "rng": place(prng_key(seed + 1), sh["rng"]),
+                "step": step0(sh["step"])}
 
     # -- the step ------------------------------------------------------------
 
     def train_step(self, state, batch):
-        """One optimizer step on ``batch``; returns (new state, metrics)."""
-        accum = self.cfg.grad_accum
-        params = tree_map(lambda p: p.detach().requires_grad_(True),
-                          state["params"])
-        batch = {k: v.to(self.model.device) for k, v in batch.items()}
-        loss = torch.zeros((), dtype=torch.float32, device=self.model.device)
-        for i in range(accum):
-            micro = {k: v.reshape((accum, -1) + v.shape[1:])[i]
-                     for k, v in batch.items()}
-            micro_loss, _ = self.model.loss(params, micro)
-            micro_loss.backward()
-            loss = loss + micro_loss.detach()
-        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                         else p.grad / accum if accum > 1 else p.grad, params)
-        params = tree_map(lambda p: p.detach(), params)
-        params, opt, metrics = apply_updates(self.opt_cfg, params, grads,
-                                             state["opt"])
-        new_state = {"params": params, "opt": opt,
-                     "step": state["step"] + 1}
-        return new_state, dict(metrics, loss=loss / accum)
+        """One optimizer step on the global ``batch``; returns (new state,
+        metrics). Slice ``j`` takes rows ``j`` of each micro-batch cut in as
+        many blocks as there are slices."""
+        mesh, accum = self.mesh, self.cfg.grad_accum
+        coords = mesh.coords()
+        n = len(coords)
+        rows = batch["tokens"].shape[0]
+        if rows % (accum * n):
+            raise ValueError(f"global batch {rows} does not split into "
+                             f"{accum} micro-batches over {n} slices")
+        micro, per = rows // accum, rows // accum // n
+        counts = (batch["labels"] >= 0).reshape(accum, n, -1).sum(-1)
+        counts = counts.tolist()
+        first = mesh.device(coords[0])
+        loss = torch.zeros((), dtype=torch.float32, device=first)
+        reduced = None
+        for j, c in enumerate(coords):
+            dev = mesh.device(c)
+            params = tree_map(lambda x: x.shards[c].detach()
+                              .requires_grad_(True), state["params"])
+            with _on(dev):
+                for i in range(accum):
+                    lo = i * micro + j * per
+                    mb = {k: v[lo:lo + per].to(dev) for k, v in batch.items()}
+                    part, _ = self.model.loss(params, mb)
+                    # this slice's share of micro-batch i's unmasked labels
+                    part = part * (max(counts[i][j], 1)
+                                   / max(sum(counts[i]), 1) / accum)
+                    part.backward()
+                    loss += part.detach().to(first)
+            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                             else p.grad, params)
+            if reduced is None:
+                reduced = grads
+            else:
+                tree_map(lambda r, g: r.add_(g.to(r.device)), reduced, grads)
+        new_params, opt, metrics = apply_sharded_updates(
+            self.opt_cfg, state["params"], reduced, state["opt"])
+        new_state = {"params": new_params, "opt": opt,
+                     "rng": state["rng"].map(lambda k: fold_in(k, 0)),
+                     "step": state["step"].map(lambda t: t + 1)}
+        return new_state, dict(metrics, loss=loss)
 
-    # -- loop ----------------------------------------------------------------
+    # -- reconfiguration (the paper's §5.2 protocol) -----------------------------
+
+    def maybe_reconfigure(self, state):
+        if self.dmr is None:
+            return state
+        action, new_slices, handler = self.dmr.check_status(
+            minimum=self.cfg.min_slices, maximum=self.cfg.max_slices,
+            factor=self.cfg.factor, preferred=self.cfg.preferred)
+        if action is Action.NO_ACTION:
+            return state
+        t0 = time.perf_counter()
+        new_mesh = make_mesh(new_slices, self.cfg.model_ways,
+                             devices=self.devices)
+        state = reshard(state, self._state_shardings(new_mesh),
+                        donate=self.cfg.donate)
+        synchronize(state)
+        dt = time.perf_counter() - t0
+        if handler is not None:
+            handler.new_mesh = new_mesh
+            handler.resize_time_s = dt
+        self.resize_log.append(
+            {"step": int(state["step"]), "action": action.name,
+             "from": self.slices, "to": new_slices, "resize_s": dt})
+        self.mesh = new_mesh
+        self.slices = new_slices
+        return state
+
+    # -- loop -----------------------------------------------------------------
 
     def train(self, state=None, seed: int = 0):
-        if state is None:
-            state = self.init_state(seed)
-        step = int(state["step"])
+        state = self.init_state(seed) if state is None else \
+            self.on_mesh(state)
+        start = int(state["step"])
+        step, failed_at = start, None
         while step < self.cfg.steps:
-            state, metrics = self.train_step(state, self.data.batch(step))
+            if self.dmr is not None and step > start and \
+                    step % self.cfg.check_period == 0:
+                state = self.maybe_reconfigure(state)
+            batch = self.data.batch(step)
+            try:
+                state, metrics = self.train_step(state, batch)
+            except Exception:
+                if failed_at == step:
+                    raise
+                failed_at = step
+                state = self._recover()
+                self.recoveries.append({"failed": step,
+                                        "restored": int(state["step"])})
+                step = int(state["step"])
+                continue
             step += 1
             if step % self.cfg.log_period == 0 or step == self.cfg.steps:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
                 m["slices"] = self.slices
                 self.metrics.append(m)
+            if self.store is not None and step % self.cfg.ckpt_period == 0:
+                self.store.save_async(step, state)
+        if self.store is not None:
+            self.store.wait()
         return state
+
+    def _recover(self):
+        """Fault path: restore the latest checkpoint onto the current
+        mesh."""
+        if self.store is None:
+            raise RuntimeError("step failed and no checkpoint store")
+        self.store.wait()
+        step = self.store.latest_step()
+        if step is None:
+            raise RuntimeError("step failed before first checkpoint")
+        shardings = self._state_shardings(self.mesh)
+        return self.store.restore(step, shardings, shardings)

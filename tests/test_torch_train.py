@@ -377,14 +377,18 @@ def test_loss_descends():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Tensor parallelism inside a slice is all that still raises: more
+    slices, a checkpoint directory and an RMS are taken."""
     _, pcfg = smollm_fp32()
     model = build_model(pcfg, device="cpu")
     data = DataConfig(vocab_size=pcfg.vocab_size, seq_len=8, global_batch=2)
-    for kw, extra in ((dict(max_slices=2), {}), (dict(model_ways=2), {}),
-                      (dict(ckpt_dir="ckpt"), {}), ({}, dict(rms=object()))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ElasticTrainer(model, AdamWConfig(), data, TrainerConfig(**kw),
-                           **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ElasticTrainer(model, AdamWConfig(), data,
+                       TrainerConfig(model_ways=2))
+    tr = ElasticTrainer(model, AdamWConfig(), data,
+                        TrainerConfig(max_slices=2, ckpt_dir=None),
+                        rms=object(), devices=["cpu"] * 2)
+    assert tr.slices == 2 and tr.dmr is not None
 
 
 def test_state_from_jax_carries_the_whole_train_state():
@@ -397,8 +401,11 @@ def test_state_from_jax_carries_the_whole_train_state():
     state = {"params": params, "opt": opt, "rng": jax.random.PRNGKey(1),
              "step": jnp.int32(4)}
     got = state_from_jax(jax.tree.map(np.asarray, state), device="cpu")
-    assert set(got) == {"params", "opt", "step"}
+    assert set(got) == {"params", "opt", "rng", "step"}
     assert int(got["step"]) == int(got["opt"]["step"]) == 4
+    assert got["rng"].dtype == torch.uint32
+    np.testing.assert_array_equal(got["rng"].numpy(),
+                                  np.asarray(state["rng"]))
     for name, tree in (("params", params), ("mu", opt["mu"]),
                        ("nu", opt["nu"])):
         sub = got["params"] if name == "params" else got["opt"][name]
@@ -437,6 +444,20 @@ def test_train_launcher_needs_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1"])
-    for flags in (["--elastic"], ["--devices", "8"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.main(["--device", "cpu", "--steps", "1", *flags])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--devices", "4", "--elastic"])
+
+
+def test_train_launcher_runs_elastic_on_cpu_slices(capsys):
+    """--devices 4 --slices 2 --elastic on the CPU: four virtual slices of
+    the CPU, a LocalRMS of four nodes that expands the job from 2 to 4
+    slices at its first reconfiguration point."""
+    from repro_torch.launch import train
+    assert train.main(["--device", "cpu", "--devices", "4", "--slices", "2",
+                       "--elastic", "--steps", "4", "--reduced",
+                       "--global-batch", "8", "--seq-len", "16"]) == 0
+    out = capsys.readouterr().out
+    first = out.splitlines()[0]
+    assert "4 virtual slices of one device (cpu)" in first, first
+    assert "step     4 loss" in out and "slices 4" in out
+    assert "'action': 'EXPAND', 'from': 2, 'to': 4" in out
