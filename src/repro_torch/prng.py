@@ -42,7 +42,12 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``: the hash of
-    the count (0, data) under ``key``, on ``key``'s device."""
+    the count (0, data) under ``key``, on ``key``'s device: in Python ints
+    for a key on the CPU, in tensor ops on a card (no host round trip)."""
+    if key.device.type == "cpu":
+        k0, k1 = key.tolist()
+        return torch.tensor(threefry2x32(k0, k1, 0, data & _MASK),
+                            dtype=torch.int64).to(torch.uint32)
     k = key.to(torch.int64)
     y0, y1 = threefry2x32(k[0], k[1], 0, data & _MASK)
     return torch.stack([y0, y1]).to(torch.uint32)

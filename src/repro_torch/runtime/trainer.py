@@ -37,7 +37,7 @@ from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
                               ShardingRules, make_mesh, place, reshard)
 from repro_torch.core.reshard import synchronize
-from repro_torch.core.sharding import logical_to_sharding, zeros
+from repro_torch.core.sharding import copy_to, logical_to_sharding, zeros
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.models.layers import tree_map
 from repro_torch.optim import (AdamWConfig, apply_sharded_updates,
@@ -194,8 +194,11 @@ class ElasticTrainer:
                 tree_map(lambda r, g: r.add_(g.to(r.device)), reduced, grads)
         new_params, opt, metrics = apply_sharded_updates(
             self.opt_cfg, state["params"], reduced, state["opt"])
-        new_state = {"params": new_params, "opt": opt,
-                     "rng": state["rng"].map(lambda k: fold_in(k, 0)),
+        # the key folds once; every other slice gets a copy of its own
+        rng = state["rng"]
+        key = fold_in(rng.shards[coords[0]], 0)
+        rng = rng.map(lambda k: copy_to(key, k.device))
+        new_state = {"params": new_params, "opt": opt, "rng": rng,
                      "step": state["step"].map(lambda t: t + 1)}
         return new_state, dict(metrics, loss=loss)
 

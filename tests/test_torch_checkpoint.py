@@ -31,6 +31,18 @@ from repro_torch.runtime import ElasticTrainer, TrainerConfig  # noqa: E402
 CPU8 = slice_devices(8, "cpu")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The tier-1 run shares the machine's cores among its workers: these
+    many small ops run on one thread each, not on every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def state():
     return {"params": {"w": torch.arange(12.0).reshape(3, 4),

@@ -38,6 +38,18 @@ PACKAGES = {
                  policy=port_policy, local_rms=port_local_rms)}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The tier-1 run shares the machine's cores among its workers: these
+    many small ops run on one thread each, not on every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 class FakeRMS:
     """tests/test_dmr_api.py's fake, over either package's Decision."""
 

@@ -46,11 +46,23 @@ from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.models import ModelConfig, build_model  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import AdamWConfig, zero1_logical  # noqa: E402
-from repro_torch.prng import fold_in, prng_key  # noqa: E402
+from repro_torch.prng import fold_in, prng_key, threefry2x32  # noqa: E402
 from repro_torch.runtime import ElasticTrainer, TrainerConfig  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU8 = slice_devices(8, "cpu")
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The tier-1 run shares the machine's cores among its workers: these
+    many small ops run on one thread each, not on every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def smollm_fp32():
@@ -163,6 +175,12 @@ def test_fold_in_matches_jax_on_64_keys():
         want = jax.random.fold_in(jnp.array([k0, k1], jnp.uint32), 0)
         np.testing.assert_array_equal(fold_in(key, 0).numpy(),
                                       np.asarray(want))
+    # the card's path: the same hash in int64 tensor ops
+    k = torch.from_numpy(keys.astype(np.int64))
+    y0, y1 = threefry2x32(k[:, 0], k[:, 1], 0, 0)
+    want = np.stack([np.asarray(jax.random.fold_in(
+        jnp.array(key, jnp.uint32), 0)) for key in keys])
+    np.testing.assert_array_equal(torch.stack([y0, y1], 1).numpy(), want)
     for seed in (0, 1, 7, 2 ** 31 + 5):
         np.testing.assert_array_equal(prng_key(seed).numpy(),
                                       np.asarray(jax.random.PRNGKey(seed)))
