@@ -1028,14 +1028,14 @@ def same_bits(a, b):
 def checked_reshard(state, shardings):
     """reshard, leaf by leaf, checking that every leaf keeps its bits and
     that a new block shares an old buffer only as a view kept in place by
-    the plan's one local transfer to its slice: every other block is a new
+    the one local transfer to its slice: every other block is a new
     buffer on the card, including each non-local transfer's. Returns (the
     new state, {"moved": bytes of non-local transfers, "local": bytes
-    copied on the slice itself, "kept": blocks left in place, "copies":
-    non-local transfers})."""
+    copied on the slice itself, "kept": blocks left in place, "kept_at":
+    the slices that kept one, "copies": non-local transfers})."""
     from repro_torch.core import gather, reshard
     from repro_torch.models.layers import tree_map
-    stats = dict(moved=0, local=0, kept=0, copies=0)
+    stats = dict(moved=0, local=0, kept=0, copies=0, kept_at=set())
 
     def leaf(x, sh):
         log_ = []
@@ -1054,6 +1054,7 @@ def checked_reshard(state, shardings):
                     raise AssertionError(f"block {c} of {x} shares an old "
                                          f"buffer without a local transfer")
                 stats["kept"] += 1
+                stats["kept_at"].add(k)
         for tr in log_:
             if not tr.local:
                 stats["moved"] += tr.nbytes
@@ -1073,8 +1074,8 @@ def phase_reshard(cfg, params, data_cfg):
     every non-local transfer; ownership per Listing 3; migrate_slice.
     Returns the trainer and both states, for phase (k)."""
     from repro_torch.core import (NamedSharding, PartitionSpec, gather,
-                                  make_mesh, migrate_slice, ownership_map,
-                                  place, reshard, slice_devices)
+                                  migrate_slice, ownership_map, place,
+                                  reshard, resized_mesh, slice_devices)
     from repro_torch.core.sharding import distinct_blocks
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.prng import fold_in
@@ -1088,7 +1089,7 @@ def phase_reshard(cfg, params, data_cfg):
     state["rng"] = state["rng"].map(lambda k: fold_in(k, 7))
     state["step"] = state["step"].map(lambda t: t + 5)
     devices = slice_devices(ELASTIC_SLICES)
-    m4 = make_mesh(4, 1, devices=devices)
+    m4 = resized_mesh(tr.mesh, 4, devices=devices)
     sh4 = tr._state_shardings(m4)
     s4, grow = checked_reshard(state, sh4)
     s2, shrink = checked_reshard(s4, tr._state_shardings(tr.mesh))
@@ -1107,8 +1108,7 @@ def phase_reshard(cfg, params, data_cfg):
         if starts != [q * mu.shape[dim] // 4 for q in range(4)]:
             raise AssertionError(f"{mu}: starts {starts}")
     x = torch.arange(64.0, device="cuda").reshape(8, 8)
-    x4 = reshard(place(x, NamedSharding(make_mesh(2, 1, devices=devices),
-                                        PartitionSpec("data"))),
+    x4 = reshard(place(x, NamedSharding(tr.mesh, PartitionSpec("data"))),
                  NamedSharding(m4, PartitionSpec("data")))
     starts = sorted(idx[0].start for idx in ownership_map(x4).values())
     rows = torch.arange(4.0, device="cuda")[:, None].repeat(1, 3)
@@ -1126,6 +1126,7 @@ def phase_reshard(cfg, params, data_cfg):
              f"{shrink['kept']} blocks kept; every leaf bit-equal; 8x8 "
              f"expand starts {starts}; migrate_slice(0, 2) rows {swapped}")
     if grow["copies"] != 2 * n or grow["kept"] != 2 * n or \
+            grow["kept_at"] != {0, 2} or \
             starts != [0, 2, 4, 6] or swapped != [2.0, 1.0, 0.0, 3.0] or \
             not torch.equal(gather(x4), x):
         raise AssertionError("resharding does not follow Listing 3")
@@ -1274,12 +1275,13 @@ def phase_reshard_times(cfg, trainer, s2, s4):
     the TrainState's expand 2 -> 4 and shrink 4 -> 2, three of each, with
     the plan's bytes (non-local transfers) and the rate they imply; then
     migrate_slice(0, 2) of every leaf of the 4-slice state."""
-    from repro_torch.core import (checkpoint_reshard, make_mesh,
-                                  migrate_slice, reshard, slice_devices,
+    from repro_torch.core import (checkpoint_reshard, migrate_slice,
+                                  reshard, resized_mesh, slice_devices,
                                   timed_reshard)
     from repro_torch.core.reshard import synchronize
     from repro_torch.models.layers import tree_leaves, tree_map
-    m4 = make_mesh(4, 1, devices=slice_devices(ELASTIC_SLICES))
+    m4 = resized_mesh(trainer.mesh, 4,
+                      devices=slice_devices(ELASTIC_SLICES))
     cases = {"expand 2 -> 4": (s2, trainer._state_shardings(m4)),
              "shrink 4 -> 2": (s4, trainer._state_shardings(trainer.mesh))}
     for name, (src, sh) in cases.items():

@@ -13,7 +13,10 @@ appear more than once: :func:`slice_devices` gives ``n`` *virtual slices*
 of one card (NCCL takes one rank per card, and gloo would move the card's
 tensors through the host), as the reference's tests give 8 host devices of
 one CPU. Slices are told apart by their mesh coordinate, never by their
-device.
+device. Each entry also carries its ``id``, its position in the list of
+devices the job's meshes are drawn from (the counterpart of a JAX device's
+``id``): two entries with one id are one device, even where virtual slices
+share a card, and the reshard keeps a block in place only on its own id.
 """
 from __future__ import annotations
 
@@ -24,13 +27,17 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 
 class Mesh:
-    """``devices``: an object array of ``torch.device``, one axis per name."""
+    """``devices``: an object array of ``torch.device``, one axis per name;
+    ``ids``: an int array of the same shape, each entry's position in the
+    device list (default: row-major order)."""
 
-    def __init__(self, devices: np.ndarray, axis_names):
+    def __init__(self, devices: np.ndarray, axis_names, ids=None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of rank {devices.ndim} given axis names "
                              f"{axis_names}")
         self.devices = devices
+        self.ids = (np.arange(devices.size).reshape(devices.shape)
+                    if ids is None else np.asarray(ids).reshape(devices.shape))
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
         self._coords = list(np.ndindex(*devices.shape))
@@ -43,8 +50,12 @@ class Mesh:
     def device(self, coord) -> torch.device:
         return self.devices[coord]
 
+    def id(self, coord) -> int:
+        return int(self.ids[coord])
+
     def __repr__(self):
-        return f"Mesh({self.shape}, {list(self.devices.flat)})"
+        return (f"Mesh({self.shape}, {list(self.devices.flat)}, "
+                f"ids {self.ids.ravel().tolist()})")
 
 
 def visible_devices():
@@ -68,24 +79,30 @@ def slice_devices(n: int, device=DEFAULT_DEVICE):
     return [_indexed(resolve_device(device))] * n
 
 
+def _mesh(ids, data: int, model: int, pod: int, devices) -> Mesh:
+    """The mesh whose entries, in row-major order, are ``devices[i]`` for
+    each ``i`` of ``ids``."""
+    if max(ids, default=-1) >= len(devices):
+        raise ValueError(f"need {len(ids)} devices, have {len(devices)}")
+    arr = np.empty(len(ids), dtype=object)
+    arr[:] = [_indexed(devices[i]) for i in ids]
+    if pod > 1:
+        shape, names = (pod, data, model), ("pod", "data", "model")
+    else:
+        shape, names = (data, model), ("data", "model")
+    return Mesh(arr.reshape(shape), names, np.asarray(ids).reshape(shape))
+
+
 def make_mesh(data: int, model: int, pod: int = 1, devices=None) -> Mesh:
     """Build a mesh of ``pod*data*model`` devices.
 
     Uses the first ``pod*data*model`` entries of ``devices`` (defaults to
     the visible cards), so that meshes of different ``data`` extents share
-    a device prefix: the elastic resize path reuses the original devices
-    (the paper reuses the original nodes on expansion, §5.2.1).
+    a device prefix.
     """
     if devices is None:
         devices = visible_devices()
-    n = pod * data * model
-    if len(devices) < n:
-        raise ValueError(f"need {n} devices, have {len(devices)}")
-    arr = np.empty(n, dtype=object)
-    arr[:] = [_indexed(d) for d in devices[:n]]
-    if pod > 1:
-        return Mesh(arr.reshape(pod, data, model), ("pod", "data", "model"))
-    return Mesh(arr.reshape(data, model), ("data", "model"))
+    return _mesh(list(range(pod * data * model)), data, model, pod, devices)
 
 
 def mesh_num_slices(mesh: Mesh) -> int:
@@ -102,10 +119,17 @@ def mesh_model_ways(mesh: Mesh) -> int:
 
 
 def resized_mesh(mesh: Mesh, new_slices: int, devices=None) -> Mesh:
-    """A mesh with ``new_slices`` data-parallel slices.
+    """A mesh with ``new_slices`` data-parallel slices, placed as the
+    Listing-3 plans (``core.redistribute``) assume, so that each of their
+    local transfers stays on its device.
 
-    Expansion appends fresh devices after the current ones; shrinking keeps
-    the leading prefix. Multi-pod meshes keep the pod axis as long as
+    Expanding ``p`` slices by a factor ``f`` puts new slice ``r*f`` on old
+    slice ``r``'s devices and new slices ``r*f+1 .. r*f+f-1`` on devices
+    of ``devices`` the mesh does not use, in order (the paper reuses the
+    original nodes on expansion, §5.2.1). Shrinking by ``f`` keeps old
+    slice ``r*f``'s devices as new slice ``r``. Sizes that are not
+    multiples of each other take the prefix of ``devices``, as
+    :func:`make_mesh`. Multi-pod meshes keep the pod axis as long as
     ``new_slices`` divides by the pod count; otherwise they collapse to a
     single-pod mesh.
     """
@@ -113,9 +137,28 @@ def resized_mesh(mesh: Mesh, new_slices: int, devices=None) -> Mesh:
     pods = mesh.shape.get("pod", 1)
     if devices is None:
         devices = visible_devices()
-    if pods > 1 and new_slices % pods == 0:
-        return make_mesh(new_slices // pods, model, pod=pods, devices=devices)
-    return make_mesh(new_slices, model, devices=devices)
+    old = mesh.ids.reshape(-1, model).tolist()   # one row per slice
+    p, q = len(old), new_slices
+    if q % p == 0:
+        used = set(mesh.ids.flat)
+        fresh = [i for i in range(len(devices)) if i not in used]
+        rows = []
+        for r in range(p):
+            rows.append(old[r])
+            for _ in range(q // p - 1):
+                rows.append(fresh[:model])
+                fresh = fresh[model:]
+        if any(len(row) < model for row in rows):
+            raise ValueError(f"need {q * model} devices, have "
+                             f"{len(devices)}")
+    elif p % q == 0:
+        rows = [old[r * (p // q)] for r in range(q)]
+    else:
+        rows = [list(range(k * model, (k + 1) * model)) for k in range(q)]
+    ids = [i for row in rows for i in row]
+    if pods > 1 and q % pods == 0:
+        return _mesh(ids, q // pods, model, pods, devices)
+    return _mesh(ids, q, model, 1, devices)
 
 
 def slice_of_rank(mesh: Mesh, rank: int) -> int:

@@ -8,11 +8,15 @@ mesh with a different number of data-parallel slices.
 - :func:`reshard` — *runtime data redistribution* (the paper's
   contribution). The reference leaves the transfers to ``jax.device_put``;
   here :func:`reshard` carries out the :func:`expand_plan` /
-  :func:`shrink_plan` transfers itself, one copy per non-local transfer. A
-  block that a transfer the plan marks ``local`` brings whole, on the same
-  device, stays in place as a view of the old buffer; every other block is
-  a new buffer on its slice's device, even where two slices share a card.
-  Replicated leaves are copied to every new slice.
+  :func:`shrink_plan` transfers itself. One rule decides what moves: a
+  block stays in place, as a view of the old buffer, only where the old
+  mesh's entry with the new entry's device id (``Mesh.ids``) holds it
+  whole; every other block is a new buffer on its slice's device, even
+  where two virtual slices share a card. Replicated leaves are copied to
+  every new slice that does not already hold a replica.
+  ``meshes.resized_mesh`` places new slices so that the blocks that stay
+  are exactly the plans' ``local`` transfers: the copies are the plan's
+  non-local transfers, on one card or on N.
 - :func:`checkpoint_reshard` — the *checkpoint-and-reconfigure* baseline
   the paper improves on: the state is pulled to host memory and placed
   again. Slower (a host round trip), but it survives device loss; this is
@@ -52,21 +56,16 @@ def _slice_and_model(mesh: Mesh, coord) -> tuple:
 
 
 def _plan_sources(p: int, q: int):
-    """{new slice: (its plan's source slices, local first; the local one or
-    None)} for a resize from ``p`` to ``q`` slices. Sizes that are not
-    multiples of each other have no plan: every block is copied."""
+    """{new slice: its plan's source slices} for a resize from ``p`` to
+    ``q`` slices. Sizes that are not multiples of each other have no plan:
+    every old slice may be a source."""
     if p == q:
-        return {k: ([k], k) for k in range(q)}
+        return {k: [k] for k in range(q)}
     try:
         plan = expand_plan(p, q, 0) if q > p else shrink_plan(p, q, 0)
     except ValueError:
-        return {k: ([], None) for k in range(q)}
-    out = {}
-    for k in range(q):
-        ts = sorted((t for t in plan if t.dst == k), key=lambda t: not t.local)
-        local = ts[0].src if ts and ts[0].local else None
-        out[k] = ([t.src for t in ts], local)
-    return out
+        return {k: [] for k in range(q)}
+    return {k: [t.src for t in plan if t.dst == k] for k in range(q)}
 
 
 def _intersect(a: tuple, b: tuple) -> Optional[tuple]:
@@ -89,7 +88,9 @@ def _numel(box: tuple) -> int:
 def _reshard_leaf(x: ShardedTensor, sh: NamedSharding,
                   transfers: Optional[List[Transfer]]) -> ShardedTensor:
     old, new = x.sharding.mesh, sh.mesh
-    by_slice = {_slice_and_model(old, c): c for c in old.coords()}
+    rank = {c: _slice_and_model(old, c) for c in old.coords()}
+    by_slice = {v: c for c, v in rank.items()}
+    by_id = {old.id(c): c for c in old.coords()}
     p = len({k for k, _ in by_slice})
     q = len({_slice_and_model(new, c)[0] for c in new.coords()})
     plans = _plan_sources(p, q)
@@ -98,49 +99,49 @@ def _reshard_leaf(x: ShardedTensor, sh: NamedSharding,
         k, m = _slice_and_model(new, c)
         box = sh.index(x.shape, c)
         dev = new.device(c)
-        sources, local = plans[k]
-        order = sources + [s for s in range(p) if s not in sources]
+        # the old entry on this device, then the plan's sources, then the
+        # rest: each distinct old block that meets the new one, once
+        here = by_id.get(new.id(c))
+        order = [] if here is None else [here]
+        order += [by_slice[(s, m)] for s in plans[k] + list(range(p))]
         pieces, seen = [], set()
-        for s in order:
-            oc = by_slice[(s, m)]
+        for oc in order:
             ob = x.index(oc)
             key = tuple((b.start, b.stop) for b in ob)
             inter = _intersect(box, ob)
             if key in seen or inter is None:
                 continue
             seen.add(key)
-            pieces.append((s, oc, ob, inter))
-        s, oc, ob, inter = pieces[0]
-        if len(pieces) == 1 and s == local and inter == box and \
+            pieces.append((oc, ob, inter))
+        oc, ob, inter = pieces[0]
+        if len(pieces) == 1 and oc == here and inter == box and \
                 x.shards[oc].device == dev:
-            # the plan's local transfer: the block stays where it is
+            # already on this device: the block stays where it is
             shards[c] = x.shards[oc][relative_index(inter, ob)]
             if transfers is not None:
-                transfers.append(Transfer(s, k, _numel(box)
+                transfers.append(Transfer(rank[oc][0], k, _numel(box)
                                           * x.dtype.itemsize, True))
             continue
         out = torch.empty([b.stop - b.start for b in box], dtype=x.dtype,
                           device=dev)
-        for s, oc, ob, inter in pieces:
+        for oc, ob, inter in pieces:
             out[relative_index(inter, box)].copy_(
                 x.shards[oc][relative_index(inter, ob)])
             if transfers is not None:
-                transfers.append(Transfer(s, k, _numel(inter)
-                                          * x.dtype.itemsize, s == local))
+                transfers.append(Transfer(rank[oc][0], k, _numel(inter)
+                                          * x.dtype.itemsize, oc == here))
         shards[c] = out
     return ShardedTensor(x.shape, x.dtype, sh, shards)
 
 
-def reshard(state: Any, shardings: Any, *, donate: bool = True,
+def reshard(state: Any, shardings: Any, *,
             transfers: Optional[List[Transfer]] = None) -> Any:
     """Runtime redistribution: move ``state`` (a tree of ShardedTensors)
     onto ``shardings`` (a tree of NamedShardings of the same structure).
 
     ``transfers``, when given, gets one :class:`Transfer` per block or piece
-    moved (``local`` for the plan's local transfers). The reference ignores
-    ``donate`` (its ``device_put`` always copies), and so does the port:
-    blocks left in place are views that keep the old buffer alive."""
-    del donate
+    moved, ``local`` where it stays on its device id. Blocks left in place
+    are views that keep the old buffer alive."""
     return tree_map(lambda x, sh: _reshard_leaf(x, sh, transfers), state,
                     shardings)
 

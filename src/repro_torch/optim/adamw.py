@@ -1,17 +1,19 @@
 """AdamW with a warmup + cosine schedule, global-norm clipping, ZeRO-1.
 
-Counterpart of ``repro.optim.adamw`` on trees (nested dicts) of tensors.
-Like the reference it is functional: ``apply_updates`` returns new
-parameters and a new state and leaves its arguments as they are. The
-moments are fp32 whatever the parameters' dtype, weight decay is applied to
-tensors of two or more dimensions only, and the step is an int32 tensor.
+Counterpart of ``repro.optim.adamw`` on trees (nested dicts) of
+``ShardedTensor``s laid out on a mesh of data-parallel slices (one slice
+included). Like the reference it is functional: ``apply_sharded_updates``
+returns new parameters and a new state and leaves its arguments as they
+are. The moments are fp32 whatever the parameters' dtype, weight decay is
+applied to tensors of two or more dimensions only, and the step is an int32
+tensor.
 
 ``zero1_logical`` gives each moment the ``zero1`` logical axis (the data
 axes) on its largest dimension the parameter's spec leaves unsharded, as
-the reference does. Over a mesh, ``apply_sharded_updates`` is the update
-that XLA derives from that layout in the reference: every slice updates the
-block of the parameters its moments hold, then every replica gathers the
-updated blocks.
+the reference does. ``apply_sharded_updates`` is the update that XLA
+derives from that layout in the reference: every slice updates the block of
+the parameters its moments hold, then every replica gathers the updated
+blocks.
 """
 from __future__ import annotations
 
@@ -54,16 +56,6 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def init_state(params) -> dict:
-    """Zero fp32 moments beside each parameter, and step 0."""
-    def zeros():
-        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                        params)
-    device = tree_leaves(params)[0].device
-    return {"mu": zeros(), "nu": zeros(),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
-
-
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32."""
     return torch.sqrt(torch.stack(
@@ -96,21 +88,6 @@ def _update(cfg: AdamWConfig, p, g, mu, nu, coef, scale):
     if p.ndim >= 2:   # decoupled weight decay on matrices only
         u = u + cfg.weight_decay * p.float()
     return (p.float() - lr * u).to(p.dtype), mu, nu
-
-
-@torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, {"lr", "grad_norm"})."""
-    step = state["step"] + 1
-    coef = _coefficients(cfg, step)
-    gnorm = global_norm(grads)
-    scale = _clip_scale(cfg, gnorm)
-    out = tree_map(lambda p, g, mu, nu: _update(cfg, p, g, mu, nu, coef,
-                                                scale),
-                   params, grads, state["mu"], state["nu"])
-    new = [tree_map(lambda o, i=i: o[i], out) for i in range(3)]
-    return new[0], {"mu": new[1], "nu": new[2], "step": step}, \
-        {"lr": coef[0], "grad_norm": gnorm}
 
 
 @torch.no_grad()

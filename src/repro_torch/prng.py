@@ -5,7 +5,8 @@ A key is a uint32 tensor of shape (2,). ``prng_key(seed)`` is
 ``jax.random.fold_in(key, data)``, bit for bit: the trainer advances its
 ``rng`` leaf with ``fold_in(rng, 0)`` every step, as the reference does.
 ``threefry2x32`` works on Python ints and on int64 tensors that hold uint32
-values alike, so a key folds on its own device without a host round trip.
+values alike; ``fold_in`` takes the tensors, so a key folds on its own
+device, a card's or the CPU's, by the same code.
 """
 from __future__ import annotations
 
@@ -42,12 +43,8 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data``: the hash of
-    the count (0, data) under ``key``, on ``key``'s device: in Python ints
-    for a key on the CPU, in tensor ops on a card (no host round trip)."""
-    if key.device.type == "cpu":
-        k0, k1 = key.tolist()
-        return torch.tensor(threefry2x32(k0, k1, 0, data & _MASK),
-                            dtype=torch.int64).to(torch.uint32)
+    the count (0, data) under ``key``, in int64 tensor ops on ``key``'s
+    device (no host round trip on a card)."""
     k = key.to(torch.int64)
     y0, y1 = threefry2x32(k[0], k[1], 0, data & _MASK)
     return torch.stack([y0, y1]).to(torch.uint32)

@@ -35,11 +35,12 @@ import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
-                              ShardingRules, make_mesh, place, reshard)
+                              ShardingRules, make_mesh, place, reshard,
+                              resized_mesh)
 from repro_torch.core.reshard import synchronize
 from repro_torch.core.sharding import copy_to, logical_to_sharding, zeros
 from repro_torch.data import DataConfig, SyntheticLMData
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import (AdamWConfig, apply_sharded_updates,
                                state_logical)
 from repro_torch.prng import fold_in, prng_key
@@ -59,7 +60,6 @@ class TrainerConfig:
     ckpt_period: int = 50
     log_period: int = 10
     rules: ShardingRules = TP_DP_RULES
-    donate: bool = True
 
 
 def _on(device: torch.device):
@@ -84,6 +84,15 @@ class ElasticTrainer:
             raise NotImplementedError(
                 f"model_ways={cfg.model_ways}: tensor parallelism inside a "
                 "slice is not ported yet (ROADMAP.md, Queue 1 item 10)")
+        data_axes = {name for lg in tree_leaves(model.logical())
+                     for name in lg
+                     if {"pod", "data"} & set(cfg.rules.mesh_axes_for(name))}
+        if data_axes:
+            raise NotImplementedError(
+                f"rules shard the parameters' {sorted(data_axes)} axes over "
+                "the data slices: the step takes whole parameters on every "
+                "slice (parameters sharded over data, as FSDP_RULES does, "
+                "are not ported)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.data = (SyntheticLMData(data) if isinstance(data, DataConfig)
@@ -213,10 +222,8 @@ class ElasticTrainer:
         if action is Action.NO_ACTION:
             return state
         t0 = time.perf_counter()
-        new_mesh = make_mesh(new_slices, self.cfg.model_ways,
-                             devices=self.devices)
-        state = reshard(state, self._state_shardings(new_mesh),
-                        donate=self.cfg.donate)
+        new_mesh = resized_mesh(self.mesh, new_slices, devices=self.devices)
+        state = reshard(state, self._state_shardings(new_mesh))
         synchronize(state)
         dt = time.perf_counter() - t0
         if handler is not None:

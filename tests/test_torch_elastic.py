@@ -204,6 +204,48 @@ def test_meshes_nest_and_resize_by_prefix():
         make_mesh(9, 1, devices=devs)
 
 
+def test_resized_mesh_places_slices_by_listing_3():
+    """Expanding by f puts new slice r*f on old slice r's devices and the
+    others on fresh ones; shrinking keeps old slice r*f's as new slice r;
+    with the model axis a slice's devices move as one row."""
+    m2 = make_mesh(2, 1, devices=CPU8)
+    m4 = resized_mesh(m2, 4, devices=CPU8)
+    assert m4.ids.ravel().tolist() == [0, 2, 1, 3]
+    assert resized_mesh(m4, 2, devices=CPU8).ids.ravel().tolist() == [0, 1]
+    assert resized_mesh(m2, 8, devices=CPU8).ids.ravel().tolist() == \
+        [0, 2, 3, 4, 1, 5, 6, 7]
+    assert resized_mesh(m2, 3, devices=CPU8).ids.ravel().tolist() == \
+        [0, 1, 2]
+    tp = resized_mesh(make_mesh(2, 2, devices=CPU8), 4, devices=CPU8)
+    assert tp.ids.tolist() == [[0, 1], [4, 5], [2, 3], [6, 7]]
+    with pytest.raises(ValueError, match="need 16 devices"):
+        resized_mesh(m2, 16, devices=CPU8)
+
+
+@pytest.mark.parametrize("spec", [P("data"), P()])
+def test_reshard_keeps_a_block_only_on_its_own_device_id(spec):
+    """One rule on any mesh: a block stays in place where the old entry
+    with the new entry's device id holds it whole. On resized_mesh's
+    placement those are the plan's local transfers (new slices 0 and 2 of
+    an expand 2 -> 4); on a prefix mesh (ids 0-3) a row block stays only on
+    slice 0 and a replica on slices 0 and 1."""
+    x = torch.arange(64.0).reshape(8, 8)
+    m2 = make_mesh(2, 1, devices=CPU8)
+    x2 = place(x, NamedSharding(m2, spec))
+    for m4, kept in ((resized_mesh(m2, 4, devices=CPU8), {0, 2}),
+                     (make_mesh(4, 1, devices=CPU8),
+                      {0} if spec else {0, 1})):
+        transfers = []
+        x4 = reshard(x2, NamedSharding(m4, spec), transfers=transfers)
+        assert torch.equal(gather(x4), x)
+        views = {c[0] for c, t in x4.shards.items()
+                 if any(storage(t) == storage(o) for o in x2.shards.values())}
+        assert views == kept == {t.dst for t in transfers if t.local}
+        if m4.ids.ravel().tolist() == [0, 2, 1, 3]:
+            assert sorted((t.src, t.dst) for t in transfers) == sorted(
+                (t.src, t.dst) for t in expand_plan(2, 4, 0))
+
+
 # -- twins of tests/test_multidevice.py:34-83 ----------------------------------------
 
 
@@ -252,7 +294,8 @@ def test_reshard_train_state_expand_and_shrink():
     """A smollm TrainState (ZeRO-1 moments, replicated params, rng, step)
     expands 2 -> 4 and shrinks back: every leaf equal; a block stays in
     place (a view of its old buffer) exactly where the plan marks the
-    transfer local; every other block is a buffer of its own."""
+    transfer local, as resized_mesh puts those on their sources' device
+    ids; every other block is a buffer of its own."""
     _, pcfg = smollm_fp32()
     model = build_model(pcfg, device="cpu")
     tr = ElasticTrainer(model, AdamWConfig(), DataConfig(
@@ -262,7 +305,7 @@ def test_reshard_train_state_expand_and_shrink():
     state["opt"]["mu"] = tree_map(lambda x: x.map(
         lambda t: torch.randn(t.shape)), state["opt"]["mu"])
     want = tree_map(gather, state)
-    m4 = make_mesh(4, 1, devices=CPU8)
+    m4 = resized_mesh(tr.mesh, 4, devices=CPU8[:4])
     transfers = []
     s4 = reshard(state, tr._state_shardings(m4), transfers=transfers)
     for old, new in zip(tree_leaves(state), tree_leaves(s4)):

@@ -34,8 +34,13 @@ from repro_torch.kernels.forward_only import refuse_autograd  # noqa: E402
 from repro_torch.models import ModelConfig, build_model  # noqa: E402
 from repro_torch.models import reduced_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.optim import (AdamWConfig, apply_updates,  # noqa: E402
-                               global_norm, init_state, schedule)
+from repro_torch.core import (FSDP_RULES, TP_DP_RULES,  # noqa: E402
+                              gather, logical_to_sharding, make_mesh, place)
+from repro_torch.core.sharding import zeros  # noqa: E402
+from repro_torch.models.layers import tree_map  # noqa: E402
+from repro_torch.optim import (AdamWConfig,  # noqa: E402
+                               apply_sharded_updates, global_norm, schedule,
+                               state_logical)
 from repro_torch.runtime import ElasticTrainer, TrainerConfig  # noqa: E402
 
 KEY = jax.random.PRNGKey(3)
@@ -168,19 +173,46 @@ def test_remat_moves_memory_not_numbers():
 # -- AdamW: twins of tests/test_optim.py ------------------------------------
 
 
+# Each update runs on meshes of 1, 2 and 4 virtual CPU slices: the
+# parameters replicated, the moments laid out by ZeRO-1, as the trainer
+# holds them.
+SLICES = (1, 2, 4)
+
+
+def on_mesh(params, slices):
+    """``params`` (a tree of tensors) replicated on ``slices`` slices, and
+    AdamW's state beside them: zero fp32 moments cut by ``state_logical``
+    (every dimension's logical axis None) and step 0."""
+    mesh = make_mesh(slices, 1, devices=["cpu"] * slices)
+    logical = tree_map(lambda p: (None,) * p.ndim, params)
+    shapes = tree_map(lambda p: tuple(p.shape), params)
+    sh = logical_to_sharding(
+        {"params": logical, **state_logical(logical, shapes, mesh,
+                                            TP_DP_RULES)},
+        {"params": shapes, "mu": shapes, "nu": shapes, "step": ()}, mesh,
+        TP_DP_RULES)
+    state = {name: tree_map(lambda p, s: zeros(p.shape, torch.float32, s),
+                            params, sh[name]) for name in ("mu", "nu")}
+    state["step"] = zeros((), torch.int32, sh["step"])
+    return tree_map(place, params, sh["params"]), state
+
+
 def test_adamw_matches_numpy_reference():
     cfg = AdamWConfig(lr=0.1, beta1=0.9, beta2=0.99, eps=1e-8,
                       weight_decay=0.0, clip_norm=None, warmup_steps=0,
                       total_steps=1000, min_lr_ratio=1.0)
     p = {"w": torch.tensor([[1.0, -2.0], [0.5, 3.0]])}
     g = {"w": torch.tensor([[0.1, 0.2], [-0.3, 0.4]])}
-    new_p, st1, _ = apply_updates(cfg, p, g, init_state(p))
     mu = 0.1 * g["w"].numpy()
     nu = 0.01 * g["w"].numpy() ** 2
     mh, nh = mu / (1 - 0.9), nu / (1 - 0.99)
     ref = p["w"].numpy() - 0.1 * mh / (np.sqrt(nh) + 1e-8)
-    np.testing.assert_allclose(new_p["w"].numpy(), ref, rtol=1e-5)
-    assert int(st1["step"]) == 1
+    for slices in SLICES:
+        ps, st = on_mesh(p, slices)
+        new_p, st1, _ = apply_sharded_updates(cfg, ps, g, st)
+        np.testing.assert_allclose(gather(new_p["w"]).numpy(), ref,
+                                   rtol=1e-5)
+        assert int(st1["step"]) == 1
 
 
 def test_weight_decay_only_on_matrices():
@@ -188,17 +220,22 @@ def test_weight_decay_only_on_matrices():
                       warmup_steps=0, min_lr_ratio=1.0)
     p = {"w": torch.ones((2, 2)), "b": torch.ones((2,))}
     g = {"w": torch.zeros((2, 2)), "b": torch.zeros((2,))}
-    new_p, _, _ = apply_updates(cfg, p, g, init_state(p))
-    assert float((new_p["w"] - 1.0).abs().max()) > 0     # decayed
-    np.testing.assert_allclose(new_p["b"].numpy(), 1.0)  # not decayed
+    for slices in SLICES:
+        ps, st = on_mesh(p, slices)
+        new_p, _, _ = apply_sharded_updates(cfg, ps, g, st)
+        # decayed, also where a slice holds a row block of the matrix
+        assert float((gather(new_p["w"]) - 1.0).abs().max()) > 0
+        np.testing.assert_allclose(gather(new_p["b"]).numpy(), 1.0)
 
 
 def test_clipping_bounds_update():
     cfg = AdamWConfig(clip_norm=1.0, warmup_steps=0)
     p = {"w": torch.zeros((4,))}
     g = {"w": torch.full((4,), 100.0)}
-    _, _, metrics = apply_updates(cfg, p, g, init_state(p))
-    assert float(metrics["grad_norm"]) == 200.0
+    for slices in SLICES:
+        ps, st = on_mesh(p, slices)
+        _, _, metrics = apply_sharded_updates(cfg, ps, g, st)
+        assert float(metrics["grad_norm"]) == 200.0
 
 
 def test_schedule_warmup_and_cosine():
@@ -217,8 +254,9 @@ def test_global_norm():
 def test_apply_updates_matches_reference_on_a_random_tree():
     """Three updates of a random tree (matrices, vectors, a stacked
     3-d leaf; mixed scales so clipping is active) with decay on, in the
-    middle of the warmup: parameters, moments, lr and grad norm against the
-    reference's at 1e-6 (fp32, the same operations)."""
+    middle of the warmup, on 1, 2 and 4 slices: parameters, moments, lr and
+    grad norm against the reference's at 1e-6 (fp32, the same
+    operations)."""
     kw = dict(lr=1e-2, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1,
               clip_norm=1.0, warmup_steps=5, total_steps=50,
               min_lr_ratio=0.1)
@@ -232,26 +270,28 @@ def test_apply_updates_matches_reference_on_a_random_tree():
             shapes, is_leaf=lambda x: isinstance(x, tuple))
 
     params = draw(1.0)
+    grads = [draw(3.0) for _ in range(3)]
     jp, js = jax.tree.map(jnp.asarray, params), jax_init_state(
         jax.tree.map(jnp.asarray, params))
-    tp = params_from_jax(params, device="cpu")
-    ts = init_state(tp)
-    for _ in range(3):
-        grads = draw(3.0)
+    for g in grads:
         jp, js, jm = jax_apply_updates(JaxAdamWConfig(**kw), jp,
-                                       jax.tree.map(jnp.asarray, grads), js)
-        tp, ts, tm = apply_updates(AdamWConfig(**kw), tp,
-                                   params_from_jax(grads, device="cpu"), ts)
-        assert float(tm["grad_norm"]) > kw["clip_norm"]
-    for name in ("lr", "grad_norm"):
-        np.testing.assert_allclose(float(tm[name]), float(jm[name]),
-                                   rtol=1e-6)
-    assert int(ts["step"]) == int(js["step"]) == 3
-    for got, want in ((tp, jp), (ts["mu"], js["mu"]), (ts["nu"], js["nu"])):
-        want = leaves(jax.tree.map(np.asarray, want))
-        for path, t in leaves(got).items():
-            np.testing.assert_allclose(t.numpy(), want[path], rtol=1e-6,
-                                       atol=1e-6)
+                                       jax.tree.map(jnp.asarray, g), js)
+    for slices in SLICES:
+        tp, ts = on_mesh(params_from_jax(params, device="cpu"), slices)
+        for g in grads:
+            tp, ts, tm = apply_sharded_updates(
+                AdamWConfig(**kw), tp, params_from_jax(g, device="cpu"), ts)
+            assert float(tm["grad_norm"]) > kw["clip_norm"]
+        for name in ("lr", "grad_norm"):
+            np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                       rtol=1e-6)
+        assert int(ts["step"]) == int(js["step"]) == 3
+        for got, want in ((tp, jp), (ts["mu"], js["mu"]),
+                          (ts["nu"], js["nu"])):
+            want = leaves(jax.tree.map(np.asarray, want))
+            for path, t in leaves(tree_map(gather, got)).items():
+                np.testing.assert_allclose(t.numpy(), want[path],
+                                           rtol=1e-6, atol=1e-6)
 
 
 # -- the data stream ------------------------------------------------------------
@@ -377,14 +417,18 @@ def test_loss_descends():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Tensor parallelism inside a slice is all that still raises: more
-    slices, a checkpoint directory and an RMS are taken."""
+    """Tensor parallelism inside a slice and rules that shard parameters
+    over the data slices are all that still raise: more slices, a
+    checkpoint directory and an RMS are taken."""
     _, pcfg = smollm_fp32()
     model = build_model(pcfg, device="cpu")
     data = DataConfig(vocab_size=pcfg.vocab_size, seq_len=8, global_batch=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticTrainer(model, AdamWConfig(), data,
                        TrainerConfig(model_ways=2))
+    with pytest.raises(NotImplementedError, match=r"\['embed'\]"):
+        ElasticTrainer(model, AdamWConfig(), data,
+                       TrainerConfig(rules=FSDP_RULES))
     tr = ElasticTrainer(model, AdamWConfig(), data,
                         TrainerConfig(max_slices=2, ckpt_dir=None),
                         rms=object(), devices=["cpu"] * 2)
