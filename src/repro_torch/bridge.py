@@ -1,8 +1,10 @@
-"""Carry parameters and train states from the JAX reference to the port.
+"""Carry parameters, train states and app states from the JAX reference to
+the port.
 
-The reference draws its weights from ``jax.random``, which torch cannot
-reproduce, so parity tests take the reference's own parameters (or whole
-TrainState) through numpy. Both packages keep one parameter tree (the same
+The reference draws its weights and the paper apps' initial states from
+``jax.random``, which torch cannot reproduce, so parity tests take the
+reference's own parameters (or whole TrainState, or app state) through
+numpy. Both packages keep one parameter tree (the same
 key paths and shapes), so the conversion is one to one.
 """
 from __future__ import annotations
@@ -44,3 +46,19 @@ def state_from_jax(state, device=DEFAULT_DEVICE, shardings=None):
     if shardings is not None:
         out = tree_map(place, out, shardings)
     return out
+
+
+def app_state_from_jax(app: str, state, device=DEFAULT_DEVICE):
+    """A paper app's state from the reference as numpy (e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's on ``device``:
+    ``"cg"`` takes the fields of a ``CGState`` (an object with ``x``,
+    ``r``, ``p``, ``rs``, or a dict of them) to the port's ``CGState``;
+    ``"jacobi"``, ``"nbody"`` and ``"fs"`` take their dicts."""
+    if app in ("jacobi", "nbody", "fs"):
+        return params_from_jax(dict(state), device)
+    if app != "cg":
+        raise ValueError(f"unknown app {app!r}")
+    from repro_torch.apps.paper_apps import CGState
+    fields = state if isinstance(state, dict) else vars(state)
+    return CGState(**params_from_jax(
+        {k: fields[k] for k in ("x", "r", "p", "rs")}, device))

@@ -27,19 +27,43 @@ class ParamSpec:
             raise ValueError(f"rank mismatch: {self.shape} {self.logical}")
 
 
+def tree_node(cls):
+    """Class decorator: instances of the dataclass ``cls`` are inner nodes
+    of a tree, their fields its children in order (as the reference
+    registers ``CGState`` with ``jax.tree_util``). Other dataclasses, such
+    as :class:`ParamSpec`, stay leaves."""
+    cls._tree_node = True
+    return cls
+
+
+def _is_node(tree) -> bool:
+    return getattr(type(tree), "_tree_node", False)
+
+
+def _children(tree):
+    return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+
+
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` to every leaf of a tree of nested dicts (and to the
-    leaves at the same paths of ``rest``, trees of the same structure)."""
+    """Apply ``fn`` to every leaf of a tree of nested dicts and
+    :func:`tree_node` dataclasses (and to the leaves at the same paths of
+    ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if _is_node(tree):
+        return type(tree)(*(tree_map(fn, *kids) for kids in zip(
+            _children(tree), *map(_children, rest))))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
-    """The leaves of a tree of nested dicts, in order."""
+    """The leaves of a tree of nested dicts and :func:`tree_node`
+    dataclasses, in order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if _is_node(tree):
+        return [x for v in _children(tree) for x in tree_leaves(v)]
     return [tree]
 
 
