@@ -11,7 +11,9 @@ fit's FitError in (t)):
                   SSD-scan and RG-LRU scan kernels from src/, all at once
   (c) flash    -- the flash-attention kernel against its plain version, at
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
-                  window 2048)
+                  window 2048; slice 9's D 128 prefills: 32 / 8, 16 / 16
+                  and 32 / 16 heads with softcap 50, and gemma2's local
+                  layer at S 4352, window 4096)
   (p) backward -- the flash-attention backward kernel (dq, dk, dv from the
                   forward's log-sum-exp) against torch autograd of the
                   plain version, on (c)'s cases and smollm's training call;
@@ -57,6 +59,32 @@ fit's FitError in (t)):
                   weights at a per-layer fan-in (fp32 at the tolerance:
                   there the gates do not saturate)
   (o) server   -- Server.run as (g)
+  slice 9, last, in a child process of its own (chip_smoke.py --zoo), each
+  path twice from draws on the card: first every layer at its own fan-in,
+  every check held; then at the reference's init at the published depth's
+  scale (fp32 comparisons printed, not held: its attention scores reach
+  the hundreds, PERF.md), with Server and the step times; each model freed
+  after its path:
+  (u) gemma2   -- gemma2-27b at full width cut to 4 layers (two (local,
+                  global) units of 46): prefill B4 S512 kernel vs chunked
+                  (fp32, and bf16 by its distance from fp32); one unit in
+                  fp32 at B1 S4352 (the window of 4096 bites, the ring
+                  wraps) block by block against the CPU's plain path;
+                  prefill of 4160 tokens + 8 decode steps against forward;
+                  Server
+  (v) moe      -- phi3.5-moe-42b-a6.6b and deepseek-moe-16b at full width
+                  cut to 4 layers (deepseek: head0 dense + 3 MoE): the
+                  same, the blocks at B2 S256 with each MoE block's chosen
+                  experts against the CPU's for every token (a flip at a
+                  near tie reported with its gap), the choices dropped at
+                  capacity and the router loss on each side; decode
+                  against forward at capacity factor E / k, where no token
+                  drops; bf16 held by a median over tokens
+  (w) dense    -- qwen3-4b and granite-3-2b at their published depth and
+                  widths: the same, the blocks at B1 S128
+  (x) compress -- the int8 compressed all-reduce on 2 and 4 virtual slices
+                  over smollm-135m's gradient tree: bit-equal to the CPU's,
+                  error feedback over 12 steps, ms a call and payload bytes
   the paper's applications and the calibration, run after (r) (no kernel of
   the port; plain fp32 torch, as the reference leaves them to XLA):
   (s) apps     -- CG, Jacobi and N-body at n (N) 2048: five steps on the
@@ -87,8 +115,9 @@ fit's FitError in (t)):
                   step, with the card's busy share; the Servers' tokens/s;
                   the backward last
 
-Phases (e)-(g), (q), (h)-(j) and (m)-(o) are the main paths: every kernel launch
-count is set to 0 just before each path and read just after it. The last
+Phases (e)-(g), (q), (h)-(j), (m)-(o) and (u)-(w) are the main paths: every
+kernel launch count is set to 0 just before each path and read just after
+it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
@@ -96,6 +125,7 @@ no card is present or when run outside a checkout of the repository.
 import concurrent.futures
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -189,6 +219,21 @@ def kernel_cases():
     return cases
 
 
+def zoo_kernel_cases():
+    """Head_dim 128 on the main paths of slice 9, fp32 and bf16, as the
+    models pass them ((B, S, H, D) views): the prefill of qwen3-4b and
+    phi3.5-moe (32 / 8 heads), of deepseek-moe (16 / 16), gemma2-27b's
+    global layers (32 / 16, softcap 50) and its local layers where the
+    window of 4096 bites (S 4352)."""
+    return [(b, h, kv, s, s, 128, True, window, softcap, dt, "bshd")
+            for b, h, kv, s, window, softcap in (
+                (PREFILL_B, 32, 8, PREFILL_S, None, None),
+                (PREFILL_B, 16, 16, PREFILL_S, None, None),
+                (PREFILL_B, 32, 16, PREFILL_S, None, 50.0),
+                (1, 32, 16, 4352, 4096, 50.0))
+            for dt in (torch.bfloat16, torch.float32)]
+
+
 # -- (p) flash backward against plain ----------------------------------------------
 
 # backward kernel vs the plain fp32 gradients (torch autograd of
@@ -256,13 +301,14 @@ def phase_flash_bwd_vs_plain():
 
 def phase_kernel_vs_plain():
     """Returns {head_dim: max |kernel - plain|} at the main paths' prefill
-    calls (bf16, B 4, S 512, (B, S, H, D) views)."""
+    calls (bf16, B 4, S 512, (B, S, H, D) views; the largest over the
+    head_dim 128 calls of slice 9)."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = {}
-    for case in kernel_cases():
+    for case in kernel_cases() + zoo_kernel_cases():
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -286,7 +332,7 @@ def phase_kernel_vs_plain():
         if not torch.isfinite(out).all() or bad.any():
             raise AssertionError(f"kernel disagrees with plain: {name}")
         if layout == "bshd" and dtype == torch.bfloat16 and sq == PREFILL_S:
-            main_err[d] = err.max().item()
+            main_err[d] = max(main_err.get(d, 0.0), err.max().item())
     return main_err
 
 
@@ -411,6 +457,19 @@ def mean_norm_err(got, want):
             / (want.float().abs().max() + 1e-6)).item()
 
 
+def bf16_distance(cfg, got, truth):
+    """How far bf16 logits (B, S, V) lie from fp32 ones: the mean distance,
+    max-normalised; for a MoE model the median over tokens of each token's
+    mean distance. bf16 routes about one token in a hundred a layer to
+    another expert than fp32 does (a near tie at bf16's rounding), which
+    moves that token's logits by tens of per cent: a few such tokens swing
+    a mean, not a median."""
+    if not cfg.num_experts:
+        return mean_norm_err(got, truth)
+    per_token = (got.float() - truth.float()).abs().mean(-1)
+    return (per_token.median() / (truth.float().abs().max() + 1e-6)).item()
+
+
 def counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from repro_torch.kernels.flash_attention import kernel as flash
@@ -459,9 +518,10 @@ def drive(label, phases):
     return counts, result
 
 
-def phase_prefill(cfg, params, toks):
+def phase_prefill(cfg, params, toks, label="e", hold=True):
     """(e) Prefill at full width through the kernel (attn_impl="auto") and
-    through the chunked path, in fp32 and in the model's bf16.
+    through the chunked path, in fp32 (held unless ``hold`` is False) and
+    in the model's bf16.
 
     fp32 holds the kernel path to the chunked one at MODEL_TOL. In bf16 the
     two differ far more, and not by the kernel: the reference's init draws
@@ -484,20 +544,23 @@ def phase_prefill(cfg, params, toks):
         for key, m in models.items()}
     err32 = max_norm_err(pre["float32", "auto"], pre["float32", "chunked"])
     err16 = max_norm_err(pre["bfloat16", "auto"], pre["bfloat16", "chunked"])
-    log("e", f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
+    log(label, f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
              f"launches per prefill; logits {tuple(pre['bfloat16', 'auto'].shape)}"
              f" kernel vs chunked max-normalised: float32 {err32:.3e} "
-             f"(tol {MODEL_TOL}), bfloat16 {err16:.3e}")
-    if err32 > MODEL_TOL:
+             + (f"(tol {MODEL_TOL})" if hold else "(not held)")
+             + f", bfloat16 {err16:.3e}")
+    if hold and err32 > MODEL_TOL:
         raise AssertionError("fp32 prefill through the kernel disagrees")
     fwd = {key: run_counted(lambda m=models[key]: m.forward(params, toks),
                             flash, n_layers if key[1] == "auto" else 0)[0]
            for key in (("float32", "chunked"), ("bfloat16", "auto"),
                        ("bfloat16", "chunked"))}
     truth = fwd["float32", "chunked"]
-    e_kernel = mean_norm_err(fwd["bfloat16", "auto"], truth)
-    e_chunked = mean_norm_err(fwd["bfloat16", "chunked"], truth)
-    log("e", f"bfloat16 forward, mean distance from fp32 logits "
+    e_kernel = bf16_distance(cfg, fwd["bfloat16", "auto"], truth)
+    e_chunked = bf16_distance(cfg, fwd["bfloat16", "chunked"], truth)
+    log(label, f"bfloat16 forward, "
+               f"{'median over tokens of the ' if cfg.num_experts else ''}"
+               f"mean distance from fp32 logits "
              f"(max-normalised): kernel path {e_kernel:.3e}, chunked path "
              f"{e_chunked:.3e} (kernel may be at most {BF16_RATIO}x)")
     if e_kernel > BF16_RATIO * e_chunked:
@@ -600,19 +663,26 @@ def at_per_layer_fan_in(model, params, drawn_layers):
     each stacked normal weight rescaled to one layer's fan-in: the axes a
     product sums over (all but the last of a projection back to the
     embedding, such as wo's heads x head_dim; else the first, such as wq's
-    embed or the conv's taps). These are the same random numbers that a
-    draw with ParamSpec.scale sqrt(drawn_layers / fan_in) gives."""
+    embed or the conv's taps; an expert's own, past the experts axis).
+    These are the same random numbers that a draw with ParamSpec.scale
+    sqrt(drawn_layers / fan_in) gives."""
     def rescale(spec, t):
         if isinstance(spec, dict):
             return {k: rescale(spec[k], t[k]) for k in spec}
         if spec.init != "normal":
             return t
-        one, axes = spec.shape[1:], spec.logical[1:]
-        fan = (int(np.prod(one[:-1])) if len(one) > 1 and axes[-1] == "embed"
-               else one[0])
-        return t * (drawn_layers / fan) ** 0.5
+        return t * (drawn_layers / layer_fan_in(spec)) ** 0.5
     return dict(params, blocks=rescale(model.specs()["blocks"],
                                        params["blocks"]))
+
+
+def layer_fan_in(spec):
+    """One layer's fan-in of a stacked weight (see at_per_layer_fan_in)."""
+    one, axes = spec.shape[1:], spec.logical[1:]
+    if axes[0] == "experts":
+        one, axes = one[1:], axes[1:]
+    return (int(np.prod(one[:-1])) if len(one) > 1 and axes[-1] == "embed"
+            else one[0])
 
 
 def phase_hybrid_prefill(cfg, params, toks, unit_toks):
@@ -718,7 +788,7 @@ def phase_decode(label, cfg, params, toks, steps, hold_fp32=True):
     decode-consistency test (printed, not held, when ``hold_fp32`` is
     False). bf16 is held as in phase_prefill: the mean distance of its
     prefill + decode logits from the fp32 forward's may be at most
-    BF16_RATIO times the bf16 forward's own."""
+    BF16_RATIO times the bf16 forward's own (bf16_distance)."""
     from repro_torch.models import build_model
     s = toks.shape[1] - steps
     full = {}
@@ -744,12 +814,13 @@ def phase_decode(label, cfg, params, toks, steps, hold_fp32=True):
         if dtype == "float32" and hold_fp32 and max(errs) > MODEL_TOL:
             raise AssertionError("prefill/decode disagree with forward")
     truth = full["float32"][:, s - 1:]
-    e_decode = mean_norm_err(torch.stack(outs, dim=1), truth)
-    e_forward = mean_norm_err(full["bfloat16"][:, s - 1:], truth)
-    log(label, f"bfloat16 prefill + decode, mean distance from fp32 "
-               f"forward logits (max-normalised): {e_decode:.3e}, bf16 "
-               f"forward {e_forward:.3e} (decode may be at most "
-               f"{BF16_RATIO}x)")
+    e_decode = bf16_distance(cfg, torch.stack(outs, dim=1), truth)
+    e_forward = bf16_distance(cfg, full["bfloat16"][:, s - 1:], truth)
+    log(label, f"bfloat16 prefill + decode, "
+               f"{'median over tokens of the ' if cfg.num_experts else ''}"
+               f"mean distance from fp32 forward logits (max-normalised): "
+               f"{e_decode:.3e}, bf16 forward {e_forward:.3e} (decode may be "
+               f"at most {BF16_RATIO}x)")
     if e_decode > BF16_RATIO * e_forward:
         raise AssertionError("bf16 prefill + decode logits are less "
                              "accurate than the bf16 forward's")
@@ -1553,6 +1624,286 @@ def phase_calibration():
                  f"{row['paper_s'] * 1e3:.4f} ms")
 
 
+# -- (u)-(x) slice 9: gemma2, the MoE families, qwen3 and granite, and the --------
+# compressed all-reduce
+
+# the decoders whose fp32 weights at their published depth do not fit the
+# card: (published depth, layers drawn at its scale and driven)
+ZOO_CUT = {"gemma2-27b": (46, 4), "phi3.5-moe-42b-a6.6b": (32, 4),
+           "deepseek-moe-16b": (28, 4)}
+# MoE routing, card against CPU from the same fp32 input: their router
+# logits differ by about 1e-5 (the attention's and the projections'
+# rounding); a token whose chosen experts differ at a logit gap under
+# NEAR_TIE is a near tie, reported with its probability gap, its tokens
+# left out of that block's output comparison. A flip at a larger gap fails.
+NEAR_TIE = 1e-3
+# the compressed all-reduce: virtual slices of the card, and the steps of
+# the error-feedback check (tests/test_multidevice.py:144)
+COMPRESS_SLICES, COMPRESS_STEPS = (2, 4), 12
+# what the child process of (u)-(x) hands back (run_zoo)
+ZOO_RESULT = ROOT / "build" / "chip_smoke_zoo.json"
+
+
+def cpu_tree(tree):
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def router_input(p, x, cfg, kind, max_len):
+    """What a "moe" block's feed-forward sees: the block's input after its
+    attention and the second norm (block_prefill's first half)."""
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rms_norm
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, _ = attention.attention_prefill(p["attn"], h, cfg, kind=kind,
+                                       cache_len=max_len)
+    return rms_norm(x + y, p["ln2"], cfg.norm_eps)
+
+
+def compare_routing(label, name, cfg, p_card, p_cpu, x, kind, max_len,
+                    hold=True):
+    """The experts a "moe" block chose for every token on the card and on
+    the CPU, from the same input ``x`` (CPU, fp32). Prints the choices
+    dropped at capacity and the router loss on each side, and each flipped
+    token with its logit and probability gap. Returns the (B, S) mask of
+    tokens whose slots agree; raises on a flip that is not a near tie."""
+    from repro_torch.models import moe
+    s = x.shape[1]
+    ne = cfg.num_experts
+    cap = moe.capacity(cfg, s, cfg.capacity_factor)
+    h_card = router_input(p_card, x.cuda(), cfg, kind, max_len)
+    h_cpu = router_input(p_cpu, x, cfg, kind, max_len)
+    probs_g, e_g, _, aux_g = moe.route(p_card["ffn"], h_card, cfg)
+    probs_c, e_c, _, aux_c = moe.route(p_cpu["ffn"], h_cpu, cfg)
+    e_g = e_g.cpu()
+    slots_g = moe.dispatch_slots(e_g, ne, cap)
+    slots_c = moe.dispatch_slots(e_c, ne, cap)
+    drops = [int((sl == ne * cap).sum()) for sl in (slots_g, slots_c)]
+    flips = []
+    for b, t in (e_g != e_c).any(-1).nonzero().tolist():
+        j = int((e_g[b, t] != e_c[b, t]).nonzero()[0])
+        mine, theirs = int(e_g[b, t, j]), int(e_c[b, t, j])
+        pc = probs_c[b, t]
+        gap_logit = abs(float(torch.log(pc[mine]) - torch.log(pc[theirs])))
+        flips.append((b, t, mine, theirs, gap_logit,
+                      abs(float(pc[mine] - pc[theirs]))))
+    log(label, f"{name}: routing of {e_c.numel()} choices (B{x.shape[0]} "
+               f"S{s}, top-{cfg.top_k} of {ne}, capacity {cap}): "
+               f"{len(flips)} tokens choose otherwise on the card; dropped "
+               f"at capacity card {drops[0]}, CPU {drops[1]}; router loss "
+               f"card {float(aux_g):.6e}, CPU {float(aux_c):.6e}")
+    for b, t, mine, theirs, gap, pgap in flips:
+        log(label, f"{name}: token (row {b}, position {t}) chose expert "
+                   f"{mine} on the card and {theirs} on the CPU: logit gap "
+                   f"{gap:.3e}, probability gap {pgap:.3e}"
+                   + (" (a near tie)" if gap < NEAR_TIE else ""))
+        if hold and gap >= NEAR_TIE:
+            raise AssertionError(f"{name}: the card routes token ({b}, {t}) "
+                                 "otherwise, at more than a near tie")
+    return (slots_g == slots_c).reshape(e_c.shape).all(-1)
+
+
+def phase_blocks_vs_cpu(label, cfg, params, toks, max_len, hold=True):
+    """fp32 prefill on the card (the flash kernel) against the same
+    weights' plain path on the CPU, block by block from the same input
+    (the CPU's output of the block before): each block's output and cache
+    leaves at MODEL_TOL, a local ring's positions exactly; for a "moe"
+    block the routing too (compare_routing). Then the card's prefill
+    logits against the CPU's. With ``hold`` False the errors are printed
+    and a flip at any gap is reported, not raised."""
+    from repro_torch.models import CausalLM, build_model, transformer
+    from repro_torch.models.layers import (embed_apply, rms_norm,
+                                           unembed_apply)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    card = build_model(cfg)
+    s = toks.shape[1]
+    x = embed_apply(cpu_tree(params["embed"]), toks.cpu(), cfg)
+    errs, rings = {}, []
+    for i, (key, slot, kind) in enumerate(card._layers()):
+        p_card = CausalLM._select(params, key, slot)
+        p_cpu = cpu_tree(p_card)
+        name = f"layer {i} ({kind})"
+        y_card, c_card = transformer.block_prefill(p_card, x.cuda(), cfg,
+                                                   kind, max_len)
+        y, c = transformer.block_prefill(p_cpu, x, cfg, kind, max_len)
+        keep = torch.ones(y.shape[:2], dtype=torch.bool)
+        if "router" in p_cpu.get("ffn", {}):
+            keep = compare_routing(label, name, cfg, p_card, p_cpu, x, kind,
+                                   max_len, hold)
+            if not keep.all():
+                log(label, f"{name}: output held on the {int(keep.sum())} "
+                           f"of {keep.numel()} tokens whose slots agree")
+        errs[f"{i} out"] = ((y_card.cpu() - y).abs()[keep].max()
+                            / (y.abs().max() + 1e-6)).item()
+        for leaf, w in c.items():
+            if leaf == "pos":
+                if not torch.equal(c_card[leaf].cpu(), w):
+                    raise AssertionError(f"{name}: cache positions differ")
+                if kind == "local":
+                    rings.append(check_ring(w, s))
+            else:
+                errs[f"{i}/{leaf}"] = max_norm_err(c_card[leaf].cpu(), w)
+        x = y
+        del p_cpu, y_card, c_card
+    x = rms_norm(x, cpu_tree(params["final_norm"]), cfg.norm_eps)
+    want = unembed_apply(cpu_tree(params["embed"]), x[:, -1:], cfg)
+    got, _ = card.prefill(params, toks, max_len=max_len)
+    errs["logits"] = max_norm_err(got.cpu(), want)
+    log(label, f"{cfg.name} ({cfg.num_layers} layers) fp32 prefill "
+               f"B{toks.shape[0]} S{s} on the card vs the CPU's plain path, "
+               f"block by block, max-normalised: "
+               + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+               + (f" (tol {MODEL_TOL})" if hold else " (not held)")
+               + (f"; local rings hold positions {rings[0]}..{s - 1}, equal "
+                  f"on both" if rings else ""))
+    if hold and max(errs.values()) > MODEL_TOL:
+        raise AssertionError(f"{cfg.name}: fp32 prefill on the card "
+                             "disagrees with the CPU's plain path")
+
+
+def drive_zoo(label, cfg, depth, toks, blocks_of, long_toks=None):
+    """One model's main path, twice, each from its own draw on the card.
+
+    First with each layer's weights at its own fan-in, where every check
+    is held: prefill (kernel against chunked), the fp32 blocks against the
+    CPU (``blocks_of(cfg, params)``: (cfg, params, tokens, max_len)),
+    prefill + decode against forward (on ``long_toks`` where given; for a
+    MoE model at a capacity where no token drops: there prefill and forward
+    route alike, as in the reference's own decode-consistency test). Then
+    at the reference's init at ``depth``'s scale, as every other path runs:
+    the same fp32 comparisons printed, not held (its attention scores reach
+    the hundreds, and fp32 rounding moves a softmax so near an argmax by
+    more than 1e-4: PERF.md, Findings), the bf16 ones held, the MoE
+    blocks against the CPU, Server and the step times. Returns (launch
+    counts, Server tok/s, peak GiB)."""
+    decode_cfg = cfg
+    if cfg.num_experts:
+        decode_cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    seq = toks if long_toks is None else long_toks
+    torch.cuda.reset_peak_memory_stats()
+    _, params = model_and_params(cfg, label, depth, on_card=True,
+                                 per_layer=True)
+    held, _ = drive(label, (
+        lambda: phase_prefill(cfg, params, toks[:, :PREFILL_S], label),
+        lambda: phase_blocks_vs_cpu(label, *blocks_of(cfg, params)),
+        lambda: phase_decode(label, decode_cfg, params, seq, steps=8)))
+    del params
+    torch.cuda.empty_cache()
+    model, params = model_and_params(cfg, label, depth, on_card=True)
+    phases = [
+        lambda: phase_prefill(cfg, params, toks[:, :PREFILL_S], label,
+                              hold=False),
+        lambda: phase_decode(label, decode_cfg, params, seq, steps=8,
+                             hold_fp32=False),
+        lambda: phase_server(label, model, params)]
+    if cfg.num_experts:
+        phases.insert(1, lambda: phase_blocks_vs_cpu(
+            label, *blocks_of(cfg, params), hold=False))
+    counts, (*_, tok_s) = drive(label, phases)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(label, f"{cfg.name}: peak device memory {peak:.2f} GiB")
+    counts = {k: held[k] + counts[k] for k in counts}
+    if counts["flash_attention"] == 0:
+        raise AssertionError(f"{cfg.name}'s path never launched "
+                             "flash_attention")
+    phase_step_times(cfg, params, toks[:, :PREFILL_S])
+    return counts, tok_s, peak
+
+
+def phase_compression():
+    """(x) compressed_psum_grads on 2 and 4 virtual slices of the card over
+    smollm-135m's full-width gradient tree (random gradients and
+    residuals from a seed): means and residuals bit-equal to the CPU's on
+    the same inputs (elementwise IEEE fp32 and an exact int32 sum); the
+    error-feedback property over 12 steps; the wall ms of a call, beside
+    the plain fp32 sum in slice order, and the payload bytes against
+    fp32's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_mesh, slice_devices
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import compressed_psum_grads
+    from repro_torch.optim.compression import BLOCK
+    specs = build_model(get_config("smollm-135m")).specs()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def draw(scale):
+        return tree_map(lambda sp: torch.randn(
+            sp.shape, generator=gen, device=gen.device) * scale, specs)
+    sizes = [int(np.prod(sp.shape)) for sp in tree_leaves(specs)]
+    numel, blocks = sum(sizes), sum(-(-k // BLOCK) for k in sizes)
+    for n in COMPRESS_SLICES:
+        mesh = make_mesh(n, 1, devices=slice_devices(n, "cuda"))
+        cpu_mesh = make_mesh(n, 1, devices=slice_devices(n, "cpu"))
+        grads = [draw(1e-3) for _ in range(n)]
+        errors = [draw(1e-6) for _ in range(n)]
+        means, errs = compressed_psum_grads(grads, mesh, errors=errors)
+        want_m, want_e = compressed_psum_grads(
+            [cpu_tree(g) for g in grads], cpu_mesh,
+            errors=[cpu_tree(e) for e in errors])
+        differ = 0
+        for got, want in ((means, want_m), (errs, want_e)):
+            for g, w in zip(got, want):
+                for a, b in zip(tree_leaves(g), tree_leaves(w)):
+                    differ += int((a.cpu().view(torch.int32)
+                                   != b.view(torch.int32)).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            compressed_psum_grads(grads, mesh, errors=errors)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+
+        def plain_sum():
+            total = tree_map(torch.clone, grads[0])
+            for g in grads[1:]:
+                tree_map(lambda r, x: r.add_(x), total, g)
+            return total
+        plain_sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            plain_sum()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) / 3 * 1e3
+        log("x", f"compressed all-reduce, {n} virtual slices, smollm-135m's "
+                 f"gradient tree ({numel} fp32 elements a slice): "
+                 f"{differ} bits of the means and residuals differ from the "
+                 f"CPU's; {ms:.3f} ms a call (the plain fp32 sum in slice "
+                 f"order {plain:.3f} ms); payload a slice {numel + 4 * blocks}"
+                 f" bytes (int8 and an fp32 scale per {BLOCK}) against "
+                 f"{4 * numel} in fp32, "
+                 f"{(numel + 4 * blocks) / (4 * numel):.4f}x")
+        if differ:
+            raise AssertionError(f"the compressed all-reduce on the card "
+                                 f"differs from the CPU's at {n} slices")
+        del grads, errors, means, errs, want_m, want_e
+    # error feedback over one fixed set of gradients
+    n = COMPRESS_SLICES[-1]
+    mesh = make_mesh(n, 1, devices=slice_devices(n, "cuda"))
+    grads = [draw(1e-3) for _ in range(n)]
+    truth = tree_map(lambda *g: torch.stack(g).mean(0), *grads)
+    errors, acc, first = None, None, None
+    for _ in range(COMPRESS_STEPS):
+        means, errors = compressed_psum_grads(grads, mesh, errors=errors)
+        m = means[0]
+        first = first or m
+        acc = m if acc is None else tree_map(torch.add, acc, m)
+
+    def rel(tree):
+        return max(((a - t).abs().max() / (t.abs().max() + 1e-9)).item()
+                   for a, t in zip(tree_leaves(tree), tree_leaves(truth)))
+    rel1 = rel(first)
+    rel_n = rel(tree_map(lambda a: a / COMPRESS_STEPS, acc))
+    log("x", f"error feedback, {n} slices, {COMPRESS_STEPS} steps: a single "
+             f"shot within {rel1:.4f} of the true mean (max-normalised, the "
+             f"largest over the leaves; bound 0.25), the running average "
+             f"within {rel_n:.4f} (closer, and under 0.05)")
+    if not (rel1 < 0.25 and rel_n < rel1 and rel_n < 0.05):
+        raise AssertionError("error feedback does not converge")
+
+
 # -- (k) times --------------------------------------------------------------------
 
 
@@ -1606,41 +1957,58 @@ def build_kernels():
                 log("b", line.strip())
 
 
-def init_at_depth(model, generator, depth):
+def init_at_depth(model, generator, depth, per_layer=False):
     """Parameters of ``model`` drawn as a ``depth``-layer model of its
     config would draw its layers. The reference's init takes a stacked
     weight's fan-in from the layers axis, so a model cut from 38 layers to
     8 would draw its block weights sqrt(12 / 2) times larger than the 38-layer
     model's; each stacked normal weight's scale undoes that. Nothing else
-    changes."""
+    changes. ``per_layer``: the same random numbers at each layer's own
+    fan-in (at_per_layer_fan_in of that draw)."""
+    from repro_torch.models import CausalLM
     from repro_torch.models.layers import (init_from_specs, torch_dtype,
                                            tree_map)
     cfg = model.cfg
-    reps = cfg.pattern_repeats[0]
-    full = dataclasses.replace(cfg, num_layers=depth).pattern_repeats[0]
+    reps = model._pattern_layout()[0]
+    full = CausalLM(dataclasses.replace(cfg, num_layers=depth),
+                    model.device)._pattern_layout()[0]
     specs = model.specs()
-    specs["blocks"] = tree_map(
-        lambda sp: dataclasses.replace(sp, scale=sp.scale * (reps / full)
-                                       ** 0.5) if sp.init == "normal"
-        else sp, specs["blocks"])
+
+    def scale(sp):
+        if sp.init != "normal":
+            return sp
+        at = (full / layer_fan_in(sp)) ** 0.5 if per_layer else 1.0
+        return dataclasses.replace(sp, scale=sp.scale * (reps / full) ** 0.5
+                                   * at)
+    specs["blocks"] = tree_map(scale, specs["blocks"])
     return init_from_specs(generator, specs, torch_dtype(cfg.param_dtype),
                            model.device)
 
 
-def model_and_params(cfg, label, init_depth=None):
+def model_and_params(cfg, label, init_depth=None, on_card=False,
+                     per_layer=False):
+    """The model on the card and its parameters from seed 0, drawn on the
+    host (the same weights as a CPU draw) or, ``on_card``, on the card (in
+    a moment, where the host would take tens of seconds); ``per_layer``:
+    at each layer's own fan-in (init_at_depth)."""
     from repro_torch.models import build_model
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
-    gen = torch.Generator().manual_seed(0)
-    params = (model.init(gen) if init_depth is None
-              else init_at_depth(model, gen, init_depth))
+    gen = torch.Generator(device="cuda" if on_card else "cpu").manual_seed(0)
+    params = (model.init(gen) if init_depth is None and not per_layer
+              else init_at_depth(model, gen, init_depth or cfg.num_layers,
+                                 per_layer))
     n = sum(t.numel() for t in _leaves(params))
     depth = "" if init_depth is None else \
         f" (drawn at the {init_depth}-layer model's scale)"
+    if per_layer:
+        depth += ", each layer at its own fan-in"
+    torch.cuda.synchronize()
     log(label, f"{cfg.name}: {cfg.num_layers} layers{depth}, pattern "
                f"{cfg.pattern}, d_model {cfg.d_model}, vocab "
                f"{cfg.vocab_size}, {n} parameters, {cfg.dtype} over "
-               f"{cfg.param_dtype}; init {time.perf_counter() - t0:.1f} s")
+               f"{cfg.param_dtype}; init {time.perf_counter() - t0:.1f} s "
+               f"on the {'card' if on_card else 'host'}")
     return model, params
 
 
@@ -1658,6 +2026,80 @@ def record_row(name, source, replaces, launches, err, row, shape):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape}
+
+
+def main_zoo():
+    """(u)-(x), run by ``chip_smoke.py --zoo`` in a process of its own (see
+    run_zoo): each decoder of slice 9 at its published widths, its depth
+    cut where its fp32 weights would not fit, drawn on the card and freed
+    after its path; then the compressed all-reduce. Writes each path's
+    launch counts, Server tok/s and peak GiB to ZOO_RESULT."""
+    from repro_torch.configs import get_config
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    zoo = {}
+    for arch, label in (("gemma2-27b", "u"), ("phi3.5-moe-42b-a6.6b", "v"),
+                        ("deepseek-moe-16b", "v"), ("qwen3-4b", "w"),
+                        ("granite-3-2b", "w")):
+        cfg = get_config(arch)
+        depth = None
+        if arch in ZOO_CUT:
+            depth, layers = ZOO_CUT[arch]
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        z_toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (PREFILL_B, PREFILL_S + 8))).cuda()
+        long_toks = None
+        if "local" in cfg.pattern:
+            # one (local, global) unit where the window bites and the ring
+            # wraps; prefill + decode of all layers past the window
+            window = cfg.sliding_window
+            unit_toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, window + 256))).cuda()
+            long_toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, window + 64 + 8))).cuda()
+
+            def blocks_of(cfg, params, unit_toks=unit_toks):
+                return (*first_unit(cfg, params), unit_toks,
+                        unit_toks.shape[1] + 8)
+        elif cfg.num_experts:
+            def blocks_of(cfg, params, z_toks=z_toks):
+                return cfg, params, z_toks[:2, :256], 256 + 8
+        else:
+            # the whole published depth, one shorter row (the CPU's share)
+            def blocks_of(cfg, params, z_toks=z_toks):
+                return cfg, params, z_toks[:1, :128], 128 + 8
+        counts, tok_s, peak = drive_zoo(label, cfg, depth, z_toks,
+                                        blocks_of, long_toks)
+        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak}
+        torch.cuda.empty_cache()
+    phase_compression()
+    ZOO_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    ZOO_RESULT.write_text(json.dumps(zoo))
+    return 0
+
+
+
+def run_zoo():
+    """Run main_zoo in a child process and return {arch: (launch counts,
+    Server tok/s, peak GiB)}. Its own process: run in the process of the
+    earlier phases, these paths left torch.profiler without device events
+    in the kernel timings after them, though each part alone, and twenty
+    profiles after training, left it working (PERF.md, Findings). The
+    child loads the kernels this process built."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ZOO_RESULT.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--zoo"], check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"the slice-9 paths failed (exit "
+                             f"{proc.returncode})")
+    return {arch: (v["counts"], v["tok_s"], v["peak"])
+            for arch, v in json.loads(ZOO_RESULT.read_text()).items()}
 
 
 def main():
@@ -1786,10 +2228,16 @@ def main():
                 for label in bench.BWD_SHAPES}
     for row in bwd_rows.values():
         log("k", bench.describe_bwd(row))
+    # slice 9 in a process of its own, with the card's memory this one no
+    # longer needs
+    del params, m_params, rg_params, model, m_model, rg_model, trained
+    zoo = run_zoo()
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
-             f"layers, bf16, batch 4)")
+             f"layers, bf16, batch 4), " + ", ".join(
+                 f"{tok_s:.1f} tok/s ({arch}, peak {peak:.2f} GiB)"
+                 for arch, (_, tok_s, peak) in zoo.items()))
     log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     # each kernel's row at the shape its first main path launches; flash
     # attention runs on two paths: its launches are both paths', and its
@@ -1798,7 +2246,8 @@ def main():
         "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:93",
         smollm_counts["flash_attention"] + train_counts["flash_attention"]
-        + elastic_counts["flash_attention"] + rg_counts["flash_attention"],
+        + elastic_counts["flash_attention"] + rg_counts["flash_attention"]
+        + sum(counts["flash_attention"] for counts, _, _ in zoo.values()),
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -1806,13 +2255,23 @@ def main():
         "smollm-135m": smollm_counts["flash_attention"],
         "smollm-135m training": train_counts["flash_attention"],
         "smollm-135m elastic training": elastic_counts["flash_attention"],
-        "recurrentgemma-9b": rg_counts["flash_attention"]}
+        "recurrentgemma-9b": rg_counts["flash_attention"],
+        **{arch: counts["flash_attention"]
+           for arch, (counts, _, _) in zoo.items()}}
     flash_row["recurrentgemma"] = record_row(
         "flash_attention", flash_row["source"], flash_row["replaces"],
         rg_counts["flash_attention"], flash_err[256],
         flash_rows["recurrentgemma-512"],
         f"B{PREFILL_B} H16 KV1 S{PREFILL_S} D256 bf16 causal, window "
-        f"{window}, (B, S, H, D) views")
+        f"{rg.sliding_window}, (B, S, H, D) views")
+    # and at head_dim 128: qwen3-4b's and phi3.5-moe's prefill (slice 9)
+    flash_row["head_dim_128"] = record_row(
+        "flash_attention", flash_row["source"], flash_row["replaces"],
+        sum(zoo[arch][0]["flash_attention"] for arch in
+            ("gemma2-27b", "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b",
+             "qwen3-4b")), flash_err[128], flash_rows["d128-512"],
+        f"B{PREFILL_B} H32 KV8 S{PREFILL_S} D128 bf16 causal, (B, S, H, D) "
+        "views")
     ssd_row = record_row(
         "ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd/kernel.py:67", mamba_counts["ssd_scan"],
@@ -1861,4 +2320,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_zoo() if sys.argv[1:] == ["--zoo"] else main())

@@ -55,11 +55,13 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention: at its full
-# context, and the (B, S, H, D) views a B 4, S 512 prefill passes; and of
-# recurrentgemma-9b's local layers in the same prefill (window 2048)
+# context, and the (B, S, H, D) views a B 4, S 512 prefill passes; of
+# recurrentgemma-9b's local layers in the same prefill (window 2048); and
+# of qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128)
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
-          "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048)}
+          "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
+          "d128-512": (4, 32, 8, 512, 128, "bshd", None)}
 # (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
 # conv output a B 4, S 512 prefill passes, and a longer contiguous batch
 SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),

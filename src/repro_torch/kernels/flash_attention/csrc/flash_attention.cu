@@ -36,6 +36,10 @@
 //    consumers (232), but ptxas allocates for the block's thread count
 //    (168 at three warpgroups): at D 256, where the output alone is 128
 //    fp32 registers a thread, one consumer (two warpgroups) avoids spills.
+//    At D 128 a thread holds 64 output registers; with KV tiles of 128
+//    keys its scores (64) and their bf16 packing (32) took it past 168 and
+//    ptxas spilled 216 bytes, so D 128 and D 256 take tiles of 64 keys
+//    (scores 32, packing 16) and D 32 / 64 tiles of 128.
 //  - Tiles are stored as TMA writes them: rows of 128 bytes (64 bytes at
 //    D 32) with the 128-byte (64-byte) swizzle, one column block of 64
 //    (32) head dims after another, and the wgmma descriptors use the same
@@ -325,7 +329,7 @@ struct Tile {
   static constexpr int NWG = D == 256 ? 1 : 2;
   static constexpr int BM = 64 * NWG;             // query rows per block
   static constexpr int THREADS = 128 * (NWG + 1);
-  static constexpr int BN = D == 256 ? 64 : 128;  // keys per KV tile
+  static constexpr int BN = D >= 128 ? 64 : 128;  // keys per KV tile
   static constexpr int SW = D < 64 ? D : 64;      // head dims per smem row
   static constexpr int ROWB = 2 * SW;             // bytes per smem row
   static constexpr int Q_BYTES = BM * D * 2;

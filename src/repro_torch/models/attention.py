@@ -2,7 +2,7 @@
 behind ``attn_impl``, local sliding windows, and the KV caches.
 
 Counterpart of ``repro.models.attention`` for the "global" and "local"
-kinds. The prefill / forward attention takes the hand-written CUDA flash
+kinds, and the "moe" block kind, whose attention is global. The prefill / forward attention takes the hand-written CUDA flash
 kernel for CUDA tensors (``attn_impl="auto"``) and the chunked
 online-softmax path, ported from the reference, on the CPU; a "local"
 layer passes its sliding window to either. Decode attends over the cache in
@@ -27,11 +27,13 @@ NEG_INF = -2.0 ** 30
 ATTN_IMPLS = ("auto", "chunked")
 
 
-KINDS = ("global", "local")
+# block kinds with self-attention: a "moe" block attends globally
+KINDS = ("global", "local", "moe")
 
 
 def window_of(cfg, kind: str) -> Optional[int]:
-    """The sliding window of a ``kind`` layer: None for "global"."""
+    """The sliding window of a ``kind`` layer: None for "global" and
+    "moe"."""
     if kind not in KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (ROADMAP.md, "
@@ -226,7 +228,7 @@ def decode_attention(params, x, cfg, cache, pos: int, *,
 
 
 def attention_apply(params, x, cfg, *, kind: str = "global"):
-    """Training / prefill attention. kind: "global" | "local"."""
+    """Training / prefill attention. kind: "global" | "local" | "moe"."""
     window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)

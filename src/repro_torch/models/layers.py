@@ -69,32 +69,36 @@ def tree_leaves(tree):
 
 def init_param(generator: torch.Generator, spec: ParamSpec,
                dtype: torch.dtype) -> torch.Tensor:
-    """Draw one parameter from ``generator``: a fan-in scaled normal, as
-    ``repro.models.layers.init_param`` (the fan-in is the leading axis), or
-    the RG-LRU's ``lru_a``."""
+    """Draw one parameter from ``generator``, on the generator's device: a
+    fan-in scaled normal, as ``repro.models.layers.init_param`` (the fan-in
+    is the leading axis), or the RG-LRU's ``lru_a``."""
+    dev = generator.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype)
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype)
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
     if spec.init == "lru_a":
         # the inverse softplus of -8 log u, u uniform in [0.9, 0.999), so
         # the recurrence's decay starts near 0.9-0.999 (Griffin, sec. 2.4)
-        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=dev)
         u = 0.9 + (0.999 - 0.9) * u
         return torch.log(torch.expm1(-torch.log(u) * 8.0)).to(dtype)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[0], 1)
     std = spec.scale / math.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=dev)
     return (x * std).to(dtype)
 
 
 def init_from_specs(generator: torch.Generator, specs, dtype: torch.dtype,
                     device: torch.device):
-    """Initialise every leaf in order, on the CPU from ``generator``, then
-    move the tree to ``device`` (so a seed gives the same weights on any
-    device)."""
+    """Initialise every leaf in order from ``generator``, on its device,
+    then move the tree to ``device``: a CPU generator gives the same
+    weights on any device; a CUDA generator draws billions of parameters
+    on the card in a moment (other numbers from the same seed)."""
     return tree_map(
         lambda s: init_param(generator, s, dtype).to(device), specs)
 

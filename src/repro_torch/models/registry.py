@@ -1,11 +1,14 @@
 """Model registry: config -> model instance + reduced smoke configs.
 
-Counterpart of ``repro.models.registry``. ``build_model`` builds what the
-port has so far: a dense decoder of "global" attention blocks (smollm-135m
-and its kind), the attention-free Mamba-2 stack of "ssd" blocks
-(mamba2-130m) and the hybrid ("rglru", "rglru", "local") pattern of
-recurrentgemma-9b. Every other architecture raises ``NotImplementedError``
-naming the ROADMAP.md item that will port it.
+Counterpart of ``repro.models.registry``. ``build_model`` builds every
+decoder of the zoo: the dense "global" decoders (smollm-135m, qwen3-4b,
+granite-3-2b), gemma2-27b's ("local", "global") layout with its logit
+softcaps, the attention-free Mamba-2 stack of "ssd" blocks (mamba2-130m),
+recurrentgemma-9b's ("rglru", "rglru", "local") pattern, and the
+mixture-of-experts "moe" blocks of phi3.5-moe-42b-a6.6b and
+deepseek-moe-16b (shared experts, a first dense layer). Encoder-decoders
+(seamless) and modality frontends (paligemma) raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 from __future__ import annotations
 
@@ -24,27 +27,15 @@ def _unported(cfg: ModelConfig):
         return f"encoder-decoder models ({_LATER}: seamless)"
     if cfg.frontend:
         return f"modality frontends ({_LATER}: paligemma)"
-    if cfg.num_experts or "moe" in cfg.pattern:
-        return f"mixture-of-experts blocks ({_LATER}: phi3.5, deepseek)"
-    if (cfg.family, cfg.pattern) in (("ssm", ("ssd",)),
-                                     ("hybrid", ("rglru", "rglru", "local"))):
-        return None
-    if "ssd" in cfg.pattern:
+    if "ssd" in cfg.pattern and (cfg.family, cfg.pattern) != (
+            "ssm", ("ssd",)):
         return f"SSD blocks outside the ssm family ({_LATER})"
-    if "rglru" in cfg.pattern:
+    if "rglru" in cfg.pattern and (cfg.family, cfg.pattern) != (
+            "hybrid", ("rglru", "rglru", "local")):
         return f"RG-LRU blocks outside recurrentgemma's pattern ({_LATER})"
-    if "local" in cfg.pattern:
-        # the local kind, its ring cache, windows and softcaps in the kernel
-        # are ported (recurrentgemma); a registry entry and parity tests
-        # for the local + global layout are not
-        return (f"local + global attention with logit softcaps: a registry "
-                f"entry and parity tests ({_LATER}: gemma2)")
-    if cfg.pattern != ("global",) or cfg.sliding_window is not None:
-        return f"local sliding-window attention ({_LATER}: gemma2)"
-    if cfg.attn_logit_softcap is not None:
-        return f"attention logit softcaps ({_LATER}: gemma2)"
-    if cfg.family != "dense":
-        return f"family {cfg.family!r} ({_LATER})"
+    unknown = set(cfg.pattern) - {"global", "local", "moe", "ssd", "rglru"}
+    if unknown:
+        return f"block kinds {sorted(unknown)} ({_LATER})"
     return None
 
 

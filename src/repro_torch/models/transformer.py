@@ -1,8 +1,12 @@
 """Decoder-only LM over a repeating pattern of block kinds.
 
-Counterpart of ``repro.models.transformer.CausalLM`` for the block kinds
-ported so far: "global" attention (smollm), "ssd" (mamba2), and "rglru"
-with "local" sliding-window attention (recurrentgemma). Parameters
+Counterpart of ``repro.models.transformer.CausalLM`` for the decoder
+families: "global" attention (smollm, qwen3, granite), "local" and
+"global" with softcaps (gemma2), "ssd" (mamba2), "rglru" with "local"
+sliding-window attention (recurrentgemma), and "moe", global attention
+with a mixture-of-experts feed-forward (phi3.5, deepseek, whose first
+layers are dense). An attention kind in a "moe" family config also takes
+the mixture-of-experts feed-forward, as in the reference. Parameters
 and caches keep the reference's tree: ``head{i}`` for the first dense
 layers, the pattern's blocks stacked under ``blocks.p{j}`` with a leading
 layers axis, and an unstacked ``tail{t}`` when the depth is not a multiple
@@ -10,7 +14,8 @@ of the pattern. The reference's ``jax.lax.scan`` over the stacked axis is a
 loop here, and its ``jax.checkpoint`` of each pattern unit (``cfg.remat``)
 is ``torch.utils.checkpoint``. ``loss`` is the training objective: masked
 next-token cross-entropy, optionally over sequence chunks so that the
-(B, S, V) logits never materialise.
+(B, S, V) logits never materialise, plus the routers' summed
+load-balancing loss.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -67,8 +73,15 @@ def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
         return ParamSpec((e,), ("embed",), "zeros")
 
     if kind in attn.KINDS:
+        # a "moe" block, or an attention block of a "moe" family config,
+        # has a mixture-of-experts feed-forward unless it is a first dense
+        # layer
+        moe = ((kind == "moe" and not dense_ff)
+               or (cfg.family == "moe" and dense_ff is None))
         return {"ln1": norm(), "attn": attn.attention_specs(cfg),
-                "ln2": norm(), "ffn": mlp_specs(cfg, d_ff=dense_ff)}
+                "ln2": norm(),
+                "ffn": (moe_mod.moe_specs(cfg) if moe
+                        else mlp_specs(cfg, d_ff=dense_ff))}
     if kind == "ssd":
         return {"ln1": norm(), "mixer": ssm_mod.ssd_specs(cfg)}
     if kind == "rglru":
@@ -77,21 +90,32 @@ def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
     raise _unported(kind)
 
 
-def block_apply(params, x, cfg: ModelConfig, kind: str):
-    """One block, training / prefill path (full sequence)."""
+def ffn_apply(params, h, cfg: ModelConfig, capacity_factor=None):
+    """The feed-forward of an attention block: the mixture of experts where
+    it has a router, else the gated MLP. -> (y, aux loss or None)."""
+    if "router" in params:
+        return moe_mod.moe_apply(params, h, cfg,
+                                 capacity_factor=capacity_factor)
+    return mlp_apply(params, h, cfg), None
+
+
+def block_apply(params, x, cfg: ModelConfig, kind: str, aux):
+    """One block, training / prefill path (full sequence). -> (x, aux plus
+    the block's router loss)."""
     if kind in attn.KINDS:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         x = x + attn.attention_apply(params["attn"], h, cfg, kind=kind)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp_apply(params["ffn"], h, cfg)
+        y, a = ffn_apply(params["ffn"], h, cfg)
+        return x + y, aux if a is None else aux + a
     if kind == "ssd":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
-        return x + ssm_mod.ssd_apply(params["mixer"], h, cfg)
+        return x + ssm_mod.ssd_apply(params["mixer"], h, cfg), aux
     if kind == "rglru":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         x = x + rglru_mod.rglru_mixer_apply(params["mixer"], h, cfg)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp_apply(params["ffn"], h, cfg)
+        return x + mlp_apply(params["ffn"], h, cfg), aux
     raise _unported(kind)
 
 
@@ -117,7 +141,11 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
                                          window=attn.window_of(cfg, kind))
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp_apply(params["ffn"], h, cfg), cache
+        # capacity factor top_k, as the reference: at S 1 capacity's floor
+        # gives every expert 8 slots, so no choice drops
+        y, _ = ffn_apply(params["ffn"], h, cfg,
+                         capacity_factor=float(cfg.top_k))
+        return x + y, cache
     if kind == "ssd":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, cache = ssm_mod.ssd_decode(params["mixer"], h, cfg, cache)
@@ -139,7 +167,8 @@ def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
                                           cache_len=max_len)
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        return x + mlp_apply(params["ffn"], h, cfg), cache
+        y, _ = ffn_apply(params["ffn"], h, cfg)
+        return x + y, cache
     if kind == "ssd":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, cache = ssm_mod.ssd_prefill(params["mixer"], h, cfg)
@@ -215,7 +244,8 @@ class CausalLM:
         return logical_tree(self.specs())
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
-        """Random parameters drawn from ``generator`` (a CPU generator)."""
+        """Random parameters drawn from ``generator`` (on its device; see
+        ``layers.init_from_specs``)."""
         return init_from_specs(generator, self.specs(),
                                torch_dtype(self.cfg.param_dtype),
                                self.device)
@@ -240,28 +270,31 @@ class CausalLM:
         raise ValueError(f"unknown remat {remat!r}")
 
     def _trunk(self, params, x):
+        """-> (normalised hidden states, the routers' summed loss, fp32)."""
         cfg = self.cfg
         reps, tail = self._pattern_layout()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.first_dense_layers):
-            x = block_apply(params[f"head{i}"], x, cfg, cfg.pattern[0])
+            x, aux = block_apply(params[f"head{i}"], x, cfg, cfg.pattern[0],
+                                 aux)
 
-        def unit(x, unit_params):
+        def unit(x, aux, unit_params):
             for j, kind in enumerate(cfg.pattern):
-                x = block_apply(unit_params[f"p{j}"], x, cfg, kind)
-            return x
+                x, aux = block_apply(unit_params[f"p{j}"], x, cfg, kind, aux)
+            return x, aux
 
         unit = self._remat(unit)
         for r in range(reps):
-            x = unit(x, layer(params["blocks"], r))
+            x, aux = unit(x, aux, layer(params["blocks"], r))
         for t in range(tail):
-            x = block_apply(params[f"tail{t}"], x, cfg, cfg.pattern[t])
-        return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x, aux = block_apply(params[f"tail{t}"], x, cfg, cfg.pattern[t],
+                                 aux)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def forward(self, params, tokens):
-        """tokens: (B, S) -> (fp32 logits (B, S, V), aux loss 0)."""
+        """tokens: (B, S) -> (fp32 logits (B, S, V), aux loss)."""
         x = embed_apply(params["embed"], tokens, self.cfg)
-        x = self._trunk(params, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = self._trunk(params, x)
         return unembed_apply(params["embed"], x, self.cfg), aux
 
     def loss(self, params, batch):
@@ -287,13 +320,12 @@ class CausalLM:
 
         if cfg.ce_chunk:
             x = embed_apply(params["embed"], batch["tokens"], cfg)
-            x = self._trunk(params, x)
+            x, aux = self._trunk(params, x)
             c = cfg.ce_chunk
             total = sum(nll(unembed_apply(params["embed"], x[:, i:i + c],
                                           cfg),
                             labels[:, i:i + c], mask[:, i:i + c])
                         for i in range(0, x.shape[1], c))
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             logits, aux = self.forward(params, batch["tokens"])
             total = nll(logits, labels, mask)

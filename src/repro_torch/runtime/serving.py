@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.runtime.serving``, kept a faithful twin so that both
 emit the same tokens from the same weights. It is generic over the model's
-cache: the KV cache of attention models (smollm-135m), the conv window
-and SSM state of Mamba-2 (mamba2-130m), and recurrentgemma-9b's conv
-window and recurrent state ``h`` beside its local layers' ring-buffer KV
-cache (the window's size, position p in slot p % window). That includes
+cache: the KV cache of attention models (smollm-135m, qwen3-4b,
+granite-3-2b, and the "moe" blocks of phi3.5-moe and deepseek-moe), the
+conv window and SSM state of Mamba-2 (mamba2-130m), and the local layers'
+ring-buffer KV cache (the window's size, position p in slot p % window)
+of gemma2-27b and of recurrentgemma-9b, beside the latter's conv window
+and recurrent state ``h``. That includes
 three behaviours of the reference that the port mirrors rather than fixes:
 
 - ``add`` prefills a slot by stepping its prompt through full-batch decode

@@ -9,7 +9,10 @@ widths (d_inner 1536, 24 SSD heads of 64, state 128, chunk 128) cut to 2
 layers and a 2048 vocab, and recurrentgemma reduced (8 layers: two
 (rglru, rglru, local) units and the 2-layer tail, window 64, a prompt of 80
 so that the local ring wraps) and at its attention's true shape (16 query
-heads on 1 KV head, head_dim 256) cut to one unit. On the CPU
+heads on 1 KV head, head_dim 256) cut to one unit, and the reduced gemma2
+(local + global layers with softcaps, a prompt of 80 beyond the window of
+64), phi3.5-moe and deepseek-moe (shared experts, a first dense layer),
+whose forward also gives the routers' loss. On the CPU
 ``attn_impl="auto"`` takes the chunked attention, which is also held
 against the plain attention here, the SSD mixer takes the chunked scan and
 the RG-LRU mixer its log-depth scan; the kernel branches run only on the
@@ -70,11 +73,17 @@ CASES = {
                                      reduced_fp32(full), num_layers=3,
                                      num_heads=16, num_kv_heads=1,
                                      head_dim=256), 2, 80),
+    # local + global with softcaps: the local ring wraps
+    "gemma2-reduced": ("gemma2-27b", reduced_fp32, 2, 80),
+    # "moe" blocks: routed experts; shared experts and a dense head0
+    "phi3.5-moe-reduced": ("phi3.5-moe-42b-a6.6b", reduced_fp32, 2, 32),
+    "deepseek-moe-reduced": ("deepseek-moe-16b", reduced_fp32, 2, 32),
 }
 # Decode steps of the recurrentgemma cases: the forward pass spans 96
 # tokens, which the attention's chunk of 64 halves to 32 (at 85 it would
 # halve to 1 and the reference would trace thousands of chunk pairs).
-STEPS = {"recurrentgemma-reduced": 16, "recurrentgemma-heads-256": 16}
+STEPS = {"recurrentgemma-reduced": 16, "recurrentgemma-heads-256": 16,
+         "gemma2-reduced": 16}
 # Cases whose reference runs under jax.jit: eagerly, the RG-LRU's
 # associative scan and the unit's scan run op by op for minutes.
 JIT = {"recurrentgemma-reduced", "recurrentgemma-heads-256"}
@@ -124,11 +133,11 @@ def reference(case: str):
         prefill = jax.jit(prefill, static_argnames="max_len")
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s + steps)).astype(np.int32)
-    fwd, _ = forward(params, jnp.asarray(toks))
+    fwd, aux = forward(params, jnp.asarray(toks))
     pre, cache = prefill(params, jnp.asarray(toks[:, :s]),
                          max_len=s + steps)
     out = {"cfg": cfg, "params": jax.tree.map(np.asarray, params),
-           "tokens": toks, "forward": np.asarray(fwd),
+           "tokens": toks, "forward": np.asarray(fwd), "aux": float(aux),
            "prefill": np.asarray(pre),
            "cache": jax.tree.map(np.asarray, cache), "decode": []}
     for t in range(steps):
@@ -167,9 +176,11 @@ def test_forward_prefill_decode_match_jax(case):
     toks = torch.from_numpy(ref["tokens"])
     scale = float(np.abs(ref["forward"]).max()) + 1e-6
 
-    fwd, _ = model.forward(params, toks)
+    fwd, aux = model.forward(params, toks)
     assert fwd.dtype == torch.float32 and fwd.shape == ref["forward"].shape
     close(fwd, ref["forward"], scale)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), ref["aux"], rtol=1e-5, atol=1e-9)
 
     pre, cache = model.prefill(params, toks[:, :s], max_len=s + steps)
     close(pre, ref["prefill"], scale)
@@ -188,6 +199,7 @@ def test_forward_prefill_decode_match_jax(case):
                                        toks[:, s + t:s + t + 1], s + t)
         close(dec, ref["decode"][t], scale)
         close(dec[:, 0], ref["forward"][:, s + t], scale)
+        close(dec[:, 0], fwd[:, s + t].numpy(), scale)
 
 
 # chunk sizes: one chunk; dividing S; not dividing S (halved until it does)
@@ -233,14 +245,15 @@ def test_config_copy_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(jax_list_archs()))
 def test_build_model_builds_dense_global_and_names_roadmap_otherwise(arch):
-    """Dense "global" configs, mamba2's "ssd" stack and recurrentgemma's
-    (rglru, rglru, local) pattern build, at their published widths; every
-    other architecture names its ROADMAP item."""
+    """Every decoder of the zoo builds at its published widths: the dense
+    "global" configs, gemma2's local + global layout, mamba2's "ssd" stack,
+    recurrentgemma's (rglru, rglru, local) pattern and the "moe" configs;
+    the encoder-decoder (seamless) and the patch frontend (paligemma)
+    name their ROADMAP item."""
     cfg = get_config(arch)
-    if (cfg.family, cfg.pattern) in (("dense", ("global",)),
-                                     ("ssm", ("ssd",)),
-                                     ("hybrid", ("rglru", "rglru", "local"))):
-        assert build_model(cfg, device="cpu").cfg is cfg
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if cfg.family == "encdec" or cfg.frontend:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md, Queue 1.*(seamless|paligemma)"):
             build_model(cfg, device="cpu")
+    else:
+        assert build_model(cfg, device="cpu").cfg is cfg

@@ -104,3 +104,15 @@ def test_serve_launcher_runs_recurrentgemma_on_cpu(no_card, capsys):
     out = capsys.readouterr().out
     assert "recurrentgemma-9b on cpu: 6 tokens, 3 requests" in out
     assert "recurrentgemma-9b: 6 layers, init" in out
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-moe-16b", "qwen3-4b",
+                                  "granite-3-2b"])
+def test_serve_launcher_runs_the_rest_of_the_zoo_on_cpu(arch, capsys):
+    """The reduced gemma2, phi3.5-moe, deepseek-moe, qwen3 and granite
+    serve through the launcher on the CPU."""
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                       "--new-tokens", "2", "--batch", "2"]) == 0
+    assert f"{arch} on cpu: 4 tokens, 2 requests" in capsys.readouterr().out

@@ -1,8 +1,10 @@
 """The port's Server against the JAX Server: the six scenarios of
 tests/test_serving.py, driven on both with the same weights (bridged from
 the reference) and the same prompts, on reduced smollm (a KV cache), on
-reduced mamba2 (conv and SSM state caches) and on reduced recurrentgemma
-(conv and RG-LRU state caches beside a local layer's ring-buffer KV cache).
+reduced mamba2 (conv and SSM state caches), on reduced recurrentgemma
+(conv and RG-LRU state caches beside a local layer's ring-buffer KV cache),
+on reduced gemma2 (local and global KV caches, softcaps) and on reduced
+phi3.5-moe and deepseek-moe ("moe" blocks; deepseek's dense head0).
 Greedy token ids, slot assignments and free-slot lists must be identical,
 and each scenario's own assertions hold on the port.
 """
@@ -126,7 +128,10 @@ SCENARIOS = [
 # smollm's cases keep the bare scenario name as their id
 CASES = [pytest.param(arch, *sc, id=prefix + sc[0].__name__)
          for arch, prefix in (("smollm-135m", ""), ("mamba2-130m", "mamba2-"),
-                              ("recurrentgemma-9b", "recurrentgemma-"))
+                              ("recurrentgemma-9b", "recurrentgemma-"),
+                              ("gemma2-27b", "gemma2-"),
+                              ("phi3.5-moe-42b-a6.6b", "phi3.5-moe-"),
+                              ("deepseek-moe-16b", "deepseek-moe-"))
          for sc in SCENARIOS]
 
 
