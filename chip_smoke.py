@@ -13,11 +13,16 @@ fit's FitError in (t)):
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
                   window 2048; slice 9's D 128 prefills: 32 / 8, 16 / 16
                   and 32 / 16 heads with softcap 50, and gemma2's local
-                  layer at S 4352, window 4096)
+                  layer at S 4352, window 4096; slice 10's: paligemma's
+                  prefill, D 256 causal without a window, 8 / 1 heads;
+                  seamless's encoder and cross attention without a causal
+                  mask, 16 / 16 heads of 64, Sq 512 = Sk and Sq 264 over
+                  Sk 256)
   (p) backward -- the flash-attention backward kernel (dq, dk, dv from the
                   forward's log-sum-exp) against torch autograd of the
-                  plain version, on (c)'s cases and smollm's training call;
-                  the forward's log-sum-exp against the plain scores
+                  plain version, on (c)'s cases (slice 10's too) and
+                  smollm's training call; the forward's log-sum-exp
+                  against the plain scores
   (d) ssd      -- the SSD-scan kernel (three CUDA kernels a call) against
                   its plain version and the chunked path (y and the final
                   state), up to B 8, S 2048 (16 chunks of state passing)
@@ -85,6 +90,25 @@ fit's FitError in (t)):
   (x) compress -- the int8 compressed all-reduce on 2 and 4 virtual slices
                   over smollm-135m's gradient tree: bit-equal to the CPU's,
                   error feedback over 12 steps, ms a call and payload bytes
+  slice 10, in the same child process after (x), each model at its
+  published widths and depth, twice as (u)-(w) (per-layer fan-in, every
+  check held; then the reference's init, fp32 printed):
+  (y) vlm      -- paligemma-3b (18 layers, 2.51 B parameters): prefill at
+                  B 4 of 256 patch embeddings + 256 tokens, kernel vs
+                  chunked (fp32, and bf16 by its distance from fp32),
+                  exactly 18 launches a prefill; prefill + 8 decode steps
+                  after the patches against forward; Server (text, as the
+                  reference's Server); step times
+  (z) encdec   -- seamless-m4t-medium (12 + 12 layers, 0.72 B
+                  parameters): prefill at B 4 of 512 frames and 512 tokens,
+                  kernel vs chunked, exactly 36 launches a prefill (12
+                  encoder and 12 cross calls without a causal mask, 12
+                  causal self calls); prefill + 8 decode steps over 256
+                  frames and 256 tokens against forward; one fp32 train
+                  step at B 2 (256 frames, 256 tokens from the data
+                  stream) through both kernels against chunked, the loss
+                  and every gradient; step times; no Server (the
+                  reference's cannot serve it)
   the paper's applications and the calibration, run after (r) (no kernel of
   the port; plain fp32 torch, as the reference leaves them to XLA):
   (s) apps     -- CG, Jacobi and N-body at n (N) 2048: five steps on the
@@ -110,14 +134,15 @@ fit's FitError in (t)):
                   card, not a fault of the port
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
-                  both in device time) as a yardstick the port never calls;
+                  both in device time) as a yardstick the port never calls,
+                  at slice 10's call shapes too;
                   each model's prefill and decode step and smollm's train
                   step, with the card's busy share; the Servers' tokens/s;
                   the backward last
 
-Phases (e)-(g), (q), (h)-(j), (m)-(o) and (u)-(w) are the main paths: every
-kernel launch count is set to 0 just before each path and read just after
-it. The last
+Phases (e)-(g), (q), (h)-(j), (m)-(o), (u)-(w), (y) and (z) are the main
+paths: every kernel launch count is set to 0 just before each path and read
+just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
@@ -219,6 +244,36 @@ def kernel_cases():
     return cases
 
 
+# slice 10's flash calls on its main paths, by their label in
+# bench.SHAPES / bench.NONCAUSAL_SHAPES, (B, H, KV, Sq, Sk, D, causal), as
+# the models pass them ((B, S, H, D) views) without a window: paligemma-3b's
+# prefill (8 query heads on 1 KV head of 256, 256 patches and 256 tokens);
+# seamless-m4t-medium's encoder over 512 frames, the same call as its cross
+# attention's of 512 tokens over them at prefill; and its cross attention
+# of 264 tokens over 256 frames, in the decode check's forward
+SLICE10_CALLS = {"paligemma-512": (PREFILL_B, 8, 1, 512, 512, 256, True),
+                 "seamless-512": (PREFILL_B, 16, 16, 512, 512, 64, False),
+                 "seamless-cross-264": (PREFILL_B, 16, 16, 264, 256, 64,
+                                        False)}
+
+
+def slice10_kernel_cases():
+    """SLICE10_CALLS in bf16 and fp32."""
+    return [(b, h, kv, sq, sk, d, causal, None, None, dt, "bshd")
+            for b, h, kv, sq, sk, d, causal in SLICE10_CALLS.values()
+            for dt in (torch.bfloat16, torch.float32)]
+
+
+def slice10_label(case):
+    """The SLICE10_CALLS label of a bf16 case of the table, or None."""
+    b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
+    if window is not None or softcap is not None or layout != "bshd" or \
+            dtype != torch.bfloat16:
+        return None
+    return next((label for label, call in SLICE10_CALLS.items()
+                 if call == (b, h, kv, sq, sk, d, causal)), None)
+
+
 def zoo_kernel_cases():
     """Head_dim 128 on the main paths of slice 9, fp32 and bf16, as the
     models pass them ((B, S, H, D) views): the prefill of qwen3-4b and
@@ -258,14 +313,15 @@ LSE_TOL = 1e-4
 def phase_flash_bwd_vs_plain():
     """Returns {(head_dim, S): max |kernel - plain| over dq, dk and dv} at
     smollm's training call (bf16, B 8, S 2048, (B, S, H, D) views) and the
-    case table's other bf16 calls on such views."""
+    case table's other bf16 calls on such views, slice 10's among them
+    (seamless's non-causal calls train in phase z)."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import (attention_lse,
                                                          attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_err = {}
-    cases = kernel_cases() + [
+    cases = kernel_cases() + slice10_kernel_cases() + [
         # smollm-135m's train step: B 8, S 2048, (B, S, H, D) views
         (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd")]
     for case in cases:
@@ -296,19 +352,22 @@ def phase_flash_bwd_vs_plain():
         if dtype == torch.bfloat16 and layout == "bshd":
             main_err[(d, sq)] = max((g.float() - w).abs().max().item()
                                     for g, w in zip(grads, want))
+            if slice10_label(case) is not None:
+                main_err[slice10_label(case)] = main_err[(d, sq)]
     return main_err
 
 
 def phase_kernel_vs_plain():
     """Returns {head_dim: max |kernel - plain|} at the main paths' prefill
     calls (bf16, B 4, S 512, (B, S, H, D) views; the largest over the
-    head_dim 128 calls of slice 9)."""
+    head_dim 128 calls of slice 9), and by label at each of SLICE10_CALLS
+    in bf16."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = {}
-    for case in kernel_cases() + zoo_kernel_cases():
+    for case in kernel_cases() + zoo_kernel_cases() + slice10_kernel_cases():
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -333,6 +392,8 @@ def phase_kernel_vs_plain():
             raise AssertionError(f"kernel disagrees with plain: {name}")
         if layout == "bshd" and dtype == torch.bfloat16 and sq == PREFILL_S:
             main_err[d] = max(main_err.get(d, 0.0), err.max().item())
+        if slice10_label(case) is not None:
+            main_err[slice10_label(case)] = err.max().item()
     return main_err
 
 
@@ -518,7 +579,51 @@ def drive(label, phases):
     return counts, result
 
 
-def phase_prefill(cfg, params, toks, label="e", hold=True):
+def flash_per_pass(cfg):
+    """Flash forward launches of one forward or prefill of ``cfg`` whose
+    every layer attends: one a layer, or for an encoder-decoder one an
+    encoder layer and two a decoder layer (its self and cross attention)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+class WithInputs:
+    """A model with its modality input bound, so that forward, prefill and
+    decode_step take the text tokens alone, as a decoder's do: paligemma's
+    patch embeddings ``front`` (B, P, E), prepended (forward drops their
+    logits; the cache holds them first, so decode positions move by P), or
+    seamless's frames (an EncDecLM's encoder input)."""
+
+    def __init__(self, model, front):
+        self.model, self.cfg, self.front = model, model.cfg, front
+        self.encdec = model.cfg.family == "encdec"
+        self.nf = 0 if self.encdec else front.shape[1]
+        self.note = (f" over {front.shape[1]} frames" if self.encdec else
+                     f" after {self.nf} patch embeddings")
+
+    def forward(self, params, toks):
+        if self.encdec:
+            return self.model.forward(params, self.front, toks)
+        logits, aux = self.model.forward(params, toks,
+                                         extra_embeds=self.front)
+        return logits[:, self.nf:], aux
+
+    def prefill(self, params, toks, max_len):
+        if self.encdec:
+            return self.model.prefill(params, self.front, toks, max_len)
+        return self.model.prefill(params, toks, max_len + self.nf,
+                                  extra_embeds=self.front)
+
+    def decode_step(self, params, cache, tok, pos):
+        return self.model.decode_step(params, cache, tok, pos + self.nf)
+
+
+def bare(model):
+    return model
+
+
+def phase_prefill(cfg, params, toks, label="e", hold=True, wrap=bare):
     """(e) Prefill at full width through the kernel (attn_impl="auto") and
     through the chunked path, in fp32 (held unless ``hold`` is False) and
     in the model's bf16.
@@ -530,12 +635,13 @@ def phase_prefill(cfg, params, toks, label="e", hold=True):
     bf16 and fp32 logits differ by 0.47 max-normalised at 2 layers). So
     bf16 is held by what it costs: the mean distance of the kernel path's
     logits from the fp32 logits, over every position of a forward pass, may
-    be at most BF16_RATIO times the chunked path's."""
+    be at most BF16_RATIO times the chunked path's. ``wrap`` binds a
+    model's modality input (WithInputs)."""
     from repro_torch.models import build_model
     s = toks.shape[1]
-    n_layers = cfg.num_layers
-    models = {(dt, impl): build_model(dataclasses.replace(
-        cfg, dtype=dt, attn_impl=impl))
+    n_layers = flash_per_pass(cfg)
+    models = {(dt, impl): wrap(build_model(dataclasses.replace(
+        cfg, dtype=dt, attn_impl=impl)))
         for dt in ("float32", "bfloat16") for impl in ("auto", "chunked")}
     flash = counters()["flash_attention"]
     pre = {key: run_counted(
@@ -544,7 +650,8 @@ def phase_prefill(cfg, params, toks, label="e", hold=True):
         for key, m in models.items()}
     err32 = max_norm_err(pre["float32", "auto"], pre["float32", "chunked"])
     err16 = max_norm_err(pre["bfloat16", "auto"], pre["bfloat16", "chunked"])
-    log(label, f"{cfg.name} prefill B{toks.shape[0]} S{s}: {n_layers} kernel "
+    note = getattr(models["float32", "auto"], "note", "")
+    log(label, f"{cfg.name} prefill B{toks.shape[0]} S{s}{note}: {n_layers} kernel "
              f"launches per prefill; logits {tuple(pre['bfloat16', 'auto'].shape)}"
              f" kernel vs chunked max-normalised: float32 {err32:.3e} "
              + (f"(tol {MODEL_TOL})" if hold else "(not held)")
@@ -782,18 +889,20 @@ def phase_hybrid_prefill(cfg, params, toks, unit_toks):
              f"{max(whole.values()):.3e} at the reference's init")
 
 
-def phase_decode(label, cfg, params, toks, steps, hold_fp32=True):
+def phase_decode(label, cfg, params, toks, steps, hold_fp32=True,
+                 wrap=bare):
     """Prefill, then ``steps`` decode steps, against forward's logits at
     the same positions: fp32 at MODEL_TOL, as the reference's own
     decode-consistency test (printed, not held, when ``hold_fp32`` is
     False). bf16 is held as in phase_prefill: the mean distance of its
     prefill + decode logits from the fp32 forward's may be at most
-    BF16_RATIO times the bf16 forward's own (bf16_distance)."""
+    BF16_RATIO times the bf16 forward's own (bf16_distance). ``wrap``
+    binds a model's modality input (WithInputs)."""
     from repro_torch.models import build_model
     s = toks.shape[1] - steps
     full = {}
     for dtype in ("float32", "bfloat16"):
-        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        model = wrap(build_model(dataclasses.replace(cfg, dtype=dtype)))
         full[dtype], _ = model.forward(params, toks)
         pre, cache = model.prefill(params, toks[:, :s], max_len=s + steps)
         outs = [pre[:, 0]]
@@ -865,7 +974,7 @@ def flash_per_step(cfg):
     """Flash forward and backward launches one train step of ``cfg`` makes:
     a backward per layer, a forward per layer, twice under remat (the
     checkpointed units run again in the backward pass)."""
-    n = cfg.num_layers
+    n = flash_per_pass(cfg)
     return {"flash_attention": n * (2 if cfg.remat == "nothing_saveable"
                                     else 1),
             "flash_attention_bwd": n}
@@ -1811,6 +1920,117 @@ def drive_zoo(label, cfg, depth, toks, blocks_of, long_toks=None):
     return counts, tok_s, peak
 
 
+# -- (y), (z) slice 10: paligemma-3b's patch prefix, seamless-m4t-medium's ---------
+# encoder-decoder
+
+# paligemma-3b: its 256 patch embeddings (frontend_tokens) and the text
+# after them in the prefill and in the decode check. seamless-m4t-medium:
+# frames and prompt tokens of the prefill (the enc_dec split of seq_len
+# 1024), and of the decode check, where 264 queries over 256 frames fit one
+# chunk and the reference's cross attention attends every frame (ROADMAP.md,
+# "Reference behaviour the port mirrors on purpose"); the fp32 train step's
+# batch and its halves.
+VLM_TEXT = 256
+ENCDEC_S, ENCDEC_DECODE_S, ENCDEC_TRAIN = 512, 256, (2, 512)
+
+
+def phase_encdec_grads(label, cfg, params, batch):
+    """(z) One fp32 train step of the encoder-decoder (loss.backward(), remat
+    as configured) through the kernels (the forward with the log-sum-exp,
+    the backward kernel: the encoder's and the cross attention's calls
+    without a causal mask, the cross one at Sq != Sk where the batch says
+    so) against attn_impl="chunked", from the same parameters and batch:
+    the loss and every gradient leaf max-normalised at MODEL_TOL, with
+    exactly the launches flash_per_step gives."""
+    n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
+    kernel = train_grads(cfg, params, batch, flash_per_step(cfg))
+    errs = grad_errs(kernel, train_grads(cfg, params, batch, n_off,
+                                         attn_impl="chunked"))
+    worst = max(errs, key=errs.get)
+    log(label, f"{cfg.name} fp32 train step B{batch['tokens'].shape[0]}, "
+               f"{batch['frontend'].shape[1]} frames, "
+               f"{batch['tokens'].shape[1]} tokens (remat {cfg.remat}, "
+               f"{flash_per_step(cfg)} launches): through the kernels vs "
+               f"chunked, max-normalised: loss {errs['loss']:.3e}, "
+               f"{len(errs) - 1} gradient leaves, largest {worst} "
+               f"{errs[worst]:.3e} (tol {MODEL_TOL})")
+    if not all(torch.isfinite(g).all() for g in kernel[1].values()) or \
+            errs[worst] > MODEL_TOL:
+        raise AssertionError("the fp32 train step through the kernels "
+                             "disagrees with the chunked path")
+
+
+def drive_with_inputs(label, cfg, rng):
+    """(y) paligemma-3b or (z) seamless-m4t-medium at its published widths
+    and depth, twice, each from its own draw on the card, as drive_zoo:
+    first each layer at its own fan-in, every check held: the prefill at
+    B 4 through the kernel against the chunked path (fp32, and bf16 by its
+    distance from fp32), exactly flash_per_pass launches a prefill;
+    prefill + 8 decode steps against forward; for seamless one fp32 train
+    step (phase_encdec_grads). Then at the reference's init, the fp32
+    comparisons printed, with paligemma's Server (text, as the reference's)
+    and the step times. Returns (launch counts, Server tok/s or None, peak
+    GiB)."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    encdec = cfg.family == "encdec"
+    b, e = PREFILL_B, cfg.d_model
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+    if encdec:
+        s, ds = ENCDEC_S, ENCDEC_DECODE_S
+        front, decode_front = randn(b, s, e), randn(b, ds, e)
+    else:
+        s = ds = VLM_TEXT
+        front = decode_front = randn(b, cfg.frontend_tokens, e)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (b, ds + 8))).cuda()
+
+    def wrap(model):
+        return WithInputs(model, front)
+
+    def decode_wrap(model):
+        return WithInputs(model, decode_front)
+    torch.cuda.reset_peak_memory_stats()
+    _, params = model_and_params(cfg, label, on_card=True, per_layer=True)
+    phases = [
+        lambda: phase_prefill(cfg, params, toks, label, wrap=wrap),
+        lambda: phase_decode(label, cfg, params, seq, steps=8,
+                             wrap=decode_wrap)]
+    if encdec:
+        rows, seq_len = ENCDEC_TRAIN
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                          global_batch=rows, frontend=cfg.frontend,
+                          d_model=e, enc_dec=True)
+        batch = {k: t.cuda() for k, t in SyntheticLMData(data).batch(0)
+                 .items()}
+        phases.append(lambda: phase_encdec_grads(label, cfg, params, batch))
+    held, _ = drive(label, phases)
+    del params
+    torch.cuda.empty_cache()
+    model, params = model_and_params(cfg, label, on_card=True)
+    phases = [
+        lambda: phase_prefill(cfg, params, toks, label, hold=False,
+                              wrap=wrap),
+        lambda: phase_decode(label, cfg, params, seq, steps=8,
+                             hold_fp32=False, wrap=decode_wrap)]
+    if not encdec:
+        phases.append(lambda: phase_server(label, model, params))
+    counts, results = drive(label, phases)
+    tok_s = None if encdec else results[-1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(label, f"{cfg.name}: peak device memory {peak:.2f} GiB")
+    counts = {k: held[k] + counts[k] for k in counts}
+    if counts["flash_attention"] == 0 or \
+            (encdec and counts["flash_attention_bwd"] == 0):
+        raise AssertionError(f"{cfg.name}'s path never launched the flash "
+                             "kernels")
+    phase_step_times(cfg, params, toks, wrap=wrap)
+    return counts, tok_s, peak
+
+
 def phase_compression():
     """(x) compressed_psum_grads on 2 and 4 virtual slices of the card over
     smollm-135m's full-width gradient tree (random gradients and
@@ -1907,23 +2127,24 @@ def phase_compression():
 # -- (k) times --------------------------------------------------------------------
 
 
-def phase_step_times(cfg, params, toks):
+def phase_step_times(cfg, params, toks, wrap=bare):
     """End to end: one full-width bf16 prefill (for attention models through
     the kernel and through the chunked path) and one batch-4 decode step;
     for each, the card's busy time under the profiler against the
-    unprofiled wall time."""
+    unprofiled wall time. ``wrap`` binds a model's modality input."""
     from repro_torch.kernels.bench import device_profile, eager_ms
     from repro_torch.models import build_model
     s = toks.shape[1]
     steps = {}
     impls = ("auto", "chunked") if "global" in cfg.pattern else ("auto",)
     for impl in impls:
-        model = build_model(dataclasses.replace(cfg, attn_impl=impl))
-        name = f"prefill B{toks.shape[0]} S{s}" + (
-            f" attn_impl={impl}" if len(impls) > 1 else "")
+        model = wrap(build_model(dataclasses.replace(cfg, attn_impl=impl)))
+        name = f"prefill B{toks.shape[0]} S{s}{getattr(model, 'note', '')}" \
+            + (f" attn_impl={impl}" if len(impls) > 1 else "")
         steps[name] = lambda m=model: m.prefill(params, toks, max_len=s + 1)
     _, cache = model.prefill(params, toks, max_len=s + 1)
-    steps[f"decode_step B{toks.shape[0]} at pos {s}"] = (
+    pos = s + getattr(model, "nf", 0)     # after paligemma's patches
+    steps[f"decode_step B{toks.shape[0]} at pos {pos}"] = (
         lambda: model.decode_step(params, cache, toks[:, -1:], s))
     for name, fn in steps.items():
         wall = eager_ms(fn, iters=5)
@@ -1964,23 +2185,29 @@ def init_at_depth(model, generator, depth, per_layer=False):
     8 would draw its block weights sqrt(12 / 2) times larger than the 38-layer
     model's; each stacked normal weight's scale undoes that. Nothing else
     changes. ``per_layer``: the same random numbers at each layer's own
-    fan-in (at_per_layer_fan_in of that draw)."""
+    fan-in (at_per_layer_fan_in of that draw). An encoder-decoder is drawn
+    at its own depth; ``per_layer`` rescales both of its stacks."""
     from repro_torch.models import CausalLM
     from repro_torch.models.layers import (init_from_specs, torch_dtype,
                                            tree_map)
     cfg = model.cfg
-    reps = model._pattern_layout()[0]
-    full = CausalLM(dataclasses.replace(cfg, num_layers=depth),
-                    model.device)._pattern_layout()[0]
     specs = model.specs()
-
-    def scale(sp):
-        if sp.init != "normal":
-            return sp
-        at = (full / layer_fan_in(sp)) ** 0.5 if per_layer else 1.0
-        return dataclasses.replace(sp, scale=sp.scale * (reps / full) ** 0.5
-                                   * at)
-    specs["blocks"] = tree_map(scale, specs["blocks"])
+    if isinstance(model, CausalLM):
+        reps = model._pattern_layout()[0]
+        full = CausalLM(dataclasses.replace(cfg, num_layers=depth),
+                        model.device)._pattern_layout()[0]
+        stacks = {"blocks": (reps, full)}
+    else:
+        stacks = {key: (specs[key]["ln1"].shape[0],) * 2
+                  for key in ("enc_blocks", "dec_blocks")}
+    for key, (reps, full) in stacks.items():
+        def scale(sp, reps=reps, full=full):
+            if sp.init != "normal":
+                return sp
+            at = (full / layer_fan_in(sp)) ** 0.5 if per_layer else 1.0
+            return dataclasses.replace(
+                sp, scale=sp.scale * (reps / full) ** 0.5 * at)
+        specs[key] = tree_map(scale, specs[key])
     return init_from_specs(generator, specs, torch_dtype(cfg.param_dtype),
                            model.device)
 
@@ -2004,6 +2231,8 @@ def model_and_params(cfg, label, init_depth=None, on_card=False,
     if per_layer:
         depth += ", each layer at its own fan-in"
     torch.cuda.synchronize()
+    if cfg.enc_layers:
+        depth = f" (and {cfg.enc_layers} encoder layers)" + depth
     log(label, f"{cfg.name}: {cfg.num_layers} layers{depth}, pattern "
                f"{cfg.pattern}, d_model {cfg.d_model}, vocab "
                f"{cfg.vocab_size}, {n} parameters, {cfg.dtype} over "
@@ -2077,6 +2306,10 @@ def main_zoo():
         zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak}
         torch.cuda.empty_cache()
     phase_compression()
+    for arch, label in (("paligemma-3b", "y"), ("seamless-m4t-medium", "z")):
+        counts, tok_s, peak = drive_with_inputs(label, get_config(arch), rng)
+        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak}
+        torch.cuda.empty_cache()
     ZOO_RESULT.parent.mkdir(parents=True, exist_ok=True)
     ZOO_RESULT.write_text(json.dumps(zoo))
     return 0
@@ -2202,7 +2435,7 @@ def main():
                                  f"{name}")
 
     flash_rows = {label: bench.time_flash_attention(label)
-                  for label in bench.SHAPES}
+                  for label in (*bench.SHAPES, *bench.NONCAUSAL_SHAPES)}
     for row in flash_rows.values():
         log("k", bench.describe(row))
     ssd_rows = {label: bench.time_ssd_scan(label)
@@ -2236,7 +2469,8 @@ def main():
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
              f"layers, bf16, batch 4), " + ", ".join(
-                 f"{tok_s:.1f} tok/s ({arch}, peak {peak:.2f} GiB)"
+                 (f"{tok_s:.1f} tok/s" if tok_s is not None else "no Server")
+                 + f" ({arch}, peak {peak:.2f} GiB)"
                  for arch, (_, tok_s, peak) in zoo.items()))
     log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     # each kernel's row at the shape its first main path launches; flash
@@ -2272,6 +2506,19 @@ def main():
              "qwen3-4b")), flash_err[128], flash_rows["d128-512"],
         f"B{PREFILL_B} H32 KV8 S{PREFILL_S} D128 bf16 causal, (B, S, H, D) "
         "views")
+    # and slice 10's calls: paligemma-3b's prefill (D 256, no window, GQA
+    # 8 / 1), seamless-m4t-medium's non-causal ones (its whole path's
+    # launches beside each)
+    for label, arch in (("paligemma-512", "paligemma-3b"),
+                        ("seamless-512", "seamless-m4t-medium"),
+                        ("seamless-cross-264", "seamless-m4t-medium")):
+        b, h, kv, sq, sk, d, causal = SLICE10_CALLS[label]
+        flash_row[label] = record_row(
+            "flash_attention", flash_row["source"], flash_row["replaces"],
+            zoo[arch][0]["flash_attention"], flash_err[label],
+            flash_rows[label],
+            f"B{b} H{h} KV{kv} Sq{sq} Sk{sk} D{d} bf16 "
+            f"{'causal' if causal else 'non-causal'}, (B, S, H, D) views")
     ssd_row = record_row(
         "ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd/kernel.py:67", mamba_counts["ssd_scan"],
@@ -2299,13 +2546,17 @@ def main():
         "backward; the reference trains through XLA's autodiff of "
         "chunked_attention (src/repro/models/attention.py:94)",
         train_counts["flash_attention_bwd"]
-        + elastic_counts["flash_attention_bwd"], bwd_err[(d, s)],
+        + elastic_counts["flash_attention_bwd"]
+        + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values()),
+        bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     bwd_row["launches_by_path"] = {
         "smollm-135m training": train_counts["flash_attention_bwd"],
         "smollm-135m elastic training":
-            elastic_counts["flash_attention_bwd"]}
+            elastic_counts["flash_attention_bwd"],
+        "seamless-m4t-medium training":
+            zoo["seamless-m4t-medium"][0]["flash_attention_bwd"]}
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]

@@ -24,6 +24,7 @@ mesh with a different number of data-parallel slices.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Callable, List, Optional
 
@@ -85,34 +86,59 @@ def _numel(box: tuple) -> int:
     return n
 
 
-def _reshard_leaf(x: ShardedTensor, sh: NamedSharding,
-                  transfers: Optional[List[Transfer]]) -> ShardedTensor:
-    old, new = x.sharding.mesh, sh.mesh
+def _tables(old: Mesh, new: Mesh) -> tuple:
+    """What a walk from ``old`` to ``new`` looks up, the same for every
+    leaf: each old coordinate's (slice, model) rank, the coordinate of each
+    rank and of each device id, the plan's sources of every new slice, and
+    each new coordinate's (slice, model) rank."""
     rank = {c: _slice_and_model(old, c) for c in old.coords()}
     by_slice = {v: c for c, v in rank.items()}
     by_id = {old.id(c): c for c in old.coords()}
+    new_rank = {c: _slice_and_model(new, c) for c in new.coords()}
     p = len({k for k, _ in by_slice})
-    q = len({_slice_and_model(new, c)[0] for c in new.coords()})
-    plans = _plan_sources(p, q)
+    q = len({k for k, _ in new_rank.values()})
+    return rank, by_slice, by_id, _plan_sources(p, q), new_rank, p
+
+
+def _reshard_leaf(x: ShardedTensor, sh: NamedSharding,
+                  transfers: Optional[List[Transfer]],
+                  tables: Optional[dict] = None) -> ShardedTensor:
+    """``tables``: a cache of :func:`_tables` by (old mesh, new mesh),
+    shared by the leaves of one reshard."""
+    old, new = x.sharding.mesh, sh.mesh
+    if tables is None:
+        tables = {}
+    if (old, new) not in tables:
+        tables[old, new] = _tables(old, new)
+    rank, by_slice, by_id, plans, new_rank, p = tables[old, new]
     shards = {}
     for c in new.coords():
-        k, m = _slice_and_model(new, c)
+        k, m = new_rank[c]
         box = sh.index(x.shape, c)
+        need = _numel(box)
         dev = new.device(c)
         # the old entry on this device, then the plan's sources, then the
-        # rest: each distinct old block that meets the new one, once
+        # rest: each distinct old block that meets the new one, once. The
+        # distinct old blocks partition the leaf, so the walk stops once
+        # the pieces cover the new block: no later block can meet it.
         here = by_id.get(new.id(c))
-        order = [] if here is None else [here]
-        order += [by_slice[(s, m)] for s in plans[k] + list(range(p))]
-        pieces, seen = [], set()
+        order = itertools.chain(
+            () if here is None else (here,),
+            (by_slice[(s, m)] for s in itertools.chain(plans[k], range(p))))
+        pieces, seen, covered = [], set(), 0
         for oc in order:
             ob = x.index(oc)
             key = tuple((b.start, b.stop) for b in ob)
+            if key in seen:
+                continue
             inter = _intersect(box, ob)
-            if key in seen or inter is None:
+            if inter is None:
                 continue
             seen.add(key)
             pieces.append((oc, ob, inter))
+            covered += _numel(inter)
+            if covered == need:
+                break
         oc, ob, inter = pieces[0]
         if len(pieces) == 1 and oc == here and inter == box and \
                 x.shards[oc].device == dev:
@@ -142,8 +168,9 @@ def reshard(state: Any, shardings: Any, *,
     ``transfers``, when given, gets one :class:`Transfer` per block or piece
     moved, ``local`` where it stays on its device id. Blocks left in place
     are views that keep the old buffer alive."""
-    return tree_map(lambda x, sh: _reshard_leaf(x, sh, transfers), state,
-                    shardings)
+    tables: dict = {}
+    return tree_map(lambda x, sh: _reshard_leaf(x, sh, transfers, tables),
+                    state, shardings)
 
 
 def checkpoint_reshard(state: Any, shardings: Any) -> Any:

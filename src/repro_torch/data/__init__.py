@@ -1,4 +1,5 @@
 """Data pipeline (counterpart of ``repro.data``)."""
-from repro_torch.data.pipeline import DataConfig, SyntheticLMData, make_batch
+from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                       batch_specs, make_batch)
 
-__all__ = ["DataConfig", "SyntheticLMData", "make_batch"]
+__all__ = ["DataConfig", "SyntheticLMData", "batch_specs", "make_batch"]

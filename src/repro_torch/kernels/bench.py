@@ -56,12 +56,21 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention: at its full
 # context, and the (B, S, H, D) views a B 4, S 512 prefill passes; of
-# recurrentgemma-9b's local layers in the same prefill (window 2048); and
-# of qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128)
+# recurrentgemma-9b's local layers in the same prefill (window 2048); of
+# qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128); and of
+# paligemma-3b's (8 query heads on 1 KV head of 256, 256 patches and 256
+# tokens). All causal.
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
           "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
-          "d128-512": (4, 32, 8, 512, 128, "bshd", None)}
+          "d128-512": (4, 32, 8, 512, 128, "bshd", None),
+          "paligemma-512": (4, 8, 1, 512, 256, "bshd", None)}
+# (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
+# causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
+# frames, which is also the cross attention's call of 512 tokens over them,
+# and the cross attention of 264 tokens over 256 frames
+NONCAUSAL_SHAPES = {"seamless-512": (4, 16, 16, 512, 512, 64, "bshd"),
+                    "seamless-cross-264": (4, 16, 16, 264, 256, 64, "bshd")}
 # (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
 # conv output a B 4, S 512 prefill passes, and a longer contiguous batch
 SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
@@ -201,37 +210,47 @@ def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
             randn((b, kv, sk, d)))
 
 
-def sdpa(q, k, v):
-    """The library yardstick; the port never calls it. Causal only: it
-    computes the kernel's function where a window does not bite."""
+def sdpa(q, k, v, causal: bool = True):
+    """The library yardstick; the port never calls it. It computes the
+    kernel's function where a window does not bite (causal calls here are
+    square, where its top-left mask is the kernel's)."""
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
+        q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def flash_call(label: str) -> tuple:
+    """(B, H, KV, Sq, Sk, D, layout, causal, window) of a label of SHAPES
+    or NONCAUSAL_SHAPES."""
+    if label in SHAPES:
+        b, h, kv, s, d, layout, window = SHAPES[label]
+        return b, h, kv, s, s, d, layout, True, window
+    b, h, kv, sq, sk, d, layout = NONCAUSAL_SHAPES[label]
+    return b, h, kv, sq, sk, d, layout, False, None
 
 
 def time_flash_attention(label: str, seed: int = 1) -> dict:
     """Kernel, plain version and library call at one of SHAPES (bf16,
-    causal, within the shape's window), with the bound."""
+    causal, within the shape's window) or NONCAUSAL_SHAPES, with the
+    bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, s, d, layout, window = SHAPES[label]
-    if window is not None and window < s:
+    b, h, kv, sq, sk, d, layout, causal, window = flash_call(label)
+    if window is not None and window < sk:
         raise ValueError(f"{label}: scaled_dot_product_attention's causal "
-                         f"mask is not a window of {window} at S {s}")
+                         f"mask is not a window of {window} at S {sk}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+    q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    bound_ms, bound_by, flops = attention_bound(b, h, kv, s, s, d,
-                                                torch.bfloat16,
-                                                window=window)
-    ms = graph_ms(lambda: kernel.flash_attention(q, k, v, window=window))
+    kw = dict(causal=causal, window=window)
+    bound_ms, bound_by, flops = attention_bound(b, h, kv, sq, sk, d,
+                                                torch.bfloat16, **kw)
+    ms = graph_ms(lambda: kernel.flash_attention(q, k, v, **kw))
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9,
-        plain_ms=graph_ms(lambda: attention_ref(q, k, v, window=window),
-                          iters=3),
-        library_ms=graph_ms(lambda: sdpa(qc, kc, vc)),
-        eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v,
-                                                         window=window)))
+        plain_ms=graph_ms(lambda: attention_ref(q, k, v, **kw), iters=3),
+        library_ms=graph_ms(lambda: sdpa(qc, kc, vc, causal)),
+        eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v, **kw)))
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -313,9 +332,11 @@ def describe_bwd(row: dict) -> str:
 
 
 def describe(row: dict) -> str:
-    b, h, kv, s, d, layout, window = SHAPES[row["label"]]
-    win = f" window {window}" if window is not None else ""
-    return (f"flash_attention B{b} H{h} KV{kv} S{s} D{d} bf16 causal{win} "
+    b, h, kv, sq, sk, d, layout, causal, window = flash_call(row["label"])
+    length = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
+    mask = ("causal" if causal else "non-causal") + (
+        f" window {window}" if window is not None else "")
+    return (f"flash_attention B{b} H{h} KV{kv} {length} D{d} bf16 {mask} "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
             f"TFLOP/s), plain {row['plain_ms']:.4f} ms, "
             f"scaled_dot_product_attention {row['library_ms']:.4f} ms, "
@@ -728,7 +749,7 @@ def main(argv=None) -> int:
         print("bench: no CUDA device available", file=sys.stderr)
         return 2
     print(card(), flush=True)
-    for label in SHAPES:
+    for label in (*SHAPES, *NONCAUSAL_SHAPES):
         print(describe(time_flash_attention(label)), flush=True)
     for label in SSD_SHAPES:
         print(describe_ssd(time_ssd_scan(label)), flush=True)

@@ -9,10 +9,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
       --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+      --no-reduced
 
 Counterpart of ``repro.launch.serve``. ``--arch`` takes every decoder of
 the zoo: smollm-135m, granite-3-2b, qwen3-4b, gemma2-27b,
-recurrentgemma-9b, mamba2-130m, phi3.5-moe-42b-a6.6b and deepseek-moe-16b.
+recurrentgemma-9b, mamba2-130m, phi3.5-moe-42b-a6.6b, deepseek-moe-16b
+and paligemma-3b, which serves text alone: the ``Server`` passes no patch
+embeddings, as the reference's never does. seamless-m4t-medium is refused:
+the reference's ``EncDecLM`` has no ``init_cache``, so its ``Server``
+cannot serve it, and the port adds no such path; it runs through
+``EncDecLM.prefill`` and ``decode_step`` (``chip_smoke.py`` phase z).
 ``--reduced`` (the default) serves the tiny same-family config in float32,
 as the reference does; ``--no-reduced`` serves the published widths at the
 published depth, drawn on the host first (recurrentgemma-9b's 38 layers
@@ -35,8 +42,8 @@ import torch
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
-                    help="a decoder of the zoo (paligemma-3b and "
-                         "seamless-m4t-medium are not ported yet)")
+                    help="a decoder of the zoo (seamless-m4t-medium, an "
+                         "encoder-decoder, has no Server path)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -51,6 +58,11 @@ def main(argv=None):
     from repro_torch.runtime import Request, Server
 
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"{cfg.name}: an encoder-decoder has no Server path: the "
+            f"reference's EncDecLM has no init_cache, so its Server cannot "
+            f"serve it; run EncDecLM.prefill and decode_step instead")
     if args.reduced:
         cfg = dataclasses.replace(reduced_config(cfg), dtype="float32")
     model = build_model(cfg, device=args.device)

@@ -7,19 +7,29 @@
       --seq-len 2048 --global-batch 8 --slices 2 --devices 4 --elastic
 
 Counterpart of ``repro.launch.train``. ``--reduced`` (the default) trains
-the tiny same-family config; ``--no-reduced`` the published widths. Runs on
+the tiny same-family config; ``--no-reduced`` the published widths. Every
+architecture of the zoo trains: paligemma-3b's batches carry patch
+embeddings, seamless-m4t-medium's frames (``data.pipeline``). Runs on
 ``--device`` (default ``cuda``). ``--devices N`` gives the job N virtual
 slices of that one device (``core.meshes.slice_devices``), as the
 reference's ``--devices`` gives it N host devices of one CPU; the first
 line says so. The job starts on ``--slices`` of them. ``--elastic``
 attaches a ``LocalRMS`` of ``max(devices // model_ways, 1)`` nodes and
 honours its DMR decisions at a reconfiguration point every ``max(steps //
-10, 1)`` steps, up to that many slices (the reference caps the job at
-``--slices``, so its launcher never expands). ``--ckpt-dir`` checkpoints
-every 50 steps. It prints the per-step lines, the ``resize_log`` and, on
-the card, each resize's time, the wall time of the steps and the peak of
+10, 1)`` steps, up to that many slices. ``--ckpt-dir`` checkpoints every
+50 steps. It prints the per-step lines, the ``resize_log`` and, on the
+card, each resize's time, the wall time of the steps and the peak of
 allocated device memory. ``--model-ways`` > 1 (tensor parallelism inside a
 slice) is not ported yet and raises.
+
+Reference behaviour it departs from, on purpose (``repro.launch.train``):
+
+- ``--elastic`` lets the job grow to ``devices // model_ways`` slices; the
+  reference caps it at ``--slices``, so its launcher never expands.
+- ``--grad-accum`` reaches the trainer; the reference parses it and drops
+  it.
+- The reconfiguration and log period is ``max(steps // 10, 1)`` steps; the
+  reference's trainer keeps its default of 10.
 """
 import argparse
 import sys

@@ -1,17 +1,24 @@
-"""Attention: GQA projections, chunked causal attention, the flash kernel
-behind ``attn_impl``, local sliding windows, and the KV caches.
+"""Attention: GQA projections, chunked attention, the flash kernel behind
+``attn_impl``, local sliding windows, cross attention, and the KV caches.
 
-Counterpart of ``repro.models.attention`` for the "global" and "local"
-kinds, and the "moe" block kind, whose attention is global. The prefill / forward attention takes the hand-written CUDA flash
-kernel for CUDA tensors (``attn_impl="auto"``) and the chunked
-online-softmax path, ported from the reference, on the CPU; a "local"
-layer passes its sliding window to either. Decode attends over the cache in
-plain torch, as the reference computes it outside any kernel. A "local"
-layer's cache is a ring buffer of the window's size: position p sits in
-slot p % window.
+Counterpart of ``repro.models.attention`` for the "global", "local" and
+"cross" kinds, and the "moe" block kind, whose attention is global. The
+prefill / forward attention takes the hand-written CUDA flash kernel for
+CUDA tensors (``attn_impl="auto"``) and the chunked online-softmax path,
+ported from the reference, on the CPU; a "local" layer passes its sliding
+window to either. A "cross" layer (the encoder-decoder's) projects its keys
+and values from another sequence, without RoPE, and attends without a
+causal mask, as an encoder's self-attention does (``causal=False``).
 
-The "cross" kind is not ported yet: it raises ``NotImplementedError``
-(ROADMAP.md, Queue 1, other model families: seamless).
+A non-causal call attends the first Sq keys only, Sq the query length, as
+the reference's chunked path slices them (``lo, hi = 0, s``): where the
+keys are fewer than that and a chunk of them would be empty, the reference
+fails on an empty reduction and the port raises a ``ValueError`` that says
+why. Both paths, the chunked one and the kernel, take the same keys.
+
+Decode attends over the cache in plain torch, as the reference computes it
+outside any kernel. A "local" layer's cache is a ring buffer of the
+window's size: position p sits in slot p % window.
 """
 from __future__ import annotations
 
@@ -32,12 +39,10 @@ KINDS = ("global", "local", "moe")
 
 
 def window_of(cfg, kind: str) -> Optional[int]:
-    """The sliding window of a ``kind`` layer: None for "global" and
-    "moe"."""
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet (ROADMAP.md, "
-            "Queue 1, other model families: seamless)")
+    """The sliding window of a ``kind`` layer: None for "global", "moe" and
+    "cross"."""
+    if kind not in KINDS + ("cross",):
+        raise ValueError(f"unknown attention kind {kind!r}")
     return cfg.sliding_window if kind == "local" else None
 
 
@@ -61,16 +66,24 @@ def attention_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def _project_qkv(params, x, cfg, positions):
+def cross_attention_specs(cfg) -> Dict[str, Any]:
+    return attention_specs(cfg)
+
+
+def _project_qkv(params, x, cfg, positions, rope: bool = True, x_kv=None):
+    """q from ``x``, k and v from ``x_kv`` (default ``x``); RoPE at
+    ``positions`` unless ``rope`` is False."""
     dt = x.dtype
+    x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(dt))
-    k = torch.einsum("bse,ehd->bshd", x, params["wk"].to(dt))
-    v = torch.einsum("bse,ehd->bshd", x, params["wv"].to(dt))
+    k = torch.einsum("bse,ehd->bshd", x_kv, params["wk"].to(dt))
+    v = torch.einsum("bse,ehd->bshd", x_kv, params["wv"].to(dt))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -103,20 +116,47 @@ def _finish(l, acc):
     return acc / l.clamp_min(1e-30)[..., None].to(acc.dtype)
 
 
+def _chunk(cfg, s: int) -> int:
+    """The query chunk of a length-``s`` call: ``attn_chunk``, halved until
+    it divides ``s``."""
+    c = min(cfg.attn_chunk, s)
+    while s % c:
+        c //= 2
+    return c
+
+
+def noncausal_keys(k, v, cfg, s: int):
+    """The keys and values a non-causal call of ``s`` queries attends, as
+    the reference's chunked path slices them: the first ``s``, in ``s //
+    chunk`` chunks of ``chunk`` keys. Raises ``ValueError`` where the last
+    such chunk would be empty (fewer keys than ``s``, and ``s`` longer than
+    one chunk), where the reference fails on an empty reduction."""
+    c = _chunk(cfg, s)
+    sk = min(k.shape[1], s)
+    if sk <= (s // c - 1) * c:
+        raise ValueError(
+            f"non-causal attention of {s} queries over {k.shape[1]} keys: "
+            f"the reference attends the first {s} keys in {s // c} chunks "
+            f"of {c} and fails where a chunk is empty (keys past "
+            f"{(s // c - 1) * c} needed)")
+    return k[:, :s], v[:, :s]
+
+
 def chunked_attention(q, k, v, cfg, *, causal: bool, window: Optional[int]):
     """Exact-FLOPs chunked attention (the plain path).
 
     q: (B, S, H, D) -> grouped (B, S, KV, G, D). The query axis is split in
-    chunks; each chunk attends its key slice (its causal prefix, or its
-    sliding window), carrying the online-softmax state over kv chunks.
+    chunks; each chunk attends its key slice (its causal prefix, its sliding
+    window, or without a causal mask the first S keys), carrying the
+    online-softmax state over kv chunks.
     """
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
+    if not causal:
+        k, v = noncausal_keys(k, v, cfg, s)
     q = q.reshape(b, s, kvh, g, d)
-    c = min(cfg.attn_chunk, s)
-    while s % c:
-        c //= 2
+    c = _chunk(cfg, s)
     n_chunks = s // c
     ar = torch.arange(c, device=q.device)
 
@@ -157,20 +197,23 @@ def chunked_attention(q, k, v, cfg, *, causal: bool, window: Optional[int]):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
 
 
-def _attend(q, k, v, cfg, window: Optional[int]):
-    """Causal attention on (B, S, H, D) tensors, within ``window`` keys when
-    it is set, by ``attn_impl``: "auto" takes the flash kernel for CUDA
-    tensors and the chunked path on the CPU; "chunked" always takes the
-    chunked path."""
+def _attend(q, k, v, cfg, window: Optional[int], causal: bool = True):
+    """Attention on (B, S, H, D) tensors, causal unless ``causal`` is False
+    (then over the first Sq keys: noncausal_keys), within ``window`` keys
+    when it is set, by ``attn_impl``: "auto" takes the flash kernel for
+    CUDA tensors and the chunked path on the CPU; "chunked" always takes
+    the chunked path."""
     impl = cfg.attn_impl
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} {ATTN_IMPLS}")
     if impl == "chunked" or (impl == "auto" and not q.is_cuda):
-        return chunked_attention(q, k, v, cfg, causal=True, window=window)
+        return chunked_attention(q, k, v, cfg, causal=causal, window=window)
+    if not causal:
+        k, v = noncausal_keys(k, v, cfg, q.shape[1])
     # (B, S, H, D) viewed as (B, H, S, D): the kernel takes the strides, and
     # writes into a (B, S, H, D) buffer, so the transpose back is free
     out = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True, window=window,
+                             v.transpose(1, 2), causal=causal, window=window,
                              softcap=cfg.attn_logit_softcap)
     return out.transpose(1, 2)
 
@@ -227,13 +270,18 @@ def decode_attention(params, x, cfg, cache, pos: int, *,
     return y, cache
 
 
-def attention_apply(params, x, cfg, *, kind: str = "global"):
-    """Training / prefill attention. kind: "global" | "local" | "moe"."""
+def attention_apply(params, x, cfg, *, kind: str = "global", x_kv=None,
+                    causal: bool = True):
+    """Training / prefill attention. kind: "global" | "local" | "moe" |
+    "cross". A "cross" layer takes its keys and values from ``x_kv`` (B,
+    S_kv, E), without RoPE, and is never causal; ``causal=False`` makes a
+    self-attention layer bidirectional (an encoder's)."""
     window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg, window)
+    q, k, v = _project_qkv(params, x, cfg, positions, rope=kind != "cross",
+                           x_kv=x_kv)
+    out = _attend(q, k, v, cfg, window, causal=causal and kind != "cross")
     return torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
 
 

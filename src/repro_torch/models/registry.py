@@ -1,14 +1,15 @@
 """Model registry: config -> model instance + reduced smoke configs.
 
-Counterpart of ``repro.models.registry``. ``build_model`` builds every
-decoder of the zoo: the dense "global" decoders (smollm-135m, qwen3-4b,
-granite-3-2b), gemma2-27b's ("local", "global") layout with its logit
-softcaps, the attention-free Mamba-2 stack of "ssd" blocks (mamba2-130m),
-recurrentgemma-9b's ("rglru", "rglru", "local") pattern, and the
+Counterpart of ``repro.models.registry``. ``build_model`` builds the whole
+zoo: the dense "global" decoders (smollm-135m, qwen3-4b, granite-3-2b),
+gemma2-27b's ("local", "global") layout with its logit softcaps, the
+attention-free Mamba-2 stack of "ssd" blocks (mamba2-130m),
+recurrentgemma-9b's ("rglru", "rglru", "local") pattern, the
 mixture-of-experts "moe" blocks of phi3.5-moe-42b-a6.6b and
-deepseek-moe-16b (shared experts, a first dense layer). Encoder-decoders
-(seamless) and modality frontends (paligemma) raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+deepseek-moe-16b (shared experts, a first dense layer), paligemma-3b's
+decoder with its patch frontend stub, and, as an ``EncDecLM``, the
+encoder-decoder seamless-m4t-medium. A pattern that mixes block kinds
+otherwise than these raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import CausalLM
 
 _LATER = "ROADMAP.md, Queue 1, other model families"
@@ -23,10 +25,6 @@ _LATER = "ROADMAP.md, Queue 1, other model families"
 
 def _unported(cfg: ModelConfig):
     """Why ``cfg`` cannot be built yet, or None when it can."""
-    if cfg.family == "encdec":
-        return f"encoder-decoder models ({_LATER}: seamless)"
-    if cfg.frontend:
-        return f"modality frontends ({_LATER}: paligemma)"
     if "ssd" in cfg.pattern and (cfg.family, cfg.pattern) != (
             "ssm", ("ssd",)):
         return f"SSD blocks outside the ssm family ({_LATER})"
@@ -39,7 +37,10 @@ def _unported(cfg: ModelConfig):
     return None
 
 
-def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE) -> CausalLM:
+def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE):
+    """A ``CausalLM``, or an ``EncDecLM`` for family "encdec"."""
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device)
     why = _unported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} not ported yet")

@@ -15,7 +15,10 @@ loop here, and its ``jax.checkpoint`` of each pattern unit (``cfg.remat``)
 is ``torch.utils.checkpoint``. ``loss`` is the training objective: masked
 next-token cross-entropy, optionally over sequence chunks so that the
 (B, S, V) logits never materialise, plus the routers' summed
-load-balancing loss.
+load-balancing loss. A modality frontend (paligemma's patches) is a stub,
+as in the reference: ``forward`` and ``prefill`` take its embeddings
+(``extra_embeds``, ``batch["frontend"]`` in ``loss``) and prepend them to
+the token embeddings; its positions carry no labels.
 """
 from __future__ import annotations
 
@@ -60,6 +63,23 @@ def _unported(kind: str):
     return NotImplementedError(
         f"block kind {kind!r} is not ported yet (ROADMAP.md, Queue 1, other "
         "model families)")
+
+
+def remat(cfg: ModelConfig, unit):
+    """``unit`` under ``cfg.remat`` when torch records a graph:
+    "nothing_saveable" keeps only the unit's input and recomputes the rest
+    in the backward pass (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``); "none" saves activations as usual. Remat moves
+    memory only, not numbers."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return unit
+    if cfg.remat == "nothing_saveable":
+        return lambda *args: checkpoint(unit, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matrix products) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 11)")
+    raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
 # -- block definitions -------------------------------------------------------
@@ -252,23 +272,6 @@ class CausalLM:
 
     # ---- forward (training / prefill trunk) ----
 
-    def _remat(self, unit):
-        """``unit`` under ``cfg.remat`` when torch records a graph:
-        "nothing_saveable" keeps only the unit's input and recomputes the
-        rest in the backward pass (the reference's ``jax.checkpoint`` with
-        ``nothing_saveable``); "none" saves activations as usual. Remat
-        moves memory only, not numbers."""
-        remat = self.cfg.remat
-        if remat == "none" or not torch.is_grad_enabled():
-            return unit
-        if remat == "nothing_saveable":
-            return lambda *args: checkpoint(unit, *args, use_reentrant=False)
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save only the matrix products) is not ported "
-                "yet (ROADMAP.md, Queue 1: the training slice)")
-        raise ValueError(f"unknown remat {remat!r}")
-
     def _trunk(self, params, x):
         """-> (normalised hidden states, the routers' summed loss, fp32)."""
         cfg = self.cfg
@@ -283,7 +286,7 @@ class CausalLM:
                 x, aux = block_apply(unit_params[f"p{j}"], x, cfg, kind, aux)
             return x, aux
 
-        unit = self._remat(unit)
+        unit = remat(cfg, unit)
         for r in range(reps):
             x, aux = unit(x, aux, layer(params["blocks"], r))
         for t in range(tail):
@@ -291,23 +294,33 @@ class CausalLM:
                                  aux)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
-    def forward(self, params, tokens):
-        """tokens: (B, S) -> (fp32 logits (B, S, V), aux loss)."""
+    def _embed(self, params, tokens, extra_embeds=None):
+        """Token embeddings (B, S, E), after ``extra_embeds`` (B, S_front, E)
+        cast to the compute type when given."""
         x = embed_apply(params["embed"], tokens, self.cfg)
-        x, aux = self._trunk(params, x)
+        if extra_embeds is None:
+            return x
+        return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+
+    def forward(self, params, tokens, extra_embeds=None):
+        """tokens: (B, S) -> (fp32 logits (B, S_front + S, V), aux loss);
+        ``extra_embeds`` (B, S_front, E): the modality stub's embeddings,
+        prepended to the sequence."""
+        x, aux = self._trunk(params, self._embed(params, tokens,
+                                                 extra_embeds))
         return unembed_apply(params["embed"], x, self.cfg), aux
 
     def loss(self, params, batch):
-        """batch: tokens (B, S), labels (B, S) [-1 = masked] -> (loss +
-        aux, {"ce", "aux"}): the mean fp32 cross-entropy over unmasked
-        labels (at least one in the denominator). With ``cfg.ce_chunk`` the
-        trunk runs once, then the unembedding and log-softmax per chunk of
-        that many positions, so the (B, S, V) logits never materialise."""
+        """batch: tokens (B, S), labels (B, S) [-1 = masked], optionally
+        frontend embeddings (B, S_front, E) -> (loss + aux, {"ce", "aux"}):
+        the mean fp32 cross-entropy over unmasked labels (at least one in
+        the denominator); the frontend positions carry no labels. With
+        ``cfg.ce_chunk`` the trunk runs once, then the unembedding and
+        log-softmax per chunk of that many positions, so the (B, S, V)
+        logits never materialise."""
         cfg = self.cfg
-        if batch.get("frontend") is not None:
-            raise NotImplementedError(
-                "modality frontends are not ported yet (ROADMAP.md, Queue 1, "
-                "other model families: paligemma)")
+        front = batch.get("frontend")
+        n_front = 0 if front is None else front.shape[1]
         labels = batch["labels"]
         mask = labels >= 0
         labels = labels.clamp_min(0).long()
@@ -319,16 +332,17 @@ class CausalLM:
             return -(ll * mask).sum()
 
         if cfg.ce_chunk:
-            x = embed_apply(params["embed"], batch["tokens"], cfg)
-            x, aux = self._trunk(params, x)
+            x, aux = self._trunk(params, self._embed(params, batch["tokens"],
+                                                     front))
+            x = x[:, n_front:]
             c = cfg.ce_chunk
             total = sum(nll(unembed_apply(params["embed"], x[:, i:i + c],
                                           cfg),
                             labels[:, i:i + c], mask[:, i:i + c])
                         for i in range(0, x.shape[1], c))
         else:
-            logits, aux = self.forward(params, batch["tokens"])
-            total = nll(logits, labels, mask)
+            logits, aux = self.forward(params, batch["tokens"], front)
+            total = nll(logits[:, n_front:], labels, mask)
         loss = total / denom
         return loss + aux, {"ce": loss, "aux": aux}
 
@@ -368,10 +382,13 @@ class CausalLM:
 
         return build("", self.cache_specs(batch, max_len))
 
-    def prefill(self, params, tokens, max_len: int):
-        """Run the full prompt, returning (last-position logits, cache)."""
+    def prefill(self, params, tokens, max_len: int, extra_embeds=None):
+        """Run the full prompt (after ``extra_embeds``, as in forward),
+        returning (last-position logits, cache). With extra embeddings the
+        cache holds their positions first: decode the next token at
+        ``S_front + S``."""
         cfg = self.cfg
-        x = embed_apply(params["embed"], tokens, cfg)
+        x = self._embed(params, tokens, extra_embeds)
         cache: Dict[str, Any] = {}
         for key, slot, kind in self._layers():
             x, c = block_prefill(self._select(params, key, slot), x, cfg,

@@ -7,7 +7,10 @@ granite-3-2b, and the "moe" blocks of phi3.5-moe and deepseek-moe), the
 conv window and SSM state of Mamba-2 (mamba2-130m), and the local layers'
 ring-buffer KV cache (the window's size, position p in slot p % window)
 of gemma2-27b and of recurrentgemma-9b, beside the latter's conv window
-and recurrent state ``h``. That includes
+and recurrent state ``h``. paligemma-3b is served text alone: no patch
+embeddings pass through a Server, as through the reference's. An
+encoder-decoder (seamless-m4t-medium) has no Server path, in either
+package. That includes
 three behaviours of the reference that the port mirrors rather than fixes:
 
 - ``add`` prefills a slot by stepping its prompt through full-batch decode

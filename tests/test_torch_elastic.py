@@ -9,6 +9,7 @@ The port runs in-process on virtual CPU slices (``slice_devices(n,
 subprocess with 8 forced host devices, as tests/test_multidevice.py does.
 """
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -244,6 +245,38 @@ def test_reshard_keeps_a_block_only_on_its_own_device_id(spec):
         if m4.ids.ravel().tolist() == [0, 2, 1, 3]:
             assert sorted((t.src, t.dst) for t in transfers) == sorted(
                 (t.src, t.dst) for t in expand_plan(2, 4, 0))
+
+
+@pytest.mark.parametrize("p,q", [(32, 64), (64, 32)])
+def test_reshard_walk_stops_once_a_block_is_covered(monkeypatch, p, q):
+    """Resizing a row-sharded leaf between 32 and 64 virtual slices tests
+    each new block against its own device's old block and its plan's
+    sources, then stops: a few box tests per new slice, not one per old
+    slice (p q = 2048). The values and the transfers are the plan's, as
+    the full walk gave them."""
+    reshard_mod = importlib.import_module("repro_torch.core.reshard")
+    tests = []
+
+    def counted(a, b, real=reshard_mod._intersect):
+        tests.append(1)
+        return real(a, b)
+    monkeypatch.setattr(reshard_mod, "_intersect", counted)
+    cpu64 = slice_devices(64, "cpu")
+    x = torch.arange(128.0 * 3).reshape(128, 3)
+    mp = make_mesh(p, 1, devices=cpu64)
+    xp = place(x, NamedSharding(mp, P("data")))
+    mq = resized_mesh(mp, q, devices=cpu64)
+    transfers = []
+    xq = reshard(xp, NamedSharding(mq, P("data")), transfers=transfers)
+    assert torch.equal(gather(xq), x)
+    plan = expand_plan(p, q, 0) if q > p else shrink_plan(p, q, 0)
+    assert sorted((t.src, t.dst) for t in transfers) == sorted(
+        (t.src, t.dst) for t in plan)
+    # local where the new slice sits on its source's device id
+    assert all(t.local == (mp.id((t.src, 0)) == mq.id((t.dst, 0)))
+               for t in transfers)
+    assert sum(t.nbytes for t in transfers) == x.numel() * 4
+    assert len(tests) <= 3 * q < p * q
 
 
 # -- twins of tests/test_multidevice.py:34-83 ----------------------------------------

@@ -131,10 +131,18 @@ def test_local_decode_steps_across_the_wrap_as_jax():
 
 
 def test_cross_attention_is_not_ported():
-    _, port_cfg, _, params = setup()
-    x = torch.zeros((1, 4, port_cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn.attention_apply(params, x, port_cfg, kind="cross")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        attn.attention_prefill(params, x, port_cfg, kind="cross",
-                               cache_len=8)
+    """The "cross" kind is ported (the name stays from when it raised): on
+    these weights (4 query heads on 1 KV head, chunks of 8, a window the
+    cross kind ignores), keys from another sequence without RoPE and no
+    causal mask, against the reference; the first Sq keys when the other
+    sequence is longer, as the reference cuts them."""
+    cfg, port_cfg, jparams, params = setup()
+    rng = np.random.default_rng(7)
+    for sq, sk in ((8, 5), (24, 40)):
+        x = rng.standard_normal((2, sq, cfg.d_model), dtype=np.float32)
+        x_kv = rng.standard_normal((2, sk, cfg.d_model), dtype=np.float32)
+        want = jax_attn.attention_apply(jparams, jnp.asarray(x), cfg,
+                                        kind="cross", x_kv=jnp.asarray(x_kv))
+        got = attn.attention_apply(params, torch.from_numpy(x), port_cfg,
+                                   kind="cross", x_kv=torch.from_numpy(x_kv))
+        assert max_norm_err(got, want) < TOL, (sq, sk)

@@ -245,15 +245,20 @@ def test_config_copy_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(jax_list_archs()))
 def test_build_model_builds_dense_global_and_names_roadmap_otherwise(arch):
-    """Every decoder of the zoo builds at its published widths: the dense
-    "global" configs, gemma2's local + global layout, mamba2's "ssd" stack,
-    recurrentgemma's (rglru, rglru, local) pattern and the "moe" configs;
-    the encoder-decoder (seamless) and the patch frontend (paligemma)
-    name their ROADMAP item."""
+    """Every architecture of the zoo builds at its published widths, as the
+    reference's build_model builds it: the dense "global" configs, gemma2's
+    local + global layout, mamba2's "ssd" stack, recurrentgemma's (rglru,
+    rglru, local) pattern, the "moe" configs and paligemma's decoder (a
+    patch frontend) as a CausalLM, seamless as an EncDecLM; the parameter
+    tree from its specs alone has the reference's key paths and shapes."""
     cfg = get_config(arch)
-    if cfg.family == "encdec" or cfg.frontend:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md, Queue 1.*(seamless|paligemma)"):
-            build_model(cfg, device="cpu")
-    else:
-        assert build_model(cfg, device="cpu").cfg is cfg
+    model = build_model(cfg, device="cpu")
+    assert model.cfg is cfg
+    want = jax_build_model(jax_get_config(arch))
+    assert type(model).__name__ == type(want).__name__
+    got_specs, want_specs = leaves(model.specs()), leaves(jax.tree.map(
+        lambda sp: sp.shape, want.specs(),
+        is_leaf=lambda x: hasattr(x, "logical")))
+    assert set(got_specs) == set(want_specs)
+    for path, spec in got_specs.items():
+        assert spec.shape == want_specs[path], path

@@ -330,11 +330,32 @@ def test_data_labels_are_tokens_shifted_and_shift_is_the_references():
 
 
 def test_data_is_text_only():
-    for extra in (dict(frontend="patches", frontend_tokens=8, d_model=16),
-                  dict(enc_dec=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SyntheticLMData(DataConfig(vocab_size=64, seq_len=16,
-                                       global_batch=2, **extra))
+    """Frontend and encoder-decoder batches are ported (the name stays from
+    when they raised): the reference's batch shapes and types, tokens and
+    labels from the same stream as text-only batches, and the stub
+    embeddings drawn from the step's generator."""
+    for extra, text, front in (
+            (dict(frontend="patches", frontend_tokens=8, d_model=16), 8,
+             (2, 8, 16)),
+            (dict(frontend="frames", d_model=16, enc_dec=True), 8,
+             (2, 8, 16)),
+            (dict(enc_dec=True), 8, None)):
+        kw = dict(vocab_size=64, seq_len=16, global_batch=2, **extra)
+        batch = SyntheticLMData(DataConfig(**kw)).batch(3)
+        want = JaxData(JaxDataConfig(**kw)).batch(3)
+        assert set(batch) == set(want)
+        for name, t in batch.items():
+            assert tuple(t.shape) == want[name].shape
+            assert str(t.dtype)[6:] == str(want[name].dtype)
+        assert batch["tokens"].shape == (2, text)
+        assert torch.equal(batch["tokens"][:, 1:], batch["labels"][:, :-1])
+        if front is None:
+            assert "frontend" not in batch
+        else:
+            assert batch["frontend"].shape == front
+            assert torch.equal(
+                SyntheticLMData(DataConfig(**kw)).batch(3)["frontend"],
+                batch["frontend"])
 
 
 # -- the trainer -----------------------------------------------------------------
