@@ -8,7 +8,9 @@ fit's FitError in (t)):
 
   (a) device   -- the card's name and power limit (nvidia-smi)
   (b) build    -- nvcc builds the flash-attention forward and backward,
-                  SSD-scan and RG-LRU scan kernels from src/, all at once
+                  the SSD scan's forward and backward and the RG-LRU
+                  scan's (forward and backward, one source) from src/, all
+                  at once
   (c) flash    -- the flash-attention kernel against its plain version, at
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
                   window 2048; slice 9's D 128 prefills: 32 / 8, 16 / 16
@@ -28,6 +30,12 @@ fit's FitError in (t)):
                   state), up to B 8, S 2048 (16 chunks of state passing)
   (l) rglru    -- the RG-LRU scan kernel against its plain version (ragged
                   S, S 1, an initial state)
+  (sb) scan bwd-- the SSD and RG-LRU backward kernels against torch
+                  autograd of their plain versions, every gradient: the SSD
+                  at mamba2's train call (B 8, S 2048, views) in fp32 and
+                  bf16, a ragged S, a final state's gradient; the RG-LRU at
+                  recurrentgemma's (B 1, S 4096, W 4096) with and without
+                  an initial state
   smollm-135m at full width (seeded random weights):
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
@@ -37,15 +45,19 @@ fit's FitError in (t)):
                   gradient) through the kernels against attn_impl="chunked";
                   20 bf16 steps of ElasticTrainer.train, the loss falling;
                   exactly 60 forward and 30 backward flash launches a step
-                  (remat recomputes each layer's forward); mamba2's
-                  loss.backward() on the card raises (its SSD kernel has no
-                  backward yet)
+                  (remat recomputes each layer's forward)
   mamba2-130m at full width (seeded random weights):
   (h) prefill  -- B 4, S 512: fp32 logits and cache through the kernel
                   against the same weights' plain path on the CPU; bf16 by
                   its distance from fp32; exactly 24 launches per prefill
   (i) decode   -- prefill, then decode steps, against forward's logits
   (j) server   -- Server.run as (g)
+  (hq) train   -- B 8, S 2048, full depth: one fp32 train step (loss and
+                  every gradient) through the SSD kernels against the
+                  chunked path on the card, weights at a per-layer fan-in
+                  (held) and at the reference's init (printed); 20 bf16
+                  steps of ElasticTrainer.train, the loss falling; exactly
+                  48 forward (remat) and 24 backward SSD launches a step
   recurrentgemma-9b at full width, cut to 8 layers (two (rglru, rglru,
   local) units and the 2-layer rglru tail of the 38-layer model), seeded
   random weights at the 38-layer model's scale:
@@ -90,6 +102,17 @@ fit's FitError in (t)):
   (x) compress -- the int8 compressed all-reduce on 2 and 4 virtual slices
                   over smollm-135m's gradient tree: bit-equal to the CPU's,
                   error feedback over 12 steps, ms a call and payload bytes
+  (mq) train   -- after the zoo, in a child process of its own
+                  (chip_smoke.py --rg-train, with the card to itself):
+                  recurrentgemma-9b at full width cut
+                  to its first unit and 2-layer tail (5 layers: 8 layers'
+                  fp32 training state does not fit the card), each layer at
+                  its own fan-in, B 1, S 4096 (the window of 2048 bites),
+                  the loss by ce_chunk: one fp32 train step through the
+                  RG-LRU and flash (D 256) kernels against the plain paths;
+                  6 bf16 steps, the loss falling, the peak memory; exactly
+                  6 forward and 4 backward RG-LRU, 2 forward and 1 backward
+                  flash launches a step; the step's times
   slice 10, in the same child process after (x), each model at its
   published widths and depth, twice as (u)-(w) (per-layer fan-in, every
   check held; then the reference's init, fp32 printed):
@@ -135,21 +158,23 @@ fit's FitError in (t)):
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
                   both in device time) as a yardstick the port never calls,
-                  at slice 10's call shapes too;
-                  each model's prefill and decode step and smollm's train
-                  step, with the card's busy share; the Servers' tokens/s;
-                  the backward last
+                  at slice 10's call shapes too, the scans' backward at
+                  their train calls; each model's prefill and decode step,
+                  smollm's and mamba2's train steps, with the card's busy
+                  share; the Servers' tokens/s; the backwards last
 
-Phases (e)-(g), (q), (h)-(j), (m)-(o), (u)-(w), (y) and (z) are the main
-paths: every kernel launch count is set to 0 just before each path and read
+Phases (e)-(g), (q), (h)-(j), (hq), (m)-(o), (u)-(w), (y), (z) and (mq)
+are the main paths: every kernel launch count is set to 0 just before each path and read
 just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -183,8 +208,15 @@ RGLRU_ATOL, RGLRU_RTOL = 1e-5, 1e-4
 # recurrentgemma-9b: its depth, and the 8 layers (two units and the tail)
 # that chip_smoke draws and drives
 RG_DEPTH, RG_LAYERS = 38, 8
-# smollm-135m training: batch, sequence length and bf16 steps of phase (q)
+# smollm-135m training: batch, sequence length and bf16 steps of phase (q);
+# mamba2-130m's (hq) are the same
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 20
+# recurrentgemma-9b training (mq): B 1, S 4096 (twice the window, so that it
+# bites in the flash backward), the layers trained (the first unit and the
+# 2-layer tail: 8 layers' fp32 weights, gradients and two AdamW moments,
+# the old and the new, would not fit the card), the bf16 steps and their
+# learning rate
+RG_TRAIN_S, RG_TRAIN_LAYERS, RG_TRAIN_STEPS, RG_TRAIN_LR = 4096, 5, 6, 1e-3
 
 
 def log(phase, msg):
@@ -505,6 +537,110 @@ def phase_rglru_vs_plain():
     return main_err
 
 
+# -- (sb) the scans' backward kernels against plain ---------------------------------
+
+# the SSD backward: (b, s, h, p, n, chunk, dtype, layout, with dh_final):
+# mamba2's train call (views of the conv output) in both types, a ragged S
+# (a short last chunk), a final state's gradient, tests/test_kernels.py's
+# smallest shape and rows the kernel cannot read 16 bytes at a time
+def ssd_bwd_cases():
+    f32, bf16 = torch.float32, torch.bfloat16
+    m = (24, 64, 128, 128)          # mamba2-130m: H, P, N, chunk
+    return [
+        (TRAIN_B, TRAIN_S, *m, f32, "view", False),
+        (TRAIN_B, TRAIN_S, *m, bf16, "view", False),
+        (2, 500, *m, f32, "view", False),
+        (2, 500, *m, bf16, "view", False),
+        (2, 500, *m, f32, "view", True),
+        (2, 500, *m, bf16, "view", True),
+        (2, 64, 3, 16, 32, 16, f32, "contiguous", True),
+        (2, 300, 3, 16, 32, 64, f32, "unaligned", False),
+    ]
+
+
+# the RG-LRU backward: (b, s, w, with h0): recurrentgemma's train call,
+# with and without an initial state, the prefill's shape, a W no block
+# width divides, S = 1
+def rglru_bwd_cases():
+    return [(1, RG_TRAIN_S, 4096, False), (1, RG_TRAIN_S, 4096, True),
+            (PREFILL_B, PREFILL_S, 4096, False), (2, 37, 1000, True),
+            (2, 1, 4096, True)]
+
+
+def phase_scan_bwd_vs_plain():
+    """Each scan's backward kernel against torch autograd of its plain
+    version (ssd_ref, rglru_ref) on the same inputs in fp32, every gradient
+    max-normalised at BWD_TOL, as (p) holds the flash backward: fp32 sums in
+    another order (the SSD's fp64 where they cancel), and in bf16 the
+    kernel's inputs and outputs rounded. Returns the largest |kernel -
+    plain| over the gradients at each kernel's main-path call (the SSD's
+    in bf16)."""
+    from repro_torch.kernels.bench import make_rglru_inputs, make_ssd_inputs
+    from repro_torch.kernels.rglru import kernel as rglru
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.ssd import kernel as ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    main_err = {}
+    for b, s, h, p, n, chunk, dtype, layout, with_dh in ssd_bwd_cases():
+        args = make_ssd_inputs(gen, b, s, h, p, n, dtype, layout)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+        dh = torch.randn((b, h, p, n), generator=gen, device="cuda") \
+            if with_dh else None
+        _, _, ws = ssd.ssd_scan(*args, chunk=chunk, keep_workspace=True)
+        got = ssd.ssd_scan_bwd(*args, dy, dh, ws, chunk=chunk)
+        torch.cuda.synchronize()
+        leaves = [t.float().requires_grad_(True) for t in args]
+        y, hf = ssd_ref(*leaves)
+        want = torch.autograd.grad([y, hf] if with_dh else [y], leaves,
+                                   [dy.float(), dh] if with_dh
+                                   else [dy.float()])
+        del y, hf, leaves
+        errs = [max_norm_err(g, w) for g, w in zip(got, want)]
+        name = (f"B{b} S{s} H{h} P{p} N{n} chunk {chunk} "
+                f"{str(dtype)[6:]} {layout}"
+                + (" with dh_final" if with_dh else ""))
+        log("sb", f"ssd_scan_bwd {name}: " + ", ".join(
+            f"{k} {e:.3e}" for k, e in zip(("dx", "ddt", "da_log", "db",
+                                            "dc"), errs))
+            + f" (max-normalised, tol {BWD_TOL[dtype]})")
+        if not all(torch.isfinite(g).all() for g in got) or \
+                max(errs) > BWD_TOL[dtype] or any(
+                    g.shape != t.shape or g.dtype != t.dtype
+                    for g, t in zip(got, args)):
+            raise AssertionError(f"ssd_scan_bwd disagrees with plain: {name}")
+        if (b, s, dtype, with_dh) == (TRAIN_B, TRAIN_S, torch.bfloat16,
+                                      False):
+            main_err["ssd"] = max((g.float() - w).abs().max().item()
+                                  for g, w in zip(got, want))
+        del got, want, ws
+    for b, s, w, with_h0 in rglru_bwd_cases():
+        a, bb = make_rglru_inputs(gen, b, s, w)
+        h0 = torch.randn((b, w), generator=gen, device="cuda") \
+            if with_h0 else None
+        dh = torch.randn((b, s, w), generator=gen, device="cuda")
+        h = rglru.rglru_scan(a, bb, h0)
+        got = rglru.rglru_scan_bwd(a, h, h0, dh)
+        torch.cuda.synchronize()
+        inputs = (a, bb, h0) if with_h0 else (a, bb)
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        want = torch.autograd.grad(rglru_ref(*leaves), leaves, dh)
+        errs = [max_norm_err(g, wt) for g, wt in zip(got, want)]
+        name = f"B{b} S{s} W{w} fp32" + (" with h0" if with_h0 else "")
+        log("sb", f"rglru_scan_bwd {name}: " + ", ".join(
+            f"{k} {e:.3e}" for k, e in zip(("da", "db", "dh0"), errs))
+            + f" (max-normalised, tol {BWD_TOL[torch.float32]})")
+        if not all(torch.isfinite(g).all() for g in got[:len(want)]) or \
+                max(errs) > BWD_TOL[torch.float32] or \
+                (got[2] is None) != (h0 is None):
+            raise AssertionError(f"rglru_scan_bwd disagrees with plain: "
+                                 f"{name}")
+        if (b, s, with_h0) == (1, RG_TRAIN_S, False):
+            main_err["rglru"] = max((g - wt).abs().max().item()
+                                    for g, wt in zip(got, want))
+    return main_err
+
+
 # -- (e)-(j), (m)-(o) the main paths ---------------------------------------------
 
 
@@ -539,7 +675,9 @@ def counters():
     return {"flash_attention": flash.flash_attention,
             "flash_attention_bwd": flash.flash_attention_bwd,
             "ssd_scan": ssd.ssd_scan,
-            "rglru_scan": rglru.rglru_scan}
+            "ssd_scan_bwd": ssd.ssd_scan_bwd,
+            "rglru_scan": rglru.rglru_scan,
+            "rglru_scan_bwd": rglru.rglru_scan_bwd}
 
 
 def counted_launches(fn, want):
@@ -580,12 +718,14 @@ def drive(label, phases):
 
 
 def flash_per_pass(cfg):
-    """Flash forward launches of one forward or prefill of ``cfg`` whose
-    every layer attends: one a layer, or for an encoder-decoder one an
-    encoder layer and two a decoder layer (its self and cross attention)."""
+    """Flash forward launches of one forward or prefill of ``cfg``: one a
+    layer that attends (every layer but the "ssd" and "rglru" ones), or for
+    an encoder-decoder one an encoder layer and two a decoder layer (its
+    self and cross attention)."""
     if cfg.family == "encdec":
         return cfg.enc_layers + 2 * cfg.num_layers
-    return cfg.num_layers
+    kinds = layer_kinds(cfg)
+    return cfg.num_layers - kinds.count("ssd") - kinds.count("rglru")
 
 
 class WithInputs:
@@ -970,27 +1110,63 @@ def with_grad(params):
     return tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def flash_per_step(cfg):
-    """Flash forward and backward launches one train step of ``cfg`` makes:
-    a backward per layer, a forward per layer, twice under remat (the
-    checkpointed units run again in the backward pass)."""
-    n = flash_per_pass(cfg)
-    return {"flash_attention": n * (2 if cfg.remat == "nothing_saveable"
-                                    else 1),
-            "flash_attention_bwd": n}
+def train_launches(cfg):
+    """Every kernel's launches in one train step of ``cfg``: per layer a
+    forward and a backward of its kernel (flash for the attention kinds,
+    the SSD or RG-LRU scan for "ssd" and "rglru"); under remat the stacked
+    units' layers run their forward twice (the checkpointed units run again
+    in the backward pass), a tail or dense head layer's once. An
+    encoder-decoder checkpoints every layer: flash_per_pass's calls, twice
+    under remat."""
+    names = {"ssd": ("ssd_scan", "ssd_scan_bwd"),
+             "rglru": ("rglru_scan", "rglru_scan_bwd")}
+    out = {name: 0 for pair in (("flash_attention", "flash_attention_bwd"),
+                                *names.values()) for name in pair}
+    again = 2 if cfg.remat == "nothing_saveable" else 1
+    if cfg.family == "encdec":
+        n = flash_per_pass(cfg)
+        return {**out, "flash_attention": again * n, "flash_attention_bwd": n}
+    reps, tail = cfg.pattern_repeats
+    for kinds, times in ((list(cfg.pattern) * reps, again),
+                         (list(cfg.pattern[:tail])
+                          + [cfg.pattern[0]] * cfg.first_dense_layers, 1)):
+        for kind in kinds:
+            fwd, bwd = names.get(kind, ("flash_attention",
+                                        "flash_attention_bwd"))
+            out[fwd] += times
+            out[bwd] += 1
+    return out
 
 
-def train_grads(cfg, params, batch, want, **changes):
+@contextlib.contextmanager
+def plain_scans():
+    """The models' scans on the card through their CPU paths (ssd_chunked,
+    the log-depth rglru_scan) under torch autograd, the yardstick of the
+    kernels' train steps, as attn_impl="chunked" is the flash kernels'."""
+    from repro_torch.models import rglru, ssm
+    kept = ssm.ssd_op, rglru.rglru_op
+    ssm.ssd_op = lambda x, dt, a_log, b, c, chunk: ssm.ssd_chunked(
+        x, dt, a_log, b, c, chunk)
+    rglru.rglru_op = rglru.rglru_scan
+    try:
+        yield
+    finally:
+        ssm.ssd_op, rglru.rglru_op = kept
+
+
+def train_grads(cfg, params, batch, want, plain=False, **changes):
     """(loss, {leaf path: gradient}) of one fp32 train step of ``cfg`` with
-    ``changes``, checking its flash launches against ``want``."""
+    ``changes`` (``plain``: the scans' plain paths, plain_scans), checking
+    its kernel launches against ``want``."""
     from repro_torch.models import build_model
     model = build_model(dataclasses.replace(cfg, dtype="float32",
                                             **changes))
     leaves = with_grad(params)
 
     def step():
-        loss, _ = model.loss(leaves, batch)
-        loss.backward()
+        with plain_scans() if plain else contextlib.nullcontext():
+            loss, _ = model.loss(leaves, batch)
+            loss.backward()
         return loss.detach()
     loss = counted_launches(step, want)
     return loss, {path: t.grad for path, t in tree_paths(leaves).items()}
@@ -1018,17 +1194,17 @@ def phase_train_fp32(cfg, model, params, batch):
     n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
     shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
     sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
-    held = grad_errs(train_grads(cfg, sane, batch, flash_per_step(cfg)),
+    held = grad_errs(train_grads(cfg, sane, batch, train_launches(cfg)),
                      train_grads(cfg, sane, batch, n_off,
                                  attn_impl="chunked"))
-    kernel = train_grads(cfg, params, batch, flash_per_step(cfg))
+    kernel = train_grads(cfg, params, batch, train_launches(cfg))
     chunked = train_grads(cfg, params, batch, n_off, attn_impl="chunked")
     floor = grad_errs(train_grads(cfg, params, batch, n_off,
                                   attn_impl="chunked", attn_chunk=256),
                       chunked)
     seen = grad_errs(kernel, chunked)
     log("q", f"{cfg.name} fp32 train step {shape} (remat {cfg.remat}, "
-             f"{flash_per_step(cfg)} launches), weights at a per-layer "
+             f"{train_launches(cfg)} launches), weights at a per-layer "
              f"fan-in: through the kernels vs chunked, max-normalised "
              + ", ".join(f"{k} {e:.3e}" for k, e in held.items())
              + f" (tol {MODEL_TOL})")
@@ -1043,19 +1219,20 @@ def phase_train_fp32(cfg, model, params, batch):
                              "disagrees with the chunked path")
 
 
-def phase_train_bf16(cfg, params, data_cfg, steps):
-    """(q) ``steps`` bf16 steps of ElasticTrainer.train at lr 3e-3 from
+def phase_train_bf16(cfg, params, data_cfg, steps, label="q", lr=3e-3):
+    """(q) ``steps`` bf16 steps of ElasticTrainer.train at ``lr`` from
     ``params``: every loss finite, the last below the first, and exactly
-    the flash launches the layer count and remat imply per step. Returns
-    (trainer, state, the next batch), for phase_train_step_time."""
+    the kernel launches the layers and remat imply per step
+    (train_launches). Returns (trainer, state, the next batch), for the
+    step times of (k)."""
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import ElasticTrainer, TrainerConfig
     model = build_model(cfg)
     trainer = ElasticTrainer(
-        model, AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=steps),
+        model, AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps),
         data_cfg, TrainerConfig(steps=steps, log_period=1))
-    per_step = flash_per_step(cfg)
+    per_step = train_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = counted_launches(
@@ -1064,15 +1241,66 @@ def phase_train_bf16(cfg, params, data_cfg, steps):
     seconds = time.perf_counter() - t0
     losses = [m["loss"] for m in trainer.metrics]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log("q", f"{cfg.name} {cfg.dtype} ElasticTrainer.train, {steps} steps "
-             f"B{data_cfg.global_batch} S{data_cfg.seq_len} in "
-             f"{seconds:.1f} s ({per_step} launches a step); losses "
-             + ", ".join(f"{x:.4f}" for x in losses)
-             + f"; peak device memory {peak:.2f} GiB")
+    log(label, f"{cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
+               f"ElasticTrainer.train, {steps} steps "
+               f"B{data_cfg.global_batch} S{data_cfg.seq_len}, lr {lr}, in "
+               f"{seconds:.1f} s ({per_step} launches a step); losses "
+               + ", ".join(f"{x:.4f}" for x in losses)
+               + f"; peak device memory {peak:.2f} GiB")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
             int(state["step"]) != steps:
         raise AssertionError("bf16 training did not bring the loss down")
     return trainer, state, trainer.data.batch(steps)
+
+
+def phase_scan_train_fp32(label, cfg, params, batch, reference=None):
+    """(hq), (mq) One fp32 train step of a scan model (loss.backward(),
+    remat as configured) through the kernels (its scans' forward and
+    backward kernels; flash forward and backward for its attention layers)
+    against the plain paths on the card (plain_scans, attn_impl="chunked"),
+    from the same parameters and batch: the loss and every gradient leaf
+    max-normalised at MODEL_TOL with ``params`` drawn at a per-layer
+    fan-in, and exactly train_launches(cfg) launches. ``reference``: the
+    same weights at the reference's init, where the comparison is printed,
+    not held (its stacked weights take the layers axis as fan-in). Printed
+    beside the held comparison: the plain paths against themselves at half
+    their chunks (the same function summed in another order), the
+    rounding floor of any comparison at these weights."""
+    off = {name: 0 for name in train_launches(cfg)}
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+
+    def plain(p, **changes):
+        return train_grads(cfg, p, batch, off, plain=True,
+                           attn_impl="chunked", **changes)
+
+    def kernels_vs_plain(p):
+        kernel = train_grads(cfg, p, batch, train_launches(cfg))
+        want = plain(p)
+        errs = grad_errs(kernel, want)
+        finite = all(torch.isfinite(g).all() for g in kernel[1].values())
+        return kernel[0].item(), errs, finite, want
+    loss, held, finite, want = kernels_vs_plain(params)
+    floor = grad_errs(plain(params, ssd_chunk=cfg.ssd_chunk // 2,
+                            attn_chunk=cfg.attn_chunk // 2), want)
+    del want
+    worst = max(held, key=held.get)
+    log(label, f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+               f"{shape} (remat {cfg.remat}, {train_launches(cfg)} "
+               f"launches), weights at a per-layer fan-in: loss {loss:.6f}; "
+               f"through the kernels vs the plain paths, max-normalised: "
+               + ", ".join(f"{k} {e:.3e}" for k, e in held.items())
+               + f"; largest {worst} {held[worst]:.3e} (tol {MODEL_TOL}); "
+               f"the plain paths at half their chunks vs themselves (the "
+               f"rounding floor), largest leaf {max(floor.values()):.3e}")
+    if reference is not None:
+        ref_loss, seen, _, _ = kernels_vs_plain(reference)
+        log(label, f"at the reference's init (not held): loss "
+                   f"{ref_loss:.6f}; kernels vs plain paths, loss "
+                   f"{seen['loss']:.3e}, largest leaf "
+                   f"{max(seen.values()):.3e}")
+    if not finite or held[worst] > MODEL_TOL:
+        raise AssertionError("the fp32 train step through the kernels "
+                             "disagrees with the plain paths")
 
 
 def profile_split(fns):
@@ -1110,15 +1338,42 @@ def profile_split(fns):
     return {name: tuple(v) for name, v in out.items()}
 
 
-def phase_train_step_time(cfg, trainer, state, batch, data_cfg):
-    """(k) One bf16 train step at 1, 2 and 4 slices of the card (the
-    trained state resharded from 1): the wall time (host clock around 3
-    steps ending in a synchronise), the card's busy time in one step under
-    torch.profiler, and tokens/s. It runs after every other profile (see
-    profile_split)."""
+def step_times(entries):
+    """(k) Train steps, {key: (cfg, data_cfg, slices, step fn)}: the wall
+    time (host clock around 3 steps ending in a synchronise), the card's
+    busy time in one step (all in one profile_split session, after every
+    other profile of the process) and tokens/s."""
+    walls = {}
+    for key, (*_, step) in entries.items():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        walls[key] = (time.perf_counter() - t0) / 3 * 1e3
+    busy = profile_split({key: entry[-1] for key, entry in entries.items()})
+    for key, (cfg, data_cfg, n, _) in entries.items():
+        ms, launches = busy[key]
+        tokens = data_cfg.global_batch * data_cfg.seq_len
+        log("k", f"{cfg.name} ({cfg.num_layers} layers) bf16 train step "
+                 f"B{data_cfg.global_batch} S{data_cfg.seq_len} at {n} "
+                 f"slice(s) of the card: {walls[key]:.3f} ms wall, card busy "
+                 f"{ms:.3f} ms in {launches} kernels and copies "
+                 f"({100 * (1 - ms / walls[key]):.1f}% idle), "
+                 f"{tokens / walls[key] * 1e3:.0f} tokens/s")
+        if launches == 0:
+            raise AssertionError(f"the profile saw no device work of "
+                                 f"{cfg.name}'s step at {n} slices")
+
+
+def phase_train_step_time(cfg, trainer, state, batch, data_cfg, others=()):
+    """(k) One bf16 train step of ``cfg`` at 1, 2 and 4 slices of the card
+    (the trained state resharded from 1), and of each of ``others``
+    ((cfg, trainer, state, batch, data_cfg)) at 1: step_times."""
     from repro_torch.core import make_mesh, reshard, slice_devices
     from repro_torch.runtime import ElasticTrainer
-    steps = {}
+    entries = {}
     for n in (1, 2, 4):
         if n == 1:
             tr, st = trainer, state
@@ -1129,47 +1384,13 @@ def phase_train_step_time(cfg, trainer, state, batch, data_cfg):
                                 devices=slice_devices(n))
             st = reshard(state, tr._state_shardings(make_mesh(
                 n, 1, devices=tr.devices)))
-        steps[n] = (lambda tr=tr, st=st: tr.train_step(st, batch))
-    walls = {}
-    for n, step in steps.items():
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        walls[n] = (time.perf_counter() - t0) / 3 * 1e3
-    busy = profile_split({n: fn for n, fn in steps.items()})
-    tokens = data_cfg.global_batch * data_cfg.seq_len
-    for n in steps:
-        ms, launches = busy[n]
-        log("k", f"{cfg.name} bf16 train step B{data_cfg.global_batch} "
-                 f"S{data_cfg.seq_len} at {n} slice(s) of the card: "
-                 f"{walls[n]:.3f} ms wall, card busy {ms:.3f} ms in "
-                 f"{launches} kernels and copies "
-                 f"({100 * (1 - ms / walls[n]):.1f}% idle), "
-                 f"{tokens / walls[n] * 1e3:.0f} tokens/s")
-        if launches == 0:
-            raise AssertionError(f"the profile saw no device work of the "
-                                 f"step at {n} slices")
-
-
-def phase_ssd_grad_raises(cfg, params):
-    """(q) mamba2's SSD kernel has no backward yet: a loss.backward() on the
-    card raises NotImplementedError instead of dropping the gradients."""
-    from repro_torch.models import build_model
-    model = build_model(cfg)
-    toks = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
-    try:
-        loss, _ = model.loss(with_grad(params), {"tokens": toks,
-                                                 "labels": toks})
-        loss.backward()
-    except NotImplementedError as err:
-        log("q", f"{cfg.name} loss.backward() on the card raises "
-                 f"NotImplementedError: {err}")
-        return
-    raise AssertionError(f"{cfg.name}: a backward through the SSD kernel "
-                         "did not raise")
+        entries[cfg.name, n] = (cfg, data_cfg, n,
+                                lambda tr=tr, st=st: tr.train_step(st, batch))
+    for o_cfg, o_tr, o_st, o_batch, o_data in others:
+        entries[o_cfg.name, 1] = (
+            o_cfg, o_data, 1, lambda tr=o_tr, st=o_st, b=o_batch:
+            tr.train_step(st, b))
+    step_times(entries)
 
 
 # -- (r) smollm-135m elastic: virtual slices of the card -----------------------------
@@ -1421,7 +1642,7 @@ def phase_elastic_loop(cfg, params, data_cfg):
                start=True)
     cluster = ScriptedCluster(SyntheticLMData(data_cfg), rms)
     (ROOT / "build").mkdir(exist_ok=True)
-    per_step = flash_per_step(cfg)
+    per_step = train_launches(cfg)
     wrappers = counters()
     calls, faults = [], []
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt:
@@ -1749,8 +1970,9 @@ NEAR_TIE = 1e-3
 # the compressed all-reduce: virtual slices of the card, and the steps of
 # the error-feedback check (tests/test_multidevice.py:144)
 COMPRESS_SLICES, COMPRESS_STEPS = (2, 4), 12
-# what the child process of (u)-(x) hands back (run_zoo)
+# what the child processes of (u)-(z) and of (mq) hand back (run_child)
 ZOO_RESULT = ROOT / "build" / "chip_smoke_zoo.json"
+RG_TRAIN_RESULT = ROOT / "build" / "chip_smoke_rg_train.json"
 
 
 def cpu_tree(tree):
@@ -1941,16 +2163,16 @@ def phase_encdec_grads(label, cfg, params, batch):
     without a causal mask, the cross one at Sq != Sk where the batch says
     so) against attn_impl="chunked", from the same parameters and batch:
     the loss and every gradient leaf max-normalised at MODEL_TOL, with
-    exactly the launches flash_per_step gives."""
+    exactly the launches train_launches gives."""
     n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
-    kernel = train_grads(cfg, params, batch, flash_per_step(cfg))
+    kernel = train_grads(cfg, params, batch, train_launches(cfg))
     errs = grad_errs(kernel, train_grads(cfg, params, batch, n_off,
                                          attn_impl="chunked"))
     worst = max(errs, key=errs.get)
     log(label, f"{cfg.name} fp32 train step B{batch['tokens'].shape[0]}, "
                f"{batch['frontend'].shape[1]} frames, "
                f"{batch['tokens'].shape[1]} tokens (remat {cfg.remat}, "
-               f"{flash_per_step(cfg)} launches): through the kernels vs "
+               f"{train_launches(cfg)} launches): through the kernels vs "
                f"chunked, max-normalised: loss {errs['loss']:.3e}, "
                f"{len(errs) - 1} gradient leaves, largest {worst} "
                f"{errs[worst]:.3e} (tol {MODEL_TOL})")
@@ -2164,7 +2386,8 @@ def build_kernels():
     from repro_torch.kernels.ssd import kernel as ssd
     kernels = (("flash_attention", flash.load),
                ("flash_attention_bwd", flash.load_bwd),
-               ("ssd_scan", ssd.load), ("rglru_scan", rglru.load))
+               ("ssd_scan", ssd.load), ("ssd_scan_bwd", ssd.load_bwd),
+               ("rglru_scan and rglru_scan_bwd", rglru.load))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         builds = {name: pool.submit(load) for name, load in kernels}
@@ -2259,7 +2482,7 @@ def record_row(name, source, replaces, launches, err, row, shape):
 
 def main_zoo():
     """(u)-(x), run by ``chip_smoke.py --zoo`` in a process of its own (see
-    run_zoo): each decoder of slice 9 at its published widths, its depth
+    run_child): each decoder of slice 9 at its published widths, its depth
     cut where its fp32 weights would not fit, drawn on the card and freed
     after its path; then the compressed all-reduce. Writes each path's
     launch counts, Server tok/s and peak GiB to ZOO_RESULT."""
@@ -2316,23 +2539,68 @@ def main_zoo():
 
 
 
-def run_zoo():
-    """Run main_zoo in a child process and return {arch: (launch counts,
-    Server tok/s, peak GiB)}. Its own process: run in the process of the
-    earlier phases, these paths left torch.profiler without device events
-    in the kernel timings after them, though each part alone, and twenty
-    profiles after training, left it working (PERF.md, Findings). The
-    child loads the kernels this process built."""
+def main_rg_train():
+    """(mq), run by ``chip_smoke.py --rg-train`` in a process of its own
+    (run_child), with the card to itself: recurrentgemma-9b's training at
+    full width, its first unit and 2-layer tail (RG_TRAIN_LAYERS), drawn on
+    the card at each layer's own fan-in (as the 38-layer model's layers
+    would be, rescaled), B 1, S RG_TRAIN_S, the loss by ce_chunk. One fp32
+    train step through the RG-LRU and flash (D 256, window 2048) kernels
+    against the plain paths, then RG_TRAIN_STEPS bf16 ElasticTrainer
+    steps, then the step's times. Writes the path's launch counts and peak
+    GiB to RG_TRAIN_RESULT."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              num_layers=RG_TRAIN_LAYERS, ce_chunk=1024)
+    _, params = model_and_params(cfg, "mq", init_depth=RG_DEPTH,
+                                 on_card=True, per_layer=True)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=RG_TRAIN_S,
+                      global_batch=1)
+    batch = {k: t.cuda() for k, t in SyntheticLMData(data).batch(0).items()}
+    counts, (_, trained) = drive("mq", (
+        lambda: phase_scan_train_fp32("mq", cfg, params, batch),
+        lambda: phase_train_bf16(cfg, params, data, RG_TRAIN_STEPS,
+                                 label="mq", lr=RG_TRAIN_LR)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("flash_attention", "flash_attention_bwd", "rglru_scan",
+                 "rglru_scan_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"recurrentgemma's training path never "
+                                 f"launched {name}")
+    del params
+    trainer, state, next_batch = trained
+    step_times({(cfg.name, 1): (cfg, data, 1, lambda: trainer.train_step(
+        state, next_batch))})
+    RG_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    RG_TRAIN_RESULT.write_text(json.dumps({"counts": counts, "peak": peak}))
+    return 0
+
+
+def run_child(flag, result, env=None):
+    """Run ``chip_smoke.py flag`` in a child process and return the JSON it
+    wrote to ``result``. The child loads the kernels this process built.
+    The zoo (u)-(z) runs there because, in the process of the earlier
+    phases, its paths left torch.profiler without device events in the
+    kernel timings after them, though each part alone, and twenty profiles
+    after training, left it working (PERF.md, Findings);
+    recurrentgemma's training (mq) because it needs the card nearly to
+    itself, with no other path's freed blocks left in the allocator."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    ZOO_RESULT.unlink(missing_ok=True)
+    result.unlink(missing_ok=True)
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--zoo"], check=False)
+                           flag], check=False,
+                          env=None if env is None else {**os.environ, **env})
     if proc.returncode != 0:
-        raise AssertionError(f"the slice-9 paths failed (exit "
+        raise AssertionError(f"chip_smoke.py {flag} failed (exit "
                              f"{proc.returncode})")
-    return {arch: (v["counts"], v["tok_s"], v["peak"])
-            for arch, v in json.loads(ZOO_RESULT.read_text()).items()}
+    return json.loads(result.read_text())
 
 
 def main():
@@ -2356,7 +2624,8 @@ def main():
     bwd_err = phase_flash_bwd_vs_plain()
     ssd_err = phase_ssd_vs_plain()
     rglru_err = phase_rglru_vs_plain()
-    log("l", f"kernels held against their plain versions; "
+    scan_bwd_err = phase_scan_bwd_vs_plain()
+    log("sb", f"kernels held against their plain versions; "
              f"{time.perf_counter() - start:.1f} s so far")
 
     rng = np.random.default_rng(0)
@@ -2407,7 +2676,21 @@ def main():
         lambda: phase_server("j", m_model, m_params)))
     if mamba_counts["ssd_scan"] == 0:
         raise AssertionError("mamba2's path never launched ssd_scan")
-    phase_ssd_grad_raises(mamba, m_params)
+    m_data = DataConfig(vocab_size=mamba.vocab_size, seq_len=TRAIN_S,
+                        global_batch=TRAIN_B)
+    m_batch = {k: t.cuda()
+               for k, t in SyntheticLMData(m_data).batch(0).items()}
+    m_train_counts, (_, m_trained) = drive("hq", (
+        lambda: phase_scan_train_fp32(
+            "hq", mamba, at_per_layer_fan_in(m_model, m_params,
+                                             mamba.pattern_repeats[0]),
+            m_batch, reference=m_params),
+        lambda: phase_train_bf16(mamba, m_params, m_data, TRAIN_STEPS,
+                                 label="hq")))
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        if m_train_counts[name] == 0:
+            raise AssertionError(f"mamba2's training path never launched "
+                                 f"{name}")
 
     rg = dataclasses.replace(get_config("recurrentgemma-9b"),
                              num_layers=RG_LAYERS)
@@ -2449,12 +2732,24 @@ def main():
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
         log("k", bench.describe_rglru(row))
+    ssd_bwd_rows = {label: bench.time_ssd_scan_bwd(label)
+                    for label in bench.SSD_BWD_SHAPES}
+    for row in ssd_bwd_rows.values():
+        log("k", bench.describe_ssd_bwd(row))
+        if row["cuda_kernels"] < 1:
+            raise AssertionError(f"the profiler saw no CUDA kernel of "
+                                 f"ssd_scan_bwd at {row['label']}")
+    rglru_bwd_rows = {label: bench.time_rglru_scan_bwd(label)
+                      for label in bench.RGLRU_BWD_SHAPES}
+    for row in rglru_bwd_rows.values():
+        log("k", bench.describe_rglru_bwd(row))
     phase_step_times(smollm, params, toks[:, :PREFILL_S])
     phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
     phase_step_times(rg, rg_params, rg_toks)
     phase_reshard_times(smollm, *resharded)
     del resharded
-    phase_train_step_time(smollm, *trained, data_cfg)
+    phase_train_step_time(smollm, *trained, data_cfg,
+                          others=[(mamba, *m_trained, m_data)])
     # the backward last: its library yardstick is autograd's backward in a
     # CUDA graph, after which no profile runs
     bwd_rows = {label: bench.time_flash_attention_bwd(label)
@@ -2464,7 +2759,20 @@ def main():
     # slice 9 in a process of its own, with the card's memory this one no
     # longer needs
     del params, m_params, rg_params, model, m_model, rg_model, trained
-    zoo = run_zoo()
+    del m_trained
+    torch.cuda.empty_cache()
+    log("k", f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+             f" GiB of the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
+             f"reserved) while the child runs")
+    zoo = {arch: (v["counts"], v["tok_s"], v["peak"])
+           for arch, v in run_child("--zoo", ZOO_RESULT).items()}
+    # the allocator's expandable segments: its 65 GiB peak leaves no room
+    # for blocks split at another size
+    rg_train = run_child("--rg-train", RG_TRAIN_RESULT, env={
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    log("mq", f"recurrentgemma-9b training: peak device memory "
+              f"{rg_train['peak']:.2f} GiB")
+    rg_train = rg_train["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -2481,7 +2789,8 @@ def main():
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:93",
         smollm_counts["flash_attention"] + train_counts["flash_attention"]
         + elastic_counts["flash_attention"] + rg_counts["flash_attention"]
-        + sum(counts["flash_attention"] for counts, _, _ in zoo.values()),
+        + sum(counts["flash_attention"] for counts, _, _ in zoo.values())
+        + rg_train["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -2490,6 +2799,7 @@ def main():
         "smollm-135m training": train_counts["flash_attention"],
         "smollm-135m elastic training": elastic_counts["flash_attention"],
         "recurrentgemma-9b": rg_counts["flash_attention"],
+        "recurrentgemma-9b training": rg_train["flash_attention"],
         **{arch: counts["flash_attention"]
            for arch, (counts, _, _) in zoo.items()}}
     flash_row["recurrentgemma"] = record_row(
@@ -2525,7 +2835,10 @@ def main():
         ssd_err, ssd_rows["prefill-512"],
         f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, views of "
         "the conv output")
-    ssd_row["launches_by_path"] = {"mamba2-130m": mamba_counts["ssd_scan"]}
+    ssd_row["launches"] += m_train_counts["ssd_scan"]
+    ssd_row["launches_by_path"] = {
+        "mamba2-130m": mamba_counts["ssd_scan"],
+        "mamba2-130m training": m_train_counts["ssd_scan"]}
     # CUDA kernels one wrapper call launched at this shape, under the
     # profiler in this run (the passes: chunk states, state passing, chunk
     # outputs)
@@ -2537,9 +2850,34 @@ def main():
         rglru_err, rglru_rows["prefill-512"],
         f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of every rglru "
         "layer")
+    rglru_row["launches"] += rg_train["rglru_scan"]
     rglru_row["launches_by_path"] = {
-        "recurrentgemma-9b": rg_counts["rglru_scan"]}
-    b, h, kv, s, d, _ = bench.BWD_SHAPES["train-2048"]
+        "recurrentgemma-9b": rg_counts["rglru_scan"],
+        "recurrentgemma-9b training": rg_train["rglru_scan"]}
+    b, s, h, p, n, chunk, layout = bench.SSD_BWD_SHAPES["train-2048"]
+    ssd_bwd_row = record_row(
+        "ssd_scan_bwd", "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd.cu",
+        "none: the Pallas kernel has no backward; the reference trains "
+        "through XLA's autodiff of ssd_chunked (src/repro/models/ssm.py:53)",
+        m_train_counts["ssd_scan_bwd"], scan_bwd_err["ssd"],
+        ssd_bwd_rows["train-2048"], f"B{b} S{s} H{h} P{p} N{n} chunk "
+        f"{chunk} bf16, views of the conv output, from the forward's "
+        "workspace")
+    ssd_bwd_row["launches_by_path"] = {
+        "mamba2-130m training": m_train_counts["ssd_scan_bwd"]}
+    ssd_bwd_row["cuda_kernels_per_launch"] = ssd_bwd_rows["train-2048"][
+        "cuda_kernels"]
+    b, s, w = bench.RGLRU_BWD_SHAPES["train-4096"]
+    rglru_bwd_row = record_row(
+        "rglru_scan_bwd", "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+        "none: the Pallas kernel has no backward; the reference trains "
+        "through XLA's autodiff of its associative scan "
+        "(src/repro/models/rglru.py:56)", rg_train["rglru_scan_bwd"],
+        scan_bwd_err["rglru"], rglru_bwd_rows["train-4096"],
+        f"B{b} S{s} W{w} fp32, from the forward's h")
+    rglru_bwd_row["launches_by_path"] = {
+        "recurrentgemma-9b training": rg_train["rglru_scan_bwd"]}
+    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["train-2048"]
     bwd_row = record_row(
         "flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
         "csrc/flash_attention_bwd.cu", "none: the Pallas kernel has no "
@@ -2547,7 +2885,8 @@ def main():
         "chunked_attention (src/repro/models/attention.py:94)",
         train_counts["flash_attention_bwd"]
         + elastic_counts["flash_attention_bwd"]
-        + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values()),
+        + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values())
+        + rg_train["flash_attention_bwd"],
         bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
@@ -2556,12 +2895,22 @@ def main():
         "smollm-135m elastic training":
             elastic_counts["flash_attention_bwd"],
         "seamless-m4t-medium training":
-            zoo["seamless-m4t-medium"][0]["flash_attention_bwd"]}
+            zoo["seamless-m4t-medium"][0]["flash_attention_bwd"],
+        "recurrentgemma-9b training": rg_train["flash_attention_bwd"]}
+    # and at recurrentgemma's training call: D 256, window 2048, S 4096
+    b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
+    bwd_row["recurrentgemma"] = record_row(
+        "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
+        rg_train["flash_attention_bwd"], bwd_err[(d, s)],
+        bwd_rows["recurrentgemma-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 "
+        f"causal, window {window}, (B, S, H, D) views, dq / dk / dv from the "
+        "forward's lse")
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
     bwd_row["library_backend"] = bwd_rows["train-2048"]["library_backend"]
-    record = {"kernels": [flash_row, bwd_row, ssd_row, rglru_row]}
+    record = {"kernels": [flash_row, bwd_row, ssd_row, ssd_bwd_row,
+                          rglru_row, rglru_bwd_row]}
     print(json.dumps(record))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {
@@ -2571,4 +2920,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main_zoo() if sys.argv[1:] == ["--zoo"] else main())
+    sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train}.get(
+        (sys.argv[1:] or [None])[0], main)())

@@ -5,17 +5,19 @@ flash_attention -- causal / sliding-window / softcap / GQA attention,
                    also writes the rows' log-sum-exp for training) and
                    backward (dq, dk, dv; the Pallas kernel has none)
 ssd             -- the Mamba-2 SSD chunked scan, forward, with its final
-                   state (replaces the Pallas TPU kernel ``ssd_scan``)
+                   state (replaces the Pallas TPU kernel ``ssd_scan``), and
+                   backward (dx, ddt, da_log, dB, dC; the Pallas kernel has
+                   none)
 rglru           -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t,
                    with an optional initial state (replaces the Pallas TPU
-                   kernel ``rglru_scan_pallas``)
+                   kernel ``rglru_scan_pallas``), and backward (da, db,
+                   dh0; the Pallas kernel has none)
 
 Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
 ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA
-tensors, the plain version for CPU tensors; flash attention's through a
-``torch.autograd.Function`` when a gradient is needed) and ref.py (the
-plain PyTorch version the kernel is held against). The SSD and RG-LRU ops
-raise rather than cut a gradient (forward_only.py). build.py compiles the
-sources; bench.py times each kernel against its plain version and its
-bound.
+tensors, the plain version for CPU tensors; through a
+``torch.autograd.Function`` whose backward is the backward kernel when a
+gradient is needed) and ref.py (the plain PyTorch version the kernel is
+held against). build.py compiles the sources; bench.py times each kernel
+against its plain version and its bound.
 """

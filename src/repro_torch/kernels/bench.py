@@ -19,12 +19,16 @@ before its tiled workspace, version 1) are called with their own
 ``max|new - old|`` compares. A shape the old source does not take is
 reported and skipped.
 
-The flash-attention backward is timed at smollm-135m's training shape
-beside its plain version (torch autograd of ``attention_ref``) and the
-backward of ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its
-output, captured in a CUDA graph like the kernel, so both are device times;
-the eager call is printed beside it, named so, with the backend PyTorch
-picks). ``--profile`` also lists the library backward's kernels by device
+The flash-attention backward is timed at smollm-135m's training shape and
+at recurrentgemma-9b's windowed one beside its plain version (torch
+autograd of ``attention_ref``) and the backward of
+``scaled_dot_product_attention`` (``torch.autograd.grad`` of its output,
+captured in a CUDA graph like the kernel, so both are device times; the
+eager call is printed beside it, named so, with the backend PyTorch picks;
+with a window, through an explicit boolean mask). The SSD and RG-LRU
+backward kernels are timed at mamba2-130m's and recurrentgemma-9b's
+training shapes beside their plain versions (torch autograd of
+``ssd_ref`` and ``rglru_ref``, the backward replayed eagerly). ``--profile`` also lists the library backward's kernels by device
 time, last, as a profile of autograd's backward left later profiles in the
 same process without device events.
 
@@ -77,9 +81,15 @@ SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
               "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
 # (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill
 RGLRU_SHAPES = {"prefill-512": (4, 512, 4096)}
-# (B, H, KV, S, D, layout) of smollm-135m's attention in a B 8, S 2048
-# train step, for the backward
-BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd")}
+# (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
+# S 2048 train step, and of recurrentgemma-9b's local layers in a B 1,
+# S 4096 one (window 2048), for the backward
+BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None),
+              "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048)}
+# the scans' backward at their training shapes: mamba2-130m's B 8, S 2048
+# (the views of the conv output), recurrentgemma-9b's B 1, S 4096
+SSD_BWD_SHAPES = {"train-2048": (8, 2048, 24, 64, 128, 128, "view")}
+RGLRU_BWD_SHAPES = {"train-4096": (1, 4096, 4096)}
 
 
 def card() -> str:
@@ -253,26 +263,42 @@ def time_flash_attention(label: str, seed: int = 1) -> dict:
         eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v, **kw)))
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, mask=None) -> str:
     """The backend PyTorch picks for :func:`sdpa` on these inputs (flash,
-    efficient, cuDNN or math)."""
+    efficient, cuDNN or math), or for the call with an explicit ``mask``
+    in place of the causal one."""
     from torch.nn.attention import SDPBackend
     return SDPBackend(torch._fused_sdp_choice(
-        q, k, v, is_causal=True, enable_gqa=True)).name
+        q, k, v, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=True)).name
 
 
-def library_backward(q, k, v, do):
+def window_mask(s: int, window: int, device) -> torch.Tensor:
+    """(S, S) bool: key j is attended from query i where i - window < j <=
+    i, the kernel's causal sliding window."""
+    pos = torch.arange(s, device=device)
+    diff = pos[:, None] - pos[None, :]
+    return (diff >= 0) & (diff < window)
+
+
+def library_backward(q, k, v, do, window=None):
     """(fn, stream): ``fn`` computes the gradients of :func:`sdpa` on q, k,
     v (contiguous copies) for the output gradient ``do``, replaying the
-    backward of one forward kept on ``stream``. Autograd runs each
-    backward op on its forward's stream, so the forward runs there and a
-    CUDA graph of ``fn`` is captured on it."""
+    backward of one forward kept on ``stream``; with a ``window``, of
+    ``scaled_dot_product_attention`` under that window's explicit mask.
+    Autograd runs each backward op on its forward's stream, so the forward
+    runs there and a CUDA graph of ``fn`` is captured on it."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         leaves = [x.detach().contiguous().requires_grad_(True)
                   for x in (q, k, v)]
-        res = sdpa(*leaves)
+        if window is None:
+            res = sdpa(*leaves)
+        else:
+            res = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=window_mask(q.shape[2], window, q.device),
+                enable_gqa=True)
     return (lambda: torch.autograd.grad(res, leaves, do,
                                         retain_graph=True)), stream
 
@@ -285,41 +311,49 @@ def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     (device time from a CUDA graph, and one eager call), with the bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, s, d, layout = BWD_SHAPES[label]
+    b, h, kv, s, d, layout, window = BWD_SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
     do = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)[0]
-    out, lse = kernel.flash_attention(q, k, v, return_lse=True)
-    bound_ms, bound_by, flops = attention_bwd_bound(b, h, kv, s, s, d,
-                                                    torch.bfloat16)
+    out, lse = kernel.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+    bound_ms, bound_by, flops = attention_bwd_bound(
+        b, h, kv, s, s, d, torch.bfloat16, window=window)
 
     def run():
-        return kernel.flash_attention_bwd(q, k, v, out, lse, do)
-
-    def backward_of(fn, inputs):
-        leaves = [x.detach().requires_grad_(True) for x in inputs]
-        res = fn(*leaves)
-        return lambda: torch.autograd.grad(res, leaves, do,
-                                           retain_graph=True)
+        return kernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                          window=window)
 
     ms = graph_ms(run)
-    plain = backward_of(attention_ref, (q, k, v))
+    plain = backward_of(lambda *t: attention_ref(*t, window=window),
+                        (q, k, v), do)
     plain_ms = eager_ms(plain, iters=2, warmup=1)
     del plain
-    library, stream = library_backward(q, k, v, do)
+    library, stream = library_backward(q, k, v, do, window)
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9, plain_ms=plain_ms,
         library_ms=graph_ms(library, stream=stream),
         library_eager_ms=eager_ms(library),
-        library_backend=sdpa_backend(q.contiguous(), k.contiguous(),
-                                     v.contiguous()),
+        library_backend=sdpa_backend(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if window is None else window_mask(s, window, q.device)),
         eager_ms=eager_ms(run))
 
 
+def backward_of(fn, inputs, grad):
+    """A function replaying the backward of ``fn`` on detached copies of
+    ``inputs`` (their graph kept) for the output gradient ``grad`` (a
+    tuple for several outputs): the plain version's backward time."""
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    res = fn(*leaves)
+    return lambda: torch.autograd.grad(res, leaves, grad, retain_graph=True)
+
+
 def describe_bwd(row: dict) -> str:
-    b, h, kv, s, d, layout = BWD_SHAPES[row["label"]]
-    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 causal "
+    b, h, kv, s, d, layout, window = BWD_SHAPES[row["label"]]
+    mask = "causal" + (f" window {window}" if window is not None else "")
+    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 {mask} "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
             f"TFLOP/s), plain (autograd of attention_ref, eager) "
             f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention's "
@@ -423,6 +457,75 @@ def describe_ssd(row: dict) -> str:
             f"times); one eager call {row['eager_ms']:.4f} ms")
 
 
+def ssd_bwd_bound(b, s, h, p, n, chunk, dtype):
+    """(bound ms, "operations" | "bytes", flops) for the SSD scan's backward
+    on these inputs: x, dy, B, C, dt and a_log read and dx, dB, dC, ddt and
+    da_log written once, against the chunked algorithm's backward products
+    at their least: C B^T once per (batch, chunk) and, per head, G^T dy,
+    dy (x dt)^T, PD B and PD^T C on the lower triangle; each chunk's
+    dy^T C, and the carried states' B dh_out^T, (x dt) dh_out and (from
+    the second chunk on) dy h_in. Chunks as the forward's."""
+    q = min(chunk, s, 128)
+    lens = [min(q, s - s0) for s0 in range(0, s, q)]
+    tri = sum(L * (L + 1) // 2 for L in lens)
+    flops = 2.0 * b * n * tri                          # C B^T
+    flops += 2.0 * 2 * b * h * p * tri                 # G^T dy, dy (x dt)^T
+    flops += 2.0 * 2 * b * h * n * tri                 # PD B, PD^T C
+    flops += 2.0 * 3 * b * h * p * n * s               # dy^T C, two states
+    flops += 2.0 * b * h * p * n * sum(lens[1:])       # dy h_in
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (size * (3 * b * s * h * p + 4 * b * s * n)
+              + 4 * (2 * b * s * h + 2 * h))
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def time_ssd_scan_bwd(label: str, seed: int = 1) -> dict:
+    """The backward kernel at one of SSD_BWD_SHAPES (bf16), from the
+    forward kernel's workspace, with the bound, the CUDA kernels one call
+    launches and its plain version (torch autograd of ``ssd_ref``, its
+    graph kept and the backward replayed, eager); no library call computes
+    this function."""
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _, _, ws = kernel.ssd_scan(*args, chunk=chunk, keep_workspace=True)
+    bound_ms, bound_by, flops = ssd_bwd_bound(b, s, h, p, n, chunk,
+                                              torch.bfloat16)
+
+    def run():
+        return kernel.ssd_scan_bwd(*args, dy, None, ws, chunk=chunk)
+    ms = graph_ms(run)
+    plain = backward_of(lambda *t: ssd_ref(*t)[0], args, dy)
+    plain_ms = eager_ms(plain, iters=1, warmup=1)
+    del plain
+    prof = device_profile(run, top=8)
+    return dict(label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflops=flops / ms / 1e9, cuda_kernels=prof["kernels"],
+                passes=prof["top"], plain_ms=plain_ms, library_ms=None,
+                eager_ms=eager_ms(run))
+
+
+def describe_ssd_bwd(row: dict) -> str:
+    b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[row["label"]]
+    return (f"ssd_scan_bwd B{b} S{s} H{h} P{p} N{n} chunk {chunk} bf16 "
+            f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.2f} "
+            f"TFLOP/s, {row['cuda_kernels']} CUDA kernels a call), plain "
+            f"(autograd of ssd_ref, eager) {row['plain_ms']:.4f} ms, "
+            f"library call none, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x (device times); one eager "
+            f"call {row['eager_ms']:.4f} ms; by CUDA kernel under the "
+            f"profiler: " + "; ".join(f"{name} {ms:.4f} ms x{n}"
+                                      for name, ms, n in row["passes"]))
+
+
 def rglru_bound(b, s, w):
     """(bound ms, "operations" | "bytes", flops) for the RG-LRU scan on
     these inputs: a and b read and h written once (fp32), against one
@@ -460,6 +563,52 @@ def time_rglru_scan(label: str, seed: int = 1) -> dict:
         eager_ms=eager_ms(lambda: kernel.rglru_scan(a, bb)))
 
 
+def rglru_bwd_bound(b, s, w):
+    """(bound ms, "operations" | "bytes", flops) for the RG-LRU scan's
+    backward: a, h and dh read and da and db written once (fp32), against
+    a multiply-add and a multiply per element at the fp32 rate."""
+    flops = 3.0 * b * s * w
+    nbytes = 5 * 4 * b * s * w
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def time_rglru_scan_bwd(label: str, seed: int = 1) -> dict:
+    """The backward kernel at one of RGLRU_BWD_SHAPES (fp32, no initial
+    state, as the model calls it) from the forward kernel's output, with
+    the bound and its plain version (torch autograd of ``rglru_ref``, the
+    backward replayed, eager); no library call computes this function."""
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    b, s, w = RGLRU_BWD_SHAPES[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, bb = make_rglru_inputs(gen, b, s, w)
+    dh = torch.randn((b, s, w), generator=gen, device="cuda")
+    h = kernel.rglru_scan(a, bb)
+    bound_ms, bound_by, _ = rglru_bwd_bound(b, s, w)
+
+    def run():
+        return kernel.rglru_scan_bwd(a, h, None, dh)
+    ms = graph_ms(run)
+    plain = backward_of(rglru_ref, (a, bb), dh)
+    plain_ms = eager_ms(plain, iters=1, warmup=1)
+    del plain
+    return dict(label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                gbps=5 * 4 * b * s * w / ms / 1e6, plain_ms=plain_ms,
+                library_ms=None, eager_ms=eager_ms(run))
+
+
+def describe_rglru_bwd(row: dict) -> str:
+    b, s, w = RGLRU_BWD_SHAPES[row["label"]]
+    return (f"rglru_scan_bwd B{b} S{s} W{w} fp32: kernel {row['ms']:.4f} "
+            f"ms ({row['gbps']:.0f} GB/s), plain (autograd of rglru_ref, "
+            f"eager) {row['plain_ms']:.4f} ms, library call none, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x (device times); one eager "
+            f"call {row['eager_ms']:.4f} ms")
+
+
 def describe_rglru(row: dict) -> str:
     b, s, w = RGLRU_SHAPES[row["label"]]
     return (f"rglru_scan B{b} S{s} W{w} fp32: kernel {row['ms']:.4f} ms "
@@ -494,7 +643,8 @@ def ptxas_report(log: str) -> list:
 def profile_kernels(seed: int = 1) -> None:
     """One call of each kernel at each of its shapes under torch.profiler:
     the device time of every CUDA kernel it launched (the SSD scan and the
-    flash backward launch three); last, the library backward's kernels."""
+    flash backward launch three, the SSD backward seven); last, the library
+    backwards' kernels."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
@@ -513,14 +663,28 @@ def profile_kernels(seed: int = 1) -> None:
         a, bb = make_rglru_inputs(gen, *shape)
         calls[f"rglru_scan {label}"] = (
             lambda a=a, bb=bb: rglru.rglru_scan(a, bb))
-    for label, (b, h, kv, s, d, layout) in BWD_SHAPES.items():
+    for label, (b, s, h, p, n, chunk, layout) in SSD_BWD_SHAPES.items():
+        args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
+        dy = torch.randn_like(args[0])
+        ws = ssd.ssd_scan(*args, chunk=chunk, keep_workspace=True)[2]
+        calls[f"ssd_scan_bwd {label}"] = (
+            lambda a=args, dy=dy, ws=ws, c=chunk: ssd.ssd_scan_bwd(
+                *a, dy, None, ws, chunk=c))
+    for label, shape in RGLRU_BWD_SHAPES.items():
+        a, bb = make_rglru_inputs(gen, *shape)
+        h, dh = rglru.rglru_scan(a, bb), torch.randn_like(a)
+        calls[f"rglru_scan_bwd {label}"] = (
+            lambda a=a, h=h, dh=dh: rglru.rglru_scan_bwd(a, h, None, dh))
+    for label, (b, h, kv, s, d, layout, window) in BWD_SHAPES.items():
         q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
         do = torch.randn_like(q)
-        out, lse = flash.flash_attention(q, k, v, return_lse=True)
+        out, lse = flash.flash_attention(q, k, v, window=window,
+                                         return_lse=True)
         calls[f"flash_attention_bwd {label}"] = (
-            lambda a=(q, k, v, out, lse, do): flash.flash_attention_bwd(*a))
+            lambda a=(q, k, v, out, lse, do), w=window:
+            flash.flash_attention_bwd(*a, window=w))
         calls[f"scaled_dot_product_attention backward {label}"] = \
-            library_backward(q, k, v, do)[0]
+            library_backward(q, k, v, do, window)[0]
     for name, fn in calls.items():
         prof = device_profile(fn, top=8)
         print(f"profile {name}: busy {prof['busy_ms'] * 1e3:.1f} us; "
@@ -650,7 +814,11 @@ def compare(old_source: Path, seed: int = 1):
     for label in shapes:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         if name == "flash_attention_bwd":
-            b, h, kv, s, d, layout = BWD_SHAPES[label]
+            b, h, kv, s, d, layout, window = BWD_SHAPES[label]
+            if window is not None:
+                print(f"{name} {label}: a window; compared without one "
+                      "only", flush=True)
+                continue
             q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
                                layout)
             do = torch.randn_like(q)
@@ -755,6 +923,10 @@ def main(argv=None) -> int:
         print(describe_ssd(time_ssd_scan(label)), flush=True)
     for label in RGLRU_SHAPES:
         print(describe_rglru(time_rglru_scan(label)), flush=True)
+    for label in SSD_BWD_SHAPES:
+        print(describe_ssd_bwd(time_ssd_scan_bwd(label)), flush=True)
+    for label in RGLRU_BWD_SHAPES:
+        print(describe_rglru_bwd(time_rglru_scan_bwd(label)), flush=True)
     if args.profile:
         profile_kernels()
     # after every profile: autograd's backward (the library yardstick) has

@@ -7,6 +7,10 @@ plain C interface (see :mod:`repro_torch.kernels.build`) and called through
 ``ctypes`` on PyTorch's current stream. The wrapper allocates the output,
 checks what the kernel takes and raises on the rest, and raises when the
 launch reports an error. ``rglru_scan.launches`` counts the launches.
+
+The backward (``rglru_scan_bwd``, the source's second entry; the Pallas
+kernel has none) gives da, db and dh0 from the gradient of h and the
+forward's saved h; ``rglru_scan_bwd.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P)
+_BWD_ARGTYPES = (*(_P,) * 7, _I, _I, _I, _L, _L, _L, _L, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -32,6 +37,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     built from this kernel's source."""
     lib.rglru_scan_fwd.argtypes = _ARGTYPES
     lib.rglru_scan_fwd.restype = ctypes.c_int
+    lib.rglru_scan_bwd.argtypes = _BWD_ARGTYPES
+    lib.rglru_scan_bwd.restype = ctypes.c_int
     lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,4 +105,45 @@ def launch(lib: ctypes.CDLL, a, b, h0, h) -> None:
                            f"({msg})")
 
 
+def _check_bwd(a, h, h0, dh):
+    _check(a, dh, h0)
+    if h.device != a.device or h.dtype != torch.float32 or \
+            h.shape != a.shape or not h.is_contiguous():
+        raise ValueError(f"h must be the forward's contiguous float32 "
+                         f"{tuple(a.shape)} output on {a.device}, got "
+                         f"{h.dtype} {tuple(h.shape)} strides {h.stride()}")
+
+
+def rglru_scan_bwd(a, h, h0, dh):
+    """Gradients (da, db, dh0) of :func:`rglru_scan`'s h = scan(a, b, h0)
+    given dh (B, S, W) and the forward's output h, on the card; dh0 is None
+    when h0 is. All float32, contiguous."""
+    _check_bwd(a, h, h0, dh)
+    da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    dh0 = torch.empty_like(h0) if h0 is not None else None
+    launch_bwd(load().lib, a, h, h0, dh, da, db, dh0)
+    rglru_scan_bwd.launches += 1
+    return da, db, dh0
+
+
+def launch_bwd(lib: ctypes.CDLL, a, h, h0, dh, da, db, dh0) -> None:
+    """Run the backward of ``lib`` (bound by :func:`bind`) on checked inputs
+    on the current stream; raise if the launch reports an error. Counts
+    nothing: :func:`rglru_scan_bwd` does."""
+    bsz, s, w = a.shape
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.rglru_scan_bwd(
+            *(t.data_ptr() if t is not None else None
+              for t in (a, h, h0, dh, da, db, dh0)),
+            bsz, s, w, a.stride(0), a.stride(1), dh.stride(0), dh.stride(1),
+            stream)
+    if rc != 0:
+        msg = lib.rglru_scan_error_string(rc).decode()
+        raise RuntimeError(f"rglru_scan_bwd launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
 rglru_scan.launches = 0
+rglru_scan_bwd.launches = 0

@@ -1,17 +1,37 @@
-"""Dispatching wrapper for the RG-LRU scan.
+"""Dispatching wrapper for the RG-LRU scan, with its gradient.
 
 Counterpart of ``repro.kernels.rglru.ops.rglru_op``, with the optional
 initial state of ``rglru_ref``. A CUDA tensor launches the hand-written
-kernel (or raises: a build or launch failure is never caught); a CPU tensor
-takes the plain version, as does ``impl="ref"`` on either device. The
-kernel has no backward yet: on CUDA tensors that torch would record a graph
-through, the op raises.
+kernel (or raises: a build or launch failure is never caught); when torch
+records a graph for a, b or h0, it goes through :class:`RGLRUScan`, whose
+backward launches the backward kernel on the forward's saved output. A CPU
+tensor takes the plain version under torch autograd, as does ``impl="ref"``
+on either device.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.forward_only import refuse_autograd
-from repro_torch.kernels.rglru.kernel import rglru_scan
+import torch
+
+from repro_torch.kernels.rglru.kernel import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.rglru.ref import rglru_ref
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The forward and backward kernels as one differentiable op on CUDA
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        if dh.stride(-1) != 1:
+            dh = dh.contiguous()
+        return rglru_scan_bwd(a, h, h0, dh)
 
 
 def rglru_op(a, b, h0=None, *, impl: str = "auto"):
@@ -20,6 +40,7 @@ def rglru_op(a, b, h0=None, *, impl: str = "auto"):
         raise ValueError(f"unknown impl {impl!r} (auto | ref)")
     if impl == "ref" or not a.is_cuda:
         return rglru_ref(a, b, h0)
-    refuse_autograd("rglru_scan", "ROADMAP.md, Queue 2: the RG-LRU scan's "
-                    "backward, with recurrentgemma's training", a, b, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return RGLRUScan.apply(a, b, h0)
     return rglru_scan(a, b, h0)

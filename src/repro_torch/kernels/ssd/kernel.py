@@ -10,6 +10,13 @@ passing, chunk outputs; ``ref.ssd_passes`` is their plain mirror). The
 wrapper allocates the outputs and the passes' workspace, checks what the
 kernel takes and raises on the rest, and raises when a launch reports an
 error. ``ssd_scan.launches`` counts the calls.
+
+The backward (``csrc/ssd_scan_bwd.cu``, a library of its own; the Pallas
+kernel has none) gives the gradients of x, dt, a_log, B and C from dy, an
+optional final-state gradient and the forward's workspace, which
+``ssd_scan(..., keep_workspace=True)`` hands back. One call runs seven CUDA
+kernels (``ref.ssd_bwd_passes`` mirrors them); ``ssd_scan_bwd.launches``
+counts the calls.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
 HEAD_DIMS = (16, 32, 64)        # P
 STATE_DIMS = (16, 32, 64, 128)  # N
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -32,6 +40,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
               *(_L,) * 10, _P)
+_BWD_ARGTYPES = (*(_P,) * 14, *(_I,) * 7, *(_L,) * 13, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -61,6 +70,15 @@ def workspace_numel(bsz: int, s: int, h: int, p: int, n: int,
     return slots * (p * n + half + 1)
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The same for a library built from the backward's source."""
+    lib.ssd_scan_bwd.argtypes = _BWD_ARGTYPES
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def load() -> build.Built:
     """Build (at first use) and load the kernel library, once per process:
@@ -68,6 +86,28 @@ def load() -> build.Built:
     built = build.load(SOURCE)
     bind(built.lib)
     return built
+
+
+@functools.cache
+def load_bwd() -> build.Built:
+    """The same for the backward's library."""
+    built = build.load(BWD_SOURCE)
+    bind_bwd(built.lib)
+    return built
+
+
+def bwd_workspace_numel(bsz: int, s: int, h: int, p: int, n: int,
+                        chunk: int, dtype: torch.dtype) -> int:
+    """Floats of the backward's workspace: each (batch, chunk, head)'s P x
+    N fp32 state gradient, for bf16 inputs its fp32 incoming state besides;
+    per (batch, row, head) the fp64 row less column sums of M, the carried
+    term and the per-head dB and dC rows (N each); per (batch, chunk, head)
+    its fp64 share of da_log."""
+    q = chunk_rows(s, chunk)
+    slots = bsz * (-(-s // q)) * h
+    rows = bsz * s * h
+    states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
+    return states + 2 * rows + 2 * slots + rows + 2 * rows * n
 
 
 def _check(x, dt, a_log, b, c, chunk: int):
@@ -110,10 +150,13 @@ def _check(x, dt, a_log, b, c, chunk: int):
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
-def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128):
+def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128,
+             keep_workspace: bool = False):
     """x: (B,S,H,P); dt: (B,S,H); a_log: (H,); b/c: (B,S,N) -> (y (B,S,H,P)
     in x's dtype, h_final (B,H,P,N) float32), on the card. The kernel works
-    in chunks of ``min(chunk, S, 128)`` rows and masks a ragged tail."""
+    in chunks of ``min(chunk, S, 128)`` rows and masks a ragged tail.
+    ``keep_workspace``: also return the passes' workspace, which
+    :func:`ssd_scan_bwd` reads."""
     _check(x, dt, a_log, b, c, chunk)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -125,6 +168,8 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128):
     launch(load().lib, x, dt, a_log, b, c, y, h_final, workspace,
            chunk=chunk_rows(s, chunk))
     ssd_scan.launches += 1
+    if keep_workspace:
+        return y, h_final, workspace
     return y, h_final
 
 
@@ -152,4 +197,78 @@ def launch(lib: ctypes.CDLL, x, dt, a_log, b, c, y, h_final, workspace, *,
                            f"({msg})")
 
 
+def _check_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, chunk: int):
+    _check(x, dt, a_log, b, c, chunk)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if not dy.is_cuda or dy.device != x.device:
+        raise ValueError(f"dy must be on x's device {x.device}")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.stride(-1) != 1:
+        raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype} with "
+                         f"unit stride over P; got {tuple(dy.shape)} "
+                         f"{dy.dtype} strides {dy.stride()}")
+    if dh_final is not None and (
+            dh_final.device != x.device or dh_final.dtype != torch.float32
+            or dh_final.shape != (bsz, h, p, n)
+            or not dh_final.is_contiguous() or dh_final.data_ptr() % 16):
+        raise ValueError(f"dh_final must be a contiguous, 16-byte aligned "
+                         f"float32 {(bsz, h, p, n)} on {x.device}")
+    want = workspace_numel(bsz, s, h, p, n, chunk, x.dtype)
+    if workspace.device != x.device or workspace.dtype != torch.float32 or \
+            workspace.numel() != want or workspace.data_ptr() % 16:
+        raise ValueError(f"workspace must be the forward's: {want} float32 "
+                         f"on {x.device}")
+
+
+def ssd_scan_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, *,
+                 chunk: int = 128):
+    """Gradients (dx, ddt, da_log, db, dc) of :func:`ssd_scan`'s (y,
+    h_final) on these inputs, given dy (B,S,H,P) in x's dtype, dh_final
+    (B,H,P,N) float32 or None (zeros) and the forward's ``workspace``
+    (``keep_workspace=True``, the same ``chunk``), on the card. Each
+    gradient has its input's shape and dtype and is contiguous."""
+    _check_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, chunk)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    dev = x.device
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
+    da_log = torch.empty((h,), dtype=torch.float32, device=dev)
+    db = torch.empty((bsz, s, n), dtype=b.dtype, device=dev)
+    dc = torch.empty((bsz, s, n), dtype=c.dtype, device=dev)
+    scratch = torch.empty(bwd_workspace_numel(bsz, s, h, p, n, chunk,
+                                              x.dtype),
+                          dtype=torch.float32, device=dev)
+    launch_bwd(load_bwd().lib, x, dt, a_log, b, c, dy, dh_final, workspace,
+               dx, ddt, da_log, db, dc, scratch, chunk=chunk_rows(s, chunk))
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da_log, db, dc
+
+
+def launch_bwd(lib: ctypes.CDLL, x, dt, a_log, b, c, dy, dh_final,
+               fwd_workspace, dx, ddt, da_log, db, dc, workspace, *,
+               chunk: int) -> None:
+    """Run the backward of ``lib`` (bound by :func:`bind_bwd`) on checked
+    inputs on the current stream, ``chunk`` rows at a time (the forward's);
+    raise if a launch reports an error. Counts nothing:
+    :func:`ssd_scan_bwd` does."""
+    bsz, s, h, p = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_scan_bwd(
+            *(t.data_ptr() if t is not None else None
+              for t in (x, dt, a_log, b, c, dy, dh_final, fwd_workspace, dx,
+                        ddt, da_log, db, dc, workspace)),
+            DTYPES[x.dtype], bsz, s, h, p, b.shape[-1], chunk,
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            dy.stride(0), dy.stride(1), dy.stride(2), stream)
+    if rc != 0:
+        msg = lib.ssd_scan_bwd_error_string(rc).decode()
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {rc} "
+                           f"({msg})")
+
+
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

@@ -10,6 +10,10 @@ in fp64 within each chunk as the kernel sums it, and ragged S padded with
 zeros as the kernel masks it. Tests hold it against the reference, so the
 kernel's decomposition stays under test on hosts without a card; nothing
 on the main path calls it.
+
+``ssd_bwd_passes``: the same for the backward kernel (``csrc/ssd_scan_bwd.cu``):
+the gradients of the chunked algorithm, pass by pass. Its yardstick is
+torch autograd of ``ssd_ref`` (tests) or of the model's ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -107,3 +111,79 @@ def ssd_passes(x, dt, a_log, b, c, *, chunk: int = 128):
     states, totals = chunk_states(x, dt, a_log, b, q)
     h_in, h_final = state_passing(states, totals)
     return chunk_outputs(x, dt, a_log, b, c, h_in, q), h_final
+
+
+def _unchunked(t, s: int):
+    """(B, NC, q, ...) -> (B, S, ...), the rows past S dropped."""
+    return t.reshape(t.shape[0], -1, *t.shape[3:])[:, :s]
+
+
+def ssd_bwd_passes(x, dt, a_log, b, c, dy, dh_final=None, *,
+                   chunk: int = 128):
+    """Gradients (dx, ddt, da_log, db, dc) of :func:`ssd_passes`' (y,
+    h_final) for their gradients ``dy`` and ``dh_final`` (None: zeros), by
+    the backward kernel's passes, in fp32 with fp64 sums where they cancel:
+
+    1. each chunk's own share of the gradient of its incoming state,
+       Sd = sum_i exp(seg_i) dy_i (x) C_i;
+    2. in reverse over the chunks, dh_out[c] = dh_in[c + 1] (dh_final for
+       the last), dh_in[c] = exp(seg_last) dh_out[c] + Sd[c];
+    3. per chunk, with G = (C B^T) exp(seg_i - seg_j) and
+       PD = (dy (x dt)^T) exp(seg_i - seg_j) on j <= i, M = PD (C B^T):
+       d(x dt) = G^T dy + exp(seg_last - seg) B dh_out^T,
+       dC = PD B + exp(seg) dy h_in, dB = PD^T C + exp(seg_last - seg)
+       (x dt) dh_out. d(dt a)_k sums what each exponent gives: the pairs
+       i >= k > j of M (M's row sums less its column sums, in fp64, summed
+       over i >= k), the carried-state term's C_i . dC_i (its h_in part)
+       over i >= k, exp(seg_last) dh_out . h_in, and the chunk-state
+       term's u_j = B_j . dB_j (its dh_out part) over j < k. Then
+       ddt = d(x dt) . x + d(dt a) a and da_log = sum d(dt a) dt a.
+    db and dc sum over the heads; outputs take their inputs' dtypes."""
+    bsz, s, h, p = x.shape
+    q = min(chunk, s, MAX_CHUNK)
+    seg = _segments(dt, a_log, q)                              # (B,NC,q,H)
+    total = seg[:, :, -1]
+    states, totals = chunk_states(x, dt, a_log, b, q)
+    h_in, h_final = state_passing(states, totals)
+    xc, dtc = _chunked(x.float(), q), _chunked(dt.float(), q)
+    bc, cc = _chunked(b.float(), q), _chunked(c.float(), q)
+    dyc = _chunked(dy.float(), q)
+    xdt = xc * dtc[..., None]
+    eseg = torch.exp(seg.float())
+    rem = torch.exp((total[:, :, None] - seg).float())
+    # passes 1 and 2
+    sd = torch.einsum("bcqhp,bcqn->bchpn", dyc * eseg[..., None], cc)
+    g = torch.zeros_like(h_final) if dh_final is None else dh_final.float()
+    dh_out = [None] * sd.shape[1]
+    for ci in reversed(range(sd.shape[1])):
+        dh_out[ci] = g
+        g = g * torch.exp(totals[:, ci])[..., None, None] + sd[:, ci]
+    dh_out = torch.stack(dh_out, dim=1)                        # (B,NC,H,P,N)
+    # pass 3
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]       # (B,NC,i,j,H)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  -torch.inf).float())
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None]
+    dxdt = torch.einsum("bcijh,bcihp->bcjhp", cb * decay, dyc) + \
+        rem[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bc, dh_out)
+    pd = torch.einsum("bcihp,bcjhp->bcijh", dyc, xdt) * decay
+    m = (pd * cb).double()
+    dc_state = eseg[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc,
+                                              h_in)
+    db_state = rem[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xdt,
+                                             dh_out)
+    dch = torch.einsum("bcijh,bcjn->bcihn", pd, bc) + dc_state
+    dbh = torch.einsum("bcijh,bcin->bcjhn", pd, cc) + db_state
+    carried = (dc_state * cc[:, :, :, None]).sum(-1)           # (B,NC,q,H)
+    u = (db_state * bc[:, :, :, None]).sum(-1).double()
+    ends = (torch.exp(totals)[..., None, None] * dh_out * h_in).sum((-2, -1))
+    dda = (m.sum(3) - m.sum(2) + carried.double()).flip(2).cumsum(2) \
+        .flip(2) + u.cumsum(2) - u + ends.double()[:, :, None]  # d(dt a)
+    a = -torch.exp(a_log.float())
+    ddt = (dxdt * xc).sum(-1) + dda.float() * a
+    da_log = (dda * dtc.double() * a.double()).sum((0, 1, 2))
+    return (_unchunked(dxdt * dtc[..., None], s).to(x.dtype),
+            _unchunked(ddt, s).to(dt.dtype), da_log.to(a_log.dtype),
+            _unchunked(dbh.sum(3), s).to(b.dtype),
+            _unchunked(dch.sum(3), s).to(c.dtype))

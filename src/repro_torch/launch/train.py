@@ -5,12 +5,16 @@
       --seq-len 2048 --global-batch 8 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --no-reduced \
       --seq-len 2048 --global-batch 8 --slices 2 --devices 4 --elastic
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+      --no-reduced --seq-len 2048 --global-batch 8 --steps 20
 
 Counterpart of ``repro.launch.train``. ``--reduced`` (the default) trains
 the tiny same-family config; ``--no-reduced`` the published widths. Every
-architecture of the zoo trains: paligemma-3b's batches carry patch
-embeddings, seamless-m4t-medium's frames (``data.pipeline``). Runs on
-``--device`` (default ``cuda``). ``--devices N`` gives the job N virtual
+architecture of the zoo trains, on the card through the hand-written
+kernels' forward and backward (flash attention; mamba2's SSD scan and
+recurrentgemma's RG-LRU scan), on the CPU through their plain versions:
+paligemma-3b's batches carry patch embeddings, seamless-m4t-medium's
+frames (``data.pipeline``). Runs on ``--device`` (default ``cuda``). ``--devices N`` gives the job N virtual
 slices of that one device (``core.meshes.slice_devices``), as the
 reference's ``--devices`` gives it N host devices of one CPU; the first
 line says so. The job starts on ``--slices`` of them. ``--elastic``

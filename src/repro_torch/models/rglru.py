@@ -9,8 +9,8 @@ Counterpart of ``repro.models.rglru``. The Real-Gated Linear Recurrent Unit:
 
 The temporal mix is: linear in, causal conv1d (width 4, no activation),
 RG-LRU, gated by a GeLU branch, linear out. The prefill / forward scan
-takes the hand-written CUDA kernel for CUDA tensors (through ``rglru_op``)
-and a log-depth scan, the counterpart of the reference's
+takes the hand-written CUDA kernel for CUDA tensors (through ``rglru_op``;
+under autograd its backward is a kernel too) and a log-depth scan, the counterpart of the reference's
 ``jax.lax.associative_scan``, on the CPU. Decode steps the recurrence once
 in plain torch, as the reference computes it outside any kernel.
 """

@@ -3,8 +3,8 @@
 Counterpart of ``repro.models.ssm``: ``n_groups = 1`` (B/C shared across
 heads), D skip connection, gated RMSNorm, causal conv1d, as in mamba2-130m.
 The prefill / forward scan takes the hand-written CUDA SSD kernel for CUDA
-tensors (through ``ssd_op``) and the chunked SSD algorithm, ported from the
-reference, on the CPU. Decode steps the recurrence once in plain torch, as
+tensors (through ``ssd_op``; under autograd its backward is a kernel too)
+and the chunked SSD algorithm, ported from the reference, on the CPU. Decode steps the recurrence once in plain torch, as
 the reference computes it outside any kernel.
 
 On the card the kernel multiplies x by dt in fp32, where the chunked path

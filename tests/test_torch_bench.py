@@ -25,7 +25,8 @@ def test_backward_bound_at_the_train_shape():
     """B8 H9 KV3 S2048 D64 bf16 causal: five products of 2 D flops per
     visible (query, key) pair, 9.67e10 flop, bound by operations at 989
     TFLOP/s: 0.0978 ms."""
-    b, h, kv, s, d, _ = bench.BWD_SHAPES["train-2048"]
+    b, h, kv, s, d, _, window = bench.BWD_SHAPES["train-2048"]
+    assert window is None
     ms, by, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
                                               torch.bfloat16)
     pairs = s * (s + 1) // 2
@@ -52,6 +53,75 @@ def test_rglru_bound_at_the_prefill_shape():
     assert flops == 2 * b * s * w
 
 
+def test_windowed_backward_bound_counts_the_window():
+    """recurrentgemma-9b's local layers at B1 S4096, window 2048: each
+    query sees at most 2048 keys, so the pairs are the causal triangle's
+    less the (2048 x 2049 / 2) the window cuts off."""
+    b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
+    assert window == 2048 and s == 2 * window
+    _, _, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
+                                            torch.bfloat16, window=window)
+    pairs = s * (s + 1) // 2 - (s - window) * (s - window + 1) // 2
+    assert flops == 5 * 2 * d * b * h * pairs
+
+
+def test_ssd_bwd_bound_at_the_train_shape():
+    """B8 S2048 H24 P64 N128 bf16: x, dy and dx, B, C, dB and dC, dt and
+    ddt once, 170.9 MB, 0.0510 ms at 3.35 TB/s; its least products (45.1
+    GFLOP) take 0.0456 ms at 989 TFLOP/s: bound by bytes."""
+    b, s, h, p, n, chunk, layout = bench.SSD_BWD_SHAPES["train-2048"]
+    assert layout == "view"
+    ms, by, flops = bench.ssd_bwd_bound(b, s, h, p, n, chunk,
+                                        torch.bfloat16)
+    nbytes = 2 * (3 * b * s * h * p + 4 * b * s * n) + 4 * (2 * b * s * h
+                                                            + 2 * h)
+    assert nbytes == 170_918_080
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / bench.PEAK_BYTES)
+    assert flops == pytest.approx(45.1e9, rel=1e-3)
+
+
+def test_rglru_bwd_bound_at_the_train_shape():
+    """B1 S4096 W4096 fp32: a, h and dh read, da and db written, 335.5 MB,
+    bound by bytes: 0.1002 ms."""
+    b, s, w = bench.RGLRU_BWD_SHAPES["train-4096"]
+    ms, by, flops = bench.rglru_bwd_bound(b, s, w)
+    assert 5 * 4 * b * s * w == pytest.approx(335.5e6, rel=1e-3)
+    assert by == "bytes" and flops == 3 * b * s * w
+    assert ms == pytest.approx(0.1002, abs=1e-4)
+
+
+@pytest.mark.parametrize("s, chunk, dtype", [
+    (2048, 128, torch.bfloat16), (2048, 128, torch.float32),
+    (500, 128, torch.float32), (1, 128, torch.bfloat16)])
+def test_ssd_bwd_workspace_holds_the_backward_buffers(s, chunk, dtype):
+    """Per (batch, chunk, head) a P x N fp32 state gradient (and for bf16
+    an fp32 incoming state) and an fp64 da_log share; per (batch, row,
+    head) an fp64 row less column sum of M, the carried term, and the
+    per-head dB and dC rows."""
+    b, h, p, n = 8, 24, 64, 128
+    slots = b * math.ceil(s / chunk) * h
+    rows = b * s * h
+    states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
+    assert ssd.bwd_workspace_numel(b, s, h, p, n, chunk, dtype) == \
+        states + 2 * slots + 2 * rows + rows + 2 * rows * n
+
+
+def test_describe_scan_backwards_compare_with_their_bounds():
+    row = dict(label="train-2048", ms=2.0, tflops=0.02, cuda_kernels=7,
+               plain_ms=900.0, library_ms=None, bound_ms=0.0510,
+               bound_by="bytes", eager_ms=2.1,
+               passes=[("chunk_db", 0.8, 1), ("chunk_dc", 0.7, 1)])
+    text = bench.describe_ssd_bwd(row)
+    assert "7 CUDA kernels a call" in text and "library call none" in text
+    assert "kernel/bound 39.22x" in text
+    assert text.endswith("chunk_db 0.8000 ms x1; chunk_dc 0.7000 ms x1")
+    row = dict(label="train-4096", ms=0.2, gbps=1677.0, plain_ms=300.0,
+               library_ms=None, bound_ms=0.1002, bound_by="bytes",
+               eager_ms=0.25)
+    assert "kernel/bound 2.00x" in bench.describe_rglru_bwd(row)
+
+
 @pytest.mark.parametrize("key, count", [
     (("flash_attention", 1), 25),
     (("flash_attention", 2), 28),
@@ -67,6 +137,8 @@ def test_old_interface_argument_counts(key, count):
     ("flash_attention_bwd", flash._BWD_ARGTYPES, 46),
     ("ssd_scan", ssd._ARGTYPES, None),
     ("rglru_scan", rglru._ARGTYPES, 12),
+    ("ssd_scan_bwd", ssd._BWD_ARGTYPES, 35),
+    ("rglru_scan_bwd", rglru._BWD_ARGTYPES, 15),
 ])
 def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
                                                          count):
@@ -80,6 +152,8 @@ def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
         assert len(argtypes) == count
     if name == "flash_attention_bwd":
         assert bench.OLD_ARGTYPES[name, 1] == tuple(argtypes)
+    if name.endswith("_scan_bwd"):  # not compared with older versions
+        return
     assert name in bench.ENTRY
 
 
@@ -99,6 +173,18 @@ def test_rglru_source_exports_no_version():
     text = (CSRC / "rglru/csrc/rglru_scan.cu").read_text()
     assert "rglru_scan_abi" not in text
     assert "int rglru_scan_fwd(" in text
+
+
+@pytest.mark.parametrize("source, entry, count", [
+    ("ssd/csrc/ssd_scan_bwd.cu", "ssd_scan_bwd", 35),
+    ("rglru/csrc/rglru_scan.cu", "rglru_scan_bwd", 15),
+])
+def test_backward_entries_take_what_the_wrappers_pass(source, entry, count):
+    """The C signature of each scan's backward has as many parameters as
+    its wrapper declares argument types."""
+    text = (CSRC / source).read_text()
+    sig = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
+    assert len(sig.split(",")) == count
 
 
 @pytest.mark.parametrize("b, h, sq, d", [

@@ -30,7 +30,6 @@ from repro.runtime import ElasticTrainer as JaxTrainer  # noqa: E402
 from repro.runtime import TrainerConfig as JaxTrainerConfig  # noqa: E402
 from repro_torch.bridge import params_from_jax, state_from_jax  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMData, make_batch  # noqa: E402
-from repro_torch.kernels.forward_only import refuse_autograd  # noqa: E402
 from repro_torch.models import ModelConfig, build_model  # noqa: E402
 from repro_torch.models import reduced_config  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -480,19 +479,6 @@ def test_state_from_jax_carries_the_whole_train_state():
 
 
 # -- guards and the launcher ------------------------------------------------------
-
-
-def test_refuse_autograd_raises_only_under_a_graph():
-    """The SSD and RG-LRU ops call this before launching on CUDA tensors:
-    with grad mode on and an input that requires a gradient it raises,
-    naming the ROADMAP item; under no_grad, or with no such input, it
-    lets the forward kernel run."""
-    x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2"):
-        refuse_autograd("ssd_scan", "ROADMAP.md, Queue 2", x, None)
-    with torch.no_grad():
-        refuse_autograd("ssd_scan", "ROADMAP.md, Queue 2", x)
-    refuse_autograd("ssd_scan", "ROADMAP.md, Queue 2", x.detach(), None)
 
 
 def test_train_launcher_runs_on_cpu(capsys):
