@@ -33,9 +33,10 @@ fit's FitError in (t)):
   (sb) scan bwd-- the SSD and RG-LRU backward kernels against torch
                   autograd of their plain versions, every gradient: the SSD
                   at mamba2's train call (B 8, S 2048, views) in fp32 and
-                  bf16, a ragged S, a final state's gradient; the RG-LRU at
-                  recurrentgemma's (B 1, S 4096, W 4096) with and without
-                  an initial state
+                  bf16 (two bf16 calls bit-equal), a ragged S, a final
+                  state's gradient, in bf16 also 5 heads of P 32, N 64,
+                  unaligned rows and S 1; the RG-LRU at recurrentgemma's
+                  (B 1, S 4096, W 4096) with and without an initial state
   smollm-135m at full width (seeded random weights):
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
@@ -542,7 +543,9 @@ def phase_rglru_vs_plain():
 # the SSD backward: (b, s, h, p, n, chunk, dtype, layout, with dh_final):
 # mamba2's train call (views of the conv output) in both types, a ragged S
 # (a short last chunk), a final state's gradient, tests/test_kernels.py's
-# smallest shape and rows the kernel cannot read 16 bytes at a time
+# smallest shape and rows the kernel cannot read 16 bytes at a time; in
+# bf16 also a small P and N with 5 heads and a ragged S, unaligned rows,
+# and S 1
 def ssd_bwd_cases():
     f32, bf16 = torch.float32, torch.bfloat16
     m = (24, 64, 128, 128)          # mamba2-130m: H, P, N, chunk
@@ -555,6 +558,9 @@ def ssd_bwd_cases():
         (2, 500, *m, bf16, "view", True),
         (2, 64, 3, 16, 32, 16, f32, "contiguous", True),
         (2, 300, 3, 16, 32, 64, f32, "unaligned", False),
+        (2, 300, 5, 32, 64, 64, bf16, "view", False),
+        (2, 300, 3, 16, 32, 64, bf16, "unaligned", True),
+        (2, 1, 3, 16, 32, 16, bf16, "contiguous", True),
     ]
 
 
@@ -574,7 +580,7 @@ def phase_scan_bwd_vs_plain():
     another order (the SSD's fp64 where they cancel), and in bf16 the
     kernel's inputs and outputs rounded. Returns the largest |kernel -
     plain| over the gradients at each kernel's main-path call (the SSD's
-    in bf16)."""
+    in bf16). Two SSD calls at that call must give the same bits."""
     from repro_torch.kernels.bench import make_rglru_inputs, make_ssd_inputs
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.rglru.ref import rglru_ref
@@ -613,6 +619,17 @@ def phase_scan_bwd_vs_plain():
                                       False):
             main_err["ssd"] = max((g.float() - w).abs().max().item()
                                   for g, w in zip(got, want))
+            # every sum runs in a fixed order: a second call, the same bits
+            again = ssd.ssd_scan_bwd(*args, dy, dh, ws, chunk=chunk)
+            torch.cuda.synchronize()
+            same = [same_bits(g, a) for g, a in zip(got, again)]
+            log("sb", f"ssd_scan_bwd {name}: a second call bit-equal: "
+                      + ", ".join(f"{k} {v}" for k, v in zip(
+                          ("dx", "ddt", "da_log", "db", "dc"), same)))
+            if not all(same):
+                raise AssertionError(f"ssd_scan_bwd is not deterministic: "
+                                     f"{name}")
+            del again
         del got, want, ws
     for b, s, w, with_h0 in rglru_bwd_cases():
         a, bb = make_rglru_inputs(gen, b, s, w)
@@ -2867,6 +2884,9 @@ def main():
         "mamba2-130m training": m_train_counts["ssd_scan_bwd"]}
     ssd_bwd_row["cuda_kernels_per_launch"] = ssd_bwd_rows["train-2048"][
         "cuda_kernels"]
+    # each CUDA kernel of one call, device ms under the profiler
+    ssd_bwd_row["cuda_kernel_ms"] = {
+        name: ms for name, ms, _ in ssd_bwd_rows["train-2048"]["passes"]}
     b, s, w = bench.RGLRU_BWD_SHAPES["train-4096"]
     rglru_bwd_row = record_row(
         "rglru_scan_bwd", "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",

@@ -10,12 +10,13 @@ bound and one PyTorch library call computing the same function.
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
 which kernel it is: ``flash_attention_fwd``, ``flash_attention_bwd``,
-``ssd_scan_fwd`` or ``rglru_scan_fwd``. ``<name>_abi`` says which C
-interface it has (none: version 1); sources with an older one than the
-wrappers' (before the output strides and the SSD workspace, version 1; the
-flash forward before its log-sum-exp output, version 2; the flash backward
-before its tiled workspace, version 1) are called with their own
-(``launch_old``). All write the same logical layout, which
+``ssd_scan_fwd``, ``ssd_scan_bwd`` or ``rglru_scan_fwd``. ``<name>_abi``
+says which C interface it has (none: version 1); sources with an older one
+than the wrappers' (before the output strides and the SSD workspace,
+version 1; the flash forward before its log-sum-exp output, version 2; the
+flash backward before its tiled workspace, version 1; the SSD backward
+before its bf16 workspace without per-head rows, version 1) are called with
+their own (``launch_old``). All write the same logical layout, which
 ``max|new - old|`` compares. A shape the old source does not take is
 reported and skipped.
 
@@ -643,8 +644,8 @@ def ptxas_report(log: str) -> list:
 def profile_kernels(seed: int = 1) -> None:
     """One call of each kernel at each of its shapes under torch.profiler:
     the device time of every CUDA kernel it launched (the SSD scan and the
-    flash backward launch three, the SSD backward seven); last, the library
-    backwards' kernels."""
+    flash backward launch three, the SSD backward four in bf16); last, the
+    library backwards' kernels."""
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
@@ -699,7 +700,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # took no workspace), flash_attention.cu before the log-sum-exp output
 # (version 2), and flash_attention_bwd.cu before its tiled workspace
 # (version 1: the same arguments, a workspace of delta (B, H, Sq), then
-# dQ's sums (B, H, Sq, D))
+# dQ's sums (B, H, Sq, D)), and ssd_scan_bwd.cu before its bf16 route ran
+# on the tensor cores (version 1: the same arguments, a workspace of
+# old_ssd_bwd_workspace_numel floats)
 OLD_ARGTYPES = {("flash_attention", 1): (_P, _P, _P, _P, *(_I,) * 7,
                                          *(_L,) * 9, _I, _I, ctypes.c_float,
                                          ctypes.c_float, _P),
@@ -710,18 +713,36 @@ OLD_ARGTYPES = {("flash_attention", 1): (_P, _P, _P, _P, *(_I,) * 7,
                 ("flash_attention_bwd", 1): (*(_P,) * 10, *(_I,) * 7,
                                              *(_L,) * 24, _I, _I,
                                              ctypes.c_float, ctypes.c_float,
-                                             _P)}
+                                             _P),
+                ("ssd_scan_bwd", 1): (*(_P,) * 14, *(_I,) * 7, *(_L,) * 13,
+                                      _P)}
 # the C interface versions the wrappers call
-CURRENT = {"flash_attention": 3, "ssd_scan": 2, "flash_attention_bwd": 2}
+CURRENT = {"flash_attention": 3, "ssd_scan": 2, "flash_attention_bwd": 2,
+           "ssd_scan_bwd": 2}
 # each kernel's C entry point
 ENTRY = {"flash_attention": "flash_attention_fwd", "ssd_scan": "ssd_scan_fwd",
          "rglru_scan": "rglru_scan_fwd",
-         "flash_attention_bwd": "flash_attention_bwd"}
+         "flash_attention_bwd": "flash_attention_bwd",
+         "ssd_scan_bwd": "ssd_scan_bwd"}
 
 
 def old_bwd_workspace_numel(b: int, h: int, sq: int, d: int) -> int:
     """fp32 elements of a version-1 backward's workspace."""
     return b * h * sq * (d + 1)
+
+
+def old_ssd_bwd_workspace_numel(b: int, s: int, h: int, p: int, n: int,
+                                chunk: int, dtype: torch.dtype) -> int:
+    """fp32 elements of a version-1 SSD backward's workspace: per (batch,
+    chunk, head) a P x N fp32 state gradient (for bf16 an fp32 incoming
+    state besides) and an fp64 da_log share; per (batch, row, head) an fp64
+    row less column sum, the carried term and the per-head dB and dC
+    rows."""
+    q = min(chunk, s, 128)
+    slots = b * (-(-s // q)) * h
+    rows = b * s * h
+    states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
+    return states + 2 * rows + 2 * slots + rows + 2 * rows * n
 
 
 def interface_version(lib: ctypes.CDLL, name: str) -> int:
@@ -741,12 +762,24 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
     ``out`` contiguous; version 2: through its strides, no log-sum-exp);
     ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk);
     flash_attention_bwd version 1 (q, k, v, o, lse, do, dq, dk, dv,
-    workspace of ``old_bwd_workspace_numel``), causal."""
+    workspace of ``old_bwd_workspace_numel``), causal; ssd_scan_bwd version
+    1 (x, dt, a_log, b, c, dy, dh_final, the forward's workspace, dx, ddt,
+    da_log, db, dc, workspace of ``old_ssd_bwd_workspace_numel``, chunk)."""
     fwd = getattr(lib, ENTRY[name])
     fwd.argtypes, fwd.restype = OLD_ARGTYPES[name, version], ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     stream = torch.cuda.current_stream().cuda_stream
+    if name == "ssd_scan_bwd":
+        from repro_torch.kernels.ssd import kernel as ssd
+        *tensors, ws, chunk = args
+        x, b = tensors[0], tensors[3]
+        if ws.numel() < old_ssd_bwd_workspace_numel(
+                *x.shape, b.shape[-1], chunk, x.dtype):
+            raise ValueError("a version-1 SSD backward needs a larger "
+                             "workspace")
+        ssd.launch_bwd(lib, *tensors, ws, chunk=chunk)
+        return
     if name == "flash_attention_bwd":
         q, k, v, o, lse, do, dq, dk, dv, ws = args
         b, h, sq, d = q.shape
@@ -782,6 +815,16 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
                            f"({err(rc).decode()})")
 
 
+def kernel_of(lib) -> str:
+    """Which kernel a library built from some version of one of the port's
+    sources computes, by the C entry point it exports."""
+    for name in ("ssd_scan", "ssd_scan_bwd", "rglru_scan",
+                 "flash_attention_bwd"):
+        if hasattr(lib, ENTRY[name]):
+            return name
+    return "flash_attention"
+
+
 def compare(old_source: Path, seed: int = 1):
     """Time another build of one kernel's source against the current one,
     in turns (old, new, new, old), at each of that kernel's shapes."""
@@ -792,14 +835,12 @@ def compare(old_source: Path, seed: int = 1):
     built = build.load(old_source)
     print(f"{old_source}: " + "; ".join(ptxas_report(built.log)), flush=True)
     lib = built.lib
-    if hasattr(lib, "ssd_scan_fwd"):
-        name, module, shapes = "ssd_scan", ssd, SSD_SHAPES
-    elif hasattr(lib, "rglru_scan_fwd"):
-        name, module, shapes = "rglru_scan", rglru, RGLRU_SHAPES
-    elif hasattr(lib, "flash_attention_bwd"):
-        name, module, shapes = "flash_attention_bwd", flash, BWD_SHAPES
-    else:
-        name, module, shapes = "flash_attention", flash, SHAPES
+    name = kernel_of(lib)
+    module, shapes = {"ssd_scan": (ssd, SSD_SHAPES),
+                      "ssd_scan_bwd": (ssd, SSD_BWD_SHAPES),
+                      "rglru_scan": (rglru, RGLRU_SHAPES),
+                      "flash_attention_bwd": (flash, BWD_SHAPES),
+                      "flash_attention": (flash, SHAPES)}[name]
     # rglru_scan's has not changed: it exports no version
     version = interface_version(lib, name)
     current = version == CURRENT.get(name, 1)
@@ -807,8 +848,8 @@ def compare(old_source: Path, seed: int = 1):
         raise ValueError(f"{old_source}: unknown C interface version "
                          f"{version}")
     if current:
-        (flash.bind_bwd if name == "flash_attention_bwd"
-         else module.bind)(lib)
+        {"flash_attention_bwd": flash.bind_bwd,
+         "ssd_scan_bwd": ssd.bind_bwd}.get(name, module.bind)(lib)
     print(f"{old_source}: {name}, C interface version {version}",
           flush=True)
     for label in shapes:
@@ -839,6 +880,36 @@ def compare(old_source: Path, seed: int = 1):
             def run_new():
                 return flash.flash_attention_bwd(q, k, v, o, lse, do)
             out = grads
+        elif name == "ssd_scan_bwd":
+            b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[label]
+            args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
+                                   layout)
+            dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fws = ssd.ssd_scan(*args, chunk=chunk, keep_workspace=True)[2]
+            out = [torch.empty((b, s, h, p), dtype=torch.bfloat16,
+                               device="cuda"),
+                   torch.empty((b, s, h), device="cuda"),
+                   torch.empty((h,), device="cuda"),
+                   *(torch.empty((b, s, n), dtype=torch.bfloat16,
+                                 device="cuda") for _ in range(2))]
+            ws = torch.empty(
+                (ssd.bwd_workspace_numel if current
+                 else old_ssd_bwd_workspace_numel)(b, s, h, p, n, chunk,
+                                                   torch.bfloat16),
+                device="cuda")
+            rows = ssd.chunk_rows(s, chunk)
+
+            def run_old():
+                if not current:
+                    launch_old(name, version, lib, *args, dy, None, fws,
+                               *out, ws, rows)
+                else:
+                    ssd.launch_bwd(lib, *args, dy, None, fws, *out, ws,
+                                   chunk=rows)
+
+            def run_new():
+                return ssd.ssd_scan_bwd(*args, dy, None, fws, chunk=chunk)
         elif name == "rglru_scan":
             a, bb = make_rglru_inputs(gen, *shapes[label])
             out = torch.empty_like(a)
@@ -906,9 +977,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
                     help="other versions of flash_attention.cu, "
-                         "flash_attention_bwd.cu, ssd_scan.cu or "
-                         "rglru_scan.cu to compare, each in turns with the "
-                         "current one")
+                         "flash_attention_bwd.cu, ssd_scan.cu, "
+                         "ssd_scan_bwd.cu or rglru_scan.cu to compare, each "
+                         "in turns with the current one")
     ap.add_argument("--profile", action="store_true",
                     help="also the device time of each CUDA kernel one "
                          "call launches (torch.profiler)")

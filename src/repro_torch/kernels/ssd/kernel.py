@@ -14,9 +14,12 @@ error. ``ssd_scan.launches`` counts the calls.
 The backward (``csrc/ssd_scan_bwd.cu``, a library of its own; the Pallas
 kernel has none) gives the gradients of x, dt, a_log, B and C from dy, an
 optional final-state gradient and the forward's workspace, which
-``ssd_scan(..., keep_workspace=True)`` hands back. One call runs seven CUDA
-kernels (``ref.ssd_bwd_passes`` mirrors them); ``ssd_scan_bwd.launches``
-counts the calls.
+``ssd_scan(..., keep_workspace=True)`` hands back. For bf16 inputs one call
+runs four CUDA kernels, the products on the tensor cores (each chunk's
+state-gradient share, the state passing in reverse, one pass per (batch,
+chunk) over the heads for every gradient, da_log over the chunks); for fp32
+seven, on the CUDA cores. ``ref.ssd_bwd_passes`` mirrors them;
+``ssd_scan_bwd.launches`` counts the calls.
 """
 from __future__ import annotations
 
@@ -99,15 +102,17 @@ def load_bwd() -> build.Built:
 def bwd_workspace_numel(bsz: int, s: int, h: int, p: int, n: int,
                         chunk: int, dtype: torch.dtype) -> int:
     """Floats of the backward's workspace: each (batch, chunk, head)'s P x
-    N fp32 state gradient, for bf16 inputs its fp32 incoming state besides;
-    per (batch, row, head) the fp64 row less column sums of M, the carried
-    term and the per-head dB and dC rows (N each); per (batch, chunk, head)
-    its fp64 share of da_log."""
+    N fp32 state-gradient share and its fp64 share of da_log; for bf16
+    inputs each one's dh_out in bf16 besides, and nothing per row (dB and dC
+    are summed over the heads on chip); for fp32 per (batch, row, head) the
+    fp64 row less column sums of M, the carried term and the per-head dB and
+    dC rows (N each)."""
     q = chunk_rows(s, chunk)
     slots = bsz * (-(-s // q)) * h
+    if dtype == torch.bfloat16:
+        return slots * p * n * 3 // 2 + 2 * slots
     rows = bsz * s * h
-    states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
-    return states + 2 * rows + 2 * slots + rows + 2 * rows * n
+    return slots * p * n + 2 * rows + 2 * slots + rows + 2 * rows * n
 
 
 def _check(x, dt, a_log, b, c, chunk: int):

@@ -12,8 +12,10 @@ kernel's decomposition stays under test on hosts without a card; nothing
 on the main path calls it.
 
 ``ssd_bwd_passes``: the same for the backward kernel (``csrc/ssd_scan_bwd.cu``):
-the gradients of the chunked algorithm, pass by pass. Its yardstick is
-torch autograd of ``ssd_ref`` (tests) or of the model's ``ssd_chunked``.
+the gradients of the chunked algorithm, pass by pass as its bf16 route runs
+them (one pass per chunk walks the heads and sums dB and dC over them). Its
+yardstick is torch autograd of ``ssd_ref`` (tests) or of the model's
+``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -122,23 +124,29 @@ def ssd_bwd_passes(x, dt, a_log, b, c, dy, dh_final=None, *,
                    chunk: int = 128):
     """Gradients (dx, ddt, da_log, db, dc) of :func:`ssd_passes`' (y,
     h_final) for their gradients ``dy`` and ``dh_final`` (None: zeros), by
-    the backward kernel's passes, in fp32 with fp64 sums where they cancel:
+    the backward kernel's passes (its bf16 route's), in fp32 with fp64 sums
+    where they cancel:
 
     1. each chunk's own share of the gradient of its incoming state,
        Sd = sum_i exp(seg_i) dy_i (x) C_i;
     2. in reverse over the chunks, dh_out[c] = dh_in[c + 1] (dh_final for
        the last), dh_in[c] = exp(seg_last) dh_out[c] + Sd[c];
-    3. per chunk, with G = (C B^T) exp(seg_i - seg_j) and
-       PD = (dy (x dt)^T) exp(seg_i - seg_j) on j <= i, M = PD (C B^T):
-       d(x dt) = G^T dy + exp(seg_last - seg) B dh_out^T,
-       dC = PD B + exp(seg) dy h_in, dB = PD^T C + exp(seg_last - seg)
-       (x dt) dh_out. d(dt a)_k sums what each exponent gives: the pairs
-       i >= k > j of M (M's row sums less its column sums, in fp64, summed
-       over i >= k), the carried-state term's C_i . dC_i (its h_in part)
-       over i >= k, exp(seg_last) dh_out . h_in, and the chunk-state
-       term's u_j = B_j . dB_j (its dh_out part) over j < k. Then
-       ddt = d(x dt) . x + d(dt a) a and da_log = sum d(dt a) dt a.
-    db and dc sum over the heads; outputs take their inputs' dtypes."""
+    3. per (batch, chunk), S = C B^T once (B and C are shared by the heads),
+       then head by head, in order. First the state terms: dC_h =
+       exp(seg) dy h_in (its row dots with C are the carried term),
+       dB_h = exp(seg_last - seg) (x dt) dh_out (its row dots with B are
+       u), d(x dt) = exp(seg_last - seg) B dh_out^T, and exp(seg_last)
+       dh_out . h_in. Then the triangles, with L = exp(seg_i - seg_j) on
+       j <= i, G = S L and PD = (dy (x dt)^T) L: d(x dt) += G^T dy,
+       dB_h += PD^T C, dC_h += PD B, and M = PD S's row sums less its
+       column sums (fp64). dB and dC add dB_h and dC_h in head order.
+       d(dt a)_k sums what each exponent gives: the pairs i >= k > j of M
+       (M's row less column sums plus the carried term, over i >= k), the
+       chunk state's term exp(seg_last) dh_out . h_in, and u over j < k.
+       ddt = d(x dt) . x + d(dt a) a;
+    4. da_log = sum over the chunks of d(dt a) dt a.
+
+    Outputs take their inputs' dtypes."""
     bsz, s, h, p = x.shape
     q = min(chunk, s, MAX_CHUNK)
     seg = _segments(dt, a_log, q)                              # (B,NC,q,H)
@@ -148,7 +156,6 @@ def ssd_bwd_passes(x, dt, a_log, b, c, dy, dh_final=None, *,
     xc, dtc = _chunked(x.float(), q), _chunked(dt.float(), q)
     bc, cc = _chunked(b.float(), q), _chunked(c.float(), q)
     dyc = _chunked(dy.float(), q)
-    xdt = xc * dtc[..., None]
     eseg = torch.exp(seg.float())
     rem = torch.exp((total[:, :, None] - seg).float())
     # passes 1 and 2
@@ -161,29 +168,38 @@ def ssd_bwd_passes(x, dt, a_log, b, c, dy, dh_final=None, *,
     dh_out = torch.stack(dh_out, dim=1)                        # (B,NC,H,P,N)
     # pass 3
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]       # (B,NC,i,j,H)
-    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
-                                  -torch.inf).float())
-    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)[..., None]
-    dxdt = torch.einsum("bcijh,bcihp->bcjhp", cb * decay, dyc) + \
-        rem[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bc, dh_out)
-    pd = torch.einsum("bcihp,bcjhp->bcijh", dyc, xdt) * decay
-    m = (pd * cb).double()
-    dc_state = eseg[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc,
-                                              h_in)
-    db_state = rem[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", xdt,
-                                             dh_out)
-    dch = torch.einsum("bcijh,bcjn->bcihn", pd, bc) + dc_state
-    dbh = torch.einsum("bcijh,bcin->bcjhn", pd, cc) + db_state
-    carried = (dc_state * cc[:, :, :, None]).sum(-1)           # (B,NC,q,H)
-    u = (db_state * bc[:, :, :, None]).sum(-1).double()
-    ends = (torch.exp(totals)[..., None, None] * dh_out * h_in).sum((-2, -1))
-    dda = (m.sum(3) - m.sum(2) + carried.double()).flip(2).cumsum(2) \
-        .flip(2) + u.cumsum(2) - u + ends.double()[:, :, None]  # d(dt a)
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)               # S = C B^T
+    db_sum, dc_sum = torch.zeros_like(bc), torch.zeros_like(cc)
+    dxdts, ddas = [], []
+    for hh in range(h):
+        sg, r, e = seg[..., hh], rem[..., hh, None], eseg[..., hh, None]
+        xdt = xc[:, :, :, hh] * dtc[:, :, :, hh, None]         # (B,NC,q,P)
+        dyh = dyc[:, :, :, hh]
+        hin, dho = h_in[:, :, hh], dh_out[:, :, hh]            # (B,NC,P,N)
+        dch = e * torch.einsum("bcip,bcpn->bcin", dyh, hin)
+        carried = (dch * cc).sum(-1)
+        dbh = r * torch.einsum("bcjp,bcpn->bcjn", xdt, dho)
+        u = (dbh * bc).sum(-1).double()
+        dxdt = r * torch.einsum("bcjn,bcpn->bcjp", bc, dho)
+        ends = torch.exp(totals[..., hh]) * (dho * hin).sum((-2, -1))
+        decay = torch.exp(torch.where(
+            mask, sg[:, :, :, None] - sg[:, :, None, :], -torch.inf).float())
+        pd = torch.einsum("bcip,bcjp->bcij", dyh, xdt) * decay
+        dxdt = dxdt + torch.einsum("bcij,bcip->bcjp", cb * decay, dyh)
+        dbh = dbh + torch.einsum("bcij,bcin->bcjn", pd, cc)
+        dch = dch + torch.einsum("bcij,bcjn->bcin", pd, bc)
+        m = (pd * cb).double()
+        v = m.sum(3) - m.sum(2) + carried.double()
+        ddas.append(v.flip(2).cumsum(2).flip(2) + u.cumsum(2) - u
+                    + ends.double()[..., None])                # d(dt a)
+        dxdts.append(dxdt)
+        db_sum, dc_sum = db_sum + dbh, dc_sum + dch
+    dxdt, dda = torch.stack(dxdts, dim=3), torch.stack(ddas, dim=3)
     a = -torch.exp(a_log.float())
     ddt = (dxdt * xc).sum(-1) + dda.float() * a
+    # pass 4
     da_log = (dda * dtc.double() * a.double()).sum((0, 1, 2))
     return (_unchunked(dxdt * dtc[..., None], s).to(x.dtype),
             _unchunked(ddt, s).to(dt.dtype), da_log.to(a_log.dtype),
-            _unchunked(dbh.sum(3), s).to(b.dtype),
-            _unchunked(dch.sum(3), s).to(c.dtype))
+            _unchunked(db_sum, s).to(b.dtype),
+            _unchunked(dc_sum, s).to(c.dtype))

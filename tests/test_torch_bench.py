@@ -95,16 +95,29 @@ def test_rglru_bwd_bound_at_the_train_shape():
     (2048, 128, torch.bfloat16), (2048, 128, torch.float32),
     (500, 128, torch.float32), (1, 128, torch.bfloat16)])
 def test_ssd_bwd_workspace_holds_the_backward_buffers(s, chunk, dtype):
-    """Per (batch, chunk, head) a P x N fp32 state gradient (and for bf16
-    an fp32 incoming state) and an fp64 da_log share; per (batch, row,
-    head) an fp64 row less column sum of M, the carried term, and the
-    per-head dB and dC rows."""
+    """Per (batch, chunk, head) a P x N fp32 state-gradient share and an
+    fp64 da_log share; for bf16 dh_out in bf16 besides and nothing per row
+    (dB and dC are summed over the heads on chip); for fp32 per (batch, row,
+    head) an fp64 row less column sum of M, the carried term and the
+    per-head dB and dC rows. The version-1 source's (bench.py's
+    old_ssd_bwd_workspace_numel) held an fp32 incoming state and the rows
+    for bf16 too."""
     b, h, p, n = 8, 24, 64, 128
     slots = b * math.ceil(s / chunk) * h
     rows = b * s * h
-    states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
-    assert ssd.bwd_workspace_numel(b, s, h, p, n, chunk, dtype) == \
-        states + 2 * slots + 2 * rows + rows + 2 * rows * n
+    per_row = 2 * rows + rows + 2 * rows * n
+    want = slots * p * n + 2 * slots
+    if dtype == torch.bfloat16:
+        want += slots * p * n // 2
+    else:
+        want += per_row
+    assert ssd.bwd_workspace_numel(b, s, h, p, n, chunk, dtype) == want
+    old_states = slots * p * n * (2 if dtype == torch.bfloat16 else 1)
+    assert bench.old_ssd_bwd_workspace_numel(b, s, h, p, n, chunk, dtype) \
+        == old_states + 2 * slots + per_row
+    if dtype == torch.float32:  # the fp32 route's layout is version 1's
+        assert want == bench.old_ssd_bwd_workspace_numel(b, s, h, p, n,
+                                                         chunk, dtype)
 
 
 def test_describe_scan_backwards_compare_with_their_bounds():
@@ -127,6 +140,7 @@ def test_describe_scan_backwards_compare_with_their_bounds():
     (("flash_attention", 2), 28),
     (("ssd_scan", 1), 25),
     (("flash_attention_bwd", 1), 46),
+    (("ssd_scan_bwd", 1), 35),
 ])
 def test_old_interface_argument_counts(key, count):
     assert len(bench.OLD_ARGTYPES[key]) == count
@@ -143,16 +157,16 @@ def test_old_interface_argument_counts(key, count):
 def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
                                                          count):
     """The wrappers call version CURRENT[name] (1 for a source that exports
-    no version); every entry of OLD_ARGTYPES is older, and the backward's
+    no version); every entry of OLD_ARGTYPES is older, and each backward's
     version 1 takes the same arguments as version 2 (only its workspace
     changed)."""
     current = bench.CURRENT.get(name, 1)
     assert all(v < current for n, v in bench.OLD_ARGTYPES if n == name)
     if count is not None:
         assert len(argtypes) == count
-    if name == "flash_attention_bwd":
+    if name in ("flash_attention_bwd", "ssd_scan_bwd"):
         assert bench.OLD_ARGTYPES[name, 1] == tuple(argtypes)
-    if name.endswith("_scan_bwd"):  # not compared with older versions
+    if name == "rglru_scan_bwd":  # not compared with older versions
         return
     assert name in bench.ENTRY
 
@@ -161,12 +175,49 @@ def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
     ("flash_attention/csrc/flash_attention.cu", "flash_attention"),
     ("flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd"),
     ("ssd/csrc/ssd_scan.cu", "ssd_scan"),
+    ("ssd/csrc/ssd_scan_bwd.cu", "ssd_scan_bwd"),
 ])
 def test_sources_export_the_versions_the_bench_expects(source, name):
     text = (CSRC / source).read_text()
     found = re.search(rf"int {name}_abi\(void\) {{ return (\d+); }}", text)
     assert found and int(found.group(1)) == bench.CURRENT[name]
     assert f"{bench.ENTRY[name]}(" in text
+
+
+class _Library:
+    """A stand-in for a loaded library: the C entry points as attributes."""
+
+    def __init__(self, *entries, abi=None):
+        for entry in entries:
+            setattr(self, entry, lambda *args: 0)
+        if abi is not None:
+            name, version = abi
+            setattr(self, f"{name}_abi", lambda: version)
+
+
+@pytest.mark.parametrize("entries, name", [
+    (("ssd_scan_fwd", "ssd_scan_error_string"), "ssd_scan"),
+    (("ssd_scan_bwd", "ssd_scan_bwd_error_string"), "ssd_scan_bwd"),
+    (("rglru_scan_fwd", "rglru_scan_bwd"), "rglru_scan"),
+    (("flash_attention_bwd",), "flash_attention_bwd"),
+    (("flash_attention_fwd",), "flash_attention"),
+])
+def test_compare_dispatches_on_the_exported_entry(entries, name):
+    """``--against`` names the kernel of a library by its entry point: a
+    library built from ssd_scan_bwd.cu exports none of the forward's or the
+    flash backward's and is the SSD backward, not the flash forward."""
+    assert bench.kernel_of(_Library(*entries)) == name
+
+
+@pytest.mark.parametrize("version, current", [(1, False), (2, True)])
+def test_ssd_backward_versions_are_told_apart(version, current):
+    """The version-1 source (fp32 rows per head) is called with its own
+    workspace; the current one, version 2, through the wrapper's."""
+    lib = _Library("ssd_scan_bwd", abi=("ssd_scan_bwd", version))
+    assert bench.kernel_of(lib) == "ssd_scan_bwd"
+    assert bench.interface_version(lib, "ssd_scan_bwd") == version
+    assert (version == bench.CURRENT["ssd_scan_bwd"]) == current
+    assert current or ("ssd_scan_bwd", version) in bench.OLD_ARGTYPES
 
 
 def test_rglru_source_exports_no_version():
