@@ -22,8 +22,10 @@ fit's FitError in (t)):
                   Sk 256)
   (p) backward -- the flash-attention backward kernel (dq, dk, dv from the
                   forward's log-sum-exp) against torch autograd of the
-                  plain version, on (c)'s cases (slice 10's too) and
-                  smollm's training call; the forward's log-sum-exp
+                  plain version, on (c)'s cases (slice 10's too),
+                  smollm's training call and the bf16 D 256 route at
+                  every option (softcap, no causal mask, Sq < Sk, GQA
+                  groups 1-8, B > 1 views); the forward's log-sum-exp
                   against the plain scores
   (d) ssd      -- the SSD-scan kernel (three CUDA kernels a call) against
                   its plain version and the chunked path (y and the final
@@ -37,6 +39,8 @@ fit's FitError in (t)):
                   state's gradient, in bf16 also 5 heads of P 32, N 64,
                   unaligned rows and S 1; the RG-LRU at recurrentgemma's
                   (B 1, S 4096, W 4096) with and without an initial state
+                  (two calls bit-equal), S off and below its 128-step
+                  chunks, W 1000 with h0
   smollm-135m at full width (seeded random weights):
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
@@ -343,18 +347,37 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 
 
+def bwd_d256_cases():
+    """The backward's bf16 D 256 route (wgmma, the head dims split between
+    two warpgroups, a key tile's items split between blocks) at every option
+    beyond kernel_cases()' D 256 calls: a softcap, no causal mask, Sq < Sk
+    (right-aligned, with a window too), GQA groups of 1, 2, 3, 4 and 8,
+    ragged lengths, B > 1 with (B, S, H, D) views."""
+    bf16 = torch.bfloat16
+    return [
+        (2, 4, 2, 384, 384, 256, True, None, 30.0, bf16, "bshd"),
+        (2, 4, 1, 300, 300, 256, False, None, None, bf16, "bshd"),
+        (2, 6, 2, 300, 1000, 256, True, None, None, bf16, "bhsd"),
+        (1, 4, 2, 100, 260, 256, False, 70, None, bf16, "bhsd"),
+        (2, 4, 4, 256, 256, 256, True, None, None, bf16, "bshd"),
+        (1, 16, 8, 512, 512, 256, True, 128, None, bf16, "bshd"),
+        (3, 8, 1, 700, 700, 256, True, 256, 50.0, bf16, "bshd"),
+    ]
+
+
 def phase_flash_bwd_vs_plain():
     """Returns {(head_dim, S): max |kernel - plain| over dq, dk and dv} at
     smollm's training call (bf16, B 8, S 2048, (B, S, H, D) views) and the
     case table's other bf16 calls on such views, slice 10's among them
-    (seamless's non-causal calls train in phase z)."""
+    (seamless's non-causal calls train in phase z); the D 256 route also at
+    every option (bwd_d256_cases)."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import (attention_lse,
                                                          attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_err = {}
-    cases = kernel_cases() + slice10_kernel_cases() + [
+    cases = kernel_cases() + slice10_kernel_cases() + bwd_d256_cases() + [
         # smollm-135m's train step: B 8, S 2048, (B, S, H, D) views
         (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd")]
     for case in cases:
@@ -513,12 +536,13 @@ def rglru_cases():
 
 def phase_rglru_vs_plain():
     """The kernel against ref.py's sequential recurrence at RGLRU_ATOL /
-    RGLRU_RTOL; returns the largest |error| at the main path's shape."""
+    RGLRU_RTOL; returns the largest |error| at the main paths' shapes,
+    {"prefill": serving's B 4, S 512, "train": training's B 1, S 4096}."""
     from repro_torch.kernels.bench import make_rglru_inputs
     from repro_torch.kernels.rglru import kernel
     from repro_torch.kernels.rglru.ref import rglru_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_err = None
+    main_err = {}
     for b, s, w, with_h0 in rglru_cases():
         a, bb = make_rglru_inputs(gen, b, s, w)
         h0 = torch.randn((b, w), generator=gen, device="cuda") \
@@ -534,7 +558,9 @@ def phase_rglru_vs_plain():
                 h, ref, atol=RGLRU_ATOL, rtol=RGLRU_RTOL):
             raise AssertionError(f"rglru_scan disagrees with plain: {name}")
         if (b, s, w, with_h0) == (PREFILL_B, PREFILL_S, 4096, False):
-            main_err = err
+            main_err["prefill"] = err
+        if (b, s, w, with_h0) == (1, RG_TRAIN_S, 4096, False):
+            main_err["train"] = err
     return main_err
 
 
@@ -566,11 +592,14 @@ def ssd_bwd_cases():
 
 # the RG-LRU backward: (b, s, w, with h0): recurrentgemma's train call,
 # with and without an initial state, the prefill's shape, a W no block
-# width divides, S = 1
+# width divides, S = 1; for the chained chunks of 128 steps also an S that
+# is not a multiple of a chunk, S below one chunk, and W 1000 with h0 over
+# several chunks
 def rglru_bwd_cases():
     return [(1, RG_TRAIN_S, 4096, False), (1, RG_TRAIN_S, 4096, True),
             (PREFILL_B, PREFILL_S, 4096, False), (2, 37, 1000, True),
-            (2, 1, 4096, True)]
+            (2, 1, 4096, True), (2, 1000, 4096, False),
+            (1, 100, 4096, False), (3, 300, 1000, True)]
 
 
 def phase_scan_bwd_vs_plain():
@@ -580,7 +609,7 @@ def phase_scan_bwd_vs_plain():
     another order (the SSD's fp64 where they cancel), and in bf16 the
     kernel's inputs and outputs rounded. Returns the largest |kernel -
     plain| over the gradients at each kernel's main-path call (the SSD's
-    in bf16). Two SSD calls at that call must give the same bits."""
+    in bf16). Two calls of each at that call must give the same bits."""
     from repro_torch.kernels.bench import make_rglru_inputs, make_ssd_inputs
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.rglru.ref import rglru_ref
@@ -655,6 +684,16 @@ def phase_scan_bwd_vs_plain():
         if (b, s, with_h0) == (1, RG_TRAIN_S, False):
             main_err["rglru"] = max((g - wt).abs().max().item()
                                     for g, wt in zip(got, want))
+            # the chunks' carries combine in a fixed order: a second call,
+            # the same bits
+            again = rglru.rglru_scan_bwd(a, h, h0, dh)
+            torch.cuda.synchronize()
+            same = [same_bits(g, x) for g, x in zip(got[:2], again[:2])]
+            log("sb", f"rglru_scan_bwd {name}: a second call bit-equal: "
+                      f"da {same[0]}, db {same[1]}")
+            if not all(same):
+                raise AssertionError(f"rglru_scan_bwd is not deterministic: "
+                                     f"{name}")
     return main_err
 
 
@@ -2864,13 +2903,19 @@ def main():
     rglru_row = record_row(
         "rglru_scan", "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru/kernel.py:39", rg_counts["rglru_scan"],
-        rglru_err, rglru_rows["prefill-512"],
+        rglru_err["prefill"], rglru_rows["prefill-512"],
         f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of every rglru "
         "layer")
     rglru_row["launches"] += rg_train["rglru_scan"]
     rglru_row["launches_by_path"] = {
         "recurrentgemma-9b": rg_counts["rglru_scan"],
         "recurrentgemma-9b training": rg_train["rglru_scan"]}
+    # and at recurrentgemma's training call, B 1, S 4096
+    rglru_row["train"] = record_row(
+        "rglru_scan", rglru_row["source"], rglru_row["replaces"],
+        rg_train["rglru_scan"], rglru_err["train"], rglru_rows["train-4096"],
+        f"B1 S{RG_TRAIN_S} W4096 fp32, the gates of every rglru layer in "
+        "training")
     b, s, h, p, n, chunk, layout = bench.SSD_BWD_SHAPES["train-2048"]
     ssd_bwd_row = record_row(
         "ssd_scan_bwd", "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd.cu",

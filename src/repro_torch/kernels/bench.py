@@ -10,15 +10,17 @@ bound and one PyTorch library call computing the same function.
 times both on the same card in turns (old, new, new, old), which is the only
 fair way to compare two versions. The C function the library exports says
 which kernel it is: ``flash_attention_fwd``, ``flash_attention_bwd``,
-``ssd_scan_fwd``, ``ssd_scan_bwd`` or ``rglru_scan_fwd``. ``<name>_abi``
-says which C interface it has (none: version 1); sources with an older one
-than the wrappers' (before the output strides and the SSD workspace,
-version 1; the flash forward before its log-sum-exp output, version 2; the
-flash backward before its tiled workspace, version 1; the SSD backward
-before its bf16 workspace without per-head rows, version 1) are called with
-their own (``launch_old``). All write the same logical layout, which
-``max|new - old|`` compares. A shape the old source does not take is
-reported and skipped.
+``ssd_scan_fwd``, ``ssd_scan_bwd`` or ``rglru_scan_fwd`` (an RG-LRU source
+is timed forward and backward). ``<name>_abi`` says which C interface it
+has (none: version 1); sources with an older one than the wrappers'
+(before the output strides and the SSD workspace, version 1; the flash
+forward before its log-sum-exp output, version 2; the flash backward before
+its tiled workspace, version 1, and before its D 256 route's splits,
+version 2; the SSD backward before its bf16 workspace without per-head rows,
+version 1; the RG-LRU backward before its chained workspace, version 1)
+are called with their own (``launch_old``). All write the same logical
+layout, which ``max|new - old|`` compares. A shape the old source does not
+take is reported and skipped: a version-1 flash backward takes no window.
 
 The flash-attention backward is timed at smollm-135m's training shape and
 at recurrentgemma-9b's windowed one beside its plain version (torch
@@ -80,8 +82,9 @@ NONCAUSAL_SHAPES = {"seamless-512": (4, 16, 16, 512, 512, 64, "bshd"),
 # conv output a B 4, S 512 prefill passes, and a longer contiguous batch
 SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
               "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
-# (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill
-RGLRU_SHAPES = {"prefill-512": (4, 512, 4096)}
+# (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill and
+# in its B 1, S 4096 train step
+RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096)}
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
 # S 2048 train step, and of recurrentgemma-9b's local layers in a B 1,
 # S 4096 one (window 2048), for the backward
@@ -714,16 +717,24 @@ OLD_ARGTYPES = {("flash_attention", 1): (_P, _P, _P, _P, *(_I,) * 7,
                                              *(_L,) * 24, _I, _I,
                                              ctypes.c_float, ctypes.c_float,
                                              _P),
+                ("flash_attention_bwd", 2): (*(_P,) * 10, *(_I,) * 7,
+                                             *(_L,) * 24, _I, _I,
+                                             ctypes.c_float, ctypes.c_float,
+                                             _P),
                 ("ssd_scan_bwd", 1): (*(_P,) * 14, *(_I,) * 7, *(_L,) * 13,
-                                      _P)}
+                                      _P),
+                ("rglru_scan_bwd", 1): (*(_P,) * 7, _I, _I, _I, *(_L,) * 4,
+                                        _P)}
 # the C interface versions the wrappers call
-CURRENT = {"flash_attention": 3, "ssd_scan": 2, "flash_attention_bwd": 2,
-           "ssd_scan_bwd": 2}
+CURRENT = {"flash_attention": 3, "ssd_scan": 2, "flash_attention_bwd": 3,
+           "ssd_scan_bwd": 2, "rglru_scan_bwd": 2}
 # each kernel's C entry point
 ENTRY = {"flash_attention": "flash_attention_fwd", "ssd_scan": "ssd_scan_fwd",
          "rglru_scan": "rglru_scan_fwd",
          "flash_attention_bwd": "flash_attention_bwd",
-         "ssd_scan_bwd": "ssd_scan_bwd"}
+         "ssd_scan_bwd": "ssd_scan_bwd", "rglru_scan_bwd": "rglru_scan_bwd"}
+# each source's error-string function, where it is not <name>_error_string
+ERROR_STRING = {"rglru_scan_bwd": "rglru_scan_error_string"}
 
 
 def old_bwd_workspace_numel(b: int, h: int, sq: int, d: int) -> int:
@@ -761,13 +772,16 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
     stream: flash_attention (q, k, v, out, window), causal (version 1:
     ``out`` contiguous; version 2: through its strides, no log-sum-exp);
     ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk);
-    flash_attention_bwd version 1 (q, k, v, o, lse, do, dq, dk, dv,
-    workspace of ``old_bwd_workspace_numel``), causal; ssd_scan_bwd version
-    1 (x, dt, a_log, b, c, dy, dh_final, the forward's workspace, dx, ddt,
-    da_log, db, dc, workspace of ``old_ssd_bwd_workspace_numel``, chunk)."""
+    flash_attention_bwd (q, k, v, o, lse, do, dq, dk, dv, workspace,
+    window), causal: version 1 with a workspace of
+    ``old_bwd_workspace_numel`` and no window, version 2 with one of
+    ``bwd_workspace_numel``; ssd_scan_bwd version 1 (x, dt, a_log, b, c,
+    dy, dh_final, the forward's workspace, dx, ddt, da_log, db, dc,
+    workspace of ``old_ssd_bwd_workspace_numel``, chunk); rglru_scan_bwd
+    version 1 (a, h, h0, dh, da, db, dh0)."""
     fwd = getattr(lib, ENTRY[name])
     fwd.argtypes, fwd.restype = OLD_ARGTYPES[name, version], ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
+    err = getattr(lib, ERROR_STRING.get(name, f"{name}_error_string"))
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     stream = torch.cuda.current_stream().cuda_stream
     if name == "ssd_scan_bwd":
@@ -780,17 +794,30 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
                              "workspace")
         ssd.launch_bwd(lib, *tensors, ws, chunk=chunk)
         return
-    if name == "flash_attention_bwd":
-        q, k, v, o, lse, do, dq, dk, dv, ws = args
+    if name == "rglru_scan_bwd":
+        a, h, h0, dh, da, db, dh0 = args
+        bsz, s, w = a.shape
+        rc = fwd(*(t.data_ptr() if t is not None else None
+                   for t in (a, h, h0, dh, da, db, dh0)),
+                 bsz, s, w, a.stride(0), a.stride(1), dh.stride(0),
+                 dh.stride(1), stream)
+    elif name == "flash_attention_bwd":
+        from repro_torch.kernels.flash_attention import kernel as flash
+        q, k, v, o, lse, do, dq, dk, dv, ws, window = args
         b, h, sq, d = q.shape
-        if ws.numel() < old_bwd_workspace_numel(b, h, sq, d):
-            raise ValueError("a version-1 backward needs a larger workspace")
+        if version == 1 and window is not None:
+            raise ValueError("a version-1 backward takes no window")
+        need = (old_bwd_workspace_numel if version == 1
+                else flash.bwd_workspace_numel)(b, h, sq, d)
+        if ws.numel() < need:
+            raise ValueError(f"a version-{version} backward needs a larger "
+                             "workspace")
         rc = fwd(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
                                            ws)),
                  1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1], sq,
                  k.shape[2], d, *(st for t in (q, k, v, o, do, dq, dk, dv)
                                   for st in t.stride()[:3]),
-                 1, 0, 0.0, 1.0 / math.sqrt(d), stream)
+                 1, window or 0, 0.0, 1.0 / math.sqrt(d), stream)
     elif name == "flash_attention":
         q, k, v, out, window = args
         if version == 1 and not out.is_contiguous():
@@ -852,35 +879,64 @@ def compare(old_source: Path, seed: int = 1):
          "ssd_scan_bwd": ssd.bind_bwd}.get(name, module.bind)(lib)
     print(f"{old_source}: {name}, C interface version {version}",
           flush=True)
-    for label in shapes:
+    # an RG-LRU source holds the backward too: timed at its train shape
+    jobs = [(name, label) for label in shapes]
+    if name == "rglru_scan":
+        jobs += [("rglru_scan_bwd", label) for label in RGLRU_BWD_SHAPES]
+    for kind, label in jobs:
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        if name == "flash_attention_bwd":
+        if kind == "flash_attention_bwd":
             b, h, kv, s, d, layout, window = BWD_SHAPES[label]
-            if window is not None:
-                print(f"{name} {label}: a window; compared without one "
-                      "only", flush=True)
+            if window is not None and version == 1:
+                print(f"{name} {label}: a window, which a version-1 source "
+                      "does not take; skipped", flush=True)
                 continue
             q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
                                layout)
             do = torch.randn_like(q)
-            o, lse = flash.flash_attention(q, k, v, return_lse=True)
+            o, lse = flash.flash_attention(q, k, v, window=window,
+                                           return_lse=True)
             grads = [torch.empty_like(t) for t in (q, k, v)]
+            splits = flash.bwd_splits(b, h, kv, s, d, torch.bfloat16)
             ws = torch.empty(
-                (flash.bwd_workspace_numel if current
-                 else old_bwd_workspace_numel)(b, h, s, d), device="cuda")
+                old_bwd_workspace_numel(b, h, s, d) if version == 1
+                else flash.bwd_workspace_numel(b, h, s, d)
+                + (flash.bwd_partials_numel(splits, b, kv, s, d)
+                   if current else 0), device="cuda")
 
             def run_old():
                 if not current:
                     launch_old(name, version, lib, q, k, v, o, lse, do,
-                               *grads, ws)
+                               *grads, ws, window)
                 else:
                     flash.launch_bwd(lib, q, k, v, o, lse, do, *grads, ws,
-                                     causal=True, window=None, softcap=None)
+                                     causal=True, window=window,
+                                     softcap=None, splits=splits)
 
             def run_new():
-                return flash.flash_attention_bwd(q, k, v, o, lse, do)
+                return flash.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 window=window)
             out = grads
-        elif name == "ssd_scan_bwd":
+        elif kind == "rglru_scan_bwd":
+            b, s, w = RGLRU_BWD_SHAPES[label]
+            a, bb = make_rglru_inputs(gen, b, s, w)
+            dh = torch.randn((b, s, w), generator=gen, device="cuda")
+            h = rglru.rglru_scan(a, bb)
+            out = [torch.empty_like(a), torch.empty_like(a)]
+            bwd_version = interface_version(lib, kind)
+            ws = torch.empty(rglru.bwd_workspace_numel(b, s, w),
+                             device="cuda")
+
+            def run_old():
+                if bwd_version != CURRENT[kind]:
+                    launch_old(kind, bwd_version, lib, a, h, None, dh, *out,
+                               None)
+                else:
+                    rglru.launch_bwd(lib, a, h, None, dh, *out, None, ws)
+
+            def run_new():
+                return rglru.rglru_scan_bwd(a, h, None, dh)[:2]
+        elif kind == "ssd_scan_bwd":
             b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[label]
             args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
                                    layout)
@@ -910,7 +966,7 @@ def compare(old_source: Path, seed: int = 1):
 
             def run_new():
                 return ssd.ssd_scan_bwd(*args, dy, None, fws, chunk=chunk)
-        elif name == "rglru_scan":
+        elif kind == "rglru_scan":
             a, bb = make_rglru_inputs(gen, *shapes[label])
             out = torch.empty_like(a)
 
@@ -919,7 +975,7 @@ def compare(old_source: Path, seed: int = 1):
 
             def run_new():
                 return rglru.rglru_scan(a, bb)
-        elif name == "ssd_scan":
+        elif kind == "ssd_scan":
             b, s, h, p, n, chunk, layout = SSD_SHAPES[label]
             args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16,
                                    layout)
@@ -959,7 +1015,7 @@ def compare(old_source: Path, seed: int = 1):
         try:
             run_old()
         except RuntimeError as err:   # e.g. a head_dim the old one lacks
-            print(f"{name} {label}: the old source does not run this "
+            print(f"{kind} {label}: the old source does not run this "
                   f"shape ({err}); skipped", flush=True)
             continue
         torch.cuda.synchronize()
@@ -968,7 +1024,7 @@ def compare(old_source: Path, seed: int = 1):
                          for t in (new, out))))
         old1, new1, new2, old2 = (graph_ms(fn) for fn in
                                   (run_old, run_new, run_new, run_old))
-        print(f"{name} {label}: old "
+        print(f"{kind} {label}: old "
               f"{old1:.4f} / {old2:.4f} ms, new {new1:.4f} / {new2:.4f} ms "
               f"(old, new, new, old); max|new - old| {diff:.3e}", flush=True)
 

@@ -28,7 +28,7 @@
 // bound by operations (~0.1 ms at the dense bf16 rate), which only the
 // tensor cores reach, and only through wgmma.
 //
-// Three kernels a call, on the caller's stream:
+// Three kernels a call (four at D 256 with splits), on the caller's stream:
 //  1. delta: per 64-row query tile, delta = rowsum(do * o) and the rows'
 //     lse into one 512-byte record (64 lse, then 64 delta; rows past Sq get
 //     lse = +inf, so exp(s - lse) is 0 there), and zeros into the tile's
@@ -46,7 +46,7 @@
 // by the row (so the wgmma kernel's staging is free of bank conflicts and
 // one bulk copy moves a tile); the records follow.
 //
-// Pass 2 has two designs, chosen at compile time by type and head_dim:
+// Pass 2 has three designs, chosen at compile time by type and head_dim:
 //  - bf16 at D 64 and 128 (smollm's training, and the head_dim of gemma2,
 //    qwen3, phi3.5 and deepseek): wgmma fed by TMA (flash_bwd_wgmma). A
 //    block has consumer warpgroups of 64 keys each: two at D 64 (128 keys,
@@ -80,7 +80,26 @@
 //    block were a whole number of warpgroups: a producer warp beside two
 //    consumers left 168 a thread (384 threads' share) and spilled, so the
 //    consumers issue the loads themselves (at most 255 registers).
-//  - bf16 at D 32 and 256, and fp32 at every D: a block of 8 warps runs the
+//  - bf16 at D 256 (recurrentgemma's local layers, paligemma): wgmma fed by
+//    TMA (flash_bwd_wgmma256). dK and dV of 64 keys x 256 dims would take
+//    256 registers a thread in one warpgroup, so a block's two consumer
+//    warpgroups split the head dims: each holds dK and dV for 128 of them
+//    (128 registers). S^T = K Q^T and dP^T = V dO^T contract over all 256
+//    dims; each warpgroup computes them once, for its 32 of the tile's 64
+//    query columns (m64n32k16, both operands K-major in shared memory), and
+//    the halves of P^T and dS^T meet in shared memory (bf16, 128-byte
+//    swizzle), where both warpgroups read them as A for dV += P^T dO, dK +=
+//    dS^T Q and dQ = dS K over its own 128 dims (m64n128k16). Shared
+//    memory: K, V (32 KB each), two stages of Q and dO (64 KB each), P^T and
+//    dS^T inside a 32 KB area that, once every product of the tile is done,
+//    stages each warpgroup's dQ 64 dims at a time for the bulk reduce-add
+//    (225 KB in all, one block an SM). A key tile has few blocks at a batch
+//    of one (64 at S 4096 with one KV head), so ``splits`` blocks share its
+//    (head, query tile) items, each a contiguous range; they write fp32
+//    partials of dK and dV, and a fourth kernel (flash_bwd_dkdv_sum) sums
+//    them in split order into dk and dv. The wrapper picks splits so that
+//    the grid has about three blocks per SM.
+//  - bf16 at D 32, and fp32 at every D: a block of 8 warps runs the
 //    products as mma.sync m16n8k16 (fp32 accumulate), fragments loaded by
 //    ldmatrix (bf16), or on the CUDA cores (fp32: the tensor cores would
 //    round to TF32), each thread computing the elements an mma.sync
@@ -138,6 +157,9 @@ struct Params {
   int window;     // <= 0: no window
   float softcap;  // <= 0: no softcap
   float scale;
+  int splits;     // D 256 route: blocks that share a key tile's items
+  float* part;    // workspace, splits > 1: fp32 dK, then dV, partials,
+                  // (splits, B, KV, Sk, D) each
 };
 
 template <typename T>
@@ -274,7 +296,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// pass 2, mma.sync / CUDA cores (bf16 at D 32 and 256, fp32): dK, dV and
+// pass 2, mma.sync / CUDA cores (bf16 at D 32, fp32): dK, dV and
 // dQ's sums
 // ---------------------------------------------------------------------------
 
@@ -1236,6 +1258,391 @@ flash_bwd_wgmma(const __grid_constant__ Maps maps, const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// pass 2, wgmma + TMA at D 256 (bf16): dK, dV (or their fp32 partials) and
+// dQ's sums
+// ---------------------------------------------------------------------------
+
+// A block: 64 keys and two consumer warpgroups that split the head dims:
+// warpgroup wg holds dK and dV of the 64 keys for dims [128 wg, 128 wg +
+// 128) (128 fp32 registers a thread) and computes S^T and dP^T for query
+// columns [32 wg, 32 wg + 32) of each 64-row tile (m64n32k16 over all 256
+// dims); the halves of P^T and dS^T meet in shared memory. Shared memory:
+// K and V (32 KB each), two stages of Q and dO (64 KB each), P^T and dS^T
+// (8 KB each) inside a 32 KB area that also stages dQ, the records.
+struct W256 {
+  static constexpr int D = 256;
+  static constexpr int NK = 64;                    // keys per block
+  static constexpr int THREADS = 256;
+  static constexpr int CB = D / 64;                // column blocks of 64 dims
+  static constexpr int STAGES = 2;
+  static constexpr int TILE_BYTES = 64 * D * 2;    // K, V, Q or dO: 32 KB
+  static constexpr int PT_BYTES = NK * QTILE * 2;  // P^T or dS^T: 8 KB
+  static constexpr int STAGED = QTILE * 64 * 4;    // 64 dims of dQ: 16 KB
+  static constexpr int REC_BYTES = REC * 4;
+  // byte offsets from the 1024-byte aligned base
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + TILE_BYTES;
+  static constexpr int OFF_Q = OFF_V + TILE_BYTES;   // stage s: Q, then dO
+  static constexpr int OFF_X = OFF_Q + STAGES * 2 * TILE_BYTES;
+  static constexpr int OFF_REC = OFF_X + 2 * STAGED; // P^T, dS^T inside X
+  static constexpr int OFF_BAR = OFF_REC + STAGES * REC_BYTES;
+  static constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + STAGES);
+  static_assert(2 * PT_BYTES <= 2 * STAGED, "P^T and dS^T inside X");
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+// named barriers of flash_bwd_wgmma256 (0 is __syncthreads)
+constexpr int X_FREE = 1;      // the last tile's staged dQ was read
+constexpr int PDS_READY = 2;   // both halves of P^T and dS^T stored
+constexpr int PRODUCTS = 3;    // every product of the tile completed
+constexpr int STAGED256 = 4;   // + wg: warpgroup wg's dQ staged
+
+__global__ void __launch_bounds__(W256::THREADS, 1)
+flash_bwd_wgmma256(const __grid_constant__ Maps maps, const Params p) {
+  using W = W256;
+  constexpr int D = W::D;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + W::OFF_K, sV = base + W::OFF_V;
+  auto sQ = [&](int s) { return base + W::OFF_Q + s * 2 * W::TILE_BYTES; };
+  auto sdO = [&](int s) { return sQ(s) + W::TILE_BYTES; };
+  const uint32_t sP = base + W::OFF_X, sDS = sP + W::PT_BYTES;
+  auto sRec = [&](int s) { return base + W::OFF_REC + s * W::REC_BYTES; };
+  const uint32_t kv_full = base + W::OFF_BAR;
+  auto q_full = [&](int s) { return kv_full + 8u * (1 + s); };
+
+  // key tile blockIdx.y (causal: tile 0 sees the most query tiles, and
+  // blocks start in order); blockIdx.x: (batch, KV head, split). The
+  // (head of the group, query tile) items of the key tile are cut into
+  // ``splits`` ranges of nearly equal length, one a block.
+  const int split = blockIdx.x % p.splits;
+  const int b = blockIdx.x / p.splits / p.KV;
+  const int kvh = blockIdx.x / p.splits % p.KV;
+  const int n0 = blockIdx.y * W::NK;
+  const int group = p.H / p.KV;
+  int q_lo, q_hi;
+  q_range(p, n0, min(n0 + W::NK, p.Sk), q_lo, q_hi);
+  const int m_first = (q_lo / QTILE) * QTILE;
+  const int per_head =
+      q_hi > m_first ? (q_hi - m_first + QTILE - 1) / QTILE : 0;
+  const int n_items = group * per_head;
+  const int it_lo = split * n_items / p.splits;
+  const int n_tiles = (split + 1) * n_items / p.splits - it_lo;
+
+  // the block's tile i: Q, dO (TMA) and its record (a bulk copy) into
+  // stage i % STAGES, completing that stage's barrier
+  auto load_tile = [&](int i) {
+    const int s = i % W::STAGES, item = it_lo + i;
+    const int h = kvh * group + item / per_head;
+    const int m0 = m_first + (item % per_head) * QTILE;
+    mbar_expect_tx(q_full(s), 2 * W::TILE_BYTES + W::REC_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < W::CB; ++cb) {
+      tma_load(sQ(s) + cb * QTILE * ROWB, &maps.q, q_full(s), cb * 64, m0, h,
+               b);
+      tma_load(sdO(s) + cb * QTILE * ROWB, &maps.dout, q_full(s), cb * 64,
+               m0, h, b);
+    }
+    bulk_load(sRec(s),
+              rec_tile(p, static_cast<long long>(b) * p.H + h, m0 / QTILE),
+              W::REC_BYTES, q_full(s));
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < W::STAGES; ++s) mbar_init(q_full(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // thread 0 issues every load: K and V once, the first two tiles now,
+  // each later one once every product of the tile two before it completed
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(kv_full, 2 * W::TILE_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < W::CB; ++cb) {
+      tma_load(sK + cb * W::NK * ROWB, &maps.k, kv_full, cb * 64, n0, kvh, b);
+      tma_load(sV + cb * W::NK * ROWB, &maps.v, kv_full, cb * 64, n0, kvh, b);
+    }
+    for (int i = 0; i < W::STAGES && i < n_tiles; ++i) load_tile(i);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2;  // accumulator row group
+  const int t = lane & 3;   // thread in group
+  const int offset = p.Sk - p.Sq;
+  const int kr0 = 16 * warp + g;  // this thread's key rows: kr0, kr0 + 8
+  const int key0 = n0 + kr0, key1 = key0 + 8;
+  const int qc0 = 32 * wg;        // this warpgroup's query columns
+  const bool has_softcap = p.softcap > 0.f;
+  const float scale2 = p.scale * LOG2E;
+  const unsigned char* smem_gen = smem_raw + (base - raw);
+
+  float dk[64], dv[64];  // n8 block j: dims 128 wg + 8 j + 2 t + {0, 1}
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % W::STAGES, item = it_lo + i;
+    const int h = kvh * group + item / per_head;
+    const int m0 = m_first + (item % per_head) * QTILE;
+    mbar_wait(q_full(st), (i / W::STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 32 query columns,
+    // over the 256 dims 16 at a time, both operands K-major
+    float s[16], dp[16];  // rows key0 (e < 2), key1; n8 block j: query
+                          // column qc0 + 8 j + 2 t + (e & 1)
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / 4) * QTILE * ROWB + (kk % 4) * 32;
+      const uint32_t q_at = at + qc0 * ROWB;
+      wgmma_ss<0, 0>(s, wgmma_desc(sK + at, 16, 8 * ROWB),
+                     wgmma_desc(sQ(st) + q_at, 16, 8 * ROWB), kk > 0);
+      wgmma_ss<0, 0>(dp, wgmma_desc(sV + at, 16, 8 * ROWB),
+                     wgmma_desc(sdO(st) + q_at, 16, 8 * ROWB), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta) scale, in place, then
+    // zeros where the mask bites (rows past Sq have lse = +inf: P is 0)
+    const float* rec =
+        reinterpret_cast<const float*>(smem_gen + (sRec(st) - base));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = qc0 + 8 * j + 2 * t;
+      const float2 lse = *reinterpret_cast<const float2*>(rec + c);
+      const float2 delta = *reinterpret_cast<const float2*>(rec + QTILE + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const float l = (e & 1) ? lse.y : lse.x;
+        const float dl = (e & 1) ? delta.y : delta.x;
+        if (has_softcap) {
+          const float th = tanhf(s[x] * p.scale / p.softcap);
+          const float pr = fast_exp2((p.softcap * th - l) * LOG2E);
+          s[x] = pr;
+          dp[x] = pr * (dp[x] - dl) * (1.f - th * th) * p.scale;
+        } else {
+          const float pr = fast_exp2(fmaf(s[x], scale2, -l * LOG2E));
+          s[x] = pr;
+          dp[x] = pr * (dp[x] - dl) * p.scale;
+        }
+      }
+    }
+    const int qa = m0 + qc0;  // this warpgroup's first query row
+    const bool whole =
+        n0 + W::NK <= p.Sk && (!p.causal || n0 + W::NK - 1 <= qa + offset) &&
+        (p.window <= 0 || min(qa + 32, p.Sq) - 1 + offset - n0 < p.window);
+    if (!whole) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int qpos = qa + 8 * (x / 4) + 2 * t + (x & 1) + offset;
+        const int key = (x & 2) ? key1 : key0;
+        bool ok = key < p.Sk;
+        if (p.causal) ok = ok && key <= qpos;
+        if (p.window > 0) ok = ok && qpos - key < p.window;
+        s[x] = ok ? s[x] : 0.f;
+        dp[x] = ok ? dp[x] : 0.f;
+      }
+    }
+
+    // the area that holds P^T and dS^T also staged the last tile's dQ:
+    // wait until its bulk copies have read it
+    if (tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync(X_FREE, W::THREADS);
+    // this warpgroup's columns of P^T and dS^T, in bf16: rows of 64 query
+    // columns (128 bytes), swizzled as the descriptors read them
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t off0 = kr0 * ROWB + (qc0 + 8 * j + 2 * t) * 2;
+      const uint32_t off1 = off0 + 8 * ROWB;
+      const uint32_t sw0 = off0 ^ (((off0 >> 7) & 7) << 4);
+      const uint32_t sw1 = off1 ^ (((off1 >> 7) & 7) << 4);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sP + sw0),
+                   "r"(pack_bf16(s[4 * j], s[4 * j + 1]))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sP + sw1),
+                   "r"(pack_bf16(s[4 * j + 2], s[4 * j + 3]))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sDS + sw0),
+                   "r"(pack_bf16(dp[4 * j], dp[4 * j + 1]))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sDS + sw1),
+                   "r"(pack_bf16(dp[4 * j + 2], dp[4 * j + 3]))
+                   : "memory");
+    }
+    fence_async_shared();
+    named_sync(PDS_READY, W::THREADS);
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, 16 at a
+    // time, for this warpgroup's 128 dims (dO and Q read transposed, the
+    // next 64 dims one column block on); dQ = dS K for the same dims, over
+    // the 64 keys 16 at a time (dS^T and K read transposed)
+    const uint32_t dims = 2 * wg * QTILE * ROWB;  // column block 2 wg
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss<0, 1>(dv, wgmma_desc(sP + kk * 32, 16, 8 * ROWB),
+                     wgmma_desc(sdO(st) + dims + kk * 16 * ROWB,
+                                QTILE * ROWB, 8 * ROWB), 1);
+      wgmma_ss<0, 1>(dk, wgmma_desc(sDS + kk * 32, 16, 8 * ROWB),
+                     wgmma_desc(sQ(st) + dims + kk * 16 * ROWB,
+                                QTILE * ROWB, 8 * ROWB), 1);
+    }
+    wgmma_commit();
+    float dq[64];
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < W::NK / 16; ++kk)
+      wgmma_ss<1, 1>(dq, wgmma_desc(sDS + kk * 16 * ROWB, W::NK * ROWB,
+                                    8 * ROWB),
+                     wgmma_desc(sK + dims + kk * 16 * ROWB, W::NK * ROWB,
+                                8 * ROWB), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dv);
+    fence_regs(dk);
+    // every product of this tile completed in both warpgroups: its stage
+    // takes the tile after next, and X may be overwritten
+    named_sync(PRODUCTS, W::THREADS);
+    if (threadIdx.x == 0 && i + W::STAGES < n_tiles) load_tile(i + W::STAGES);
+
+    // dQ of this warpgroup's dims into dQ's sums, 64 dims at a time: staged
+    // in this warpgroup's half of X as the sums lay out two column blocks,
+    // then added by one bulk reduce-add
+    float* acc = acc_tile(p, static_cast<long long>(b) * p.H + h,
+                          m0 / QTILE, D);
+    const uint32_t stage = sP + wg * W::STAGED;
+    const int r0 = 16 * warp + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r == 1) {
+        if (tid == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        named_sync(STAGED256 + wg, 128);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * r + jj, c = 8 * jj + 2 * t;
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         stage + 4 * acc_offset(r0, c)),
+                     "f"(dq[4 * j]), "f"(dq[4 * j + 1])
+                     : "memory");
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                         stage + 4 * acc_offset(r0 + 8, c)),
+                     "f"(dq[4 * j + 2]), "f"(dq[4 * j + 3])
+                     : "memory");
+      }
+      fence_async_shared();
+      named_sync(STAGED256 + wg, 128);
+      if (tid == 0)
+        bulk_reduce_add(acc + (4 * wg + 2 * r) * 2048, stage, W::STAGED);
+    }
+  }
+  // the last bulk reduce-add has completed
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+  // dK and dV of these keys: summed over the block's items; in bf16 when
+  // one block has the key tile, else as this split's fp32 partials
+  if (p.splits == 1) {
+    bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+    bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * wg + 8 * j + 2 * t;
+      if (key0 < p.Sk) {
+        *reinterpret_cast<uint32_t*>(dkp + key0 * p.dk_ss + c) =
+            pack_bf16(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dvp + key0 * p.dv_ss + c) =
+            pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (key1 < p.Sk) {
+        *reinterpret_cast<uint32_t*>(dkp + key1 * p.dk_ss + c) =
+            pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dvp + key1 * p.dv_ss + c) =
+            pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  } else {
+    const long long rows = static_cast<long long>(p.B) * p.KV * p.Sk;
+    float* pk = p.part + ((static_cast<long long>(split) * p.B + b) * p.KV +
+                          kvh) * p.Sk * D;
+    float* pv = pk + p.splits * rows * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * wg + 8 * j + 2 * t;
+      if (key0 < p.Sk) {
+        *reinterpret_cast<float2*>(pk + key0 * D + c) =
+            make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(pv + key0 * D + c) =
+            make_float2(dv[4 * j], dv[4 * j + 1]);
+      }
+      if (key1 < p.Sk) {
+        *reinterpret_cast<float2*>(pk + key1 * D + c) =
+            make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(pv + key1 * D + c) =
+            make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// The D 256 route's last pass when splits > 1: dk and dv = the splits'
+// fp32 partials summed in split order (the same bits every call), in bf16
+// through their strides, 4 dims a thread.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_sum(const Params p) {
+  constexpr int D = 256;
+  const long long rows = static_cast<long long>(p.B) * p.KV * p.Sk;
+  const long long n = rows * (D / 4);
+  for (long long x = blockIdx.x * static_cast<long long>(THREADS) +
+                     threadIdx.x;
+       x < n; x += static_cast<long long>(gridDim.x) * THREADS) {
+    const long long row = x / (D / 4);  // (batch, KV head, key)
+    const int c = static_cast<int>(x % (D / 4)) * 4;
+    const int key = static_cast<int>(row % p.Sk);
+    const int b = static_cast<int>(row / p.Sk / p.KV);
+    const int kvh = static_cast<int>(row / p.Sk % p.KV);
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* src = p.part + (which * p.splits * rows + row) * D + c;
+      float4 sum = *reinterpret_cast<const float4*>(src);
+      for (int sp = 1; sp < p.splits; ++sp) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(src + sp * rows * D);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      bf16* dst = which == 0
+                      ? static_cast<bf16*>(p.dk) + b * p.dk_sb +
+                            kvh * p.dk_sh + key * p.dk_ss + c
+                      : static_cast<bf16*>(p.dv) + b * p.dv_sb +
+                            kvh * p.dv_sh + key * p.dv_ss + c;
+      uint2 packed;
+      packed.x = pack_bf16(sum.x, sum.y);
+      packed.y = pack_bf16(sum.z, sum.w);
+      *reinterpret_cast<uint2*>(dst) = packed;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1318,6 +1725,37 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_wgmma256(const Params& p, cudaStream_t stream) {
+  using W = W256;
+  Maps maps;
+  int err = encode(&maps.q, p.q, W::D, p.Sq, p.H, p.B, p.q_ss, p.q_sh,
+                   p.q_sb, 64, QTILE);
+  if (!err)
+    err = encode(&maps.dout, p.dout, W::D, p.Sq, p.H, p.B, p.do_ss, p.do_sh,
+                 p.do_sb, 64, QTILE);
+  if (!err)
+    err = encode(&maps.k, p.k, W::D, p.Sk, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb,
+                 64, W::NK);
+  if (!err)
+    err = encode(&maps.v, p.v, W::D, p.Sk, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb,
+                 64, W::NK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_wgmma256, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(p.B * p.KV * p.splits, (p.Sk + W::NK - 1) / W::NK);
+  flash_bwd_wgmma256<<<grid, W::THREADS, W::SMEM, stream>>>(maps, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  const long long n = static_cast<long long>(p.B) * p.KV * p.Sk * (W::D / 4);
+  const int blocks = static_cast<int>(
+      (n + THREADS - 1) / THREADS < 65536 ? (n + THREADS - 1) / THREADS
+                                          : 65536);
+  flash_bwd_dkdv_sum<<<blocks, THREADS, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_dkdv(const Params& p, cudaStream_t stream) {
   using TL = Tile<T, D>;
@@ -1330,11 +1768,16 @@ int launch_dkdv(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 64 and 128 take the wgmma kernel, every other (type, head_dim)
-// the mma.sync / CUDA-core one: by shape, at compile time
+// bf16 at D 64 and 128 take the wgmma kernel, bf16 at D 256 the wgmma
+// kernel that splits the head dims between its warpgroups, every other
+// (type, head_dim) the mma.sync / CUDA-core one: by shape, at compile time
 template <typename T, int D>
 constexpr bool uses_wgmma() {
   return std::is_same<T, bf16>::value && (D == 64 || D == 128);
+}
+template <typename T, int D>
+constexpr bool uses_wgmma256() {
+  return std::is_same<T, bf16>::value && D == 256;
 }
 
 template <typename T, int D>
@@ -1345,6 +1788,8 @@ int launch(const Params& p, cudaStream_t stream) {
   if (err) return err;
   if constexpr (uses_wgmma<T, D>())
     err = launch_wgmma<D>(p, stream);
+  else if constexpr (uses_wgmma256<T, D>())
+    err = launch_wgmma256(p, stream);
   else
     err = launch_dkdv<T, D>(p, stream);
   if (err) return err;
@@ -1354,6 +1799,9 @@ int launch(const Params& p, cudaStream_t stream) {
 
 template <int D>
 int launch_dtype(int dtype, const Params& p, cudaStream_t stream) {
+  // only the D 256 route takes splits
+  if (p.splits != 1 && !(dtype == 1 && D == 256))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch<float, D>(p, stream);
   if (dtype == 1) return launch<bf16, D>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1364,15 +1812,19 @@ int launch_dtype(int dtype, const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // The version of this C interface: 2 changed the workspace (dQ's sums by
-// 64-row tile, then the records of lse and delta).
-int flash_attention_bwd_abi(void) { return 2; }
+// 64-row tile, then the records of lse and delta); 3 added ``splits`` and
+// the D 256 route's partials after the records.
+int flash_attention_bwd_abi(void) { return 3; }
 
 // dtype: 0 = float32, 1 = bfloat16. q, o, do, dq: (B, H, Sq, D); k, v, dk,
 // dv: (B, KV, Sk, D); each with unit stride over D, the given element
 // strides over the other axes, 16-byte aligned rows and strides. lse: the
-// forward's fp32 (B, H, Sq), contiguous. workspace: 16-byte aligned fp32,
-// B H ceil(Sq / 64) 64 (D + 2) of them. Returns 0, a CUDA error code, or one
-// of this file's own codes (see flash_attention_bwd_error_string).
+// forward's fp32 (B, H, Sq), contiguous. splits: 1, or for bf16 at D 256
+// the number of blocks that share a key tile's (head, query tile) items.
+// workspace: 16-byte aligned fp32, B H ceil(Sq / 64) 64 (D + 2) of them,
+// then for splits > 1 2 splits B KV Sk D more. Returns 0, a CUDA error
+// code, or one of this file's own codes (see
+// flash_attention_bwd_error_string).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
                         void* dq, void* dk, void* dv, float* workspace,
@@ -1386,19 +1838,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long dk_sb, long long dk_sh, long long dk_ss,
                         long long dv_sb, long long dv_sh, long long dv_ss,
                         int causal, int window, float softcap, float scale,
-                        void* stream) {
+                        int splits, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      B * H > 65535 || B * KV > 65535)
+      B * H > 65535 || B * KV > 65535 || splits < 1 ||
+      static_cast<long long>(B) * KV * splits > 0x7fffffffLL ||
+      (Sk + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int QT = (Sq + QTILE - 1) / QTILE;
   float* dq_acc = workspace;
   float* rec = workspace + static_cast<long long>(B) * H * QT * QTILE * D;
+  float* part = rec + static_cast<long long>(B) * H * QT * REC;
   const Params p{q, k, v, o, dout, lse, dq, dk, dv, dq_acc, rec,
                  B, H, KV, Sq, Sk, QT,
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  o_sb, o_sh, o_ss, do_sb, do_sh, do_ss,
                  dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss,
-                 causal, window, softcap, scale};
+                 causal, window, softcap, scale, splits, part};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_dtype<32>(dtype, p, s);

@@ -32,6 +32,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Q_TILE = 64          # query rows per fp32 block (BQ in the source)
 MAX_Q_TILES = 65535  # the grid's second axis
 BWD_QTILE = 64       # query rows of a tile of the backward's workspace
+BWD_KEYS = 64        # keys per block of the backward's D 256 route
+BWD_BLOCKS = 3 * 132  # the D 256 route's target grid: three blocks an SM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +41,7 @@ _L = ctypes.c_longlong
 _ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
               _I, _I, ctypes.c_float, ctypes.c_float, _P)
 _BWD_ARGTYPES = (*(_P,) * 10, *(_I,) * 7, *(_L,) * 24, _I, _I,
-                 ctypes.c_float, ctypes.c_float, _P)
+                 ctypes.c_float, ctypes.c_float, _I, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -209,6 +211,26 @@ def bwd_workspace_numel(b: int, h: int, sq: int, d: int) -> int:
     return b * h * -(-sq // BWD_QTILE) * BWD_QTILE * (d + 2)
 
 
+def bwd_splits(b: int, h: int, kv: int, sk: int, d: int,
+               dtype: torch.dtype) -> int:
+    """How many blocks of the backward's bf16 D 256 route share a key
+    tile's (query head, query tile) items: enough for about ``BWD_BLOCKS``
+    blocks (one fits an SM at a time, so a few waves of them balance key
+    tiles of unequal work), at most the group's heads; 1 on every other
+    route."""
+    if dtype != torch.bfloat16 or d != 256:
+        return 1
+    tiles = b * kv * -(-sk // BWD_KEYS)
+    return max(1, min(h // kv, -(-BWD_BLOCKS // tiles)))
+
+
+def bwd_partials_numel(splits: int, b: int, kv: int, sk: int,
+                       d: int) -> int:
+    """fp32 elements the D 256 route's dK and dV partials add to the
+    workspace: none for one split, else (splits, B, KV, Sk, D) of each."""
+    return 0 if splits == 1 else 2 * splits * b * kv * sk * d
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None):
@@ -218,20 +240,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     and v."""
     _check_bwd(q, k, v, o, lse, do, causal, window, softcap)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    workspace = torch.empty(bwd_workspace_numel(*q.shape),
-                            dtype=torch.float32, device=q.device)
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    splits = bwd_splits(b, h, kvh, sk, d, q.dtype)
+    workspace = torch.empty(
+        bwd_workspace_numel(b, h, sq, d)
+        + bwd_partials_numel(splits, b, kvh, sk, d),
+        dtype=torch.float32, device=q.device)
     launch_bwd(load_bwd().lib, q, k, v, o, lse, do, dq, dk, dv, workspace,
-               causal=causal, window=window, softcap=softcap)
+               causal=causal, window=window, softcap=softcap, splits=splits)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 def launch_bwd(lib: ctypes.CDLL, q, k, v, o, lse, do, dq, dk, dv, workspace,
                *, causal: bool, window: Optional[int],
-               softcap: Optional[float]) -> None:
+               softcap: Optional[float], splits: int = 1) -> None:
     """Run the backward of ``lib`` (bound by :func:`bind_bwd`) on checked
-    inputs on the current stream; raise if the launch reports an error.
-    Counts nothing: :func:`flash_attention_bwd` does."""
+    inputs on the current stream, ``splits`` blocks a key tile (with a
+    workspace that holds their partials; see :func:`bwd_splits`); raise if
+    the launch reports an error. Counts nothing: :func:`flash_attention_bwd`
+    does."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
@@ -242,7 +271,7 @@ def launch_bwd(lib: ctypes.CDLL, q, k, v, o, lse, do, dq, dk, dv, workspace,
                                      workspace)),
             DTYPES[q.dtype], b, h, kvh, sq, sk, d, *strides,
             int(causal), window or 0, float(softcap or 0.0),
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d), splits, stream)
     if rc != 0:
         msg = lib.flash_attention_bwd_error_string(rc).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "

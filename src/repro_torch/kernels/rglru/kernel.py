@@ -10,7 +10,10 @@ launch reports an error. ``rglru_scan.launches`` counts the launches.
 
 The backward (``rglru_scan_bwd``, the source's second entry; the Pallas
 kernel has none) gives da, db and dh0 from the gradient of h and the
-forward's saved h; ``rglru_scan_bwd.launches`` counts its launches.
+forward's saved h; it splits S into chunks of ``BWD_CHUNK`` steps that pass
+their carry right to left through a workspace the wrapper allocates
+(``bwd_workspace_numel``). ``rglru_scan_bwd.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 MAX_BATCH = 65535     # the grid's second axis
+BWD_CHUNK = 128       # the backward's steps per block (CHUNK in the source)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P)
-_BWD_ARGTYPES = (*(_P,) * 7, _I, _I, _I, _L, _L, _L, _L, _P)
+_BWD_ARGTYPES = (*(_P,) * 8, _I, _I, _I, _L, _L, _L, _L, _P)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -114,6 +118,13 @@ def _check_bwd(a, h, h0, dh):
                          f"{h.dtype} {tuple(h.shape)} strides {h.stride()}")
 
 
+def bwd_workspace_numel(b: int, s: int, w: int) -> int:
+    """fp32 elements of the backward's workspace for a (B, S, W): per
+    (batch, chunk of ``BWD_CHUNK`` steps, channel) the chunk's aggregate
+    (two values) and its inclusive carry, each beside its flag."""
+    return 6 * b * -(-s // BWD_CHUNK) * w
+
+
 def rglru_scan_bwd(a, h, h0, dh):
     """Gradients (da, db, dh0) of :func:`rglru_scan`'s h = scan(a, b, h0)
     given dh (B, S, W) and the forward's output h, on the card; dh0 is None
@@ -122,12 +133,15 @@ def rglru_scan_bwd(a, h, h0, dh):
     da = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     db = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     dh0 = torch.empty_like(h0) if h0 is not None else None
-    launch_bwd(load().lib, a, h, h0, dh, da, db, dh0)
+    workspace = torch.empty(bwd_workspace_numel(*a.shape),
+                            dtype=torch.float32, device=a.device)
+    launch_bwd(load().lib, a, h, h0, dh, da, db, dh0, workspace)
     rglru_scan_bwd.launches += 1
     return da, db, dh0
 
 
-def launch_bwd(lib: ctypes.CDLL, a, h, h0, dh, da, db, dh0) -> None:
+def launch_bwd(lib: ctypes.CDLL, a, h, h0, dh, da, db, dh0,
+               workspace) -> None:
     """Run the backward of ``lib`` (bound by :func:`bind`) on checked inputs
     on the current stream; raise if the launch reports an error. Counts
     nothing: :func:`rglru_scan_bwd` does."""
@@ -136,7 +150,7 @@ def launch_bwd(lib: ctypes.CDLL, a, h, h0, dh, da, db, dh0) -> None:
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.rglru_scan_bwd(
             *(t.data_ptr() if t is not None else None
-              for t in (a, h, h0, dh, da, db, dh0)),
+              for t in (a, h, h0, dh, da, db, dh0, workspace)),
             bsz, s, w, a.stride(0), a.stride(1), dh.stride(0), dh.stride(1),
             stream)
     if rc != 0:

@@ -5,6 +5,7 @@ it computes without one is checked here: the bounds at the recorded shapes,
 the C interface versions and argument counts it calls older libraries by,
 the backward's workspace size, and how it reports a row.
 """
+import ctypes
 import math
 import re
 from pathlib import Path
@@ -140,7 +141,9 @@ def test_describe_scan_backwards_compare_with_their_bounds():
     (("flash_attention", 2), 28),
     (("ssd_scan", 1), 25),
     (("flash_attention_bwd", 1), 46),
+    (("flash_attention_bwd", 2), 46),
     (("ssd_scan_bwd", 1), 35),
+    (("rglru_scan_bwd", 1), 15),
 ])
 def test_old_interface_argument_counts(key, count):
     assert len(bench.OLD_ARGTYPES[key]) == count
@@ -148,26 +151,33 @@ def test_old_interface_argument_counts(key, count):
 
 @pytest.mark.parametrize("name, argtypes, count", [
     ("flash_attention", flash._ARGTYPES, 29),
-    ("flash_attention_bwd", flash._BWD_ARGTYPES, 46),
+    ("flash_attention_bwd", flash._BWD_ARGTYPES, 47),
     ("ssd_scan", ssd._ARGTYPES, None),
     ("rglru_scan", rglru._ARGTYPES, 12),
     ("ssd_scan_bwd", ssd._BWD_ARGTYPES, 35),
-    ("rglru_scan_bwd", rglru._BWD_ARGTYPES, 15),
+    ("rglru_scan_bwd", rglru._BWD_ARGTYPES, 16),
 ])
 def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
                                                          count):
     """The wrappers call version CURRENT[name] (1 for a source that exports
-    no version); every entry of OLD_ARGTYPES is older, and each backward's
+    no version); every entry of OLD_ARGTYPES is older. The SSD backward's
     version 1 takes the same arguments as version 2 (only its workspace
-    changed)."""
+    changed); the flash backward's versions 1 and 2 take those of version 3
+    less ``splits`` (an int before the stream); the RG-LRU backward's
+    version 1 those of version 2 less the workspace (after dh0)."""
     current = bench.CURRENT.get(name, 1)
     assert all(v < current for n, v in bench.OLD_ARGTYPES if n == name)
     if count is not None:
         assert len(argtypes) == count
-    if name in ("flash_attention_bwd", "ssd_scan_bwd"):
-        assert bench.OLD_ARGTYPES[name, 1] == tuple(argtypes)
-    if name == "rglru_scan_bwd":  # not compared with older versions
-        return
+    old = bench.OLD_ARGTYPES
+    if name == "ssd_scan_bwd":
+        assert old[name, 1] == tuple(argtypes)
+    if name == "flash_attention_bwd":
+        assert argtypes[-2] is ctypes.c_int
+        assert old[name, 1] == old[name, 2] == (*argtypes[:-2], argtypes[-1])
+    if name == "rglru_scan_bwd":
+        assert argtypes[7] is ctypes.c_void_p
+        assert old[name, 1] == (*argtypes[:7], *argtypes[8:])
     assert name in bench.ENTRY
 
 
@@ -176,6 +186,7 @@ def test_current_interfaces_are_newer_than_every_old_one(name, argtypes,
     ("flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd"),
     ("ssd/csrc/ssd_scan.cu", "ssd_scan"),
     ("ssd/csrc/ssd_scan_bwd.cu", "ssd_scan_bwd"),
+    ("rglru/csrc/rglru_scan.cu", "rglru_scan_bwd"),
 ])
 def test_sources_export_the_versions_the_bench_expects(source, name):
     text = (CSRC / source).read_text()
@@ -228,11 +239,13 @@ def test_rglru_source_exports_no_version():
 
 @pytest.mark.parametrize("source, entry, count", [
     ("ssd/csrc/ssd_scan_bwd.cu", "ssd_scan_bwd", 35),
-    ("rglru/csrc/rglru_scan.cu", "rglru_scan_bwd", 15),
+    ("rglru/csrc/rglru_scan.cu", "rglru_scan_bwd", 16),
+    ("flash_attention/csrc/flash_attention_bwd.cu", "flash_attention_bwd",
+     47),
 ])
 def test_backward_entries_take_what_the_wrappers_pass(source, entry, count):
-    """The C signature of each scan's backward has as many parameters as
-    its wrapper declares argument types."""
+    """The C signature of each backward has as many parameters as its
+    wrapper declares argument types."""
     text = (CSRC / source).read_text()
     sig = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
     assert len(sig.split(",")) == count
@@ -279,3 +292,80 @@ ptxas info    : Used 40 registers
     assert report[:2] == ["_Z3fooi: 168 registers, 16 bytes spill stores",
                           "_Z3barv: 40 registers, 0 bytes spill stores"]
     assert len(report) == 3 and "wgmma.mma_async" in report[2]
+
+
+@pytest.mark.parametrize("b, h, kv, sk, d, dtype, want", [
+    # recurrentgemma-9b's train call: 64 key tiles, 7 blocks each (448)
+    (1, 16, 1, 4096, 256, torch.bfloat16, 7),
+    # paligemma-3b's prefill shape: 4 x 8 key tiles; 8 query heads at most
+    (4, 8, 1, 512, 256, torch.bfloat16, 8),
+    # enough key tiles already: one block each
+    (8, 16, 2, 4096, 256, torch.bfloat16, 1),
+    # a ragged Sk rounds its key tiles up
+    (2, 16, 1, 1000, 256, torch.bfloat16, 13),
+    # the other routes take no splits
+    (1, 16, 1, 4096, 256, torch.float32, 1),
+    (1, 16, 1, 4096, 128, torch.bfloat16, 1),
+    (8, 9, 3, 2048, 64, torch.bfloat16, 1),
+])
+def test_bwd_splits_fill_the_card_at_d256(b, h, kv, sk, d, dtype, want):
+    """The D 256 route shares a key tile's items between enough blocks for
+    about three an SM (one block fits an SM at a time), at most the group's
+    heads."""
+    got = flash.bwd_splits(b, h, kv, sk, d, dtype)
+    assert got == want
+    tiles = b * kv * math.ceil(sk / 64)
+    if got > 1:
+        assert got <= h // kv
+        assert tiles * got >= flash.BWD_BLOCKS or got == h // kv
+        assert tiles * (got - 1) < flash.BWD_BLOCKS
+
+
+def test_bwd_workspace_grows_by_the_partials_of_the_splits():
+    """At recurrentgemma's train call the workspace holds dQ's sums and the
+    records, then 7 splits' fp32 dK and dV partials, 58.7 MB; one split
+    adds nothing."""
+    b, h, kv, s, d = 1, 16, 1, 4096, 256
+    splits = flash.bwd_splits(b, h, kv, s, d, torch.bfloat16)
+    assert flash.bwd_partials_numel(splits, b, kv, s, d) == \
+        2 * 7 * 4096 * 256
+    assert 4 * flash.bwd_partials_numel(splits, b, kv, s, d) == 58_720_256
+    assert flash.bwd_partials_numel(1, b, kv, s, d) == 0
+    assert flash.bwd_workspace_numel(b, h, s, d) == 16 * 64 * 64 * 258
+
+
+@pytest.mark.parametrize("b, s, w", [
+    (1, 4096, 4096), (4, 512, 4096), (2, 37, 1000), (2, 1, 4096),
+    (1, 129, 3)])
+def test_rglru_bwd_workspace_holds_flagged_chunk_records(b, s, w):
+    """Per (batch, chunk of 128 steps, channel) the aggregate's two values
+    and the inclusive carry, each a 64-bit word with its flag."""
+    chunks = math.ceil(s / 128)
+    assert rglru.BWD_CHUNK == 128
+    assert rglru.bwd_workspace_numel(b, s, w) == 6 * b * chunks * w
+
+
+def test_rglru_bound_at_the_train_shape():
+    """recurrentgemma-9b's train step calls the RG-LRU forward at B1 S4096
+    W4096: a and b read, h written, 201.3 MB, 0.0601 ms at 3.35 TB/s."""
+    b, s, w = bench.RGLRU_SHAPES["train-4096"]
+    assert (b, s, w) == bench.RGLRU_BWD_SHAPES["train-4096"]
+    ms, by, _ = bench.rglru_bound(b, s, w)
+    assert by == "bytes"
+    assert ms == pytest.approx(0.0601, abs=1e-4)
+
+
+@pytest.mark.parametrize("exports, version", [
+    ((), 1), ((("rglru_scan_bwd", 2),), 2)])
+def test_rglru_backward_versions_are_told_apart(exports, version):
+    """An RG-LRU library is the forward's (``kernel_of``); its backward's
+    version is read from ``rglru_scan_bwd_abi`` (none: version 1, called by
+    ``launch_old`` without a workspace)."""
+    lib = _Library("rglru_scan_fwd", "rglru_scan_bwd",
+                   abi=exports[0] if exports else None)
+    assert bench.kernel_of(lib) == "rglru_scan"
+    assert bench.interface_version(lib, "rglru_scan") == 1
+    assert bench.interface_version(lib, "rglru_scan_bwd") == version
+    current = version == bench.CURRENT["rglru_scan_bwd"]
+    assert current or ("rglru_scan_bwd", version) in bench.OLD_ARGTYPES
+    assert bench.ERROR_STRING["rglru_scan_bwd"] == "rglru_scan_error_string"

@@ -30,7 +30,8 @@ from repro.models import rglru as jax_rglru  # noqa: E402
 from repro.models import ssm as jax_ssm  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_bwd_ref, rglru_ref  # noqa: E402
+from repro_torch.kernels.rglru.ref import (rglru_bwd_chunks,  # noqa: E402
+                                          rglru_bwd_ref, rglru_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import (ssd_bwd_passes, ssd_passes,  # noqa: E402
                                          ssd_ref)
@@ -283,6 +284,29 @@ def test_rglru_bwd_ref_matches_autograd(b, s, w):
         for g, wnt in zip(got, want):
             assert max_norm_err(g, wnt) < GRAD_TOL
         assert (got[2] is None) == (len(args) == 2)
+
+
+@pytest.mark.parametrize("b,s,w,chunk,seg", [
+    (2, 300, 5, 128, 16), (1, 128, 3, 128, 16), (2, 100, 4, 128, 16),
+    (1, 1, 2, 128, 16), (2, 37, 6, 8, 2), (1, 64, 3, 16, 16)])
+def test_rglru_bwd_chunks_match_the_step_by_step_mirror(b, s, w, chunk, seg):
+    """The backward kernel's order (segments, chunk aggregates, the chunks'
+    chain right to left, each segment rescanned from its carry) gives the
+    step-by-step recurrence's gradients: S over several chunks and ragged,
+    S one chunk exactly, S below a chunk, S 1, and many chunks of a few
+    segments, with and without h0."""
+    a, bb, h0, dh = rglru_inputs(b, s, w, seed=4)
+    t = [torch.from_numpy(x) for x in (a, bb, h0, dh)]
+    for init in (None, t[2]):
+        h = rglru_ref(t[0], t[1], init)
+        got = rglru_bwd_chunks(t[0], h, init, t[3], chunk=chunk, seg=seg)
+        want = rglru_bwd_ref(t[0], h, init, t[3])
+        for g, wnt in zip(got, want):
+            if wnt is None:
+                assert g is None
+                continue
+            assert g.shape == wnt.shape
+            assert max_norm_err(g, wnt) < 1e-6
 
 
 def test_ops_take_the_plain_version_on_the_cpu_under_autograd():
