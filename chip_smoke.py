@@ -51,6 +51,16 @@ fit's FitError in (t)):
                   20 bf16 steps of ElasticTrainer.train, the loss falling;
                   exactly 60 forward and 30 backward flash launches a step
                   (remat recomputes each layer's forward)
+  (r) elastic  -- smollm's train cell on 4 virtual slices of the card: the
+                  TrainState expanded 2 -> 4 and shrunk back bit-equal;
+                  elastic against fixed in fp32; the LocalRMS loop (a
+                  rival job, SHRINK, EXPAND, checkpoints, one fault); then
+                  with the parameters in blocks over the slices
+                  (FSDP_RULES): one fp32 step at 2 and 4 slices against
+                  the replicated layout's (the loss, every parameter and
+                  moment after the update), and the bf16 loop's EXPAND
+                  2 -> 4 and SHRINK 4 -> 2, each reshard bit-equal, with
+                  the resize ms and non-local bytes of both layouts
   mamba2-130m at full width (seeded random weights):
   (h) prefill  -- B 4, S 512: fp32 logits and cache through the kernel
                   against the same weights' plain path on the CPU; bf16 by
@@ -118,6 +128,18 @@ fit's FitError in (t)):
                   6 bf16 steps, the loss falling, the peak memory; exactly
                   6 forward and 4 backward RG-LRU, 2 forward and 1 backward
                   flash launches a step; the step's times
+  (wq) train   -- after (mq), in a child process of its own
+                  (chip_smoke.py --qwen-train): qwen3-4b at its published
+                  widths cut to 12 of its 36 layers (36 layers' fp32
+                  training state does not fit the card), each layer at its
+                  own fan-in, the loss by ce_chunk: one fp32 train step at
+                  B 1, S 2048 through the flash kernels at D 128 under
+                  remat "dots" and "nothing_saveable" against the chunked
+                  path and each other; 6 bf16 steps at B 2, S 4096 under
+                  "dots", the loss falling (the flash backward's bf16 D 128
+                  route on a main path); exactly 24 forward and 12 backward
+                  flash launches a step; the step's wall, busy, tokens/s
+                  and peak memory under both remats
   slice 10, in the same child process after (x), each model at its
   published widths and depth, twice as (u)-(w) (per-layer fan-in, every
   check held; then the reference's init, fp32 printed):
@@ -165,12 +187,14 @@ fit's FitError in (t)):
                   both in device time) as a yardstick the port never calls,
                   at slice 10's call shapes too, the scans' backward at
                   their train calls; each model's prefill and decode step,
-                  smollm's and mamba2's train steps, with the card's busy
-                  share; the Servers' tokens/s; the backwards last
+                  smollm's train step at 1, 2 and 4 slices (at 2 and 4
+                  also under FSDP_RULES) and mamba2's, with the card's
+                  busy share; the Servers' tokens/s; the backwards last
+                  (the flash backward also at qwen3's train call)
 
-Phases (e)-(g), (q), (h)-(j), (hq), (m)-(o), (u)-(w), (y), (z) and (mq)
-are the main paths: every kernel launch count is set to 0 just before each path and read
-just after it. The last
+Phases (e)-(g), (q), (r), (h)-(j), (hq), (m)-(o), (u)-(w), (y), (z), (mq)
+and (wq) are the main paths: every kernel launch count is set to 0 just
+before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
@@ -222,6 +246,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2048, 20
 # the old and the new, would not fit the card), the bf16 steps and their
 # learning rate
 RG_TRAIN_S, RG_TRAIN_LAYERS, RG_TRAIN_STEPS, RG_TRAIN_LR = 4096, 5, 6, 1e-3
+# qwen3-4b training (wq): its depth, cut to 12 layers (36 layers' fp32
+# parameters, gradients, moments and the functional update's new
+# parameters and moments come to about 112 GB; 12 layers', 1.60 B
+# parameters, to about 45 GB); the fp32 step's S at B 1; the bf16 steps'
+# batch, S, number and learning rate; ce_chunk
+QWEN_DEPTH, QWEN_TRAIN_LAYERS, QWEN_FP32_S = 36, 12, 2048
+QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS, QWEN_TRAIN_LR = 2, 4096, 6, 1e-3
+QWEN_CE_CHUNK = 1024
 
 
 def log(phase, msg):
@@ -367,7 +399,8 @@ def bwd_d256_cases():
 
 def phase_flash_bwd_vs_plain():
     """Returns {(head_dim, S): max |kernel - plain| over dq, dk and dv} at
-    smollm's training call (bf16, B 8, S 2048, (B, S, H, D) views) and the
+    smollm's and qwen3-4b's training calls (bf16, B 8, S 2048, D 64; B 2,
+    S 4096, D 128; (B, S, H, D) views) and the
     case table's other bf16 calls on such views, slice 10's among them
     (seamless's non-causal calls train in phase z); the D 256 route also at
     every option (bwd_d256_cases)."""
@@ -379,7 +412,13 @@ def phase_flash_bwd_vs_plain():
     main_err = {}
     cases = kernel_cases() + slice10_kernel_cases() + bwd_d256_cases() + [
         # smollm-135m's train step: B 8, S 2048, (B, S, H, D) views
-        (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd")]
+        (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd"),
+        # qwen3-4b's bf16 train step (wq): B 2, S 4096, GQA 32 / 8, D 128;
+        # and its fp32 step, B 1, S 2048
+        (QWEN_TRAIN_B, 32, 8, QWEN_TRAIN_S, QWEN_TRAIN_S, 128, True, None,
+         None, torch.bfloat16, "bshd"),
+        (1, 32, 8, QWEN_FP32_S, QWEN_FP32_S, 128, True, None, None,
+         torch.float32, "bshd")]
     for case in cases:
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
@@ -391,6 +430,7 @@ def phase_flash_bwd_vs_plain():
         leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves,
                                    do.float())
+        del leaves
         lse_err = (lse - attention_lse(q, k, **kw)).abs().max().item()
         errs = [max_norm_err(g, w) for g, w in zip(grads, want)]
         name = (f"B{b} H{h} KV{kv} Sq{sq} Sk{sk} D{d} causal={causal} "
@@ -1171,14 +1211,14 @@ def train_launches(cfg):
     forward and a backward of its kernel (flash for the attention kinds,
     the SSD or RG-LRU scan for "ssd" and "rglru"); under remat the stacked
     units' layers run their forward twice (the checkpointed units run again
-    in the backward pass), a tail or dense head layer's once. An
-    encoder-decoder checkpoints every layer: flash_per_pass's calls, twice
-    under remat."""
+    in the backward pass; under "dots" too, as a kernel's output is no
+    matrix product), a tail or dense head layer's once. An encoder-decoder
+    checkpoints every layer: flash_per_pass's calls, twice under remat."""
     names = {"ssd": ("ssd_scan", "ssd_scan_bwd"),
              "rglru": ("rglru_scan", "rglru_scan_bwd")}
     out = {name: 0 for pair in (("flash_attention", "flash_attention_bwd"),
                                 *names.values()) for name in pair}
-    again = 2 if cfg.remat == "nothing_saveable" else 1
+    again = 1 if cfg.remat == "none" else 2
     if cfg.family == "encdec":
         n = flash_per_pass(cfg)
         return {**out, "flash_attention": again * n, "flash_attention_bwd": n}
@@ -1362,8 +1402,9 @@ def phase_scan_train_fp32(label, cfg, params, batch, reference=None):
 def profile_split(fns):
     """One torch.profiler session over ``fns`` ({name: fn}), each called
     once between synchronises and marks: {name: (card busy ms, kernels and
-    copies)}, each device event counted in the interval between the marks
-    its start falls in. One session serves them all: a profile of a train
+    copies, [(kernel name, ms, count)] the top 5 by device time)}, each
+    device event counted in the interval between the marks its start falls
+    in. One session serves them all: a profile of a train
     step, whose backward runs on autograd's own thread, has left later
     profiles in the process without device events."""
     from torch.autograd import DeviceType
@@ -1382,20 +1423,27 @@ def profile_split(fns):
     events = prof.events()
     marks = sorted(ev.time_range.start for ev in events
                    if ev.name.startswith("chip_smoke_mark_"))
-    out = {name: [0.0, 0] for name in names}
+    out = {name: [0.0, 0, {}] for name in names}
     for ev in events:
         if ev.device_type != DeviceType.CUDA:
             continue
         t = ev.time_range.start
         for i, name in enumerate(names):
             if marks[i] <= t < marks[i + 1]:
-                out[name][0] += ev.self_device_time_total / 1e3
+                ms = ev.self_device_time_total / 1e3
+                out[name][0] += ms
                 out[name][1] += 1
-    return {name: tuple(v) for name, v in out.items()}
+                by = out[name][2].setdefault(ev.name[:60], [0.0, 0])
+                by[0] += ms
+                by[1] += 1
+    return {name: (ms, n, sorted(((k, v[0], v[1]) for k, v in by.items()),
+                                 key=lambda e: -e[1])[:5])
+            for name, (ms, n, by) in out.items()}
 
 
 def step_times(entries):
-    """(k) Train steps, {key: (cfg, data_cfg, slices, step fn)}: the wall
+    """(k) Train steps, {(label, slices): (cfg, data_cfg, slices, step
+    fn)}: the wall
     time (host clock around 3 steps ending in a synchronise), the card's
     busy time in one step (all in one profile_split session, after every
     other profile of the process) and tokens/s."""
@@ -1410,38 +1458,47 @@ def step_times(entries):
         walls[key] = (time.perf_counter() - t0) / 3 * 1e3
     busy = profile_split({key: entry[-1] for key, entry in entries.items()})
     for key, (cfg, data_cfg, n, _) in entries.items():
-        ms, launches = busy[key]
+        ms, launches, top = busy[key]
         tokens = data_cfg.global_batch * data_cfg.seq_len
-        log("k", f"{cfg.name} ({cfg.num_layers} layers) bf16 train step "
-                 f"B{data_cfg.global_batch} S{data_cfg.seq_len} at {n} "
+        log("k", f"{key[0]} ({cfg.num_layers} layers, remat {cfg.remat}) "
+                 f"bf16 train step B{data_cfg.global_batch} "
+                 f"S{data_cfg.seq_len} at {n} "
                  f"slice(s) of the card: {walls[key]:.3f} ms wall, card busy "
                  f"{ms:.3f} ms in {launches} kernels and copies "
                  f"({100 * (1 - ms / walls[key]):.1f}% idle), "
-                 f"{tokens / walls[key] * 1e3:.0f} tokens/s")
+                 f"{tokens / walls[key] * 1e3:.0f} tokens/s; top: "
+                 + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in top))
         if launches == 0:
             raise AssertionError(f"the profile saw no device work of "
-                                 f"{cfg.name}'s step at {n} slices")
+                                 f"{key[0]}'s step at {n} slices")
+    return walls, busy
 
 
 def phase_train_step_time(cfg, trainer, state, batch, data_cfg, others=()):
     """(k) One bf16 train step of ``cfg`` at 1, 2 and 4 slices of the card
-    (the trained state resharded from 1), and of each of ``others``
-    ((cfg, trainer, state, batch, data_cfg)) at 1: step_times."""
-    from repro_torch.core import make_mesh, reshard, slice_devices
+    (the trained state resharded from 1), with the parameters replicated
+    and, at 2 and 4, in blocks over the slices (FSDP_RULES: each slice's
+    step gathers them first), and of each of ``others`` ((cfg, trainer,
+    state, batch, data_cfg)) at 1: step_times."""
+    from repro_torch.core import FSDP_RULES, make_mesh, reshard, slice_devices
     from repro_torch.runtime import ElasticTrainer
     entries = {}
-    for n in (1, 2, 4):
+    for n, rules in ((1, None), (2, None), (4, None), (2, FSDP_RULES),
+                     (4, FSDP_RULES)):
         if n == 1:
             tr, st = trainer, state
         else:
+            changes = dict(max_slices=n)
+            if rules is not None:
+                changes["rules"] = rules
             tr = ElasticTrainer(trainer.model, trainer.opt_cfg, trainer.data,
-                                dataclasses.replace(trainer.cfg,
-                                                    max_slices=n),
+                                dataclasses.replace(trainer.cfg, **changes),
                                 devices=slice_devices(n))
             st = reshard(state, tr._state_shardings(make_mesh(
                 n, 1, devices=tr.devices)))
-        entries[cfg.name, n] = (cfg, data_cfg, n,
-                                lambda tr=tr, st=st: tr.train_step(st, batch))
+        label = cfg.name + ("" if rules is None else " FSDP")
+        entries[label, n] = (cfg, data_cfg, n,
+                             lambda tr=tr, st=st: tr.train_step(st, batch))
     for o_cfg, o_tr, o_st, o_batch, o_data in others:
         entries[o_cfg.name, 1] = (
             o_cfg, o_data, 1, lambda tr=o_tr, st=o_st, b=o_batch:
@@ -1612,6 +1669,170 @@ def phase_reshard(cfg, params, data_cfg):
             not torch.equal(gather(x4), x):
         raise AssertionError("resharding does not follow Listing 3")
     return tr, state, s4
+
+
+def random_moments(tr, params, seed):
+    """A TrainState of trainer ``tr`` from ``params`` with AdamW moments
+    drawn whole on the card from ``seed`` (|normal|) and laid out by the
+    trainer's rules, so that any layout holds the same values, at step 5."""
+    from repro_torch.core import place
+    from repro_torch.models.layers import tree_map
+    state = tr.init_state(params=params)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("mu", "nu"):
+        state["opt"][name] = tree_map(lambda x: place(torch.randn(
+            x.shape, generator=gen, device="cuda").abs(), x.sharding),
+            state["opt"][name])
+    state["step"] = state["step"].map(lambda t: t + 5)
+    state["opt"]["step"] = state["opt"]["step"].map(lambda t: t + 5)
+    return state
+
+
+def phase_fsdp_step(cfg, model, params, data_cfg):
+    """(r) One fp32 train step of smollm-135m at full width (weights at a
+    per-layer fan-in) on 2 and 4 virtual slices with the parameters in
+    blocks over the slices (FSDP_RULES: each slice gathers its whole
+    parameters before its forward and frees them after its backward; each
+    block is updated from its part of the summed gradients) against the
+    same step with them replicated (TP_DP_RULES), from one state and one
+    batch: the loss, and every parameter and moment gathered after the
+    update, max-normalised at MODEL_TOL. The moments are random, so that
+    an update is no sign of its gradient: the flash backward sums dQ in an
+    order that changes from run to run, which could flip the sign of a
+    gradient near 0 and with it a fresh AdamW update by 2 lr."""
+    from repro_torch.core import FSDP_RULES, TP_DP_RULES, gather
+    from repro_torch.core.sharding import distinct_blocks
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.layers import tree_map
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
+    batch = {k: t.cuda() for k, t in SyntheticLMData(data_cfg).batch(
+        0).items()}
+    per_step = train_launches(cfg)
+    worst = {}
+    for n in (2, 4):
+        out = {}
+        for name, rules in (("replicated", TP_DP_RULES),
+                            ("FSDP", FSDP_RULES)):
+            tr = elastic_trainer(f32, data_cfg, 1, n, rules=rules)
+            state = random_moments(tr, sane, seed=6)
+            wq = state["params"]["blocks"]["p0"]["attn"]["wq"]
+            blocks = len(distinct_blocks(wq))
+            if blocks != (n if rules is FSDP_RULES else 1):
+                raise AssertionError(f"{name}: wq in {blocks} blocks at "
+                                     f"{n} slices")
+            new, metrics = counted_launches(
+                lambda: tr.train_step(state, batch),
+                {k: n * v for k, v in per_step.items()})
+            out[name] = (metrics["loss"].reshape(1),
+                         tree_paths(tree_map(gather, {
+                             "params": new["params"], "mu": new["opt"]["mu"],
+                             "nu": new["opt"]["nu"]})))
+            del state, new
+        errs = {"loss": max_norm_err(out["FSDP"][0], out["replicated"][0])}
+        errs.update({"/".join(path): max_norm_err(t, out["replicated"][1][
+            path]) for path, t in out["FSDP"][1].items()})
+        top = max(errs, key=errs.get)
+        worst[n] = errs[top]
+        log("r", f"{cfg.name} fp32 B{data_cfg.global_batch} "
+                 f"S{data_cfg.seq_len} step at {n} slices, FSDP_RULES "
+                 f"against replicated (per-layer fan-in, random moments): "
+                 f"loss {out['FSDP'][0].item():.6f} / "
+                 f"{out['replicated'][0].item():.6f}, max-normalised "
+                 f"{errs['loss']:.3e}; parameters and moments after the "
+                 f"update, largest {top} {errs[top]:.3e} over {len(errs) - 1}"
+                 f" leaves (tol {MODEL_TOL})")
+        del out
+    if max(worst.values()) > MODEL_TOL:
+        raise AssertionError("the FSDP step disagrees with the replicated "
+                             "one")
+
+
+def phase_fsdp_elastic(cfg, params, data_cfg):
+    """(r) The elastic loop under FSDP_RULES, bf16: ElasticTrainer.train
+    from 2 of 4 virtual slices, a scripted RMS that EXPANDs the job to 4 at
+    its first reconfiguration point and SHRINKs it back to 2 at its second;
+    each reshard of the TrainState by checked_reshard (every leaf
+    bit-equal, a block kept in place only by a local transfer), its bytes
+    of non-local transfers beside those of the same resize of the
+    replicated layout's state, and both layouts' resize ms (timed_reshard,
+    best of 3); the flash launches a step are the slices' count times
+    (q)'s; the loss falls."""
+    from repro_torch.core import (FSDP_RULES, Action, Decision, reshard,
+                                  resized_mesh, slice_devices, timed_reshard)
+    from repro_torch.runtime import trainer as trainer_mod
+    steps, devices = 6, slice_devices(ELASTIC_SLICES)
+    tr = elastic_trainer(cfg, data_cfg, steps, 2, rms=ScriptedRMS(
+        {1: Decision(Action.EXPAND, 4), 2: Decision(Action.SHRINK, 2)}),
+        check_period=2, rules=FSDP_RULES)
+    resizes, per_step, wrappers, calls = [], train_launches(cfg), \
+        counters(), []
+
+    def checked(state, shardings):
+        out, stats = checked_reshard(state, shardings)
+        resizes.append(stats)
+        return out
+
+    step_fn = tr.train_step
+
+    def step(state, batch):
+        before = {n: wrappers[n].launches for n in per_step}
+        out = step_fn(state, batch)
+        calls.append((tr.slices, {n: wrappers[n].launches - before[n]
+                                  for n in per_step}))
+        return out
+
+    tr.train_step = step
+    trainer_mod.reshard = checked
+    try:
+        state = tr.train(state=tr.init_state(params=params))
+    finally:
+        trainer_mod.reshard = reshard
+    losses = [m["loss"] for m in tr.metrics]
+
+    def moved(src, sh):
+        plan = []
+        reshard(src, sh, transfers=plan)
+        return sum(t.nbytes for t in plan if not t.local)
+
+    moves = {}
+    for name, changes in (("replicated", {}), ("FSDP", {"rules": FSDP_RULES})):
+        t2 = elastic_trainer(cfg, data_cfg, 1, 2, **changes)
+        s2 = t2.init_state(params=params)
+        sh4 = t2._state_shardings(resized_mesh(t2.mesh, 4, devices=devices))
+        s4 = reshard(s2, sh4)
+        moves[name] = [
+            (moved(src, sh), min(timed_reshard(src, sh)[1] * 1e3
+                                 for _ in range(3)))
+            for src, sh in ((s2, sh4), (s4, t2._state_shardings(t2.mesh)))]
+        del s2, s4
+    log("r", f"{cfg.name} bf16 B{data_cfg.global_batch} S{data_cfg.seq_len}"
+             f" under FSDP_RULES, {steps} steps: resizes "
+             + "; ".join(f"{r['action']} {r['from']} -> {r['to']} at step "
+                         f"{r['step']} in {r['resize_s'] * 1e3:.3f} ms"
+                         for r in tr.resize_log)
+             + " (each checked leaf by leaf: bit-equal, "
+             + ", ".join(f"{x['moved'] / 1e9:.3f} GB moved in "
+                         f"{x['copies']} copies, {x['kept']} blocks kept"
+                         for x in resizes)
+             + f"); slices by step {[m['slices'] for m in tr.metrics]}; "
+             f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+    for name, ((grow_b, grow_ms), (shrink_b, shrink_ms)) in moves.items():
+        log("r", f"{cfg.name} TrainState, parameters {name}: expand 2 -> 4 "
+                 f"{grow_b / 1e9:.3f} GB of non-local transfers in "
+                 f"{grow_ms:.3f} ms, shrink 4 -> 2 {shrink_b / 1e9:.3f} GB in "
+                 f"{shrink_ms:.3f} ms (timed_reshard, best of 3)")
+    bad = [c for c in calls if c[1] != {n: c[0] * k
+                                        for n, k in per_step.items()}]
+    if [(r["action"], r["from"], r["to"]) for r in tr.resize_log] != \
+            [("EXPAND", 2, 4), ("SHRINK", 4, 2)] or len(resizes) != 2:
+        raise AssertionError(f"the FSDP loop's resizes {tr.resize_log}")
+    if bad or not calls:
+        raise AssertionError(f"flash launches per step {bad}, expected "
+                             f"{per_step} per slice")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            int(state["step"]) != steps:
+        raise AssertionError("the FSDP loop did not bring the loss down")
 
 
 def phase_elastic_fp32(cfg, model, params, data_cfg):
@@ -2029,6 +2250,7 @@ COMPRESS_SLICES, COMPRESS_STEPS = (2, 4), 12
 # what the child processes of (u)-(z) and of (mq) hand back (run_child)
 ZOO_RESULT = ROOT / "build" / "chip_smoke_zoo.json"
 RG_TRAIN_RESULT = ROOT / "build" / "chip_smoke_rg_train.json"
+QWEN_TRAIN_RESULT = ROOT / "build" / "chip_smoke_qwen_train.json"
 
 
 def cpu_tree(tree):
@@ -2638,6 +2860,127 @@ def main_rg_train():
     return 0
 
 
+def phase_remat_train_fp32(cfg, params, batch):
+    """(wq) One fp32 train step (loss.backward()) of ``cfg`` through the
+    flash kernels (forward with the log-sum-exp, backward; D 128, GQA
+    32 / 8) under remat "dots" and under "nothing_saveable", and through
+    attn_impl="chunked" under "dots", from the same parameters (each layer
+    at its own fan-in) and batch: the kernels against the chunked path and
+    "dots" against "nothing_saveable", the loss and every gradient leaf
+    max-normalised at MODEL_TOL. Each kernel step launches exactly 24
+    forward and 12 backward flash kernels: one forward a layer, run again
+    when the backward pass recomputes the layer's unit (under "dots" too:
+    the kernel's output is no matrix product the policy saves), and one
+    backward a layer."""
+    dots = dataclasses.replace(cfg, remat="dots")
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers}
+    for remat in ("dots", "nothing_saveable"):
+        got = train_launches(dataclasses.replace(cfg, remat=remat))
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"train_launches under {remat}: {got}")
+    off = {name: 0 for name in want}
+    kernel = train_grads(dots, params, batch, want)
+    saving = train_grads(cfg, params, batch, want, remat="nothing_saveable")
+    other = grad_errs(saving, kernel)
+    del saving
+    chunked = train_grads(dots, params, batch, off, attn_impl="chunked")
+    held = grad_errs(kernel, chunked)
+    finite = all(torch.isfinite(g).all() for g in kernel[1].values())
+    del chunked
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+    for name, errs in (("through the kernels vs chunked", held),
+                       ('"dots" vs "nothing_saveable" through the kernels',
+                        other)):
+        top = max(errs, key=errs.get)
+        log("wq", f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+                  f"{shape} ({want} launches a step), each layer at its own "
+                  f"fan-in: loss {kernel[0].item():.6f}; {name}, "
+                  f"max-normalised, loss {errs['loss']:.3e}, largest leaf "
+                  f"{top} {errs[top]:.3e} over {len(errs) - 1} leaves (tol "
+                  f"{MODEL_TOL})")
+    if not finite or max(held.values()) > MODEL_TOL or \
+            max(other.values()) > MODEL_TOL:
+        raise AssertionError("qwen3's fp32 train step disagrees")
+
+
+def phase_remat_step_times(cfg, trainer, state, batch, data_cfg):
+    """(wq) The bf16 train step of ``trainer``'s model under remat "dots"
+    and under "nothing_saveable", from one state and batch, in this one
+    process: the peak device memory of each (one step after the allocator's
+    peak is reset, the TrainState held), then step_times' wall, busy and
+    tokens/s of both in one profiler session. Returns {remat: {"wall_ms",
+    "busy_ms", "peak_gib"}}."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ElasticTrainer
+    entries, peaks = {}, {}
+    for remat in ("dots", "nothing_saveable"):
+        c = dataclasses.replace(cfg, remat=remat)
+        tr = trainer if remat == trainer.model.cfg.remat else ElasticTrainer(
+            build_model(c), trainer.opt_cfg, trainer.data, trainer.cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("wq", f"{cfg.name} remat {remat}: peak device memory "
+                  f"{peaks[remat]:.2f} GiB in a step (the TrainState held)")
+        entries[f"{cfg.name} remat {remat}", 1] = (
+            c, data_cfg, 1, lambda tr=tr: tr.train_step(state, batch))
+    walls, busy = step_times(entries)
+    return {remat: {"wall_ms": walls[key], "busy_ms": busy[key][0],
+                    "peak_gib": peaks[remat]}
+            for remat, key in zip(peaks, entries)}
+
+
+def main_qwen_train():
+    """(wq), run by ``chip_smoke.py --qwen-train`` in a process of its own
+    (run_child), with the card to itself: qwen3-4b's training at its
+    published widths, cut to QWEN_TRAIN_LAYERS layers, drawn on the card at
+    each layer's own fan-in (as the 36-layer model's layers would be,
+    rescaled), the loss by ce_chunk: one fp32 step at B 1, S QWEN_FP32_S
+    under both remats against the chunked path (phase_remat_train_fp32),
+    then QWEN_TRAIN_STEPS bf16 ElasticTrainer steps at B QWEN_TRAIN_B, S
+    QWEN_TRAIN_S under "dots", the loss falling (the flash backward's bf16
+    route at D 128 on a main path), then the step's times and peak memory
+    under both remats. Writes the path's launch counts and peak GiB to
+    QWEN_TRAIN_RESULT."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=QWEN_TRAIN_LAYERS,
+                              ce_chunk=QWEN_CE_CHUNK, remat="dots")
+    _, params = model_and_params(cfg, "wq", init_depth=QWEN_DEPTH,
+                                 on_card=True, per_layer=True)
+    one = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_FP32_S,
+                     global_batch=1)
+    batch = {k: t.cuda() for k, t in SyntheticLMData(one).batch(0).items()}
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_TRAIN_S,
+                      global_batch=QWEN_TRAIN_B)
+    torch.cuda.reset_peak_memory_stats()
+    counts, (_, trained) = drive("wq", (
+        lambda: phase_remat_train_fp32(cfg, params, batch),
+        lambda: phase_train_bf16(cfg, params, data, QWEN_TRAIN_STEPS,
+                                 label="wq", lr=QWEN_TRAIN_LR)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"qwen3's training path never launched "
+                                 f"{name}")
+    del params
+    trainer, state, next_batch = trained
+    times = phase_remat_step_times(cfg, trainer, state, next_batch, data)
+    QWEN_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    QWEN_TRAIN_RESULT.write_text(json.dumps({"counts": counts, "peak": peak,
+                                             "times": times}))
+    return 0
+
+
 def run_child(flag, result, env=None):
     """Run ``chip_smoke.py flag`` in a child process and return the JSON it
     wrote to ``result``. The child loads the kernels this process built.
@@ -2710,7 +3053,9 @@ def main():
     elastic_counts, (resharded, *_) = drive("r", (
         lambda: phase_reshard(smollm, params, data_cfg),
         lambda: phase_elastic_fp32(smollm, model, params, data_cfg),
-        lambda: phase_elastic_loop(smollm, params, data_cfg)))
+        lambda: phase_elastic_loop(smollm, params, data_cfg),
+        lambda: phase_fsdp_step(smollm, model, params, data_cfg),
+        lambda: phase_fsdp_elastic(smollm, params, data_cfg)))
     for name in ("flash_attention", "flash_attention_bwd"):
         if elastic_counts[name] == 0:
             raise AssertionError(f"smollm's elastic path never launched "
@@ -2829,6 +3174,15 @@ def main():
     log("mq", f"recurrentgemma-9b training: peak device memory "
               f"{rg_train['peak']:.2f} GiB")
     rg_train = rg_train["counts"]
+    qwen_train = run_child("--qwen-train", QWEN_TRAIN_RESULT, env={
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    log("wq", f"qwen3-4b training ({QWEN_TRAIN_LAYERS} layers): peak device "
+              f"memory {qwen_train['peak']:.2f} GiB; bf16 step B"
+              f"{QWEN_TRAIN_B} S{QWEN_TRAIN_S} " + "; ".join(
+                  f"remat {k}: {v['wall_ms']:.3f} ms wall, "
+                  f"{v['busy_ms']:.3f} ms busy, {v['peak_gib']:.2f} GiB peak"
+                  for k, v in qwen_train["times"].items()))
+    qwen_train = qwen_train["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -2846,7 +3200,7 @@ def main():
         smollm_counts["flash_attention"] + train_counts["flash_attention"]
         + elastic_counts["flash_attention"] + rg_counts["flash_attention"]
         + sum(counts["flash_attention"] for counts, _, _ in zoo.values())
-        + rg_train["flash_attention"],
+        + rg_train["flash_attention"] + qwen_train["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -2856,6 +3210,7 @@ def main():
         "smollm-135m elastic training": elastic_counts["flash_attention"],
         "recurrentgemma-9b": rg_counts["flash_attention"],
         "recurrentgemma-9b training": rg_train["flash_attention"],
+        "qwen3-4b training": qwen_train["flash_attention"],
         **{arch: counts["flash_attention"]
            for arch, (counts, _, _) in zoo.items()}}
     flash_row["recurrentgemma"] = record_row(
@@ -2951,7 +3306,7 @@ def main():
         train_counts["flash_attention_bwd"]
         + elastic_counts["flash_attention_bwd"]
         + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values())
-        + rg_train["flash_attention_bwd"],
+        + rg_train["flash_attention_bwd"] + qwen_train["flash_attention_bwd"],
         bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
@@ -2961,7 +3316,8 @@ def main():
             elastic_counts["flash_attention_bwd"],
         "seamless-m4t-medium training":
             zoo["seamless-m4t-medium"][0]["flash_attention_bwd"],
-        "recurrentgemma-9b training": rg_train["flash_attention_bwd"]}
+        "recurrentgemma-9b training": rg_train["flash_attention_bwd"],
+        "qwen3-4b training": qwen_train["flash_attention_bwd"]}
     # and at recurrentgemma's training call: D 256, window 2048, S 4096
     b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
     bwd_row["recurrentgemma"] = record_row(
@@ -2970,6 +3326,13 @@ def main():
         bwd_rows["recurrentgemma-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 "
         f"causal, window {window}, (B, S, H, D) views, dq / dk / dv from the "
         "forward's lse")
+    # and at qwen3-4b's: D 128, GQA 32 / 8, S 4096, B 2, its bf16 steps
+    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["qwen3-4096"]
+    bwd_row["qwen3"] = record_row(
+        "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
+        qwen_train["flash_attention_bwd"], bwd_err[(d, s)],
+        bwd_rows["qwen3-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
+        "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
@@ -2985,5 +3348,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train}.get(
+    sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train,
+              "--qwen-train": main_qwen_train}.get(
         (sys.argv[1:] or [None])[0], main)())

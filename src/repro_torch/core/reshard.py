@@ -35,6 +35,7 @@ from repro_torch.core.redistribute import Transfer, expand_plan, shrink_plan
 from repro_torch.core.sharding import (NamedSharding, ShardedTensor,
                                        ShardingRules, gather, place,
                                        relative_index)
+from repro_torch.core.sharding import intersect as _intersect
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -67,16 +68,6 @@ def _plan_sources(p: int, q: int):
     except ValueError:
         return {k: [] for k in range(q)}
     return {k: [t.src for t in plan if t.dst == k] for k in range(q)}
-
-
-def _intersect(a: tuple, b: tuple) -> Optional[tuple]:
-    out = []
-    for x, y in zip(a, b):
-        lo, hi = max(x.start, y.start), min(x.stop, y.stop)
-        if lo >= hi:
-            return None
-        out.append(slice(lo, hi))
-    return tuple(out)
 
 
 def _numel(box: tuple) -> int:

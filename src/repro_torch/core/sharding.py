@@ -11,7 +11,7 @@ Where the reference hands a :class:`NamedSharding` to ``jax.device_put``,
 the port holds the result itself: a :class:`ShardedTensor` is a global
 shape, its sharding and one tensor per mesh coordinate, on that
 coordinate's device. :func:`place` cuts a tensor into one, :func:`gather`
-puts one back together.
+puts one back together, :func:`read_box` reads any box of one.
 
 The reference's ``activation_rules`` / ``constrain`` pin activations inside
 a slice under tensor parallelism; without a context they do nothing. The
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -239,6 +239,36 @@ def relative_index(inner: tuple, outer: tuple) -> tuple:
     ``outer``."""
     return tuple(slice(i.start - o.start, i.stop - o.start)
                  for i, o in zip(inner, outer))
+
+
+def intersect(a: tuple, b: tuple) -> Optional[tuple]:
+    """The global slices two boxes share, or None where they do not
+    meet."""
+    out = []
+    for x, y in zip(a, b):
+        lo, hi = max(x.start, y.start), min(x.stop, y.stop)
+        if lo >= hi:
+            return None
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def read_box(arr: ShardedTensor, box: tuple, coord) -> torch.Tensor:
+    """``arr``'s values on ``box`` (global slices), on ``coord``'s device: a
+    view of ``coord``'s own block where that holds the box whole, else a
+    new buffer put together from the distinct blocks that meet it."""
+    own = arr.index(coord)
+    if all(o.start <= b.start and b.stop <= o.stop
+           for o, b in zip(own, box)):
+        return arr.shards[coord][relative_index(box, own)]
+    out = torch.empty([b.stop - b.start for b in box], dtype=arr.dtype,
+                      device=arr.sharding.mesh.device(coord))
+    for idx, c in distinct_blocks(arr):
+        inter = intersect(box, idx)
+        if inter is not None:
+            out[relative_index(inter, box)].copy_(
+                arr.shards[c][relative_index(inter, idx)])
+    return out
 
 
 def distinct_blocks(arr: ShardedTensor):

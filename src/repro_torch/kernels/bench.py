@@ -86,10 +86,12 @@ SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
 # in its B 1, S 4096 train step
 RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096)}
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
-# S 2048 train step, and of recurrentgemma-9b's local layers in a B 1,
-# S 4096 one (window 2048), for the backward
+# S 2048 train step, of recurrentgemma-9b's local layers in a B 1, S 4096
+# one (window 2048), and of qwen3-4b's in a B 2, S 4096 one (32 query / 8
+# KV heads of 128), for the backward
 BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None),
-              "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048)}
+              "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
+              "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None)}
 # the scans' backward at their training shapes: mamba2-130m's B 8, S 2048
 # (the views of the conv output), recurrentgemma-9b's B 1, S 4096
 SSD_BWD_SHAPES = {"train-2048": (8, 2048, 24, 64, 128, 128, "view")}

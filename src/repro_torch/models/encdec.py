@@ -9,6 +9,9 @@ reference's tree: ``embed``, ``enc_in``, the stacked ``enc_blocks`` and
 ``dec_blocks`` (a leading layers axis), ``enc_norm`` and ``final_norm``. The
 reference's ``jax.lax.scan`` over each stack is a loop here, and its
 ``jax.checkpoint`` of each layer (``cfg.remat``) is ``torch.utils.checkpoint``.
+The reference checkpoints with JAX's default policy, which saves nothing,
+under any remat but "none", so "dots" recomputes each layer here exactly as
+"nothing_saveable" does.
 
 Decode keeps a self-attention KV cache plus the cross-attention keys and
 values of the encoder's output, computed once by ``prefill``, as a seq2seq
@@ -114,7 +117,8 @@ class EncDecLM:
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         x = frames.to(dt) @ params["enc_in"].to(dt)
-        body = remat(cfg, lambda x, blk: enc_block_apply(blk, x, cfg))
+        body = remat(cfg, lambda x, blk: enc_block_apply(blk, x, cfg),
+                     policy="nothing_saveable")
         for i in range(cfg.enc_layers):
             x = body(x, layer(params["enc_blocks"], i))
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -126,7 +130,7 @@ class EncDecLM:
         enc_out = self.encode(params, frames)
         x = embed_apply(params["embed"], tokens, cfg)
         body = remat(cfg, lambda x, enc_out, blk: dec_block_apply(
-            blk, x, enc_out, cfg))
+            blk, x, enc_out, cfg), policy="nothing_saveable")
         for i in range(cfg.num_layers):
             x = body(x, enc_out, layer(params["dec_blocks"], i))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -12,13 +12,13 @@ layers, the pattern's blocks stacked under ``blocks.p{j}`` with a leading
 layers axis, and an unstacked ``tail{t}`` when the depth is not a multiple
 of the pattern. The reference's ``jax.lax.scan`` over the stacked axis is a
 loop here, and its ``jax.checkpoint`` of each pattern unit (``cfg.remat``)
-is ``torch.utils.checkpoint``. ``loss`` is the training objective: masked
-next-token cross-entropy, optionally over sequence chunks so that the
-(B, S, V) logits never materialise, plus the routers' summed
-load-balancing loss. A modality frontend (paligemma's patches) is a stub,
-as in the reference: ``forward`` and ``prefill`` take its embeddings
-(``extra_embeds``, ``batch["frontend"]`` in ``loss``) and prepend them to
-the token embeddings; its positions carry no labels.
+is ``torch.utils.checkpoint``, selective under "dots". ``loss`` is the
+training objective: masked next-token cross-entropy, optionally over
+sequence chunks so that the (B, S, V) logits never materialise, plus the
+routers' summed load-balancing loss. A modality frontend (paligemma's
+patches) is a stub, as in the reference: ``forward`` and ``prefill`` take
+its embeddings (``extra_embeds``, ``batch["frontend"]`` in ``loss``) and
+prepend them to the token embeddings; its positions carry no labels.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
@@ -65,21 +66,39 @@ def _unported(kind: str):
         "model families)")
 
 
-def remat(cfg: ModelConfig, unit):
+# the matrix products that ``x @ w``, ``torch.matmul`` and ``einsum`` reach:
+# what ``jax.checkpoint_policies.checkpoint_dots`` saves (every
+# ``dot_general``, batched ones included)
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(list(DOTS))
+
+
+def remat(cfg: ModelConfig, unit, policy: Optional[str] = None):
     """``unit`` under ``cfg.remat`` when torch records a graph:
     "nothing_saveable" keeps only the unit's input and recomputes the rest
     in the backward pass (the reference's ``jax.checkpoint`` with
-    ``nothing_saveable``); "none" saves activations as usual. Remat moves
-    memory only, not numbers."""
+    ``nothing_saveable``); "dots" also keeps the outputs of the unit's
+    matrix products (``DOTS``) and recomputes everything else (its
+    ``checkpoint_dots``), by torch's selective checkpoint; "none" saves
+    activations as usual. The flash kernel is no aten product (its launch
+    goes through ``ctypes`` inside ``FlashAttention.forward``), so under
+    "dots" the recompute launches it again, as under "nothing_saveable".
+    ``policy``, when given, is what any remat but "none" saves: the
+    encoder-decoder checkpoints each layer with JAX's default policy,
+    "nothing_saveable", whatever ``cfg.remat`` names. Remat moves memory
+    only, not numbers."""
+    if cfg.remat not in ("none", "nothing_saveable", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return unit
-    if cfg.remat == "nothing_saveable":
+    if (policy or cfg.remat) == "nothing_saveable":
         return lambda *args: checkpoint(unit, *args, use_reentrant=False)
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matrix products) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 11)")
-    raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(unit, *args, use_reentrant=False,
+                                    context_fn=_save_dots)
 
 
 # -- block definitions -------------------------------------------------------

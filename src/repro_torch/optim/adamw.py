@@ -12,8 +12,9 @@ tensor.
 axes) on its largest dimension the parameter's spec leaves unsharded, as
 the reference does. ``apply_sharded_updates`` is the update that XLA
 derives from that layout in the reference: every slice updates the block of
-the parameters its moments hold, then every replica gathers the updated
-blocks.
+the parameters its moments hold, then every slice gathers the updated
+blocks its parameter block covers (all of them where the parameters are
+replicated).
 """
 from __future__ import annotations
 
@@ -23,8 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sharding import (ShardedTensor, distinct_blocks,
-                                       relative_index)
+from repro_torch.core.sharding import ShardedTensor, read_box
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -92,15 +92,21 @@ def _update(cfg: AdamWConfig, p, g, mu, nu, coef, scale):
 
 @torch.no_grad()
 def apply_sharded_updates(cfg: AdamWConfig, params, grads, state):
-    """ZeRO-1 AdamW over a mesh. ``params``: ShardedTensors replicated over
-    the slices; ``grads``: the all-reduced gradients, whole tensors on one
-    device; ``state``: ``mu`` and ``nu`` laid out by :func:`state_logical`
-    and a replicated ``step``. The gradient norm and the clipping scale
-    come from the whole gradients, once. Each mesh coordinate updates the
-    block of the parameters its moments hold (weight decay by the leaf's
-    rank, which a block keeps); each replica then gathers the updated
-    blocks. Returns (new_params, new_state, {"lr", "grad_norm"}), the
-    metrics on the gradients' device."""
+    """ZeRO-1 AdamW over a mesh. ``params``: ShardedTensors laid out by the
+    trainer's rules, replicated over the slices or, as ``FSDP_RULES`` lays
+    them out, cut into blocks; ``grads``: the summed gradients, whole
+    tensors on one device; ``state``: ``mu`` and ``nu`` laid out by
+    :func:`state_logical` and a replicated ``step``. The gradient norm and
+    the clipping scale come from the whole gradients, once. Each mesh
+    coordinate updates the block its moments hold (weight decay by the
+    leaf's rank, which a block keeps), reading the parameters on that
+    block from whichever blocks hold them: a moment's block need not lie
+    inside its coordinate's parameter block (ZeRO-1 may cut another
+    dimension than the parameters' rules). Each coordinate's new parameter
+    block is then put together from the updated blocks that meet it: the
+    replicas gather the whole, a sharded layout its own block. Returns
+    (new_params, new_state, {"lr", "grad_norm"}), the metrics on the
+    gradients' device."""
     gnorm = global_norm(grads)
     scale = _clip_scale(cfg, gnorm)
     step = state["step"].map(lambda t: t + 1)
@@ -109,21 +115,14 @@ def apply_sharded_updates(cfg: AdamWConfig, params, grads, state):
     def leaf(p: ShardedTensor, g, mu: ShardedTensor, nu: ShardedTensor):
         updated, mus, nus = {}, {}, {}
         for c, m in mu.shards.items():
-            box, pbox = mu.index(c), p.index(c)
+            box = mu.index(c)
             updated[c], mus[c], nus[c] = _update(
-                cfg, p.shards[c][relative_index(box, pbox)],
-                g[box].to(m.device), m, nu.shards[c], coef[c],
+                cfg, read_box(p, box, c), g[box].to(m.device), m,
+                nu.shards[c], coef[c],
                 None if scale is None else scale.to(m.device))
-        blocks = distinct_blocks(mu)
-        out = {}
-        for c, own in p.shards.items():
-            pbox = p.index(c)
-            if mu.index(c) == pbox:
-                out[c] = updated[c]
-                continue
-            out[c] = torch.empty_like(own)
-            for idx, src in blocks:
-                out[c][relative_index(idx, pbox)].copy_(updated[src])
+        new = ShardedTensor(p.shape, p.dtype, mu.sharding, updated)
+        out = {c: updated[c] if mu.index(c) == p.index(c)
+               else read_box(new, p.index(c), c) for c in p.shards}
         return (ShardedTensor(p.shape, p.dtype, p.sharding, out),
                 ShardedTensor(mu.shape, mu.dtype, mu.sharding, mus),
                 ShardedTensor(nu.shape, nu.dtype, nu.sharding, nus))

@@ -2,14 +2,21 @@
 
 Counterpart of ``repro.runtime.trainer``. ``ElasticTrainer`` owns a
 TrainState (``params``, AdamW's ``opt``, the ``rng`` key and ``step``) laid
-out on a mesh of data-parallel slices: the parameters replicated, the
-moments ZeRO-1 sharded (``optim.state_logical``), each leaf a
-``ShardedTensor``. The train step runs every slice's share of the batch in
-turn (``model.loss``, ``backward()`` over ``grad_accum`` micro-batches),
-sums the slices' gradients in slice order, and applies
-``apply_sharded_updates``. Each slice's loss is scaled by its share of the
-global batch's unmasked labels, so the gradients and the reported loss are
-the global batch's mean, as in the reference's jitted step.
+out on a mesh of data-parallel slices by ``cfg.rules``, each leaf a
+``ShardedTensor``: the parameters replicated under ``TP_DP_RULES``, or each
+slice holding its block of them where the rules split a parameter axis
+over the data slices (``FSDP_RULES``: the ``embed`` axis); the moments
+ZeRO-1 sharded (``optim.state_logical``). The train step runs every
+slice's share of the batch in turn (``model.loss``, ``backward()`` over
+``grad_accum`` micro-batches) on that slice's whole parameters, gathered
+from the blocks first where they are sharded and freed after the slice's
+backward; it sums the slices' gradients in slice order and applies
+``apply_sharded_updates``, which updates each block from its part of the
+sum: an FSDP step's all-gather and reduce-scatter, carried out on one
+card. The numbers do not depend on the layout. Each slice's loss is scaled
+by its share of the global batch's unmasked labels, so the gradients and
+the reported loss are the global batch's mean, as in the reference's
+jitted step.
 
 The training loop exposes *reconfiguration points* at step boundaries:
 every ``check_period`` steps it calls the DMR API; on EXPAND or SHRINK it
@@ -38,9 +45,10 @@ from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
                               ShardingRules, make_mesh, place, reshard,
                               resized_mesh)
 from repro_torch.core.reshard import synchronize
-from repro_torch.core.sharding import copy_to, logical_to_sharding, zeros
+from repro_torch.core.sharding import (copy_to, logical_to_sharding,
+                                       read_box, zeros)
 from repro_torch.data import DataConfig, SyntheticLMData
-from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.layers import tree_map
 from repro_torch.optim import (AdamWConfig, apply_sharded_updates,
                                state_logical)
 from repro_torch.prng import fold_in, prng_key
@@ -60,6 +68,11 @@ class TrainerConfig:
     ckpt_period: int = 50
     log_period: int = 10
     rules: ShardingRules = TP_DP_RULES
+
+
+def _whole(x: ShardedTensor) -> tuple:
+    """The box of the whole of ``x``."""
+    return tuple(slice(0, n) for n in x.shape)
 
 
 def _on(device: torch.device):
@@ -84,15 +97,6 @@ class ElasticTrainer:
             raise NotImplementedError(
                 f"model_ways={cfg.model_ways}: tensor parallelism inside a "
                 "slice is not ported yet (ROADMAP.md, Queue 1 item 10)")
-        data_axes = {name for lg in tree_leaves(model.logical())
-                     for name in lg
-                     if {"pod", "data"} & set(cfg.rules.mesh_axes_for(name))}
-        if data_axes:
-            raise NotImplementedError(
-                f"rules shard the parameters' {sorted(data_axes)} axes over "
-                "the data slices: the step takes whole parameters on every "
-                "slice (parameters sharded over data, as FSDP_RULES does, "
-                "are not ported)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.data = (SyntheticLMData(data) if isinstance(data, DataConfig)
@@ -143,7 +147,8 @@ class ElasticTrainer:
 
     def init_state(self, seed: int = 0, params=None):
         """A fresh TrainState on the mesh: ``params`` (drawn from ``seed``
-        unless given) on every slice, zero AdamW moments, the key
+        unless given) laid out by the rules, on every slice or in blocks,
+        zero AdamW moments, the key
         ``prng_key(seed + 1)`` and step 0."""
         if params is None:
             params = self.model.init(torch.Generator().manual_seed(seed))
@@ -183,7 +188,9 @@ class ElasticTrainer:
         reduced = None
         for j, c in enumerate(coords):
             dev = mesh.device(c)
-            params = tree_map(lambda x: x.shards[c].detach()
+            # the slice's whole parameters: its own blocks where they are
+            # replicated, else every block gathered onto its device
+            params = tree_map(lambda x: read_box(x, _whole(x), c).detach()
                               .requires_grad_(True), state["params"])
             with _on(dev):
                 for i in range(accum):
@@ -197,6 +204,7 @@ class ElasticTrainer:
                     loss += part.detach().to(first)
             grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                              else p.grad, params)
+            del params          # a gathered copy goes with the slice's step
             if reduced is None:
                 reduced = grads
             else:

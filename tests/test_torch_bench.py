@@ -41,6 +41,21 @@ def test_backward_bound_at_the_train_shape():
     assert 1e3 * nbytes / bench.PEAK_BYTES < ms / 3
 
 
+def test_backward_bound_at_qwen3_train_shape():
+    """qwen3-4b's bf16 train step, B2 H32 KV8 S4096 D128 causal: 6.87e11
+    flop, bound by operations at 989 TFLOP/s: 0.695 ms; the 672 MB it
+    must move would take 0.20 ms."""
+    b, h, kv, s, d, _, window = bench.BWD_SHAPES["qwen3-4096"]
+    assert (b, h, kv, s, d, window) == (2, 32, 8, 4096, 128, None)
+    ms, by, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
+                                              torch.bfloat16)
+    assert flops == 5 * 2 * d * b * h * (s * (s + 1) // 2)
+    assert flops == pytest.approx(6.874e11, rel=1e-3)
+    assert by == "operations"
+    assert ms == pytest.approx(0.6950, abs=5e-5)
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * kv * s * d) + 4 * b * h * s
+    assert nbytes == pytest.approx(336.6e6, rel=1e-3)
+
 def test_rglru_bound_at_the_prefill_shape():
     """B4 S512 W4096 fp32: a and b read, h written, 100.7 MB, bound by
     bytes at 3.35 TB/s: 0.030 ms."""

@@ -19,9 +19,9 @@ import repro.checkpoint.store as jax_store  # noqa: E402
 import repro_torch.checkpoint.store as port_store  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (NamedSharding, PartitionSpec as P,  # noqa: E402
-                              ShardedTensor, gather, make_mesh, place,
-                              slice_devices)
+from repro_torch.core import (FSDP_RULES, NamedSharding,  # noqa: E402
+                              PartitionSpec as P, ShardedTensor, gather,
+                              make_mesh, place, slice_devices)
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.models import build_model, reduced_config  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
@@ -253,6 +253,42 @@ def test_recover_restores_after_an_injected_fault(tmp_path):
     with pytest.raises(RuntimeError, match="cannot launch"):
         broken.train()
     assert len(broken.recoveries) == 1
+
+
+def test_fsdp_checkpoint_restores_onto_another_slice_count(tmp_path):
+    """Under FSDP_RULES (every embed axis in blocks over the data slices) a
+    state saved from 2 slices restores onto 4, each slice holding its
+    quarter, equal to the saved one; training resumes there. A fault at 4
+    slices restores the latest checkpoint onto the current mesh and the
+    run ends with the losses of a run without the fault."""
+    tr = make(tmp_path / "run", steps=4, slices=2, ckpt_period=4,
+              rules=FSDP_RULES)
+    state = tr.train()
+    tr2 = make(tmp_path / "run", steps=6, slices=4, ckpt_period=2,
+               rules=FSDP_RULES)
+    shardings = tr2._state_shardings(tr2.mesh)
+    restored = tr2.store.restore(4, shardings, shardings)
+    for a, b in zip(tree_leaves(state), tree_leaves(restored)):
+        assert torch.equal(gather(a), gather(b))
+    w = restored["params"]["blocks"]["p0"]["ffn"]["w_down"]
+    assert [t.shape[-1] for t in w.shards.values()] == [w.shape[-1] // 4] * 4
+    clean = tr2.train(state=restored)
+    fault = make(tmp_path / "fault", steps=6, slices=4, ckpt_period=2,
+                 rules=FSDP_RULES)
+    step_fn, calls = fault.train_step, []
+
+    def flaky(state, batch):
+        calls.append(int(state["step"]))
+        if calls == [4, 5]:                  # the step from 5 to 6
+            raise RuntimeError("injected fault")
+        return step_fn(state, batch)
+
+    fault.store.save(4, restored)
+    fault.train_step = flaky
+    out = fault.train(state=restored)
+    assert fault.recoveries == [{"failed": 5, "restored": 4}]
+    for a, b in zip(tree_leaves(clean), tree_leaves(out)):
+        assert torch.equal(gather(a), gather(b))
 
 
 def test_recover_without_a_checkpoint_raises(tmp_path):

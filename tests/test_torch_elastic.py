@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax.sharding import AbstractMesh  # noqa: E402
 
 from repro.core import redistribute as jax_redistribute  # noqa: E402
+from repro.core.sharding import FSDP_RULES as JAX_FSDP  # noqa: E402
 from repro.core.sharding import TP_DP_RULES as JAX_RULES  # noqa: E402
 from repro.data import DataConfig as JaxDataConfig  # noqa: E402
 from repro.data import SyntheticLMData as JaxData  # noqa: E402
@@ -36,7 +37,8 @@ from repro.optim import init_state as jax_init_state  # noqa: E402
 from repro.optim.adamw import zero1_logical as jax_zero1  # noqa: E402
 from repro_torch.bridge import state_from_jax  # noqa: E402
 from repro_torch.core import (Action, Decision, NamedSharding,  # noqa: E402
-                              PartitionSpec as P, TP_DP_RULES, expand_plan,
+                              PartitionSpec as P, FSDP_RULES, TP_DP_RULES,
+                              expand_plan,
                               gather, make_mesh, mesh_model_ways,
                               mesh_num_slices, migrate_slice, ownership_map,
                               place, plan_stats, reshard, resized_mesh,
@@ -318,6 +320,127 @@ def test_migrate_slice_swaps_shards():
 # -- a TrainState -----------------------------------------------------------------
 
 
+def boxes(spec, shape, mesh):
+    """The block of each mesh coordinate under a PartitionSpec, as the
+    reference lays it out: a dimension split over mesh axes is cut in
+    their product, the first axis outermost."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = {}
+    for c in mesh.coords():
+        box = []
+        for dim, part in zip(shape, spec):
+            axes = () if part is None else (
+                (part,) if isinstance(part, str) else tuple(part))
+            n, k = 1, 0
+            for ax in axes:
+                n *= mesh.shape[ax]
+                k = k * mesh.shape[ax] + c[mesh.axis_names.index(ax)]
+            box.append((k * dim // n, (k + 1) * dim // n))
+        out[c] = tuple(box)
+    return out
+
+
+@pytest.mark.parametrize("slices", [2, 4])
+def test_fsdp_blocks_match_reference_spec_for(slices):
+    """Under FSDP_RULES the trainer's TrainState holds each parameter's and
+    each moment's blocks where the reference's ``spec_for`` (and ZeRO-1
+    layout) puts them on a mesh of that many slices: every weight's embed
+    axis split over the data slices (ln1, ln2, final_norm, wo's and
+    w_down's last axis included), the embedding table (table_embed) not."""
+    _, pcfg = smollm_fp32()
+    model = build_model(pcfg, device="cpu")
+    tr = ElasticTrainer(model, AdamWConfig(), DataConfig(
+        vocab_size=pcfg.vocab_size, seq_len=8, global_batch=8),
+        TrainerConfig(max_slices=slices, rules=FSDP_RULES),
+        devices=CPU8[:slices])
+    state = tr.init_state(seed=0)
+    jmesh = AbstractMesh((slices, 1), ("data", "model"))
+    split = 0
+    for logical, p, mu in zip(tree_leaves(model.logical()),
+                              tree_leaves(state["params"]),
+                              tree_leaves(state["opt"]["mu"])):
+        shape = tuple(p.shape)
+        want = JAX_FSDP.spec_for(logical, shape, jmesh)
+        mom = JAX_FSDP.spec_for(jax_zero1(logical, shape, jmesh, JAX_FSDP),
+                                shape, jmesh)
+        for arr, spec in ((p, want), (mu, mom)):
+            got = {c: tuple((s.start, s.stop) for s in arr.index(c))
+                   for c in arr.shards}
+            assert got == boxes(spec, shape, tr.mesh), (logical, spec)
+            assert all(tuple(t.shape) == tuple(b - a for a, b in got[c])
+                       for c, t in arr.shards.items())
+        assert ("data" in tuple(want)) == ("embed" in logical), logical
+        split += "embed" in logical
+    assert split == len(tree_leaves(state["params"])) - 1  # all but the table
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+def test_fsdp_step_matches_replicated(slices):
+    """Two steps from one state under FSDP_RULES and under TP_DP_RULES:
+    the same losses, gradient norms and every leaf of the new TrainState,
+    bit for bit (each slice runs on the same whole parameters, gathered
+    from its blocks, and the gradients are summed in the same order)."""
+    _, pcfg = smollm_fp32()
+    data = DataConfig(vocab_size=pcfg.vocab_size, seq_len=32, global_batch=8)
+    runs = {}
+    for name, rules in (("tp_dp", TP_DP_RULES), ("fsdp", FSDP_RULES)):
+        tr = ElasticTrainer(build_model(pcfg, device="cpu"),
+                            AdamWConfig(lr=1e-3, warmup_steps=0,
+                                        total_steps=10),
+                            data, TrainerConfig(steps=2, log_period=1,
+                                                max_slices=slices,
+                                                rules=rules),
+                            devices=CPU8[:slices])
+        state = tr.train(seed=0)
+        runs[name] = (tr.metrics, state)
+    (m0, s0), (m1, s1) = runs["tp_dp"], runs["fsdp"]
+    assert [(m["loss"], m["grad_norm"]) for m in m0] == \
+        [(m["loss"], m["grad_norm"]) for m in m1]
+    if slices > 1:
+        wq = s1["params"]["blocks"]["p0"]["attn"]["wq"]
+        assert len(distinct_blocks(wq)) == slices
+    for a, b in zip(tree_leaves(s0), tree_leaves(s1)):
+        assert torch.equal(gather(a), gather(b))
+
+
+def test_fsdp_train_state_reshards_2_4_2():
+    """An FSDP TrainState (parameters in blocks, random moments) expands
+    2 -> 4 slices and shrinks back, every leaf equal; at 4 slices each
+    slice holds a quarter of every embed-split parameter. Training goes on
+    at 4 slices from the resharded state as from the same state placed
+    there."""
+    _, pcfg = smollm_fp32()
+    data = DataConfig(vocab_size=pcfg.vocab_size, seq_len=16, global_batch=8)
+
+    def trainer(slices):
+        return ElasticTrainer(build_model(pcfg, device="cpu"),
+                              AdamWConfig(lr=1e-3, warmup_steps=0,
+                                          total_steps=10),
+                              data, TrainerConfig(steps=1, max_slices=4,
+                                                  rules=FSDP_RULES,
+                                                  log_period=1),
+                              devices=CPU8[:4], slices=slices)
+    tr = trainer(2)
+    state = tr.init_state(seed=0)
+    state["opt"]["nu"] = tree_map(lambda x: x.map(
+        lambda t: torch.rand(t.shape)), state["opt"]["nu"])
+    want = tree_map(gather, state)
+    m4 = resized_mesh(tr.mesh, 4, devices=CPU8[:4])
+    s4 = reshard(state, tr._state_shardings(m4))
+    s2 = reshard(s4, tr._state_shardings(tr.mesh))
+    for w, a, b in zip(tree_leaves(want), tree_leaves(s4), tree_leaves(s2)):
+        assert torch.equal(gather(a), w) and torch.equal(gather(b), w)
+    wo = s4["params"]["blocks"]["p0"]["attn"]["wo"]
+    assert [t.shape[-1] for t in wo.shards.values()] == \
+        [wo.shape[-1] // 4] * 4
+    four = trainer(4)
+    four.mesh = m4
+    resumed = four.train(state=s4)
+    placed = trainer(4).train(state=want)
+    for a, b in zip(tree_leaves(resumed), tree_leaves(placed)):
+        assert torch.equal(gather(a), gather(b))
+
+
 def storage(t):
     s = t.untyped_storage()
     return s.data_ptr(), s.data_ptr() + s.nbytes()
@@ -422,7 +545,7 @@ def test_elastic_training_expand_matches_fixed():
 REFERENCE_RUN = """
 import dataclasses, json, sys
 import jax, numpy as np
-from repro.core import Action, Decision, make_mesh
+from repro.core import Action, Decision, make_mesh, sharding
 from repro.data import DataConfig
 from repro.models import build_model, get_model, reduced_config
 from repro.optim import AdamWConfig, init_state
@@ -453,7 +576,7 @@ params = {k: jax.tree.map(lambda a: a[:reps], v) if k == "blocks" else v
 tr = ElasticTrainer(build_model(cfg), AdamWConfig(**OPT),
                     DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                global_batch=8),
-                    TrainerConfig(**TCFG),
+                    TrainerConfig(**TCFG, rules=getattr(sharding, RULES)),
                     rms=ScriptedRMS({1: Decision(Action.EXPAND, 4)}))
 tr.slices = 2
 tr.mesh = make_mesh(2, 1)
@@ -470,11 +593,13 @@ print(json.dumps({"metrics": tr.metrics,
 """
 
 
-def test_elastic_run_reproduces_reference():
+@pytest.mark.parametrize("rules", ["TP_DP_RULES", "FSDP_RULES"])
+def test_elastic_run_reproduces_reference(rules):
     """The reference's elastic run (2 slices, an EXPAND to 4 at the first
     reconfiguration point, 5 fp32 steps) and the port's, from the same
-    bridged state and the reference's batches: the same losses, lr and
-    gradient norms to 1e-4 (relative, the tolerance of
+    bridged state and the reference's batches, both under ``rules`` (the
+    parameters replicated, or in blocks over the data slices): the same
+    losses, lr and gradient norms to 1e-4 (relative, the tolerance of
     test_trainer_reproduces_reference_losses), the same slice counts and
     the same rng key at the end."""
     opt = dict(lr=3e-3, warmup_steps=2, total_steps=10)
@@ -483,8 +608,8 @@ def test_elastic_run_reproduces_reference():
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
-    code = f"OPT = {opt!r}\nTCFG = {tcfg!r}\n" + textwrap.dedent(
-        REFERENCE_RUN)
+    code = (f"OPT = {opt!r}\nTCFG = {tcfg!r}\nRULES = {rules!r}\n"
+            + textwrap.dedent(REFERENCE_RUN))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -497,7 +622,10 @@ def test_elastic_run_reproduces_reference():
     data = JaxData(JaxDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                  global_batch=8))
     port = ElasticTrainer(build_model(pcfg, device="cpu"), AdamWConfig(**opt),
-                          FedBatches(data), TrainerConfig(**tcfg),
+                          FedBatches(data),
+                          TrainerConfig(**tcfg, rules={
+                              "TP_DP_RULES": TP_DP_RULES,
+                              "FSDP_RULES": FSDP_RULES}[rules]),
                           rms=ScriptedRMS({1: Decision(Action.EXPAND, 4)}),
                           devices=CPU8, slices=2)
     out = port.train(state=state_from_jax(

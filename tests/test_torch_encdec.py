@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.data import DataConfig as JaxDataConfig  # noqa: E402
 from repro.data import SyntheticLMData as JaxData  # noqa: E402
@@ -47,6 +48,7 @@ from repro_torch.data import (DataConfig, SyntheticLMData,  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.models import EncDecLM, ModelConfig, build_model  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models.transformer import DOTS  # noqa: E402
 
 ARCH = "seamless-m4t-medium"
 KEY = jax.random.PRNGKey(5)
@@ -208,11 +210,11 @@ def port_loss_and_grads(pcfg, np_params, batch):
     return loss, parts, {k: p.grad for k, p in leaves(tparams).items()}
 
 
-@pytest.mark.parametrize("remat", ["none", "nothing_saveable"])
+@pytest.mark.parametrize("remat", ["none", "nothing_saveable", "dots"])
 def test_loss_and_grads_match_jax(remat):
     """Every gradient leaf, the encoder's and enc_in's included; under
-    "nothing_saveable" each layer is recomputed in the backward pass, as
-    the reference's jax.checkpoint of each layer."""
+    "nothing_saveable" and "dots" each layer is recomputed in the backward
+    pass, as the reference's jax.checkpoint of each layer."""
     cfg, pcfg = configs(remat=remat)
     params = init_params(cfg)
     batch = enc_dec_batch(cfg)
@@ -231,14 +233,45 @@ def test_loss_and_grads_match_jax(remat):
         assert max_norm_err(g, want[path]) < TOL, path
 
 
+class ProductCount(TorchDispatchMode):
+    """Counts the matrix products (``transformer.DOTS``) that run."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in DOTS
+        return func(*args, **(kwargs or {}))
+
+
 def test_remat_dots_names_its_roadmap_item():
-    """remat="dots" raises under autograd, as CausalLM's, naming Queue 1
-    item 11; a forward without a graph runs."""
-    cfg, pcfg = configs(remat="dots")
+    """remat="dots" checkpoints each layer exactly as "nothing_saveable"
+    (the name stays from when it raised): the reference checkpoints an
+    encoder-decoder layer with JAX's default policy whatever the remat, so
+    no product is saved and the backward pass runs as many products, with
+    the same loss and gradients bit for bit; a forward without a graph
+    runs."""
+    cfg, _ = configs()
     np_params = jax.tree.map(np.asarray, init_params(cfg))
     batch = enc_dec_batch(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        port_loss_and_grads(pcfg, np_params, batch)
+    runs = {}
+    for remat in ("nothing_saveable", "dots"):
+        _, pcfg = configs(remat=remat)
+        tparams = params_from_jax(np_params, device="cpu")
+        for p in leaves(tparams).values():
+            p.requires_grad_(True)
+        loss, _ = build_model(pcfg, device="cpu").loss(
+            tparams, {k: torch.from_numpy(v) for k, v in batch.items()})
+        with ProductCount() as bwd:
+            loss.backward()
+        runs[remat] = (loss.item(), bwd.n,
+                       {k: p.grad for k, p in leaves(tparams).items()})
+    (l0, n0, g0), (l1, n1, g1) = runs["nothing_saveable"], runs["dots"]
+    assert l0 == l1 and n0 == n1 > 0
+    for path in g0:
+        torch.testing.assert_close(g1[path], g0[path], rtol=0, atol=0)
+    _, pcfg = configs(remat="dots")
     with torch.no_grad():
         build_model(pcfg, device="cpu").loss(
             params_from_jax(np_params, device="cpu"),

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.data import DataConfig as JaxDataConfig  # noqa: E402
 from repro.data import SyntheticLMData as JaxData  # noqa: E402
@@ -36,7 +37,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (FSDP_RULES, TP_DP_RULES,  # noqa: E402
                               gather, logical_to_sharding, make_mesh, place)
 from repro_torch.core.sharding import zeros  # noqa: E402
-from repro_torch.models.layers import tree_map  # noqa: E402
+from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.transformer import DOTS  # noqa: E402
 from repro_torch.optim import (AdamWConfig,  # noqa: E402
                                apply_sharded_updates, global_norm, schedule,
                                state_logical)
@@ -111,6 +113,7 @@ def port_loss_and_grads(pcfg, np_params, batch):
     (16, "none"),                # two chunks of 16 positions
     (12, "none"),                # a ragged last chunk (12, 12, 8)
     (0, "nothing_saveable"),     # each pattern unit recomputed in backward
+    (0, "dots"),                 # the same, its matrix products kept
 ])
 def test_loss_and_grads_match_jax(ce_chunk, remat):
     cfg, pcfg = smollm_fp32(ce_chunk=ce_chunk)
@@ -146,27 +149,76 @@ def test_loss_with_every_label_masked_divides_by_one():
 
 
 def test_remat_moves_memory_not_numbers():
-    """"nothing_saveable" recomputes each unit in the backward pass and
-    gives the same loss and gradients as "none" (the same operations on the
-    same inputs); "dots" is not ported and raises under autograd, while a
-    forward without a graph runs."""
+    """"nothing_saveable" recomputes each unit in the backward pass, "dots"
+    all of it but its matrix products; both give the same loss and
+    gradients as "none", bit for bit (the same operations on the same
+    inputs). A forward without a graph runs under each, and an unknown
+    remat is refused."""
     cfg, pcfg = smollm_fp32()
     np_params = jax.tree.map(np.asarray, init_params(cfg))
     batch = lm_batch(cfg)
     runs = {remat: port_loss_and_grads(
         dataclasses.replace(pcfg, remat=remat), np_params, batch)
-        for remat in ("none", "nothing_saveable")}
-    (l0, _, g0), (l1, _, g1) = runs["none"], runs["nothing_saveable"]
-    assert l0.item() == l1.item()
-    for path in g0:
-        torch.testing.assert_close(g0[path], g1[path], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_loss_and_grads(dataclasses.replace(pcfg, remat="dots"),
-                            np_params, batch)
+        for remat in ("none", "nothing_saveable", "dots")}
+    l0, _, g0 = runs["none"]
+    for remat in ("nothing_saveable", "dots"):
+        loss, _, grads = runs[remat]
+        assert loss.item() == l0.item(), remat
+        for path in g0:
+            torch.testing.assert_close(grads[path], g0[path], rtol=0, atol=0)
     model = build_model(dataclasses.replace(pcfg, remat="dots"), device="cpu")
     with torch.no_grad():
         model.forward(params_from_jax(np_params, device="cpu"),
                       torch.from_numpy(batch["tokens"]))
+    with pytest.raises(ValueError, match="unknown remat"):
+        port_loss_and_grads(dataclasses.replace(pcfg, remat="offload"),
+                            np_params, batch)
+
+
+class ProductCount(TorchDispatchMode):
+    """Counts the matrix products (``transformer.DOTS``) that run."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in DOTS
+        return func(*args, **(kwargs or {}))
+
+
+def product_counts(pcfg, np_params, batch):
+    """(products in the forward, products in the backward) of one loss."""
+    params = params_from_jax(np_params, device="cpu")
+    for p in leaves(params).values():
+        p.requires_grad_(True)
+    model = build_model(pcfg, device="cpu")
+    with ProductCount() as fwd:
+        loss, _ = model.loss(params, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    with ProductCount() as bwd:
+        loss.backward()
+    return fwd.n, bwd.n
+
+
+def test_remat_dots_saves_the_products():
+    """Under "dots" the backward pass runs no product of the units'
+    forward again: as many products as without remat, where
+    "nothing_saveable" runs the units' products again (all but the last
+    of each unit, whose output no backward needs: the recompute stops
+    early)."""
+    cfg, pcfg = smollm_fp32()
+    np_params = jax.tree.map(np.asarray, init_params(cfg))
+    batch = lm_batch(cfg)
+    counts = {remat: product_counts(dataclasses.replace(pcfg, remat=remat),
+                                    np_params, batch)
+              for remat in ("none", "nothing_saveable", "dots")}
+    (fwd, bwd), (_, again), (_, dots) = (
+        counts["none"], counts["nothing_saveable"], counts["dots"])
+    assert counts["dots"][0] == counts["nothing_saveable"][0] == fwd
+    assert dots == bwd
+    reps = pcfg.pattern_repeats[0]
+    assert again == bwd + fwd - 1 - reps, counts
 
 
 # -- AdamW: twins of tests/test_optim.py ------------------------------------
@@ -437,22 +489,30 @@ def test_loss_descends():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Tensor parallelism inside a slice and rules that shard parameters
-    over the data slices are all that still raise: more slices, a
-    checkpoint directory and an RMS are taken."""
+    """Tensor parallelism inside a slice is all that still raises (the
+    name stays from when rules that shard the parameters over the data
+    slices raised too): FSDP_RULES, more slices, a checkpoint directory and
+    an RMS are taken, and under FSDP_RULES each slice holds its half of
+    every parameter with an embed axis."""
     _, pcfg = smollm_fp32()
     model = build_model(pcfg, device="cpu")
     data = DataConfig(vocab_size=pcfg.vocab_size, seq_len=8, global_batch=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticTrainer(model, AdamWConfig(), data,
                        TrainerConfig(model_ways=2))
-    with pytest.raises(NotImplementedError, match=r"\['embed'\]"):
-        ElasticTrainer(model, AdamWConfig(), data,
-                       TrainerConfig(rules=FSDP_RULES))
     tr = ElasticTrainer(model, AdamWConfig(), data,
-                        TrainerConfig(max_slices=2, ckpt_dir=None),
+                        TrainerConfig(max_slices=2, ckpt_dir=None,
+                                      rules=FSDP_RULES),
                         rms=object(), devices=["cpu"] * 2)
     assert tr.slices == 2 and tr.dmr is not None
+    params = tr.init_state(seed=0)["params"]
+    for logical, p in zip(tree_leaves(model.logical()), tree_leaves(params)):
+        halves = [t.shape for t in p.shards.values()]
+        if "embed" in logical:
+            d = logical.index("embed")
+            assert all(h[d] * 2 == p.shape[d] for h in halves), logical
+        else:
+            assert all(h == p.shape for h in halves), logical
 
 
 def test_state_from_jax_carries_the_whole_train_state():
