@@ -254,6 +254,11 @@ RG_TRAIN_S, RG_TRAIN_LAYERS, RG_TRAIN_STEPS, RG_TRAIN_LR = 4096, 5, 6, 1e-3
 QWEN_DEPTH, QWEN_TRAIN_LAYERS, QWEN_FP32_S = 36, 12, 2048
 QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS, QWEN_TRAIN_LR = 2, 4096, 6, 1e-3
 QWEN_CE_CHUNK = 1024
+# the dry-run's predicted one-step peak memory of the wq and mq cells may be
+# off the measured one by at most this share (PERF.md, section 2): room for
+# the allocator's rounding and cuBLAS's workspace, less than one layer's
+# parameters and moments of either model
+PEAK_MARGIN = 0.02
 
 
 def log(phase, msg):
@@ -1211,9 +1216,11 @@ def train_launches(cfg):
     forward and a backward of its kernel (flash for the attention kinds,
     the SSD or RG-LRU scan for "ssd" and "rglru"); under remat the stacked
     units' layers run their forward twice (the checkpointed units run again
-    in the backward pass; under "dots" too, as a kernel's output is no
-    matrix product), a tail or dense head layer's once. An encoder-decoder
-    checkpoints every layer: flash_per_pass's calls, twice under remat."""
+    in the backward pass), but for the flash forward under "dots", whose
+    output the selective checkpoint keeps (transformer.DOTS); a tail or
+    dense head layer's forward runs once. An encoder-decoder checkpoints
+    every layer saving nothing: flash_per_pass's calls, twice under
+    remat."""
     names = {"ssd": ("ssd_scan", "ssd_scan_bwd"),
              "rglru": ("rglru_scan", "rglru_scan_bwd")}
     out = {name: 0 for pair in (("flash_attention", "flash_attention_bwd"),
@@ -1229,7 +1236,8 @@ def train_launches(cfg):
         for kind in kinds:
             fwd, bwd = names.get(kind, ("flash_attention",
                                         "flash_attention_bwd"))
-            out[fwd] += times
+            saved = fwd == "flash_attention" and cfg.remat == "dots"
+            out[fwd] += 1 if saved else times
             out[bwd] += 1
     return out
 
@@ -2817,6 +2825,80 @@ def main_zoo():
 
 
 
+def predict_cell(label, cfg, batch, seq, opt_cfg, remats):
+    """The dry-run's count (repro_torch.launch.dryrun, on the meta device in
+    this process, touching no card) of ``cfg``'s train step at B ``batch``,
+    S ``seq`` on one card under each of ``remats`` (None: cfg's own), as the
+    trainer runs it: replicated parameters, one micro-batch, ``opt_cfg``.
+    Returns {remat: the dry-run's record}."""
+    from repro_torch.core import TP_DP_RULES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.shapes import ShapeSpec
+    out = {}
+    for remat in remats:
+        overrides = {"num_layers": cfg.num_layers, "ce_chunk": cfg.ce_chunk,
+                     "remat": remat or cfg.remat}
+        t0 = time.perf_counter()
+        rec = run_cell(cfg.name, ShapeSpec(f"{label}-cut", seq, batch,
+                                           "train"),
+                       "h100x1", None, verbose=False, rules=TP_DP_RULES,
+                       cfg_overrides=overrides, accum=1, opt_cfg=opt_cfg)
+        if rec["status"] != "ok":
+            raise AssertionError(f"the dry-run could not count {cfg.name}: "
+                                 f"{rec.get('error')}")
+        rl, cost, mem = rec["roofline"], rec["cost"], rec["memory"]
+        log(label, f"dry-run of {cfg.name} ({cfg.num_layers} layers, remat "
+                   f"{overrides['remat']}) B{batch} S{seq} on one card "
+                   f"(meta, {time.perf_counter() - t0:.1f} s): predicted "
+                   f"one-step peak {mem['peak_bytes'] / 2 ** 30:.2f} GiB "
+                   f"(TrainState {mem['argument_size_in_bytes'] / 2 ** 30:.2f}"
+                   f" GiB), {cost['flops']:.4e} FLOPs, {cost['bytes']:.4e} "
+                   f"HBM bytes in {cost['ops']} ops; compute "
+                   f"{rl['compute_s'] * 1e3:.1f} ms, memory "
+                   f"{rl['memory_s'] * 1e3:.1f} ms, step "
+                   f"{rl['step_s'] * 1e3:.1f} ms ({rl['dominant']}); model "
+                   f"FLOPs {rl['model_flops']:.4e}; kernel ops "
+                   f"{cost['kernel_calls']}")
+        out[remat] = rec
+    return out
+
+
+def hold_prediction(label, name, rec, peak_gib, busy_ms):
+    """Print the dry-run's prediction ``rec`` beside the measured one-step
+    peak and card busy time, with the step's MFU (model FLOPs over busy
+    time at the bf16 peak) and the card's memory beside the HBM constant;
+    fail when the peak is off by more than PEAK_MARGIN or the busy time is
+    below the predicted compute time (FLOPs at the peak rate bound it)."""
+    from repro_torch.roofline.hardware import HBM_BYTES, PEAK_BF16_FLOPS
+    rl = rec["roofline"]
+    predicted = rec["memory"]["peak_bytes"] / 2 ** 30
+    off = predicted / peak_gib - 1
+    mfu = rl["model_flops"] / (busy_ms / 1e3 * PEAK_BF16_FLOPS)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(label, f"{name}: one-step peak predicted {predicted:.2f} GiB, "
+               f"measured {peak_gib:.2f} GiB ({100 * off:+.2f}%, margin "
+               f"{100 * PEAK_MARGIN:.0f}%); predicted compute "
+               f"{rl['compute_s'] * 1e3:.1f} ms, memory "
+               f"{rl['memory_s'] * 1e3:.1f} ms, step "
+               f"{rl['step_s'] * 1e3:.1f} ms, measured busy {busy_ms:.3f} ms "
+               f"({busy_ms / (rl['step_s'] * 1e3):.2f}x the step term); MFU "
+               f"{mfu:.4f} ({rl['model_flops']:.4e} model FLOPs / (busy x "
+               f"{PEAK_BF16_FLOPS:.3g} FLOP/s)); the card's total_memory "
+               f"{total} bytes ({total / 2 ** 30:.2f} GiB) beside HBM_BYTES "
+               f"{HBM_BYTES:.3g}")
+    if abs(off) > PEAK_MARGIN:
+        raise AssertionError(f"{name}: predicted peak {predicted:.2f} GiB "
+                             f"is off the measured {peak_gib:.2f} GiB by "
+                             f"more than {PEAK_MARGIN:.0%}")
+    if busy_ms / 1e3 < rl["compute_s"]:
+        raise AssertionError(f"{name}: busy {busy_ms:.3f} ms below the "
+                             f"predicted compute time "
+                             f"{rl['compute_s'] * 1e3:.3f} ms")
+    return {"predicted_gib": predicted, "measured_gib": peak_gib,
+            "busy_ms": busy_ms, "compute_ms": rl["compute_s"] * 1e3,
+            "memory_ms": rl["memory_s"] * 1e3, "mfu": mfu}
+
+
 def main_rg_train():
     """(mq), run by ``chip_smoke.py --rg-train`` in a process of its own
     (run_child), with the card to itself: recurrentgemma-9b's training at
@@ -2826,9 +2908,13 @@ def main_rg_train():
     train step through the RG-LRU and flash (D 256, window 2048) kernels
     against the plain paths, then RG_TRAIN_STEPS bf16 ElasticTrainer
     steps, then the step's times. Writes the path's launch counts and peak
-    GiB to RG_TRAIN_RESULT."""
+    GiB to RG_TRAIN_RESULT. Before any step, the dry-run counts the same
+    cell (predict_cell); after the bf16 steps, one step's peak (the
+    allocator's peak reset, the TrainState held) and its busy time are held
+    against that count (hold_prediction)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import AdamWConfig
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2836,6 +2922,9 @@ def main_rg_train():
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
                               num_layers=RG_TRAIN_LAYERS, ce_chunk=1024)
+    predicted = predict_cell("mq", cfg, 1, RG_TRAIN_S, AdamWConfig(
+        lr=RG_TRAIN_LR, warmup_steps=1, total_steps=RG_TRAIN_STEPS),
+        (None,))[None]
     _, params = model_and_params(cfg, "mq", init_depth=RG_DEPTH,
                                  on_card=True, per_layer=True)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=RG_TRAIN_S,
@@ -2853,10 +2942,20 @@ def main_rg_train():
                                  f"launched {name}")
     del params
     trainer, state, next_batch = trained
-    step_times({(cfg.name, 1): (cfg, data, 1, lambda: trainer.train_step(
-        state, next_batch))})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, next_batch)
+    torch.cuda.synchronize()
+    one_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("mq", f"{cfg.name}: peak device memory {one_step:.2f} GiB in a step "
+              f"(the TrainState held)")
+    _, busy = step_times({(cfg.name, 1): (cfg, data, 1, lambda: trainer
+                                          .train_step(state, next_batch))})
+    held = hold_prediction("mq", f"{cfg.name} ({cfg.num_layers} layers)",
+                           predicted, one_step, busy[cfg.name, 1][0])
     RG_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
-    RG_TRAIN_RESULT.write_text(json.dumps({"counts": counts, "peak": peak}))
+    RG_TRAIN_RESULT.write_text(json.dumps({"counts": counts, "peak": peak,
+                                           "prediction": held}))
     return 0
 
 
@@ -2867,21 +2966,23 @@ def phase_remat_train_fp32(cfg, params, batch):
     attn_impl="chunked" under "dots", from the same parameters (each layer
     at its own fan-in) and batch: the kernels against the chunked path and
     "dots" against "nothing_saveable", the loss and every gradient leaf
-    max-normalised at MODEL_TOL. Each kernel step launches exactly 24
-    forward and 12 backward flash kernels: one forward a layer, run again
-    when the backward pass recomputes the layer's unit (under "dots" too:
-    the kernel's output is no matrix product the policy saves), and one
-    backward a layer."""
+    max-normalised at MODEL_TOL. Each kernel step launches one backward
+    flash kernel a layer and one forward a layer under "dots", whose
+    selective checkpoint keeps the forward's output and log-sum-exp (12 +
+    12), and two under "nothing_saveable", where the backward pass runs the
+    layer's unit again (24 + 12)."""
     dots = dataclasses.replace(cfg, remat="dots")
-    want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_attention_bwd": cfg.num_layers}
-    for remat in ("dots", "nothing_saveable"):
+    want = {remat: {"flash_attention": times * cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers}
+            for remat, times in (("dots", 1), ("nothing_saveable", 2))}
+    for remat, counts in want.items():
         got = train_launches(dataclasses.replace(cfg, remat=remat))
-        if {k: got[k] for k in want} != want:
+        if {k: got[k] for k in counts} != counts:
             raise AssertionError(f"train_launches under {remat}: {got}")
-    off = {name: 0 for name in want}
-    kernel = train_grads(dots, params, batch, want)
-    saving = train_grads(cfg, params, batch, want, remat="nothing_saveable")
+    off = {name: 0 for name in want["dots"]}
+    kernel = train_grads(dots, params, batch, want["dots"])
+    saving = train_grads(cfg, params, batch, want["nothing_saveable"],
+                         remat="nothing_saveable")
     other = grad_errs(saving, kernel)
     del saving
     chunked = train_grads(dots, params, batch, off, attn_impl="chunked")
@@ -2944,9 +3045,12 @@ def main_qwen_train():
     QWEN_TRAIN_S under "dots", the loss falling (the flash backward's bf16
     route at D 128 on a main path), then the step's times and peak memory
     under both remats. Writes the path's launch counts and peak GiB to
-    QWEN_TRAIN_RESULT."""
+    QWEN_TRAIN_RESULT. Before any step, the dry-run counts the bf16 cell
+    under both remats (predict_cell); their one-step peaks and busy times
+    are held against the counts (hold_prediction)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import AdamWConfig
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2955,6 +3059,10 @@ def main_qwen_train():
     cfg = dataclasses.replace(get_config("qwen3-4b"),
                               num_layers=QWEN_TRAIN_LAYERS,
                               ce_chunk=QWEN_CE_CHUNK, remat="dots")
+    predicted = predict_cell("wq", cfg, QWEN_TRAIN_B, QWEN_TRAIN_S,
+                             AdamWConfig(lr=QWEN_TRAIN_LR, warmup_steps=1,
+                                         total_steps=QWEN_TRAIN_STEPS),
+                             ("dots", "nothing_saveable"))
     _, params = model_and_params(cfg, "wq", init_depth=QWEN_DEPTH,
                                  on_card=True, per_layer=True)
     one = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_FP32_S,
@@ -2975,6 +3083,10 @@ def main_qwen_train():
     del params
     trainer, state, next_batch = trained
     times = phase_remat_step_times(cfg, trainer, state, next_batch, data)
+    for remat, t in times.items():
+        t["prediction"] = hold_prediction(
+            "wq", f"{cfg.name} ({cfg.num_layers} layers) remat {remat}",
+            predicted[remat], t["peak_gib"], t["busy_ms"])
     QWEN_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
     QWEN_TRAIN_RESULT.write_text(json.dumps({"counts": counts, "peak": peak,
                                              "times": times}))
@@ -3171,8 +3283,13 @@ def main():
     # for blocks split at another size
     rg_train = run_child("--rg-train", RG_TRAIN_RESULT, env={
         "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    pred = rg_train["prediction"]
     log("mq", f"recurrentgemma-9b training: peak device memory "
-              f"{rg_train['peak']:.2f} GiB")
+              f"{rg_train['peak']:.2f} GiB; one step "
+              f"{pred['measured_gib']:.2f} GiB against the dry-run's "
+              f"{pred['predicted_gib']:.2f}, busy {pred['busy_ms']:.3f} ms "
+              f"against its compute {pred['compute_ms']:.1f} and memory "
+              f"{pred['memory_ms']:.1f} ms, MFU {pred['mfu']:.4f}")
     rg_train = rg_train["counts"]
     qwen_train = run_child("--qwen-train", QWEN_TRAIN_RESULT, env={
         "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
@@ -3180,7 +3297,9 @@ def main():
               f"memory {qwen_train['peak']:.2f} GiB; bf16 step B"
               f"{QWEN_TRAIN_B} S{QWEN_TRAIN_S} " + "; ".join(
                   f"remat {k}: {v['wall_ms']:.3f} ms wall, "
-                  f"{v['busy_ms']:.3f} ms busy, {v['peak_gib']:.2f} GiB peak"
+                  f"{v['busy_ms']:.3f} ms busy, {v['peak_gib']:.2f} GiB peak "
+                  f"(the dry-run's {v['prediction']['predicted_gib']:.2f}; "
+                  f"MFU {v['prediction']['mfu']:.4f})"
                   for k, v in qwen_train["times"].items()))
     qwen_train = qwen_train["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "

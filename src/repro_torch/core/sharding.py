@@ -148,6 +148,20 @@ LONG_CONTEXT_RULES = TP_DP_RULES.replace(
     batch=(), kv_seq=("pod", "data"), seq=("pod", "data"))
 
 
+def rules_for_shape(shape_name: str, global_batch: int, mesh,
+                    base: ShardingRules = TP_DP_RULES) -> ShardingRules:
+    """Pick a rule table appropriate for an input-shape family (a copy of
+    the reference's): the long-context rules when the batch is too small
+    to split over the data slices."""
+    data_ways = 1
+    for ax in ("pod", "data"):
+        if ax in mesh.shape:
+            data_ways *= mesh.shape[ax]
+    if global_batch < data_ways:
+        return LONG_CONTEXT_RULES
+    return base
+
+
 class NamedSharding:
     """A :class:`PartitionSpec` on a :class:`Mesh`."""
 
@@ -256,7 +270,10 @@ def intersect(a: tuple, b: tuple) -> Optional[tuple]:
 def read_box(arr: ShardedTensor, box: tuple, coord) -> torch.Tensor:
     """``arr``'s values on ``box`` (global slices), on ``coord``'s device: a
     view of ``coord``'s own block where that holds the box whole, else a
-    new buffer put together from the distinct blocks that meet it."""
+    new buffer put together from the distinct blocks that meet it. An
+    ``arr`` that holds only some coordinates' blocks (one card's view of
+    a TrainState, as the dry-run's cells build it) leaves the parts of the
+    buffer that the others hold unwritten: a collective brings them."""
     own = arr.index(coord)
     if all(o.start <= b.start and b.stop <= o.stop
            for o, b in zip(own, box)):
@@ -265,7 +282,7 @@ def read_box(arr: ShardedTensor, box: tuple, coord) -> torch.Tensor:
                       device=arr.sharding.mesh.device(coord))
     for idx, c in distinct_blocks(arr):
         inter = intersect(box, idx)
-        if inter is not None:
+        if inter is not None and c in arr.shards:
             out[relative_index(inter, box)].copy_(
                 arr.shards[c][relative_index(inter, idx)])
     return out

@@ -55,23 +55,27 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+from repro_torch.kernels import work
+from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
+                                           PEAK_FP32_FLOPS)
+
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention: at its full
 # context, and the (B, S, H, D) views a B 4, S 512 prefill passes; of
 # recurrentgemma-9b's local layers in the same prefill (window 2048); of
-# qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128); and of
+# qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128); of
 # paligemma-3b's (8 query heads on 1 KV head of 256, 256 patches and 256
-# tokens). All causal.
+# tokens); and the forward's calls in two train steps: qwen3-4b's at B 2,
+# S 4096 and recurrentgemma-9b's at B 1, S 4096, where the window bites.
+# All causal.
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
           "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
           "d128-512": (4, 32, 8, 512, 128, "bshd", None),
-          "paligemma-512": (4, 8, 1, 512, 256, "bshd", None)}
+          "paligemma-512": (4, 8, 1, 512, 256, "bshd", None),
+          "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
+          "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048)}
 # (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
 # causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
 # frames, which is also the cross attention's call of 512 tokens over them,
@@ -173,43 +177,38 @@ def device_profile(fn, top: int = 6) -> dict:
                 top=[(name[:60], us / 1e3, n) for name, (us, n) in ranked])
 
 
-def attention_bound(b, h, kv, sq, sk, d, dtype, causal=True, window=None):
-    """(bound ms, "operations" | "bytes", flops) for attention on these
-    inputs: q, k, v read and o written once, against 4 D flops for each
-    (query, key) pair the mask lets through."""
-    qpos = np.arange(sq)[:, None] + (sk - sq)
-    kpos = np.arange(sk)[None, :]
-    mask = np.ones((sq, sk), bool)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= qpos - kpos < window
-    flops = 4.0 * b * h * d * int(mask.sum())
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (2 * b * h * sq * d + 2 * b * kv * sk * d)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+def bound(flops: float, nbytes: float, peak: float):
+    """(bound ms, "operations" | "bytes") of work that takes ``flops`` at
+    ``peak`` FLOP/s and moves ``nbytes`` at the HBM rate, whichever takes
+    longer."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _peak(dtype) -> float:
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+
+
+def _itemsize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def attention_bound(b, h, kv, sq, sk, d, dtype, causal=True, window=None):
+    """(bound ms, "operations" | "bytes", flops) for attention on these
+    inputs (``work.attention_work``)."""
+    flops, nbytes = work.attention_work(b, h, kv, sq, sk, d, _itemsize(dtype),
+                                        causal, window)
+    return (*bound(flops, nbytes, _peak(dtype)), flops)
 
 
 def attention_bwd_bound(b, h, kv, sq, sk, d, dtype, causal=True,
                         window=None):
     """(bound ms, "operations" | "bytes", flops) for the attention backward
-    on these inputs: q, k, v, o, do and the fp32 lse read and dq, dk, dv
-    written once, against five products of 2 D flops (Q K^T, dO V^T,
-    P^T dO, dS^T Q, dS K) for each (query, key) pair the mask lets
-    through."""
-    _, _, fwd_flops = attention_bound(b, h, kv, sq, sk, d, dtype, causal,
-                                      window)
-    flops = 2.5 * fwd_flops
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (size * (4 * b * h * sq * d + 4 * b * kv * sk * d)
-              + 4 * b * h * sq)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    on these inputs (``work.attention_bwd_work``)."""
+    flops, nbytes = work.attention_bwd_work(b, h, kv, sq, sk, d,
+                                            _itemsize(dtype), causal, window)
+    return (*bound(flops, nbytes, _peak(dtype)), flops)
 
 
 def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
@@ -226,10 +225,14 @@ def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
             randn((b, kv, sk, d)))
 
 
-def sdpa(q, k, v, causal: bool = True):
+def sdpa(q, k, v, causal: bool = True, mask=None):
     """The library yardstick; the port never calls it. It computes the
     kernel's function where a window does not bite (causal calls here are
-    square, where its top-left mask is the kernel's)."""
+    square, where its top-left mask is the kernel's), and under an explicit
+    ``mask`` (window_mask) where one does."""
+    if mask is not None:
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True)
 
@@ -246,17 +249,16 @@ def flash_call(label: str) -> tuple:
 
 def time_flash_attention(label: str, seed: int = 1) -> dict:
     """Kernel, plain version and library call at one of SHAPES (bf16,
-    causal, within the shape's window) or NONCAUSAL_SHAPES, with the
-    bound."""
+    causal, within the shape's window: where it bites, the library call
+    takes it as an explicit mask) or NONCAUSAL_SHAPES, with the bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     b, h, kv, sq, sk, d, layout, causal, window = flash_call(label)
-    if window is not None and window < sk:
-        raise ValueError(f"{label}: scaled_dot_product_attention's causal "
-                         f"mask is not a window of {window} at S {sk}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = (window_mask(sk, window, q.device)
+            if window is not None and window < sk else None)
     kw = dict(causal=causal, window=window)
     bound_ms, bound_by, flops = attention_bound(b, h, kv, sq, sk, d,
                                                 torch.bfloat16, **kw)
@@ -265,17 +267,18 @@ def time_flash_attention(label: str, seed: int = 1) -> dict:
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9,
         plain_ms=graph_ms(lambda: attention_ref(q, k, v, **kw), iters=3),
-        library_ms=graph_ms(lambda: sdpa(qc, kc, vc, causal)),
+        library_ms=graph_ms(lambda: sdpa(qc, kc, vc, causal, mask)),
+        library_backend=sdpa_backend(qc, kc, vc, mask, causal),
         eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v, **kw)))
 
 
-def sdpa_backend(q, k, v, mask=None) -> str:
+def sdpa_backend(q, k, v, mask=None, causal: bool = True) -> str:
     """The backend PyTorch picks for :func:`sdpa` on these inputs (flash,
     efficient, cuDNN or math), or for the call with an explicit ``mask``
     in place of the causal one."""
     from torch.nn.attention import SDPBackend
     return SDPBackend(torch._fused_sdp_choice(
-        q, k, v, attn_mask=mask, is_causal=mask is None,
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=True)).name
 
 
@@ -376,10 +379,15 @@ def describe(row: dict) -> str:
     length = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
     mask = ("causal" if causal else "non-causal") + (
         f" window {window}" if window is not None else "")
+    library = "scaled_dot_product_attention"
+    if "library_backend" in row:
+        explicit = window is not None and window < sk
+        library += (f" ({row['library_backend']}"
+                    f"{', explicit mask' if explicit else ''})")
     return (f"flash_attention B{b} H{h} KV{kv} {length} D{d} bf16 {mask} "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
             f"TFLOP/s), plain {row['plain_ms']:.4f} ms, "
-            f"scaled_dot_product_attention {row['library_ms']:.4f} ms, "
+            f"{library} {row['library_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
             f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x, "
             f"kernel/library {row['ms'] / row['library_ms']:.2f}x (device "
@@ -388,26 +396,9 @@ def describe(row: dict) -> str:
 
 def ssd_bound(b, s, h, p, n, chunk, dtype):
     """(bound ms, "operations" | "bytes", flops) for the SSD scan on these
-    inputs: x, B, C, dt and a_log read and y and the final state written
-    once, against the products of the chunked algorithm at its least: C B^T
-    once per (batch, chunk), as B and C are shared by the heads, on the
-    lower triangle only, as are the intra-chunk products; the carried-state
-    term from the second chunk on (the first one's state is zero); the
-    state update. Chunks of ``min(chunk, S, 128)`` rows, as the kernel's."""
-    q = min(chunk, s, 128)
-    lens = [min(q, s - s0) for s0 in range(0, s, q)]
-    tri = sum(L * (L + 1) // 2 for L in lens)
-    flops = 2.0 * b * n * tri                        # C B^T
-    flops += 2.0 * b * h * p * tri                   # (G) (x dt)
-    flops += 2.0 * b * h * p * n * sum(lens[1:])     # C h
-    flops += 2.0 * b * h * p * n * s                 # B^T (x dt rem)
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (size * (2 * b * s * h * p + 2 * b * s * n)
-              + 4 * (b * s * h + h + b * h * p * n))
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    inputs (``work.ssd_work``)."""
+    flops, nbytes = work.ssd_work(b, s, h, p, n, chunk, _itemsize(dtype))
+    return (*bound(flops, nbytes, _peak(dtype)), flops)
 
 
 def make_ssd_inputs(gen, b, s, h, p, n, dtype, layout):
@@ -465,27 +456,9 @@ def describe_ssd(row: dict) -> str:
 
 def ssd_bwd_bound(b, s, h, p, n, chunk, dtype):
     """(bound ms, "operations" | "bytes", flops) for the SSD scan's backward
-    on these inputs: x, dy, B, C, dt and a_log read and dx, dB, dC, ddt and
-    da_log written once, against the chunked algorithm's backward products
-    at their least: C B^T once per (batch, chunk) and, per head, G^T dy,
-    dy (x dt)^T, PD B and PD^T C on the lower triangle; each chunk's
-    dy^T C, and the carried states' B dh_out^T, (x dt) dh_out and (from
-    the second chunk on) dy h_in. Chunks as the forward's."""
-    q = min(chunk, s, 128)
-    lens = [min(q, s - s0) for s0 in range(0, s, q)]
-    tri = sum(L * (L + 1) // 2 for L in lens)
-    flops = 2.0 * b * n * tri                          # C B^T
-    flops += 2.0 * 2 * b * h * p * tri                 # G^T dy, dy (x dt)^T
-    flops += 2.0 * 2 * b * h * n * tri                 # PD B, PD^T C
-    flops += 2.0 * 3 * b * h * p * n * s               # dy^T C, two states
-    flops += 2.0 * b * h * p * n * sum(lens[1:])       # dy h_in
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (size * (3 * b * s * h * p + 4 * b * s * n)
-              + 4 * (2 * b * s * h + 2 * h))
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    on these inputs (``work.ssd_bwd_work``)."""
+    flops, nbytes = work.ssd_bwd_work(b, s, h, p, n, chunk, _itemsize(dtype))
+    return (*bound(flops, nbytes, _peak(dtype)), flops)
 
 
 def time_ssd_scan_bwd(label: str, seed: int = 1) -> dict:
@@ -534,13 +507,9 @@ def describe_ssd_bwd(row: dict) -> str:
 
 def rglru_bound(b, s, w):
     """(bound ms, "operations" | "bytes", flops) for the RG-LRU scan on
-    these inputs: a and b read and h written once (fp32), against one
-    multiply-add per element at the fp32 rate."""
-    flops = 2.0 * b * s * w
-    nbytes = 3 * 4 * b * s * w
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    these inputs (``work.rglru_work``, fp32)."""
+    flops, nbytes = work.rglru_work(b, s, w)
+    return (*bound(flops, nbytes, PEAK_FP32_FLOPS), flops)
 
 
 def make_rglru_inputs(gen, b, s, w):
@@ -571,13 +540,9 @@ def time_rglru_scan(label: str, seed: int = 1) -> dict:
 
 def rglru_bwd_bound(b, s, w):
     """(bound ms, "operations" | "bytes", flops) for the RG-LRU scan's
-    backward: a, h and dh read and da and db written once (fp32), against
-    a multiply-add and a multiply per element at the fp32 rate."""
-    flops = 3.0 * b * s * w
-    nbytes = 5 * 4 * b * s * w
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    backward (``work.rglru_bwd_work``, fp32)."""
+    flops, nbytes = work.rglru_bwd_work(b, s, w)
+    return (*bound(flops, nbytes, PEAK_FP32_FLOPS), flops)
 
 
 def time_rglru_scan_bwd(label: str, seed: int = 1) -> dict:

@@ -11,7 +11,9 @@ called through ``ctypes`` on PyTorch's current stream. The wrappers
 allocate the outputs and workspace, check what the kernels take and raise
 on the rest, and raise when a launch reports an error.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-the launches.
+the launches. Meta tensors stand for the card's in the dry-run's count:
+the wrappers check them and allocate the same outputs and workspace, and
+build, load and launch nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -83,7 +86,7 @@ def load_bwd() -> build.Built:
 def _check(q, k, v, causal: bool, window: Optional[int],
            softcap: Optional[float]):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if not on_card(t):
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-d, got shape {tuple(t.shape)}")
@@ -126,15 +129,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None, return_lse: bool = False):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D), on the card;
     with ``return_lse`` also the rows' log-sum-exp, fp32 (B, H, Sq), which
-    :func:`flash_attention_bwd` takes."""
+    :func:`flash_attention_bwd` takes. Meta tensors: the outputs only."""
     _check(q, k, v, causal, window, softcap)
     out = output_buffer(q)
     lse = None
     if return_lse:
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    launch(load().lib, q, k, v, out, causal=causal, window=window,
-           softcap=softcap, lse=lse)
-    flash_attention.launches += 1
+    if not q.is_meta:
+        launch(load().lib, q, k, v, out, causal=causal, window=window,
+               softcap=softcap, lse=lse)
+        flash_attention.launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -237,7 +241,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """Gradients (dq, dk, dv) of :func:`flash_attention`'s output ``o`` with
     respect to q, k and v, given the output's gradient ``do`` and the
     forward's ``lse``, on the card; dq, dk and dv have the strides of q, k
-    and v."""
+    and v. Meta tensors: the gradients and the workspace only."""
     _check_bwd(q, k, v, o, lse, do, causal, window, softcap)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     b, h, sq, d = q.shape
@@ -247,9 +251,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         bwd_workspace_numel(b, h, sq, d)
         + bwd_partials_numel(splits, b, kvh, sk, d),
         dtype=torch.float32, device=q.device)
-    launch_bwd(load_bwd().lib, q, k, v, o, lse, do, dq, dk, dv, workspace,
-               causal=causal, window=window, softcap=softcap, splits=splits)
-    flash_attention_bwd.launches += 1
+    if not q.is_meta:
+        launch_bwd(load_bwd().lib, q, k, v, o, lse, do, dq, dk, dv,
+                   workspace, causal=causal, window=window, softcap=softcap,
+                   splits=splits)
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

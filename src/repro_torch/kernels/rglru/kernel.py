@@ -13,7 +13,9 @@ kernel has none) gives da, db and dh0 from the gradient of h and the
 forward's saved h; it splits S into chunks of ``BWD_CHUNK`` steps that pass
 their carry right to left through a workspace the wrapper allocates
 (``bwd_workspace_numel``). ``rglru_scan_bwd.launches`` counts its
-launches.
+launches. Meta tensors stand for the card's in the dry-run's count: both
+wrappers check them and allocate the same outputs and workspace, and
+build, load and launch nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
@@ -60,7 +63,7 @@ def load() -> build.Built:
 def _check(a, b, h0):
     named = (("a", a), ("b", b)) + ((("h0", h0),) if h0 is not None else ())
     for name, t in named:
-        if not t.is_cuda:
+        if not on_card(t):
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -86,8 +89,9 @@ def rglru_scan(a, b, h0=None):
     float32, on the card."""
     _check(a, b, h0)
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    launch(load().lib, a, b, h0, h)
-    rglru_scan.launches += 1
+    if not a.is_meta:
+        launch(load().lib, a, b, h0, h)
+        rglru_scan.launches += 1
     return h
 
 
@@ -135,8 +139,9 @@ def rglru_scan_bwd(a, h, h0, dh):
     dh0 = torch.empty_like(h0) if h0 is not None else None
     workspace = torch.empty(bwd_workspace_numel(*a.shape),
                             dtype=torch.float32, device=a.device)
-    launch_bwd(load().lib, a, h, h0, dh, da, db, dh0, workspace)
-    rglru_scan_bwd.launches += 1
+    if not a.is_meta:
+        launch_bwd(load().lib, a, h, h0, dh, da, db, dh0, workspace)
+        rglru_scan_bwd.launches += 1
     return da, db, dh0
 
 

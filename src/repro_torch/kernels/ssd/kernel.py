@@ -19,7 +19,9 @@ runs four CUDA kernels, the products on the tensor cores (each chunk's
 state-gradient share, the state passing in reverse, one pass per (batch,
 chunk) over the heads for every gradient, da_log over the chunks); for fp32
 seven, on the CUDA cores. ``ref.ssd_bwd_passes`` mirrors them;
-``ssd_scan_bwd.launches`` counts the calls.
+``ssd_scan_bwd.launches`` counts the calls. Meta tensors stand for the
+card's in the dry-run's count: both wrappers check them and allocate the
+same outputs and workspaces, and build, load and launch nothing.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
@@ -118,7 +121,7 @@ def bwd_workspace_numel(bsz: int, s: int, h: int, p: int, n: int,
 def _check(x, dt, a_log, b, c, chunk: int):
     named = (("x", x), ("dt", dt), ("a_log", a_log), ("b", b), ("c", c))
     for name, t in named:
-        if not t.is_cuda:
+        if not on_card(t):
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if len({t.device for _, t in named}) != 1:
         raise ValueError("x, dt, a_log, b and c must be on one device")
@@ -170,9 +173,10 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128,
                           device=x.device)
     workspace = torch.empty(workspace_numel(bsz, s, h, p, n, chunk, x.dtype),
                             dtype=torch.float32, device=x.device)
-    launch(load().lib, x, dt, a_log, b, c, y, h_final, workspace,
-           chunk=chunk_rows(s, chunk))
-    ssd_scan.launches += 1
+    if not x.is_meta:
+        launch(load().lib, x, dt, a_log, b, c, y, h_final, workspace,
+               chunk=chunk_rows(s, chunk))
+        ssd_scan.launches += 1
     if keep_workspace:
         return y, h_final, workspace
     return y, h_final
@@ -206,7 +210,7 @@ def _check_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, chunk: int):
     _check(x, dt, a_log, b, c, chunk)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    if not dy.is_cuda or dy.device != x.device:
+    if dy.device != x.device:
         raise ValueError(f"dy must be on x's device {x.device}")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.stride(-1) != 1:
         raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype} with "
@@ -244,9 +248,11 @@ def ssd_scan_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, *,
     scratch = torch.empty(bwd_workspace_numel(bsz, s, h, p, n, chunk,
                                               x.dtype),
                           dtype=torch.float32, device=dev)
-    launch_bwd(load_bwd().lib, x, dt, a_log, b, c, dy, dh_final, workspace,
-               dx, ddt, da_log, db, dc, scratch, chunk=chunk_rows(s, chunk))
-    ssd_scan_bwd.launches += 1
+    if not x.is_meta:
+        launch_bwd(load_bwd().lib, x, dt, a_log, b, c, dy, dh_final,
+                   workspace, dx, ddt, da_log, db, dc, scratch,
+                   chunk=chunk_rows(s, chunk))
+        ssd_scan_bwd.launches += 1
     return dx, ddt, da_log, db, dc
 
 

@@ -1,0 +1,118 @@
+"""Perf hillclimb harness: count one cell under a named variant and diff
+its roofline terms against the stored baseline artifact.
+
+Counterpart of ``benchmarks/perf_iterate.py``, on the dry-run's meta
+count (``launch/dryrun.py``):
+
+  PYTHONPATH=src python -m repro_torch.launch.perf_iterate \\
+      --arch smollm-135m --shape train_4k --variant ce_chunk [--node]
+
+Each variant writes a tagged artifact next to the baseline's directory.
+The meshes have ``model`` 1 (tensor parallelism inside a slice is ROADMAP
+Queue 1 item 10), so the variants that need a model axis raise and say
+so: ``decode_seq`` and ``decode_seq_bf16`` shard the KV cache over it, and
+``dp_only*`` fold it into the data axes, which on a mesh of model 1 is the
+baseline's layout. The reference's ``attn_chunk_2k``, ``attn_chunk_512``
+and ``ssd_chunk_1k`` raise too: they would count the baseline's program
+under another name (``KERNEL_TILES``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+
+from repro_torch.core.sharding import FSDP_RULES, TP_DP_RULES
+from repro_torch.launch.dryrun import DEFAULT_OUT, artifact_path, run_cell
+from repro_torch.optim import AdamWConfig
+
+_ITEM_10 = ("needs a model axis: tensor parallelism inside a slice is not "
+            "ported yet (ROADMAP.md, Queue 1 item 10)")
+NEEDS_MODEL_AXIS = {"decode_seq", "decode_seq_bf16", "dp_only",
+                    "dp_only_ce", "dp_only_dots", "dp_only_dots_ce"}
+# the reference's chunk variants, which cannot change the port's program
+KERNEL_TILES = {
+    "attn_chunk_2k": "the flash kernel tiles on its own; attn_chunk steers "
+                     "only the chunked path, which a card's tensor never takes",
+    "attn_chunk_512": "the flash kernel tiles on its own; attn_chunk steers "
+                      "only the chunked path, which a card's tensor never "
+                      "takes",
+    "ssd_chunk_1k": "the SSD kernel works in chunks of at most 128 rows "
+                    "whatever ssd_chunk says",
+}
+
+VARIANTS = {
+    "baseline": {},
+    "fsdp": {"rules": FSDP_RULES},
+    "tp_dp": {"rules": TP_DP_RULES},
+    "ce_chunk": {"cfg_overrides": {"ce_chunk": 512}},
+    "ce_chunk_1k": {"cfg_overrides": {"ce_chunk": 1024}},
+    "accum_2": {"accum": 2},
+    "accum_4": {"accum": 4},
+    "accum_16": {"accum": 16},
+    "no_zero1": {"opt_cfg": AdamWConfig(zero1=False)},
+    "grad_bf16": {"opt_cfg": AdamWConfig(grad_reduce_dtype="bfloat16")},
+    "remat_dots": {"cfg_overrides": {"remat": "dots"}},
+}
+
+
+def variant(name: str) -> dict:
+    """The ``run_cell`` keywords of variant ``name``."""
+    if name in NEEDS_MODEL_AXIS:
+        raise NotImplementedError(f"variant {name} {_ITEM_10}")
+    if name in KERNEL_TILES:
+        raise ValueError(f"variant {name} counts the baseline's program: "
+                         f"{KERNEL_TILES[name]}")
+    return dict(VARIANTS[name])
+
+
+def show(rec, label):
+    if rec.get("status") != "ok":
+        print(f"{label}: {rec.get('status')} {rec.get('error', '')[:200]}")
+        return None
+    rl = rec["roofline"]
+    mem = rec["memory"]
+    print(f"{label:>16s}: compute={rl['compute_s']*1e3:9.2f}ms "
+          f"memory={rl['memory_s']*1e3:9.2f}ms "
+          f"coll={rl['collective_s']*1e3:9.2f}ms "
+          f"dom={rl['dominant']:<10s} mfu={rl['mfu']:.4f} "
+          f"useful={rl['useful_ratio']:.2f} "
+          f"peak={mem['peak_bytes']/1e9:.1f}GB fits={rec['fits']}")
+    return rl
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--variant", required=True,
+                    choices=sorted(set(VARIANTS) | NEEDS_MODEL_AXIS
+                                   | set(KERNEL_TILES)))
+    ap.add_argument("--node", action="store_true",
+                    help="the 8-card mesh (h100x8) instead of one card")
+    ap.add_argument("--base", default=DEFAULT_OUT)
+    ap.add_argument("--out", default="build/perf")
+    args = ap.parse_args(argv)
+
+    mesh_name = "h100x8" if args.node else "h100x1"
+    spec = variant(args.variant)
+    base_path = artifact_path(pathlib.Path(args.base), args.arch, args.shape,
+                              mesh_name)
+    base = json.loads(base_path.read_text()) if base_path.exists() else None
+    if base:
+        show(base, "baseline")
+    rec = run_cell(args.arch, args.shape, mesh_name, pathlib.Path(args.out),
+                   verbose=False, tag=args.variant, **spec)
+    rl = show(rec, args.variant)
+    if base and rl and base.get("status") == "ok":
+        b = base["roofline"]
+        for k in ("compute_s", "memory_s", "collective_s", "step_s"):
+            delta = (rl[k] - b[k]) / b[k] * 100 if b[k] else 0.0
+            print(f"   {k:>13s}: {b[k]*1e3:9.2f} -> {rl[k]*1e3:9.2f} ms "
+                  f"({delta:+.1f}%)")
+        print(f"   {'mfu':>13s}: {b['mfu']:.4f} -> {rl['mfu']:.4f}")
+    return 0 if rl else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm, softcap
 
@@ -201,12 +202,12 @@ def _attend(q, k, v, cfg, window: Optional[int], causal: bool = True):
     """Attention on (B, S, H, D) tensors, causal unless ``causal`` is False
     (then over the first Sq keys: noncausal_keys), within ``window`` keys
     when it is set, by ``attn_impl``: "auto" takes the flash kernel for
-    CUDA tensors and the chunked path on the CPU; "chunked" always takes
-    the chunked path."""
+    CUDA tensors (and meta ones, the dry-run's stand-ins for them) and the
+    chunked path on the CPU; "chunked" always takes the chunked path."""
     impl = cfg.attn_impl
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {impl!r} {ATTN_IMPLS}")
-    if impl == "chunked" or (impl == "auto" and not q.is_cuda):
+    if impl == "chunked" or (impl == "auto" and not on_card(q)):
         return chunked_attention(q, k, v, cfg, causal=causal, window=window)
     if not causal:
         k, v = noncausal_keys(k, v, cfg, q.shape[1])

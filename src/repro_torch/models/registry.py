@@ -8,8 +8,10 @@ recurrentgemma-9b's ("rglru", "rglru", "local") pattern, the
 mixture-of-experts "moe" blocks of phi3.5-moe-42b-a6.6b and
 deepseek-moe-16b (shared experts, a first dense layer), paligemma-3b's
 decoder with its patch frontend stub, and, as an ``EncDecLM``, the
-encoder-decoder seamless-m4t-medium. A pattern that mixes block kinds
-otherwise than these raises ``NotImplementedError``.
+encoder-decoder seamless-m4t-medium. Any pattern of these block kinds
+builds, as in the reference (an "ssd" or "rglru" block beside "global"
+ones, say); an unknown kind raises ``ValueError(kind)`` from the block
+functions (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -20,30 +22,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import CausalLM
 
-_LATER = "ROADMAP.md, Queue 1, other model families"
-
-
-def _unported(cfg: ModelConfig):
-    """Why ``cfg`` cannot be built yet, or None when it can."""
-    if "ssd" in cfg.pattern and (cfg.family, cfg.pattern) != (
-            "ssm", ("ssd",)):
-        return f"SSD blocks outside the ssm family ({_LATER})"
-    if "rglru" in cfg.pattern and (cfg.family, cfg.pattern) != (
-            "hybrid", ("rglru", "rglru", "local")):
-        return f"RG-LRU blocks outside recurrentgemma's pattern ({_LATER})"
-    unknown = set(cfg.pattern) - {"global", "local", "moe", "ssd", "rglru"}
-    if unknown:
-        return f"block kinds {sorted(unknown)} ({_LATER})"
-    return None
-
-
 def build_model(cfg: ModelConfig, device=DEFAULT_DEVICE):
     """A ``CausalLM``, or an ``EncDecLM`` for family "encdec"."""
     if cfg.family == "encdec":
         return EncDecLM(cfg, device)
-    why = _unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
     return CausalLM(cfg, device)
 
 

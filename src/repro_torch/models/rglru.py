@@ -21,6 +21,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import on_card
 from repro_torch.kernels.rglru.ops import rglru_op
 from repro_torch.models.layers import ParamSpec
 
@@ -101,7 +102,7 @@ def _mixer(params, x, cfg, want_cache: bool):
     xb, gate = torch.split(proj, [w, w], dim=-1)
     conv = _conv(xb, params["conv_w"], params["conv_b"])
     a, b = _gates(params, conv)
-    h = rglru_op(a, b) if x.is_cuda else rglru_scan(a, b)
+    h = rglru_op(a, b) if on_card(x) else rglru_scan(a, b)
     y = h.to(x.dtype) * _gelu(gate)
     out = y @ params["out_proj"].to(x.dtype)
     if not want_cache:

@@ -18,6 +18,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import on_card
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.models.layers import ParamSpec, rms_norm
 
@@ -116,7 +117,7 @@ def _mixer(params, x, cfg, want_cache: bool):
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
     xh = xc.reshape(*xc.shape[:-1], h, p)      # a view of conv_out
     dt = F.softplus(dt.float() + params["dt_bias"].float())
-    if x.is_cuda:
+    if on_card(x):
         y, h_final = ssd_op(xh, dt, params["A_log"].float(), b, c,
                             chunk=cfg.ssd_chunk)
     else:

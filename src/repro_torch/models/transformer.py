@@ -60,17 +60,14 @@ def tree_stack(trees):
     return torch.stack(trees)
 
 
-def _unported(kind: str):
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP.md, Queue 1, other "
-        "model families)")
-
-
 # the matrix products that ``x @ w``, ``torch.matmul`` and ``einsum`` reach:
 # what ``jax.checkpoint_policies.checkpoint_dots`` saves (every
-# ``dot_general``, batched ones included)
+# ``dot_general``, batched ones included); and the flash forward kernel's
+# op, whose output and log-sum-exp stand for the attention products the
+# reference's chunked attention saves
 DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+        torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+        torch.ops.repro_torch.flash_attention_fwd.default)
 
 
 def _save_dots():
@@ -84,10 +81,9 @@ def remat(cfg: ModelConfig, unit, policy: Optional[str] = None):
     ``nothing_saveable``); "dots" also keeps the outputs of the unit's
     matrix products (``DOTS``) and recomputes everything else (its
     ``checkpoint_dots``), by torch's selective checkpoint; "none" saves
-    activations as usual. The flash kernel is no aten product (its launch
-    goes through ``ctypes`` inside ``FlashAttention.forward``), so under
-    "dots" the recompute launches it again, as under "nothing_saveable".
-    ``policy``, when given, is what any remat but "none" saves: the
+    activations as usual. Under "dots" the flash forward's op is saved
+    too, so the recompute does not launch it again (under
+    "nothing_saveable" it does). ``policy``, when given, is what any remat but "none" saves: the
     encoder-decoder checkpoints each layer with JAX's default policy,
     "nothing_saveable", whatever ``cfg.remat`` names. Remat moves memory
     only, not numbers."""
@@ -126,7 +122,7 @@ def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
     if kind == "rglru":
         return {"ln1": norm(), "mixer": rglru_mod.rglru_specs(cfg),
                 "ln2": norm(), "ffn": mlp_specs(cfg)}
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def ffn_apply(params, h, cfg: ModelConfig, capacity_factor=None):
@@ -155,7 +151,7 @@ def block_apply(params, x, cfg: ModelConfig, kind: str, aux):
         x = x + rglru_mod.rglru_mixer_apply(params["mixer"], h, cfg)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg), aux
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 # -- block caches -------------------------------------------------------------
@@ -169,7 +165,7 @@ def block_cache_specs(cfg, kind: str, batch: int, max_len: int):
         return ssm_mod.ssd_cache_specs(cfg, batch)
     if kind == "rglru":
         return rglru_mod.rglru_cache_specs(cfg, batch)
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
@@ -195,7 +191,7 @@ def block_decode(params, x, cfg: ModelConfig, kind: str, cache, pos: int):
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg), cache
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
@@ -218,7 +214,7 @@ def block_prefill(params, x, cfg: ModelConfig, kind: str, max_len: int):
         x = x + y
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg), cache
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 # -- the model -----------------------------------------------------------------

@@ -16,7 +16,10 @@ sum: an FSDP step's all-gather and reduce-scatter, carried out on one
 card. The numbers do not depend on the layout. Each slice's loss is scaled
 by its share of the global batch's unmasked labels, so the gradients and
 the reported loss are the global batch's mean, as in the reference's
-jitted step.
+jitted step. With ``AdamWConfig.grad_reduce_dtype`` set and more than one
+micro-batch, each micro-batch's gradients are cast to it and summed in
+fp32, as the reference's dry-run cell sums them (``launch/cells.py``
+counts this step: ``slice_grads`` and ``apply_step`` for one card).
 
 The training loop exposes *reconfiguration points* at step boundaries:
 every ``check_period`` steps it calls the DMR API; on EXPAND or SHRINK it
@@ -48,7 +51,8 @@ from repro_torch.core.reshard import synchronize
 from repro_torch.core.sharding import (copy_to, logical_to_sharding,
                                        read_box, zeros)
 from repro_torch.data import DataConfig, SyntheticLMData
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import (torch_dtype, tree_leaves,
+                                      tree_map)
 from repro_torch.optim import (AdamWConfig, apply_sharded_updates,
                                state_logical)
 from repro_torch.prng import fold_in, prng_key
@@ -80,6 +84,79 @@ def _on(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def train_state_shardings(model, opt_cfg: AdamWConfig, mesh,
+                          rules: ShardingRules):
+    """The NamedShardings of a TrainState of ``model`` on ``mesh``: the
+    parameters by ``rules``, the moments by ``state_logical`` (ZeRO-1 as
+    ``opt_cfg`` says), the key and the step replicated."""
+    shapes = tree_map(lambda s: s.shape, model.specs())
+    logical = model.logical()
+    tree_logical = {
+        "params": logical,
+        "opt": state_logical(logical, shapes, mesh, rules,
+                             zero1=opt_cfg.zero1),
+        "rng": (None,),
+        "step": (),
+    }
+    tree_shapes = {"params": shapes,
+                   "opt": {"mu": shapes, "nu": shapes, "step": ()},
+                   "rng": (2,), "step": ()}
+    return logical_to_sharding(tree_logical, tree_shapes, mesh, rules)
+
+
+def slice_grads(model, params, coord, accum: int, micro_batch, loss,
+                opt_cfg: AdamWConfig):
+    """One slice's gradients: ``params`` (ShardedTensors) read whole on
+    ``coord``'s device, gathered from their blocks where the rules split
+    them (and freed with the slice's step), then each of ``accum``
+    micro-batches (``micro_batch(i)`` -> (batch, weight)) through
+    ``model.loss``, scaled by its weight, and ``backward()``; each part's
+    loss is added into the tensor ``loss``. The gradients add up in the
+    parameters' ``.grad``, or, with ``opt_cfg.grad_reduce_dtype`` and more
+    than one micro-batch, each micro-batch's are cast to that dtype (the
+    reduction over the slices runs in it) and summed in fp32, as the
+    reference's cell step sums them. Returns the gradients, whole tensors
+    on the slice's device."""
+    dev = next(iter(tree_leaves(params))).sharding.mesh.device(coord)
+    params = tree_map(lambda x: read_box(x, _whole(x), coord).detach()
+                      .requires_grad_(True), params)
+    low = opt_cfg.grad_reduce_dtype if accum > 1 else None
+    summed = None
+
+    def grad(p):
+        return torch.zeros_like(p) if p.grad is None else p.grad
+
+    with _on(dev):
+        for i in range(accum):
+            mb, weight = micro_batch(i)
+            part, _ = model.loss(params, mb)
+            part = part * weight
+            part.backward()
+            loss += part.detach().to(loss.device)
+            if low is not None:
+                g = tree_map(lambda p: grad(p).to(torch_dtype(low)).float(),
+                             params)
+                summed = g if summed is None else tree_map(
+                    torch.Tensor.add_, summed, g)
+                for p in tree_leaves(params):
+                    p.grad = None
+    return summed if low is not None else tree_map(grad, params)
+
+
+def apply_step(opt_cfg: AdamWConfig, state, grads, loss):
+    """The step after the gradients: ``apply_sharded_updates`` on each
+    coordinate's blocks, the key folded once (every other coordinate gets
+    a copy of it), the step counted. Returns (new state, metrics)."""
+    new_params, opt, metrics = apply_sharded_updates(
+        opt_cfg, state["params"], grads, state["opt"])
+    rng = state["rng"]
+    key = fold_in(rng.shards[rng.sharding.mesh.coords()[0]], 0)
+    rng = rng.map(lambda k: copy_to(key, k.device))
+    new_state = {"params": new_params, "opt": opt, "rng": rng,
+                 "step": state["step"].map(lambda t: t + 1)}
+    return new_state, dict(metrics, loss=loss)
 
 
 class ElasticTrainer:
@@ -121,20 +198,8 @@ class ElasticTrainer:
     # -- sharding ------------------------------------------------------------
 
     def _state_shardings(self, mesh):
-        shapes = tree_map(lambda s: s.shape, self.model.specs())
-        logical = self.model.logical()
-        tree_logical = {
-            "params": logical,
-            "opt": state_logical(logical, shapes, mesh, self.cfg.rules,
-                                 zero1=self.opt_cfg.zero1),
-            "rng": (None,),
-            "step": (),
-        }
-        tree_shapes = {"params": shapes,
-                       "opt": {"mu": shapes, "nu": shapes, "step": ()},
-                       "rng": (2,), "step": ()}
-        return logical_to_sharding(tree_logical, tree_shapes, mesh,
-                                   self.cfg.rules)
+        return train_state_shardings(self.model, self.opt_cfg, mesh,
+                                     self.cfg.rules)
 
     def on_mesh(self, state):
         """``state`` laid out on the trainer's mesh: a state of plain
@@ -183,41 +248,25 @@ class ElasticTrainer:
         micro, per = rows // accum, rows // accum // n
         counts = (batch["labels"] >= 0).reshape(accum, n, -1).sum(-1)
         counts = counts.tolist()
-        first = mesh.device(coords[0])
-        loss = torch.zeros((), dtype=torch.float32, device=first)
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=mesh.device(coords[0]))
         reduced = None
         for j, c in enumerate(coords):
             dev = mesh.device(c)
-            # the slice's whole parameters: its own blocks where they are
-            # replicated, else every block gathered onto its device
-            params = tree_map(lambda x: read_box(x, _whole(x), c).detach()
-                              .requires_grad_(True), state["params"])
-            with _on(dev):
-                for i in range(accum):
-                    lo = i * micro + j * per
-                    mb = {k: v[lo:lo + per].to(dev) for k, v in batch.items()}
-                    part, _ = self.model.loss(params, mb)
-                    # this slice's share of micro-batch i's unmasked labels
-                    part = part * (max(counts[i][j], 1)
-                                   / max(sum(counts[i]), 1) / accum)
-                    part.backward()
-                    loss += part.detach().to(first)
-            grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
-                             else p.grad, params)
-            del params          # a gathered copy goes with the slice's step
+
+            def micro_batch(i, j=j, dev=dev):
+                lo = i * micro + j * per
+                # this slice's share of micro-batch i's unmasked labels
+                return ({k: v[lo:lo + per].to(dev) for k, v in batch.items()},
+                        max(counts[i][j], 1) / max(sum(counts[i]), 1) / accum)
+
+            grads = slice_grads(self.model, state["params"], c, accum,
+                                micro_batch, loss, self.opt_cfg)
             if reduced is None:
                 reduced = grads
             else:
                 tree_map(lambda r, g: r.add_(g.to(r.device)), reduced, grads)
-        new_params, opt, metrics = apply_sharded_updates(
-            self.opt_cfg, state["params"], reduced, state["opt"])
-        # the key folds once; every other slice gets a copy of its own
-        rng = state["rng"]
-        key = fold_in(rng.shards[coords[0]], 0)
-        rng = rng.map(lambda k: copy_to(key, k.device))
-        new_state = {"params": new_params, "opt": opt, "rng": rng,
-                     "step": state["step"].map(lambda t: t + 1)}
-        return new_state, dict(metrics, loss=loss)
+        return apply_step(self.opt_cfg, state, reduced, loss)
 
     # -- reconfiguration (the paper's §5.2 protocol) -----------------------------
 

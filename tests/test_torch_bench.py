@@ -56,6 +56,36 @@ def test_backward_bound_at_qwen3_train_shape():
     nbytes = 2 * (4 * b * h * s * d + 4 * b * kv * s * d) + 4 * b * h * s
     assert nbytes == pytest.approx(336.6e6, rel=1e-3)
 
+@pytest.mark.parametrize("label,want_ms", [("qwen3-4096", 0.2780),
+                                           ("recurrentgemma-4096", 0.1042)])
+def test_forward_bound_at_the_train_calls(label, want_ms):
+    """The flash forward at the two train steps' calls, beside the
+    backward's cells: qwen3-4b's B2 H32 KV8 S4096 D128 causal (2.75e11
+    flop) and recurrentgemma-9b's B1 H16 KV1 S4096 D256 within its window
+    of 2048 (1.03e11), each bound by operations at 989 TFLOP/s. The window
+    bites there, so the library call takes it as an explicit mask."""
+    b, h, kv, s, d, layout, window = bench.SHAPES[label]
+    assert (b, h, kv, s, d, window) == bench.BWD_SHAPES[label][:5] + (
+        bench.BWD_SHAPES[label][6],)
+    assert bench.flash_call(label) == (b, h, kv, s, s, d, layout, True,
+                                       window)
+    ms, by, flops = bench.attention_bound(b, h, kv, s, s, d, torch.bfloat16,
+                                          window=window)
+    lags = torch.arange(s)[:, None] - torch.arange(s)[None, :]
+    seen = (lags >= 0) & (lags < (window or s))
+    assert flops == 4 * d * b * h * int(seen.sum())
+    assert flops * 2.5 == bench.attention_bwd_bound(
+        b, h, kv, s, s, d, torch.bfloat16, window=window)[2]
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, abs=5e-5)
+    row = dict(label=label, ms=2 * ms, tflops=1.0, plain_ms=1.0,
+               library_ms=ms, bound_ms=ms, bound_by=by, eager_ms=1.0,
+               library_backend="CUDNN_ATTENTION")
+    text = bench.describe(row)
+    assert "kernel/bound 2.00x" in text and "kernel/library 2.00x" in text
+    assert ("explicit mask" in text) == (window is not None)
+
+
 def test_rglru_bound_at_the_prefill_shape():
     """B4 S512 W4096 fp32: a and b read, h written, 100.7 MB, bound by
     bytes at 3.35 TB/s: 0.030 ms."""

@@ -205,10 +205,11 @@ def test_attention_lse_is_the_rows_logsumexp():
 
 
 def test_flash_op_autograd_function_wires_both_kernels(monkeypatch):
-    """``FlashAttention`` (what a CUDA tensor under autograd goes through):
-    its forward asks the forward kernel for the log-sum-exp and saves what
-    the backward kernel takes; its backward passes the options on and
-    returns the three gradients. The kernels are stood in for by the plain
+    """The ``flash_attention_fwd`` op (what a CUDA tensor under autograd
+    goes through): it asks the forward kernel for the log-sum-exp and saves
+    what the backward kernel takes; its registered gradient passes the
+    options on to the ``flash_attention_bwd`` op and returns the three
+    gradients. The kernels are stood in for by the plain
     versions here (they run only on the card), and the gradients equal
     autograd of ``attention_ref``."""
     calls = []
@@ -227,8 +228,8 @@ def test_flash_op_autograd_function_wires_both_kernels(monkeypatch):
     q, k, v, do = (torch.from_numpy(x) for x in
                    bwd_inputs(2, 6, 2, 64, 64, 32))
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = ops.FlashAttention.apply(*leaves, kw["causal"], kw["window"],
-                                   kw["softcap"])
+    out = ops.flash_fwd_op(*leaves, kw["causal"], kw["window"],
+                           kw["softcap"], True)[0]
     # a non-contiguous output gradient, as the model's transposes give
     got = torch.autograd.grad(out, leaves, do.transpose(1, 2).contiguous()
                               .transpose(1, 2))

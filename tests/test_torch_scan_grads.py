@@ -210,12 +210,12 @@ def test_rglru_ref_grads_match_jax_ref(b, s, w, with_h0):
         assert max_norm_err(g, wnt) < GRAD_TOL, name
 
 
-# -- the autograd Functions, the plain mirrors in the kernels' place -----------
+# -- the kernel ops' gradients, the plain mirrors in the kernels' place -----------
 
 
 def test_ssd_function_routes_both_passes_through_the_wrappers(monkeypatch):
-    """SSDScan's forward keeps the forward wrapper's workspace and its
-    backward hands it, dy and the final state's gradient (None when the
+    """The ``ssd_scan_fwd`` op keeps the forward wrapper's workspace and
+    its registered gradient hands it, dy and the final state's gradient (None when the
     loss does not read h_final) to the backward wrapper. With the plain
     mirrors standing in for the two kernels, its gradients are autograd's
     of the plain version."""
@@ -236,7 +236,7 @@ def test_ssd_function_routes_both_passes_through_the_wrappers(monkeypatch):
     dh = np.random.default_rng(3).standard_normal((2, 2, 16, 32)).astype(
         np.float32)
     for cotangents in ([dy, None], [dy, dh]):
-        got = torch_grads(lambda *a: ssd_ops.SSDScan.apply(*a, 16), args,
+        got = torch_grads(lambda *a: ssd_ops.ssd_fwd_op(*a, 16)[:2], args,
                           cotangents)
         want = torch_grads(ssd_ref, args, cotangents)
         for g, w in zip(got, want):
@@ -246,8 +246,8 @@ def test_ssd_function_routes_both_passes_through_the_wrappers(monkeypatch):
 
 
 def test_rglru_function_saves_h_and_routes_the_backward(monkeypatch):
-    """RGLRUScan saves the forward's output h (not b) and hands it, a, h0
-    and dh to the backward wrapper; with the plain scan and the backward's
+    """The ``rglru_scan_fwd`` op saves the forward's output h (not b) and
+    its gradient hands it, a, h0 and dh to the backward wrapper; with the plain scan and the backward's
     plain mirror standing in for the two kernels, da, db and dh0 are
     autograd's of the plain version."""
     seen = []
@@ -260,7 +260,7 @@ def test_rglru_function_saves_h_and_routes_the_backward(monkeypatch):
     monkeypatch.setattr(rglru_ops, "rglru_scan_bwd", fake_bwd)
     a, bb, h0, dh = rglru_inputs(2, 9, 4)
     for args in ([a, bb], [a, bb, h0]):
-        got = torch_grads(lambda *x: rglru_ops.RGLRUScan.apply(
+        got = torch_grads(lambda *x: rglru_ops.rglru_fwd_op(
             *x, *([None] if len(x) == 2 else [])), args, [dh])
         want = torch_grads(rglru_ref, args, [dh])
         assert len(got) == len(want) == len(args)

@@ -176,27 +176,34 @@ def test_remat_moves_memory_not_numbers():
 
 
 class ProductCount(TorchDispatchMode):
-    """Counts the matrix products (``transformer.DOTS``) that run."""
+    """Counts the ops of ``ops`` (default: the matrix products and the
+    flash forward, ``transformer.DOTS``) that run."""
 
-    def __init__(self):
+    def __init__(self, ops=DOTS):
         super().__init__()
+        self.ops = ops
         self.n = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += func in DOTS
+        self.n += func in self.ops
         return func(*args, **(kwargs or {}))
 
 
-def product_counts(pcfg, np_params, batch):
-    """(products in the forward, products in the backward) of one loss."""
+def product_counts(pcfg, np_params, batch, device="cpu", ops=DOTS):
+    """(products in the forward, products in the backward) of one loss;
+    on ``device="meta"`` the parameters' and batch's shapes only (every
+    kernel route taken, nothing launched)."""
     params = params_from_jax(np_params, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if device == "meta":
+        params = tree_map(lambda p: p.to("meta"), params)
+        batch = {k: v.to("meta") for k, v in batch.items()}
     for p in leaves(params).values():
         p.requires_grad_(True)
-    model = build_model(pcfg, device="cpu")
-    with ProductCount() as fwd:
-        loss, _ = model.loss(params, {k: torch.from_numpy(v)
-                                      for k, v in batch.items()})
-    with ProductCount() as bwd:
+    model = build_model(pcfg, device=device)
+    with ProductCount(ops) as fwd:
+        loss, _ = model.loss(params, batch)
+    with ProductCount(ops) as bwd:
         loss.backward()
     return fwd.n, bwd.n
 
@@ -206,7 +213,8 @@ def test_remat_dots_saves_the_products():
     forward again: as many products as without remat, where
     "nothing_saveable" runs the units' products again (all but the last
     of each unit, whose output no backward needs: the recompute stops
-    early)."""
+    early). On the card's route the same holds for the flash forward,
+    whose op "dots" saves."""
     cfg, pcfg = smollm_fp32()
     np_params = jax.tree.map(np.asarray, init_params(cfg))
     batch = lm_batch(cfg)
@@ -219,6 +227,15 @@ def test_remat_dots_saves_the_products():
     assert dots == bwd
     reps = pcfg.pattern_repeats[0]
     assert again == bwd + fwd - 1 - reps, counts
+    # the card's route (on meta: the flash kernels' ops, nothing launched):
+    # "dots" keeps the flash forward's output and log-sum-exp, so its
+    # backward pass launches no forward again, where "nothing_saveable"
+    # launches one a layer
+    flash = [torch.ops.repro_torch.flash_attention_fwd.default]
+    meta = {remat: product_counts(dataclasses.replace(pcfg, remat=remat),
+                                  np_params, batch, "meta", flash)
+            for remat in ("nothing_saveable", "dots")}
+    assert meta == {"nothing_saveable": (reps, reps), "dots": (reps, 0)}
 
 
 # -- AdamW: twins of tests/test_optim.py ------------------------------------
