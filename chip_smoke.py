@@ -61,6 +61,17 @@ fit's FitError in (t)):
                   moment after the update), and the bf16 loop's EXPAND
                   2 -> 4 and SHRINK 4 -> 2, each reshard bit-equal, with
                   the resize ms and non-local bytes of both layouts
+  (tps) tp     -- smollm-135m with tensor parallelism inside a slice
+                  (model_ways 2; its 9 / 3 heads do not divide, so each
+                  model coordinate computes the whole attention while the
+                  MLP and the vocab are split): one fp32 step at 1 and 2
+                  slices (2 and 4 virtual devices of the card) against
+                  model_ways 1, the loss and every parameter and moment
+                  after the update; the bf16 loop's EXPAND 1 -> 2 and
+                  SHRINK 2 -> 1 under TP_DP_RULES and FSDP_RULES, each
+                  reshard bit-equal, twice (q)'s flash launches per slice
+                  and step; the resize ms and non-local bytes beside the
+                  model_ways 1 layout's
   mamba2-130m at full width (seeded random weights):
   (h) prefill  -- B 4, S 512: fp32 logits and cache through the kernel
                   against the same weights' plain path on the CPU; bf16 by
@@ -140,6 +151,16 @@ fit's FitError in (t)):
                   route on a main path); exactly 24 forward and 12 backward
                   flash launches a step; the step's wall, busy, tokens/s
                   and peak memory under both remats
+  (tp) tp      -- after (wq), in a child process of its own
+                  (chip_smoke.py --tp): the same qwen3-4b cut with tensor
+                  parallelism inside a slice on virtual devices of the
+                  card: one fp32 step at B 1, S 2048 at model_ways 2 and 4
+                  against 1 (the loss and every gradient, put together from
+                  the coordinates' blocks), exactly 12 x M forward and
+                  12 x M backward flash launches on H / M heads; 4 bf16
+                  ElasticTrainer steps at B 2, S 4096 at model_ways 2, the
+                  loss falling; the bf16 step's wall, busy, tokens/s, peak
+                  and on-card copies at model_ways 1, 2 and 4
   slice 10, in the same child process after (x), each model at its
   published widths and depth, twice as (u)-(w) (per-layer fan-in, every
   check held; then the reference's init, fp32 printed):
@@ -186,14 +207,18 @@ fit's FitError in (t)):
                   only) scaled_dot_product_attention (forward and backward,
                   both in device time) as a yardstick the port never calls,
                   at slice 10's call shapes too, the scans' backward at
-                  their train calls; each model's prefill and decode step,
+                  their train calls (the SSD scan's, its backward's and
+                  the flash backward's CUDA kernels each under the
+                  profiler, the phase failing where one of the route's is
+                  missing or has no device time); each model's prefill and
+                  decode step,
                   smollm's train step at 1, 2 and 4 slices (at 2 and 4
                   also under FSDP_RULES) and mamba2's, with the card's
                   busy share; the Servers' tokens/s; the backwards last
                   (the flash backward also at qwen3's train call)
 
-Phases (e)-(g), (q), (r), (h)-(j), (hq), (m)-(o), (u)-(w), (y), (z), (mq)
-and (wq) are the main paths: every kernel launch count is set to 0 just
+Phases (e)-(g), (q), (r), (tps), (h)-(j), (hq), (m)-(o), (u)-(w), (y),
+(z), (mq), (wq) and (tp) are the main paths: every kernel launch count is set to 0 just
 before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
@@ -1258,18 +1283,26 @@ def plain_scans():
         ssm.ssd_op, rglru.rglru_op = kept
 
 
-def train_grads(cfg, params, batch, want, plain=False, **changes):
+def train_grads(cfg, params, batch, want, plain=False, ways=1, **changes):
     """(loss, {leaf path: gradient}) of one fp32 train step of ``cfg`` with
     ``changes`` (``plain``: the scans' plain paths, plain_scans), checking
-    its kernel launches against ``want``."""
+    its kernel launches against ``want``. ``ways`` > 1: at that many model
+    coordinates (virtual devices of the card) in lockstep, each on its
+    views of ``params`` (coordinate_views), so that the gradients are put
+    together in the whole leaves."""
+    from repro_torch.core import TP_DP_RULES, make_mesh, slice_devices
+    from repro_torch.core.sharding import activation_rules
     from repro_torch.models import build_model
     model = build_model(dataclasses.replace(cfg, dtype="float32",
                                             **changes))
     leaves = with_grad(params)
+    mesh = make_mesh(1, ways, devices=slice_devices(ways))
+    args = leaves if ways == 1 else coordinate_views(model, leaves, mesh)
 
     def step():
-        with plain_scans() if plain else contextlib.nullcontext():
-            loss, _ = model.loss(leaves, batch)
+        with plain_scans() if plain else contextlib.nullcontext(), \
+                activation_rules(mesh, TP_DP_RULES):
+            loss, _ = model.loss(args, batch)
             loss.backward()
         return loss.detach()
     loss = counted_launches(step, want)
@@ -1410,7 +1443,8 @@ def phase_scan_train_fp32(label, cfg, params, batch, reference=None):
 def profile_split(fns):
     """One torch.profiler session over ``fns`` ({name: fn}), each called
     once between synchronises and marks: {name: (card busy ms, kernels and
-    copies, [(kernel name, ms, count)] the top 5 by device time)}, each
+    copies, [(kernel name, ms, count)] the top 5 by device time, {kernel
+    name: (ms, count)} of every one)}, each
     device event counted in the interval between the marks its start falls
     in. One session serves them all: a profile of a train
     step, whose backward runs on autograd's own thread, has left later
@@ -1445,7 +1479,8 @@ def profile_split(fns):
                 by[0] += ms
                 by[1] += 1
     return {name: (ms, n, sorted(((k, v[0], v[1]) for k, v in by.items()),
-                                 key=lambda e: -e[1])[:5])
+                                 key=lambda e: -e[1])[:5],
+                   {k: tuple(v) for k, v in by.items()})
             for name, (ms, n, by) in out.items()}
 
 
@@ -1466,7 +1501,7 @@ def step_times(entries):
         walls[key] = (time.perf_counter() - t0) / 3 * 1e3
     busy = profile_split({key: entry[-1] for key, entry in entries.items()})
     for key, (cfg, data_cfg, n, _) in entries.items():
-        ms, launches, top = busy[key]
+        ms, launches, top, _ = busy[key]
         tokens = data_cfg.global_batch * data_cfg.seq_len
         log("k", f"{key[0]} ({cfg.num_layers} layers, remat {cfg.remat}) "
                  f"bf16 train step B{data_cfg.global_batch} "
@@ -1579,7 +1614,7 @@ def checked_reshard(state, shardings):
     new state, {"moved": bytes of non-local transfers, "local": bytes
     copied on the slice itself, "kept": blocks left in place, "kept_at":
     the slices that kept one, "copies": non-local transfers})."""
-    from repro_torch.core import gather, reshard
+    from repro_torch.core import gather, mesh_model_ways, reshard
     from repro_torch.models.layers import tree_map
     stats = dict(moved=0, local=0, kept=0, copies=0, kept_at=set())
 
@@ -1589,14 +1624,17 @@ def checked_reshard(state, shardings):
         if not same_bits(gather(y), gather(x)):
             raise AssertionError(f"reshard changed a leaf {x}")
         olds = [storage_of(t) for t in x.shards.values()]
+        ways = mesh_model_ways(sh.mesh)
         for c, t in y.shards.items():
             if t.device.type != "cuda":
                 raise AssertionError(f"block {c} is not on the card")
             r = storage_of(t)
             k = c[0]
+            # one whole local piece for each model coordinate of the slice
             into = [tr for tr in log_ if tr.dst == k]
             if any(r[0] < o[1] and o[0] < r[1] for o in olds):
-                if r not in olds or len(into) != 1 or not into[0].local:
+                if r not in olds or len(into) != ways or \
+                        not all(tr.local for tr in into):
                     raise AssertionError(f"block {c} of {x} shares an old "
                                          f"buffer without a local transfer")
                 stats["kept"] += 1
@@ -1756,6 +1794,65 @@ def phase_fsdp_step(cfg, model, params, data_cfg):
                              "one")
 
 
+def checked_loop(tr, params, per_slice):
+    """``tr.train`` from ``params`` with every reshard by checked_reshard and
+    every step's kernel launches counted: a step's must be ``per_slice``
+    (``{name: count}``) times its slices. Returns (the final state, each
+    reshard's stats)."""
+    from repro_torch.core import reshard
+    from repro_torch.runtime import trainer as trainer_mod
+    resizes, calls, wrappers = [], [], counters()
+
+    def checked(state, shardings):
+        out, stats = checked_reshard(state, shardings)
+        resizes.append(stats)
+        return out
+
+    step_fn = tr.train_step
+
+    def step(state, batch):
+        before = {n: wrappers[n].launches for n in per_slice}
+        out = step_fn(state, batch)
+        calls.append((tr.slices, {n: wrappers[n].launches - before[n]
+                                  for n in per_slice}))
+        return out
+
+    tr.train_step = step
+    trainer_mod.reshard = checked
+    try:
+        state = tr.train(state=tr.init_state(params=params))
+    finally:
+        trainer_mod.reshard = reshard
+    bad = [c for c in calls if c[1] != {n: c[0] * k
+                                        for n, k in per_slice.items()}]
+    if bad or not calls:
+        raise AssertionError(f"kernel launches per step {bad}, expected "
+                             f"{per_slice} per slice")
+    return state, resizes
+
+
+def nonlocal_bytes(src, sh):
+    """The bytes of the plan's non-local transfers of reshard(src, sh)."""
+    from repro_torch.core import reshard
+    plan = []
+    reshard(src, sh, transfers=plan)
+    return sum(t.nbytes for t in plan if not t.local)
+
+
+def log_loop(label, cfg, data_cfg, what, tr, resizes, losses):
+    log(label, f"{cfg.name} bf16 B{data_cfg.global_batch} S{data_cfg.seq_len}"
+               f" {what}, {tr.cfg.steps} steps: resizes "
+               + "; ".join(f"{r['action']} {r['from']} -> {r['to']} at step "
+                           f"{r['step']} in {r['resize_s'] * 1e3:.3f} ms"
+                           for r in tr.resize_log)
+               + " (each checked leaf by leaf: bit-equal, "
+               + ", ".join(f"{x['moved'] / 1e9:.3f} GB moved in "
+                           f"{x['copies']} copies, {x['kept']} blocks kept"
+                           for x in resizes)
+               + f"); slices by step {[m['slices'] for m in tr.metrics]}; "
+               f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+
+
 def phase_fsdp_elastic(cfg, params, data_cfg):
     """(r) The elastic loop under FSDP_RULES, bf16: ElasticTrainer.train
     from 2 of 4 virtual slices, a scripted RMS that EXPANDs the job to 4 at
@@ -1768,41 +1865,12 @@ def phase_fsdp_elastic(cfg, params, data_cfg):
     (q)'s; the loss falls."""
     from repro_torch.core import (FSDP_RULES, Action, Decision, reshard,
                                   resized_mesh, slice_devices, timed_reshard)
-    from repro_torch.runtime import trainer as trainer_mod
     steps, devices = 6, slice_devices(ELASTIC_SLICES)
     tr = elastic_trainer(cfg, data_cfg, steps, 2, rms=ScriptedRMS(
         {1: Decision(Action.EXPAND, 4), 2: Decision(Action.SHRINK, 2)}),
         check_period=2, rules=FSDP_RULES)
-    resizes, per_step, wrappers, calls = [], train_launches(cfg), \
-        counters(), []
-
-    def checked(state, shardings):
-        out, stats = checked_reshard(state, shardings)
-        resizes.append(stats)
-        return out
-
-    step_fn = tr.train_step
-
-    def step(state, batch):
-        before = {n: wrappers[n].launches for n in per_step}
-        out = step_fn(state, batch)
-        calls.append((tr.slices, {n: wrappers[n].launches - before[n]
-                                  for n in per_step}))
-        return out
-
-    tr.train_step = step
-    trainer_mod.reshard = checked
-    try:
-        state = tr.train(state=tr.init_state(params=params))
-    finally:
-        trainer_mod.reshard = reshard
+    state, resizes = checked_loop(tr, params, train_launches(cfg))
     losses = [m["loss"] for m in tr.metrics]
-
-    def moved(src, sh):
-        plan = []
-        reshard(src, sh, transfers=plan)
-        return sum(t.nbytes for t in plan if not t.local)
-
     moves = {}
     for name, changes in (("replicated", {}), ("FSDP", {"rules": FSDP_RULES})):
         t2 = elastic_trainer(cfg, data_cfg, 1, 2, **changes)
@@ -1810,37 +1878,138 @@ def phase_fsdp_elastic(cfg, params, data_cfg):
         sh4 = t2._state_shardings(resized_mesh(t2.mesh, 4, devices=devices))
         s4 = reshard(s2, sh4)
         moves[name] = [
-            (moved(src, sh), min(timed_reshard(src, sh)[1] * 1e3
-                                 for _ in range(3)))
+            (nonlocal_bytes(src, sh), min(timed_reshard(src, sh)[1] * 1e3
+                                          for _ in range(3)))
             for src, sh in ((s2, sh4), (s4, t2._state_shardings(t2.mesh)))]
         del s2, s4
-    log("r", f"{cfg.name} bf16 B{data_cfg.global_batch} S{data_cfg.seq_len}"
-             f" under FSDP_RULES, {steps} steps: resizes "
-             + "; ".join(f"{r['action']} {r['from']} -> {r['to']} at step "
-                         f"{r['step']} in {r['resize_s'] * 1e3:.3f} ms"
-                         for r in tr.resize_log)
-             + " (each checked leaf by leaf: bit-equal, "
-             + ", ".join(f"{x['moved'] / 1e9:.3f} GB moved in "
-                         f"{x['copies']} copies, {x['kept']} blocks kept"
-                         for x in resizes)
-             + f"); slices by step {[m['slices'] for m in tr.metrics]}; "
-             f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+    log_loop("r", cfg, data_cfg, "under FSDP_RULES", tr, resizes, losses)
     for name, ((grow_b, grow_ms), (shrink_b, shrink_ms)) in moves.items():
         log("r", f"{cfg.name} TrainState, parameters {name}: expand 2 -> 4 "
                  f"{grow_b / 1e9:.3f} GB of non-local transfers in "
                  f"{grow_ms:.3f} ms, shrink 4 -> 2 {shrink_b / 1e9:.3f} GB in "
                  f"{shrink_ms:.3f} ms (timed_reshard, best of 3)")
-    bad = [c for c in calls if c[1] != {n: c[0] * k
-                                        for n, k in per_step.items()}]
     if [(r["action"], r["from"], r["to"]) for r in tr.resize_log] != \
             [("EXPAND", 2, 4), ("SHRINK", 4, 2)] or len(resizes) != 2:
         raise AssertionError(f"the FSDP loop's resizes {tr.resize_log}")
-    if bad or not calls:
-        raise AssertionError(f"flash launches per step {bad}, expected "
-                             f"{per_step} per slice")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
             int(state["step"]) != steps:
         raise AssertionError("the FSDP loop did not bring the loss down")
+
+
+# -- (tps) smollm-135m with tensor parallelism inside a slice ------------------------
+
+# smollm's model coordinates a slice: 9 / 3 heads do not divide by 2, so
+# every coordinate computes the whole attention (its gradients are sums over
+# the coordinates) while the MLP and the vocab are split
+TP_WAYS = 2
+
+
+def phase_tp_step(cfg, model, params, data_cfg):
+    """(tps) One fp32 train step of smollm-135m at full width (weights at a
+    per-layer fan-in) at model_ways TP_WAYS on 1 and 2 slices (2 and 4
+    virtual devices of the card) against the same step at model_ways 1 on
+    as many slices, from one state (random moments, random_moments) and
+    one batch: the loss and every parameter and moment gathered after the
+    update, max-normalised at MODEL_TOL; each coordinate runs the whole
+    attention, so a slice launches TP_WAYS times (q)'s flash kernels."""
+    from repro_torch.core import gather
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.layers import tree_map
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
+    batch = {k: t.cuda() for k, t in SyntheticLMData(data_cfg).batch(
+        0).items()}
+    per_step = train_launches(cfg)
+    worst = {}
+    for n in (1, 2):
+        out = {}
+        for ways in (1, TP_WAYS):
+            tr = elastic_trainer(f32, data_cfg, 1, n, model_ways=ways)
+            state = random_moments(tr, sane, seed=6)
+            new, metrics = counted_launches(
+                lambda: tr.train_step(state, batch),
+                {k: n * ways * v for k, v in per_step.items()})
+            out[ways] = (metrics["loss"].reshape(1),
+                         tree_paths(tree_map(gather, {
+                             "params": new["params"], "mu": new["opt"]["mu"],
+                             "nu": new["opt"]["nu"]})))
+            del state, new
+        errs = {"loss": max_norm_err(out[TP_WAYS][0], out[1][0])}
+        errs.update({"/".join(path): max_norm_err(t, out[1][1][path])
+                     for path, t in out[TP_WAYS][1].items()})
+        top = max(errs, key=errs.get)
+        worst[n] = errs[top]
+        log("tps", f"{cfg.name} fp32 B{data_cfg.global_batch} "
+                   f"S{data_cfg.seq_len} step at {n} slice(s), model_ways "
+                   f"{TP_WAYS} against 1 (per-layer fan-in, random "
+                   f"moments): loss {out[TP_WAYS][0].item():.6f} / "
+                   f"{out[1][0].item():.6f}, max-normalised "
+                   f"{errs['loss']:.3e}; parameters and moments after the "
+                   f"update, largest {top} {errs[top]:.3e} over "
+                   f"{len(errs) - 1} leaves (tol {MODEL_TOL})")
+        del out
+    if max(worst.values()) > MODEL_TOL:
+        raise AssertionError("the step at model_ways 2 disagrees with "
+                             "model_ways 1")
+    return worst
+
+
+def phase_tp_elastic(cfg, params, data_cfg):
+    """(tps) The elastic loop at model_ways TP_WAYS, bf16, under TP_DP_RULES
+    and FSDP_RULES: ElasticTrainer.train from 1 of 2 slices (4 virtual
+    devices of the card), a scripted RMS that EXPANDs the job to 2 at its
+    first reconfiguration point and SHRINKs it back to 1 at its second;
+    each reshard by checked_reshard (every leaf bit-equal, a block kept in
+    place only by its slice's local transfers); the flash launches a step
+    TP_WAYS times (q)'s per slice; the loss falls. Then the resize's bytes
+    of non-local transfers and ms (timed_reshard, best of 3) beside the
+    model_ways 1 layout's, under both rule tables."""
+    from repro_torch.core import (FSDP_RULES, TP_DP_RULES, Action, Decision,
+                                  reshard, resized_mesh, slice_devices,
+                                  timed_reshard)
+    steps, devices = 6, slice_devices(ELASTIC_SLICES)
+    per_slice = {n: TP_WAYS * k for n, k in train_launches(cfg).items()}
+    tables = {"replicated": TP_DP_RULES, "FSDP": FSDP_RULES}
+    for name, rules in tables.items():
+        tr = elastic_trainer(cfg, data_cfg, steps, 1, rms=ScriptedRMS(
+            {1: Decision(Action.EXPAND, 2), 2: Decision(Action.SHRINK, 1)}),
+            check_period=2, rules=rules, model_ways=TP_WAYS)
+        state, resizes = checked_loop(tr, params, per_slice)
+        losses = [m["loss"] for m in tr.metrics]
+        log_loop("tps", cfg, data_cfg, f"at model_ways {TP_WAYS}, parameters "
+                 f"{name}", tr, resizes, losses)
+        if [(r["action"], r["from"], r["to"]) for r in tr.resize_log] != \
+                [("EXPAND", 1, 2), ("SHRINK", 2, 1)] or len(resizes) != 2:
+            raise AssertionError(f"the loop's resizes {tr.resize_log}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+                int(state["step"]) != steps:
+            raise AssertionError("the loop at model_ways 2 did not bring "
+                                 "the loss down")
+        del state
+    moves = {}
+    for name, rules in tables.items():
+        for ways in (1, TP_WAYS):
+            t1 = elastic_trainer(cfg, data_cfg, 1, 1, rules=rules,
+                                 model_ways=ways)
+            s1 = t1.init_state(params=params)
+            sh2 = t1._state_shardings(resized_mesh(t1.mesh, 2,
+                                                   devices=devices))
+            s2 = reshard(s1, sh2)
+            moves[name, ways] = [
+                (nonlocal_bytes(src, sh),
+                 min(timed_reshard(src, sh)[1] * 1e3 for _ in range(3)))
+                for src, sh in ((s1, sh2),
+                                (s2, t1._state_shardings(t1.mesh)))]
+            del s1, s2
+    for (name, ways), ((grow_b, grow_ms), (shrink_b, shrink_ms)) in \
+            moves.items():
+        log("tps", f"{cfg.name} TrainState, parameters {name}, model_ways "
+                   f"{ways}: expand 1 -> 2 {grow_b / 1e9:.3f} GB of "
+                   f"non-local transfers in {grow_ms:.3f} ms, shrink 2 -> 1 "
+                   f"{shrink_b / 1e9:.3f} GB in {shrink_ms:.3f} ms "
+                   f"(timed_reshard, best of 3)")
+    return {f"{name} model_ways {ways}": v for (name, ways), v in
+            moves.items()}
 
 
 def phase_elastic_fp32(cfg, model, params, data_cfg):
@@ -3093,6 +3262,203 @@ def main_qwen_train():
     return 0
 
 
+# -- (tp) qwen3-4b with tensor parallelism inside a slice ----------------------------
+
+# qwen3-4b's model_ways in the fp32 check and the step times (the bf16 loop
+# runs at the first); bf16 steps; the child's result
+QWEN_TP_WAYS, QWEN_TP_STEPS = (2, 4), 4
+TP_RESULT = ROOT / "build" / "chip_smoke_tp.json"
+
+
+def coordinate_views(model, params, mesh):
+    """One tree per model coordinate of ``mesh``'s first slice: views of
+    ``params``' leaves on the coordinate's block over the model axis
+    (TP_DP_RULES), so that autograd adds the coordinates' gradients of a
+    leaf into the whole leaf, the blocks every coordinate holds whole
+    summed."""
+    from repro_torch.core import TP_DP_RULES
+    from repro_torch.core import tensor_parallel as tp
+    from repro_torch.models.layers import tree_map
+    sh = tree_map(lambda lg, spec: TP_DP_RULES.sharding_for(
+        lg, spec.shape, mesh), model.logical(), model.specs())
+    return [tree_map(lambda x, s, c=c: x[tp.model_spec(s).index(x.shape, c)],
+                     params, sh) for c in tp.slices_of(mesh)[0]]
+
+
+def phase_tp_fp32(cfg, params, batch):
+    """(tp) One fp32 train step of ``cfg`` (remat "dots") at model_ways 2
+    and 4 against model_ways 1, from the same parameters (each layer at its
+    own fan-in) and batch: the loss and every gradient, put together from
+    the coordinates' blocks, max-normalised at MODEL_TOL. Under "dots" a
+    step launches one flash forward and one backward a layer and
+    coordinate, on its H / M query and KV / M heads."""
+    per = {"flash_attention": cfg.num_layers,
+           "flash_attention_bwd": cfg.num_layers}
+    base = train_grads(cfg, params, batch, per)
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+    worst = {}
+    for ways in QWEN_TP_WAYS:
+        want = {k: ways * n for k, n in per.items()}
+        got = train_grads(cfg, params, batch, want, ways=ways)
+        errs = grad_errs(got, base)
+        finite = all(torch.isfinite(g).all() for g in got[1].values())
+        del got
+        top = max(errs, key=errs.get)
+        worst[ways] = errs[top] if finite else float("inf")
+        log("tp", f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+                  f"{shape} at model_ways {ways} ({want} launches, H "
+                  f"{cfg.num_heads // ways} KV {cfg.num_kv_heads // ways} a "
+                  f"coordinate) against 1: loss {base[0].item():.6f}, "
+                  f"max-normalised {errs['loss']:.3e}; largest leaf {top} "
+                  f"{errs[top]:.3e} over {len(errs) - 1} leaves (tol "
+                  f"{MODEL_TOL})")
+    if max(worst.values()) > MODEL_TOL:
+        raise AssertionError("qwen3's fp32 step under tensor parallelism "
+                             "disagrees with one model way")
+    return worst
+
+
+def phase_tp_bf16(cfg, params, data_cfg):
+    """(tp) QWEN_TP_STEPS bf16 ElasticTrainer steps of ``cfg`` at model_ways
+    QWEN_TP_WAYS[0] on as many virtual devices of the card: every loss
+    finite, the last below the first, exactly M x layers flash forward and
+    backward launches a step. Returns (the trainer, its TrainState put
+    together whole on the card, the next batch, the losses)."""
+    from repro_torch.core import gather, slice_devices
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    ways = QWEN_TP_WAYS[0]
+    tr = ElasticTrainer(
+        build_model(cfg), AdamWConfig(lr=QWEN_TRAIN_LR, warmup_steps=1,
+                                      total_steps=QWEN_TP_STEPS),
+        data_cfg, TrainerConfig(steps=QWEN_TP_STEPS, log_period=1,
+                                model_ways=ways),
+        devices=slice_devices(ways))
+    per_step = {"flash_attention": ways * cfg.num_layers,
+                "flash_attention_bwd": ways * cfg.num_layers}
+    t0 = time.perf_counter()
+    state = counted_launches(
+        lambda: tr.train(state=tr.init_state(params=params)),
+        {k: QWEN_TP_STEPS * n for k, n in per_step.items()})
+    seconds = time.perf_counter() - t0
+    losses = [m["loss"] for m in tr.metrics]
+    log("tp", f"{cfg.name} ({cfg.num_layers} layers) bf16 ElasticTrainer at "
+              f"model_ways {ways} (mesh {tr.mesh.shape}), {QWEN_TP_STEPS} "
+              f"steps B{data_cfg.global_batch} S{data_cfg.seq_len}, lr "
+              f"{QWEN_TRAIN_LR}, in {seconds:.1f} s ({per_step} launches a "
+              f"step); losses " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            int(state["step"]) != QWEN_TP_STEPS:
+        raise AssertionError("bf16 training at model_ways 2 did not bring "
+                             "the loss down")
+    whole = tree_map(gather, state)
+    return tr, whole, tr.data.batch(QWEN_TP_STEPS), losses
+
+
+def view_state(whole, shardings):
+    """A TrainState laid out by ``shardings`` whose blocks are views of the
+    whole tensors ``whole``: the layouts of several model_ways share one
+    state's memory (a step reads its state and writes a new one)."""
+    from repro_torch.core import ShardedTensor
+    from repro_torch.models.layers import tree_map
+    return tree_map(lambda x, sh: ShardedTensor(x.shape, x.dtype, sh, {
+        c: x[sh.index(x.shape, c)] for c in sh.mesh.coords()}),
+        whole, shardings)
+
+
+def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg):
+    """(tp) The bf16 train step of ``trainer``'s model at model_ways 1, 2
+    and 4 from one TrainState (view_state of ``whole``) and batch: each
+    one's launches (M x layers flash forwards and backwards) and one-step
+    peak device memory (the allocator's peak reset, the state held), then
+    step_times' wall, busy and tokens/s of the three in one profiler
+    session, with the share of busy time in on-card copies (Memcpy DtoD:
+    the copies of each all-reduce's sum). Returns {M: {...}}."""
+    from repro_torch.core import slice_devices
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    entries, peaks = {}, {}
+    for ways in (1, *QWEN_TP_WAYS):
+        tr = ElasticTrainer(trainer.model, trainer.opt_cfg, trainer.data,
+                            TrainerConfig(model_ways=ways),
+                            devices=slice_devices(ways))
+        st = view_state(whole, tr._state_shardings(tr.mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted_launches(lambda: tr.train_step(st, batch),
+                         {"flash_attention": ways * cfg.num_layers,
+                          "flash_attention_bwd": ways * cfg.num_layers})
+        peaks[ways] = torch.cuda.max_memory_allocated() / 2 ** 30
+        key = f"{cfg.name} model_ways {ways}", 1
+        entries[key] = (cfg, data_cfg, 1,
+                        lambda tr=tr, st=st: tr.train_step(st, batch))
+    walls, busy = step_times(entries)
+    tokens = data_cfg.global_batch * data_cfg.seq_len
+    out = {}
+    for ways, key in zip(peaks, entries):
+        ms, launches, _, table = busy[key]
+        dtod = sum(v[0] for k, v in table.items()
+                   if k.startswith("Memcpy DtoD"))
+        out[ways] = {"wall_ms": walls[key], "busy_ms": ms,
+                     "tok_s": tokens / walls[key] * 1e3,
+                     "peak_gib": peaks[ways], "launches": launches,
+                     "dtod_ms": dtod}
+        log("tp", f"{cfg.name} ({cfg.num_layers} layers) bf16 B"
+                  f"{data_cfg.global_batch} S{data_cfg.seq_len} at "
+                  f"model_ways {ways}: {walls[key]:.3f} ms wall, "
+                  f"{ms:.3f} ms busy in {launches} kernels and copies, "
+                  f"{out[ways]['tok_s']:.0f} tokens/s, on-card copies "
+                  f"{dtod:.3f} ms ({100 * dtod / ms:.2f}% of busy), peak "
+                  f"{peaks[ways]:.2f} GiB in a step")
+    return out
+
+
+def main_tp():
+    """(tp), run by ``chip_smoke.py --tp`` in a process of its own
+    (run_child), with the card to itself: qwen3-4b at its published
+    widths, cut to QWEN_TRAIN_LAYERS layers (as wq), each layer at its own
+    fan-in, remat "dots", the loss by ce_chunk, with tensor parallelism
+    inside a slice on virtual devices of the card: one fp32 step at B 1, S
+    QWEN_FP32_S at model_ways 2 and 4 against 1 (phase_tp_fp32), then
+    QWEN_TP_STEPS bf16 ElasticTrainer steps at B QWEN_TRAIN_B, S
+    QWEN_TRAIN_S at model_ways 2, the loss falling (phase_tp_bf16), then
+    the step's times and peaks at 1, 2 and 4 (phase_tp_step_times). Writes
+    the path's launch counts and the numbers to TP_RESULT."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3-4b"),
+                              num_layers=QWEN_TRAIN_LAYERS,
+                              ce_chunk=QWEN_CE_CHUNK, remat="dots")
+    _, params = model_and_params(cfg, "tp", init_depth=QWEN_DEPTH,
+                                 on_card=True, per_layer=True)
+    one = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_FP32_S,
+                     global_batch=1)
+    batch = {k: t.cuda() for k, t in SyntheticLMData(one).batch(0).items()}
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_TRAIN_S,
+                      global_batch=QWEN_TRAIN_B)
+    counts, (fp32, trained) = drive("tp", (
+        lambda: phase_tp_fp32(cfg, params, batch),
+        lambda: phase_tp_bf16(cfg, params, data)))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"qwen3's path under tensor parallelism "
+                                 f"never launched {name}")
+    del params
+    trainer, whole, next_batch, losses = trained
+    del trained
+    times = phase_tp_step_times(cfg, trainer, whole, next_batch, data)
+    TP_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    TP_RESULT.write_text(json.dumps({"counts": counts, "fp32": fp32,
+                                     "losses": losses, "times": times}))
+    return 0
+
+
 def run_child(flag, result, env=None):
     """Run ``chip_smoke.py flag`` in a child process and return the JSON it
     wrote to ``result``. The child loads the kernels this process built.
@@ -3172,6 +3538,13 @@ def main():
         if elastic_counts[name] == 0:
             raise AssertionError(f"smollm's elastic path never launched "
                                  f"{name}")
+    tps_counts, _ = drive("tps", (
+        lambda: phase_tp_step(smollm, model, params, data_cfg),
+        lambda: phase_tp_elastic(smollm, params, data_cfg)))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if tps_counts[name] == 0:
+            raise AssertionError(f"smollm's path at model_ways {TP_WAYS} "
+                                 f"never launched {name}")
     t0 = time.perf_counter()
     phase_apps_parity()
     phase_apps_times(phase_apps_table1())
@@ -3236,11 +3609,10 @@ def main():
         log("k", bench.describe(row))
     ssd_rows = {label: bench.time_ssd_scan(label)
                 for label in bench.SSD_SHAPES}
+    # each split (bench.split_kernels) fails where the profile misses one
+    # of the route's CUDA kernels or lists one without device time
     for row in ssd_rows.values():
         log("k", bench.describe_ssd(row))
-        if row["cuda_kernels"] < 1:
-            raise AssertionError(f"the profiler saw no CUDA kernel of "
-                                 f"ssd_scan at {row['label']}")
     rglru_rows = {label: bench.time_rglru_scan(label)
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
@@ -3249,9 +3621,14 @@ def main():
                     for label in bench.SSD_BWD_SHAPES}
     for row in ssd_bwd_rows.values():
         log("k", bench.describe_ssd_bwd(row))
-        if row["cuda_kernels"] < 1:
-            raise AssertionError(f"the profiler saw no CUDA kernel of "
-                                 f"ssd_scan_bwd at {row['label']}")
+    # the flash backward's CUDA kernels, before any profile of a train step
+    # and any autograd backward of the library's (after which profiles in
+    # this process have come back without device events)
+    flash_bwd_split = {label: bench.flash_bwd_kernels(label)
+                       for label in bench.BWD_SHAPES}
+    for label, kernels in flash_bwd_split.items():
+        log("k", f"flash_attention_bwd {label}: " + ", ".join(
+            f"{name} {ms:.4f} ms x{n}" for name, ms, n in kernels))
     rglru_bwd_rows = {label: bench.time_rglru_scan_bwd(label)
                       for label in bench.RGLRU_BWD_SHAPES}
     for row in rglru_bwd_rows.values():
@@ -3302,6 +3679,20 @@ def main():
                   f"MFU {v['prediction']['mfu']:.4f})"
                   for k, v in qwen_train["times"].items()))
     qwen_train = qwen_train["counts"]
+    tp = run_child("--tp", TP_RESULT, env={
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    log("tp", f"qwen3-4b ({QWEN_TRAIN_LAYERS} layers) under tensor "
+              f"parallelism: fp32 step against model_ways 1, largest "
+              f"max-normalised error " + ", ".join(
+                  f"{e:.3e} at model_ways {m}" for m, e in tp["fp32"].items())
+              + f"; bf16 losses at model_ways {QWEN_TP_WAYS[0]} "
+              + ", ".join(f"{x:.4f}" for x in tp["losses"]) + "; step B"
+              f"{QWEN_TRAIN_B} S{QWEN_TRAIN_S} " + "; ".join(
+                  f"model_ways {m}: {v['wall_ms']:.3f} ms wall, "
+                  f"{v['busy_ms']:.3f} ms busy, {v['tok_s']:.0f} tokens/s, "
+                  f"{v['peak_gib']:.2f} GiB peak"
+                  for m, v in tp["times"].items()))
+    tp = tp["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -3319,7 +3710,8 @@ def main():
         smollm_counts["flash_attention"] + train_counts["flash_attention"]
         + elastic_counts["flash_attention"] + rg_counts["flash_attention"]
         + sum(counts["flash_attention"] for counts, _, _ in zoo.values())
-        + rg_train["flash_attention"] + qwen_train["flash_attention"],
+        + rg_train["flash_attention"] + qwen_train["flash_attention"]
+        + tps_counts["flash_attention"] + tp["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -3330,6 +3722,8 @@ def main():
         "recurrentgemma-9b": rg_counts["flash_attention"],
         "recurrentgemma-9b training": rg_train["flash_attention"],
         "qwen3-4b training": qwen_train["flash_attention"],
+        "smollm-135m training at model_ways 2": tps_counts["flash_attention"],
+        "qwen3-4b training at model_ways 2 and 4": tp["flash_attention"],
         **{arch: counts["flash_attention"]
            for arch, (counts, _, _) in zoo.items()}}
     flash_row["recurrentgemma"] = record_row(
@@ -3346,6 +3740,13 @@ def main():
              "qwen3-4b")), flash_err[128], flash_rows["d128-512"],
         f"B{PREFILL_B} H32 KV8 S{PREFILL_S} D128 bf16 causal, (B, S, H, D) "
         "views")
+    # and at one model coordinate's heads of qwen3-4b's train call at
+    # model_ways 2 (its launches: the whole tensor-parallel path's)
+    flash_row["qwen3_tp2"] = record_row(
+        "flash_attention", flash_row["source"], flash_row["replaces"],
+        tp["flash_attention"], flash_err[128], flash_rows["qwen3-tp2-4096"],
+        "B2 H16 KV4 S4096 D128 bf16 causal, (B, S, H, D) views: one model "
+        "coordinate's heads at model_ways 2")
     # and slice 10's calls: paligemma-3b's prefill (D 256, no window, GQA
     # 8 / 1), seamless-m4t-medium's non-causal ones (its whole path's
     # launches beside each)
@@ -3425,7 +3826,8 @@ def main():
         train_counts["flash_attention_bwd"]
         + elastic_counts["flash_attention_bwd"]
         + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values())
-        + rg_train["flash_attention_bwd"] + qwen_train["flash_attention_bwd"],
+        + rg_train["flash_attention_bwd"] + qwen_train["flash_attention_bwd"]
+        + tps_counts["flash_attention_bwd"] + tp["flash_attention_bwd"],
         bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
@@ -3436,7 +3838,16 @@ def main():
         "seamless-m4t-medium training":
             zoo["seamless-m4t-medium"][0]["flash_attention_bwd"],
         "recurrentgemma-9b training": rg_train["flash_attention_bwd"],
-        "qwen3-4b training": qwen_train["flash_attention_bwd"]}
+        "qwen3-4b training": qwen_train["flash_attention_bwd"],
+        "smollm-135m training at model_ways 2":
+            tps_counts["flash_attention_bwd"],
+        "qwen3-4b training at model_ways 2 and 4": tp["flash_attention_bwd"]}
+    # CUDA kernels one call launched at this shape, under the profiler in
+    # this run, and each one's device ms (delta, the main pass, dq)
+    bwd_row["cuda_kernels_per_launch"] = sum(
+        n for *_, n in flash_bwd_split["train-2048"])
+    bwd_row["cuda_kernel_ms"] = {
+        name: ms for name, ms, _ in flash_bwd_split["train-2048"]}
     # and at recurrentgemma's training call: D 256, window 2048, S 4096
     b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
     bwd_row["recurrentgemma"] = record_row(
@@ -3452,6 +3863,14 @@ def main():
         qwen_train["flash_attention_bwd"], bwd_err[(d, s)],
         bwd_rows["qwen3-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
+    # and at one model coordinate's heads of qwen3-4b's at model_ways 2
+    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["qwen3-tp2-4096"]
+    bwd_row["qwen3_tp2"] = record_row(
+        "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
+        tp["flash_attention_bwd"], bwd_err[(d, s)],
+        bwd_rows["qwen3-tp2-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 "
+        "causal, (B, S, H, D) views, dq / dk / dv from the forward's lse: "
+        "one model coordinate's heads at model_ways 2")
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
@@ -3468,5 +3887,5 @@ def main():
 
 if __name__ == "__main__":
     sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train,
-              "--qwen-train": main_qwen_train}.get(
+              "--qwen-train": main_qwen_train, "--tp": main_tp}.get(
         (sys.argv[1:] or [None])[0], main)())

@@ -13,13 +13,18 @@ shape, its sharding and one tensor per mesh coordinate, on that
 coordinate's device. :func:`place` cuts a tensor into one, :func:`gather`
 puts one back together, :func:`read_box` reads any box of one.
 
-The reference's ``activation_rules`` / ``constrain`` pin activations inside
-a slice under tensor parallelism; without a context they do nothing. The
-port's model takes no sharding inside a slice (``model_ways == 1``), so
-they are left out.
+``activation_rules`` / ``constrain`` pin activations inside a slice under
+tensor parallelism (``model`` > 1); without a context they do nothing, as
+the reference's. Where the reference's GSPMD derives the collectives from
+the pinned layout, the port's ``constrain`` carries them out: the model
+runs each sublayer once per model coordinate (``core.tensor_parallel``),
+and ``constrain`` adds the coordinates' partial sums where the layout is
+whole on every coordinate.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Mapping, Optional, Sequence
@@ -27,7 +32,6 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from repro_torch.core.meshes import Mesh
-from repro_torch.models.layers import tree_map
 
 LogicalSpec = tuple  # tuple[str | None, ...]
 
@@ -311,6 +315,95 @@ def gather(arr: ShardedTensor, device=None) -> torch.Tensor:
 def logical_to_sharding(tree_logical, tree_shapes, mesh: Mesh,
                         rules: ShardingRules):
     """Map a tree of logical specs + matching shapes -> NamedShardings."""
+    # imported here: the model's modules import this one
+    from repro_torch.models.layers import tree_map
     return tree_map(lambda logical, shape: rules.sharding_for(logical, shape,
                                                               mesh),
                     tree_logical, tree_shapes)
+
+
+# -- activation sharding constraints -----------------------------------------
+#
+# The model calls ``constrain(x, logical)`` at the reference's points (block
+# boundaries, the embedding, the logits: src/repro/models/transformer.py:69,
+# 109,138,239-260, encdec.py:41,50) and where a sublayer's output is a sum
+# over the model coordinates' heads or MLP columns (where GSPMD puts its
+# all-reduce). It is a no-op unless a (mesh, rules) context is active, set
+# by the trainer around each slice's step.
+
+_ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "activation_rules", default=None)
+
+
+@contextlib.contextmanager
+def activation_rules(mesh: Mesh, rules: ShardingRules):
+    """Counterpart of the reference's ``activation_rules``
+    (src/repro/core/sharding.py:150-156): ``constrain`` pins activations to
+    ``rules`` on ``mesh`` inside the context."""
+    tok = _ACT_CTX.set((mesh, rules))
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(tok)
+
+
+def keep_activation_rules(fn):
+    """``fn`` run under the activation rules active now, wherever it is
+    called later: a remat's recompute runs in the backward pass, which may
+    run outside the step's context."""
+    ctx = _ACT_CTX.get()
+
+    def run(*args):
+        tok = _ACT_CTX.set(ctx)
+        try:
+            return fn(*args)
+        finally:
+            _ACT_CTX.reset(tok)
+
+    return run
+
+
+def model_ways() -> int:
+    """The ``model`` extent of the active context's mesh: 1 without one."""
+    ctx = _ACT_CTX.get()
+    return 1 if ctx is None else ctx[0].shape.get("model", 1)
+
+
+class _ModelAxis:
+    """The model axis alone, as ``ShardingRules.spec_for`` reads a mesh: the
+    port runs one slice's step at a time, so a constraint inside it has no
+    data axis to pin."""
+
+    def __init__(self, ways: int):
+        self.shape = {"model": ways}
+
+
+def constrain(x, logical):
+    """Pin an activation to its logical sharding (no-op without context),
+    the counterpart of src/repro/core/sharding.py:159-166.
+
+    Under a context whose mesh has ``model`` > 1, ``x`` is one tensor per
+    model coordinate, in coordinate order (``tensor_parallel.Partial``
+    where they are partial sums). Where ``rules`` leave the model axis off
+    every dimension of ``logical`` (the residual stream, ``("batch",
+    "seq", "embed")``), the value is whole on every coordinate: a
+    ``Partial`` is summed in coordinate order and one copy of the sum
+    lands on each coordinate's device (``tensor_parallel.all_reduce``);
+    whole values pass. Where the model axis splits a dimension (the
+    logits' ``vocab``), each coordinate's block is the layout already."""
+    ways = model_ways()
+    if ways == 1:
+        return x
+    from repro_torch.core import tensor_parallel as tp
+    if not isinstance(x, list) or len(x) != ways:
+        raise TypeError(f"constrain under {ways} model ways takes one tensor "
+                        f"per model coordinate, got {type(x).__name__}")
+    _, rules = _ACT_CTX.get()
+    spec = rules.spec_for(logical, tuple(x[0].shape), _ModelAxis(ways))
+    if all(part is None for part in spec):
+        return tp.all_reduce(x) if isinstance(x, tp.Partial) else x
+    if isinstance(x, tp.Partial):
+        raise NotImplementedError(
+            f"a partial sum pinned to {logical}, split over the model axis "
+            "(a reduce-scatter): no block of the port's model makes one")
+    return x

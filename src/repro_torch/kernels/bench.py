@@ -67,14 +67,16 @@ from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
 # qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128); of
 # paligemma-3b's (8 query heads on 1 KV head of 256, 256 patches and 256
 # tokens); and the forward's calls in two train steps: qwen3-4b's at B 2,
-# S 4096 and recurrentgemma-9b's at B 1, S 4096, where the window bites.
-# All causal.
+# S 4096 (whole, and on one model coordinate's heads at model_ways 2:
+# 16 query / 4 KV) and recurrentgemma-9b's at B 1, S 4096, where the window
+# bites. All causal.
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
           "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
           "d128-512": (4, 32, 8, 512, 128, "bshd", None),
           "paligemma-512": (4, 8, 1, 512, 256, "bshd", None),
           "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
+          "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None),
           "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048)}
 # (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
 # causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
@@ -92,10 +94,17 @@ RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096)}
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
 # S 2048 train step, of recurrentgemma-9b's local layers in a B 1, S 4096
 # one (window 2048), and of qwen3-4b's in a B 2, S 4096 one (32 query / 8
-# KV heads of 128), for the backward
+# KV heads of 128; 16 / 4 on each model coordinate at model_ways 2), for
+# the backward
 BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None),
               "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
-              "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None)}
+              "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
+              "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None)}
+# the CUDA kernels one call launches at the timed (bf16) shapes: the SSD
+# scan's three passes, its backward's four (bf16 route); the flash
+# backward's three (delta, the main pass, dq), four on the bf16 D 256 route
+# where its blocks split a key tile (flash_bwd_dkdv_sum adds their parts)
+SSD_KERNELS, SSD_BWD_KERNELS = 3, 4
 # the scans' backward at their training shapes: mamba2-130m's B 8, S 2048
 # (the views of the conv output), recurrentgemma-9b's B 1, S 4096
 SSD_BWD_SHAPES = {"train-2048": (8, 2048, 24, 64, 128, 128, "view")}
@@ -175,6 +184,44 @@ def device_profile(fn, top: int = 6) -> dict:
                 kernels=sum(n for name, (_, n) in by_name.items()
                             if not name.startswith(("Memcpy", "Memset"))),
                 top=[(name[:60], us / 1e3, n) for name, (us, n) in ranked])
+
+
+def split_kernels(fn, want: int, what: str) -> list:
+    """Each CUDA kernel one call of ``fn`` launches, (name, device ms,
+    count), from torch.profiler; raises unless the profile saw ``want``
+    kernel launches, each with device time. The profiler has come back
+    partly blank in a long process (a kernel listed without its time, or
+    not at all): a split missing a kernel would pass for a faster call."""
+    prof = device_profile(fn, top=64)
+    kernels = [(name, ms, n) for name, ms, n in prof["top"]
+               if not name.startswith(("Memcpy", "Memset"))]
+    launched = sum(n for *_, n in kernels)
+    if launched != want or any(ms <= 0 for _, ms, _ in kernels):
+        raise RuntimeError(
+            f"the profile of one {what} call saw {launched} CUDA kernel "
+            f"launches, {sum(ms <= 0 for _, ms, _ in kernels)} of them "
+            f"without device time; the route launches {want}: {kernels}")
+    return kernels
+
+
+def flash_bwd_kernels(label: str, seed: int = 1) -> list:
+    """split_kernels of the flash backward at one of BWD_SHAPES (bf16), from
+    the forward kernel's output and log-sum-exp: three CUDA kernels, or
+    four on the D 256 route with more than one split. Profile it before any
+    autograd backward of the process (library_backward's): after one,
+    later profiles have come back without device events."""
+    from repro_torch.kernels.flash_attention import kernel
+    b, h, kv, s, d, layout, window = BWD_SHAPES[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+    do = torch.randn_like(q)
+    out, lse = kernel.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+    splits = kernel.bwd_splits(b, h, kv, s, d, torch.bfloat16)
+    return split_kernels(
+        lambda: kernel.flash_attention_bwd(q, k, v, out, lse, do,
+                                           window=window),
+        3 + (splits > 1), f"flash_attention_bwd {label}")
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -433,11 +480,12 @@ def time_ssd_scan(label: str, seed: int = 1) -> dict:
     bound_ms, bound_by, flops = ssd_bound(b, s, h, p, n, chunk,
                                           torch.bfloat16)
     ms = graph_ms(lambda: kernel.ssd_scan(*args, chunk=chunk))
+    passes = split_kernels(lambda: kernel.ssd_scan(*args, chunk=chunk),
+                           SSD_KERNELS, f"ssd_scan {label}")
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-        tflops=flops / ms / 1e9,
-        cuda_kernels=device_profile(
-            lambda: kernel.ssd_scan(*args, chunk=chunk))["kernels"],
+        tflops=flops / ms / 1e9, passes=passes,
+        cuda_kernels=sum(n for *_, n in passes),
         plain_ms=graph_ms(lambda: ssd_ref(*args), iters=2, warmup=1),
         library_ms=None,
         eager_ms=eager_ms(lambda: kernel.ssd_scan(*args, chunk=chunk)))
@@ -481,14 +529,15 @@ def time_ssd_scan_bwd(label: str, seed: int = 1) -> dict:
     def run():
         return kernel.ssd_scan_bwd(*args, dy, None, ws, chunk=chunk)
     ms = graph_ms(run)
+    # the profile before the plain version's autograd backward
+    passes = split_kernels(run, SSD_BWD_KERNELS, f"ssd_scan_bwd {label}")
     plain = backward_of(lambda *t: ssd_ref(*t)[0], args, dy)
     plain_ms = eager_ms(plain, iters=1, warmup=1)
     del plain
-    prof = device_profile(run, top=8)
     return dict(label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                tflops=flops / ms / 1e9, cuda_kernels=prof["kernels"],
-                passes=prof["top"], plain_ms=plain_ms, library_ms=None,
-                eager_ms=eager_ms(run))
+                tflops=flops / ms / 1e9,
+                cuda_kernels=sum(n for *_, n in passes), passes=passes,
+                plain_ms=plain_ms, library_ms=None, eager_ms=eager_ms(run))
 
 
 def describe_ssd_bwd(row: dict) -> str:

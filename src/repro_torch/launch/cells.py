@@ -198,7 +198,7 @@ def _train_cell(arch, shape, cfg, model, mesh, rules, opt_cfg, accum,
         loss = torch.zeros((), dtype=torch.float32,
                            device=mesh.device(first))
         grads = slice_grads(
-            model, state["params"], first, accum,
+            model, state["params"], [first], accum,
             lambda i: ({k: v[i * per:(i + 1) * per]
                         for k, v in batch.items()}, 1 / accum),
             loss, opt_cfg)
@@ -368,8 +368,9 @@ def build_cell(arch: str, shape: Union[str, ShapeSpec], mesh: Mesh,
         shape = SHAPES[shape]
     if mesh_model_ways(mesh) > 1:
         raise NotImplementedError(
-            "tensor parallelism inside a slice is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
+            "the dry-run's meshes with model > 1 (tensor parallelism inside "
+            "a slice, counted for one card) are not ported yet (ROADMAP.md, "
+            "Queue 1 item 13)")
     cfg = cell_config(get_config(arch), shape)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)

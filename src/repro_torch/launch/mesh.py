@@ -3,10 +3,11 @@
 Counterpart of ``repro.launch.mesh``, whose meshes are TPU v5e pods. The
 port's are H100 deployments: ``"h100x1"``, one card, and ``"h100x8"``, one
 HGX H100 node of 8 cards joined all to all by NVLink through its
-NVSwitches, as 8 data-parallel slices. Both have ``model`` 1: tensor
-parallelism inside a slice is not ported (ROADMAP.md, Queue 1 item 10;
-``runtime/trainer.py`` raises for ``model_ways > 1``), and so
-``launch.cells.build_cell`` raises for a mesh with ``model > 1`` too. The
+NVSwitches, as 8 data-parallel slices. Both have ``model`` 1: the trainer
+runs tensor parallelism inside a slice, but the dry-run's count of one
+card's share of it (a node as 1 x 8 or 2 x 4, and the bytes of its
+collectives) is not ported yet (ROADMAP.md, Queue 1 item 13), so
+``launch.cells.build_cell`` raises for a mesh with ``model > 1``. The
 meshes are of meta devices: the dry-run counts one card's program and
 touches no card.
 """

@@ -8,9 +8,9 @@ count (``launch/dryrun.py``):
       --arch smollm-135m --shape train_4k --variant ce_chunk [--node]
 
 Each variant writes a tagged artifact next to the baseline's directory.
-The meshes have ``model`` 1 (tensor parallelism inside a slice is ROADMAP
-Queue 1 item 10), so the variants that need a model axis raise and say
-so: ``decode_seq`` and ``decode_seq_bf16`` shard the KV cache over it, and
+The meshes have ``model`` 1 (the dry-run's meshes with a model axis are
+ROADMAP Queue 1 item 13), so the variants that need a model axis raise
+and say so: ``decode_seq`` and ``decode_seq_bf16`` shard the KV cache over it, and
 ``dp_only*`` fold it into the data axes, which on a mesh of model 1 is the
 baseline's layout. The reference's ``attn_chunk_2k``, ``attn_chunk_512``
 and ``ssd_chunk_1k`` raise too: they would count the baseline's program
@@ -26,8 +26,8 @@ from repro_torch.core.sharding import FSDP_RULES, TP_DP_RULES
 from repro_torch.launch.dryrun import DEFAULT_OUT, artifact_path, run_cell
 from repro_torch.optim import AdamWConfig
 
-_ITEM_10 = ("needs a model axis: tensor parallelism inside a slice is not "
-            "ported yet (ROADMAP.md, Queue 1 item 10)")
+_ITEM_13 = ("needs a model axis: the dry-run's meshes with model > 1 are "
+            "not ported yet (ROADMAP.md, Queue 1 item 13)")
 NEEDS_MODEL_AXIS = {"decode_seq", "decode_seq_bf16", "dp_only",
                     "dp_only_ce", "dp_only_dots", "dp_only_dots_ce"}
 # the reference's chunk variants, which cannot change the port's program
@@ -59,7 +59,7 @@ VARIANTS = {
 def variant(name: str) -> dict:
     """The ``run_cell`` keywords of variant ``name``."""
     if name in NEEDS_MODEL_AXIS:
-        raise NotImplementedError(f"variant {name} {_ITEM_10}")
+        raise NotImplementedError(f"variant {name} {_ITEM_13}")
     if name in KERNEL_TILES:
         raise ValueError(f"variant {name} counts the baseline's program: "
                          f"{KERNEL_TILES[name]}")

@@ -17,19 +17,22 @@ paligemma-3b's batches carry patch embeddings, seamless-m4t-medium's
 frames (``data.pipeline``). Runs on ``--device`` (default ``cuda``). ``--devices N`` gives the job N virtual
 slices of that one device (``core.meshes.slice_devices``), as the
 reference's ``--devices`` gives it N host devices of one CPU; the first
-line says so. The job starts on ``--slices`` of them. ``--elastic``
-attaches a ``LocalRMS`` of ``max(devices // model_ways, 1)`` nodes and
-honours its DMR decisions at a reconfiguration point every ``max(steps //
-10, 1)`` steps, up to that many slices. ``--ckpt-dir`` checkpoints every
-50 steps. It prints the per-step lines, the ``resize_log`` and, on the
-card, each resize's time, the wall time of the steps and the peak of
-allocated device memory. ``--model-ways`` > 1 (tensor parallelism inside a
-slice) is not ported yet and raises.
+line says so. Each slice is ``--model-ways`` virtual devices (tensor
+parallelism inside a slice, for the dense attention families), so the
+job's mesh draws from ``max(N, 1) * model_ways`` of them. The job starts on
+``--slices`` slices. ``--elastic`` attaches a ``LocalRMS`` of ``max(N,
+1)`` nodes and honours its DMR decisions at a reconfiguration point every
+``max(steps // 10, 1)`` steps, up to that many slices. ``--ckpt-dir``
+checkpoints every 50 steps. It prints the per-step lines, the
+``resize_log`` and, on the card, each resize's time, the wall time of the
+steps and the peak of allocated device memory.
 
 Reference behaviour it departs from, on purpose (``repro.launch.train``):
 
-- ``--elastic`` lets the job grow to ``devices // model_ways`` slices; the
-  reference caps it at ``--slices``, so its launcher never expands.
+- ``--devices`` counts slices; the reference's counts devices, each
+  slice taking ``--model-ways`` of them.
+- ``--elastic`` lets the job grow to ``--devices`` slices; the reference
+  caps it at ``--slices``, so its launcher never expands.
 - ``--grad-accum`` reaches the trainer; the reference parses it and drops
   it.
 - The reconfiguration and log period is ``max(steps // 10, 1)`` steps; the
@@ -55,7 +58,8 @@ def main(argv=None):
     ap.add_argument("--slices", type=int, default=1)
     ap.add_argument("--model-ways", type=int, default=1)
     ap.add_argument("--devices", type=int, default=0,
-                    help="N virtual slices of --device")
+                    help="N virtual slices of --device, each of "
+                         "--model-ways virtual devices")
     ap.add_argument("--elastic", action="store_true",
                     help="attach a LocalRMS and honour DMR decisions")
     ap.add_argument("--ckpt-dir", default=None)
@@ -75,14 +79,16 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, device=args.device)
-    devices = slice_devices(max(args.devices, 1), args.device)
+    nodes = max(args.devices, 1)
+    devices = slice_devices(nodes * args.model_ways, args.device)
     if args.devices:
         card = devices[0].type == "cuda"
         name = f", {torch.cuda.get_device_name(devices[0])}" if card else ""
+        ways = (f", {args.model_ways} model coordinates each"
+                if args.model_ways > 1 else "")
         print(f"{args.devices} virtual slices of one "
-              f"{'card' if card else 'device'} ({devices[0]}{name}), each "
-              f"with buffers of its own")
-    nodes = max(len(devices) // args.model_ways, 1)
+              f"{'card' if card else 'device'} ({devices[0]}{name}){ways}, "
+              f"each with buffers of its own")
     rms = None
     if args.elastic:
         rms = LocalRMS(num_nodes=nodes)

@@ -19,6 +19,13 @@ why. Both paths, the chunked one and the kernel, take the same keys.
 Decode attends over the cache in plain torch, as the reference computes it
 outside any kernel. A "local" layer's cache is a ring buffer of the
 window's size: position p sits in slot p % window.
+
+Under tensor parallelism a call gets one model coordinate's blocks of the
+projections (``core.tensor_parallel``): its query heads from ``head0`` on
+and their KV heads, or every KV head where those do not divide over the
+model axis (``kv_for_heads`` then takes the ones its query heads map to).
+The head counts come from the parameters' shapes, and ``wo`` gives the
+coordinate's partial sum over its heads.
 """
 from __future__ import annotations
 
@@ -86,6 +93,24 @@ def _project_qkv(params, x, cfg, positions, rope: bool = True, x_kv=None):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def kv_for_heads(k, v, cfg, head0: int, heads: int):
+    """The KV heads (axis 2 of ``k`` and ``v``) that the model's query heads
+    ``head0 .. head0 + heads - 1`` map to, ``h // (H / KV)``, where ``k``
+    and ``v`` hold every KV head but the call only a block of the query
+    heads (tensor parallelism whose model axis does not divide the KV
+    heads): a run of whole groups, or the one KV head that a block inside
+    one group shares, else one KV head per query head. Anything else
+    passes unchanged."""
+    if k.shape[2] != cfg.num_kv_heads or heads == cfg.num_heads:
+        return k, v
+    g = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = head0 // g, (head0 + heads - 1) // g + 1
+    if (head0 % g == 0 and heads % g == 0) or hi == lo + 1:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.arange(head0, head0 + heads, device=k.device) // g
+    return k[:, :, idx], v[:, :, idx]
 
 
 def _sdpa_chunk(q, k, v, mask, cfg, state=None):
@@ -234,7 +259,7 @@ def cache_specs(cfg, batch: int, length: int) -> Dict[str, Any]:
 
 
 def decode_attention(params, x, cfg, cache, pos: int, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, head0: int = 0):
     """One-token decode: write the cache at slot ``pos % length`` (a ring
     buffer for a local layer's window; a global cache is as long as the
     sequence) and attend over the positions it holds, within ``window``
@@ -243,6 +268,8 @@ def decode_attention(params, x, cfg, cache, pos: int, *,
     x: (B, 1, E); pos: int. The cache is updated in place (the reference
     returns a new one) and returned. The ``pos`` vector is shared by the
     whole batch, and every row is written at ``pos``, as in the reference.
+    ``head0``: the model's first query head that ``params["wq"]`` holds
+    (tensor parallelism); the cache holds the KV heads of ``params["wk"]``.
     """
     b = x.shape[0]
     length = cache["k"].shape[1]
@@ -254,9 +281,10 @@ def decode_attention(params, x, cfg, cache, pos: int, *,
     v_cache[:, slot] = v[:, 0]
     pos_arr[slot] = pos
 
-    kvh, hd = k.shape[2], k.shape[3]
-    g = cfg.num_heads // kvh
-    qg = q.reshape(b, 1, kvh, g, hd)
+    k_cache, v_cache = kv_for_heads(k_cache, v_cache, cfg, head0,
+                                    q.shape[2])
+    h, kvh, hd = q.shape[2], k_cache.shape[2], k.shape[3]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float()
     logits = softcap(logits * scale, cfg.attn_logit_softcap)
@@ -266,40 +294,46 @@ def decode_attention(params, x, cfg, cache, pos: int, *,
     logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(x.dtype), v_cache)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
     y = torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
     return y, cache
 
 
 def attention_apply(params, x, cfg, *, kind: str = "global", x_kv=None,
-                    causal: bool = True):
+                    causal: bool = True, head0: int = 0):
     """Training / prefill attention. kind: "global" | "local" | "moe" |
     "cross". A "cross" layer takes its keys and values from ``x_kv`` (B,
     S_kv, E), without RoPE, and is never causal; ``causal=False`` makes a
-    self-attention layer bidirectional (an encoder's)."""
+    self-attention layer bidirectional (an encoder's). ``head0``: the
+    model's first query head that ``params["wq"]`` holds (tensor
+    parallelism)."""
     window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions, rope=kind != "cross",
                            x_kv=x_kv)
+    k, v = kv_for_heads(k, v, cfg, head0, q.shape[2])
     out = _attend(q, k, v, cfg, window, causal=causal and kind != "cross")
     return torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
 
 
 def attention_prefill(params, x, cfg, *, kind: str = "global",
-                      cache_len: int):
+                      cache_len: int, head0: int = 0):
     """Full-sequence attention that also returns the filled KV cache.
 
     Global layers keep all S positions (padded up to ``cache_len``); local
     layers keep the trailing ``w = min(window, cache_len)`` positions in
     ring-buffer order (position p in slot p % w, unfilled slots at position
-    -1), so that :func:`decode_attention` steps continue seamlessly.
+    -1), so that :func:`decode_attention` steps continue seamlessly. The
+    cache holds the KV heads of ``params["wk"]``; ``head0`` as in
+    :func:`attention_apply`.
     """
     window = window_of(cfg, kind)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions)
-    out = _attend(q, k, v, cfg, window)
+    out = _attend(q, *kv_for_heads(k, v, cfg, head0, q.shape[2]), cfg,
+                  window)
     y = torch.einsum("bshd,hde->bse", out, params["wo"].to(x.dtype))
     if kind == "local":
         w = cache_length(cfg, kind, cache_len)

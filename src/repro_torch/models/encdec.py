@@ -31,6 +31,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tensor_parallel as tp
+from repro_torch.core.sharding import model_ways
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -111,9 +113,16 @@ class EncDecLM:
 
     # ---- forward ----
 
+    def check_tensor_parallel(self):
+        """Tensor parallelism inside a slice does not cover the
+        encoder-decoder yet: raise."""
+        tp.refuse(f"{self.cfg.name}: the encoder-decoder (EncDecLM)")
+
     def encode(self, params, frames):
         """frames: (B, S_enc, E) stub frontend embeddings -> the encoder's
         normalised output (B, S_enc, E) in the compute type."""
+        if model_ways() > 1:
+            self.check_tensor_parallel()
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         x = frames.to(dt) @ params["enc_in"].to(dt)
@@ -210,6 +219,8 @@ class EncDecLM:
     def decode_step(self, params, cache, token, pos: int):
         """token: (B, 1) ints; pos: int. Returns (logits, cache); the self
         caches are updated in place."""
+        if model_ways() > 1:
+            self.check_tensor_parallel()
         cfg = self.cfg
         x = embed_apply(params["embed"], token, cfg)
         for i in range(cfg.num_layers):

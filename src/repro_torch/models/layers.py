@@ -187,15 +187,29 @@ def embed_specs(cfg) -> Dict[str, Any]:
     return specs
 
 
-def embed_apply(params, tokens, cfg):
+def embed_apply(params, tokens, cfg, first: int = 0):
+    """Token embeddings in the compute type. Under tensor parallelism
+    ``params["tokens"]`` may be one model coordinate's block of the vocab,
+    its rows from ``first`` on: a token outside it takes zeros, so the
+    coordinates' sum is exact (every other term is 0)."""
+    table = params["tokens"]
+    if table.shape[0] == cfg.vocab_size:
+        rows = table[tokens]
+    else:
+        local = tokens - first
+        own = (local >= 0) & (local < table.shape[0])
+        rows = torch.where(own[..., None],
+                           table[local.clamp(0, table.shape[0] - 1)], 0.0)
     # gather, then cast: the same values as casting the whole table first
-    x = params["tokens"][tokens].to(torch_dtype(cfg.dtype))
+    x = rows.to(torch_dtype(cfg.dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def unembed_apply(params, x, cfg):
+    """fp32 logits, softcapped; on one model coordinate's block of the vocab
+    (tensor parallelism), that block's logits."""
     if cfg.tie_embeddings:
         logits = x @ params["tokens"].to(x.dtype).T
     else:

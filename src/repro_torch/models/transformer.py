@@ -19,6 +19,19 @@ routers' summed load-balancing loss. A modality frontend (paligemma's
 patches) is a stub, as in the reference: ``forward`` and ``prefill`` take
 its embeddings (``extra_embeds``, ``batch["frontend"]`` in ``loss``) and
 prepend them to the token embeddings; its positions carry no labels.
+
+Under an ``activation_rules`` context whose mesh has ``model`` > 1 (tensor
+parallelism inside a slice), ``forward``, ``loss``, ``prefill`` and
+``decode_step`` take one parameter tree per model coordinate, each that
+coordinate's blocks (``core.tensor_parallel.model_block``), and run the
+blocks in lockstep over the coordinates: each sublayer once per
+coordinate, its partial sums added by ``constrain`` at the reference's
+points. The attention splits by heads and the MLP by its columns (the
+down projection by rows); the embedding and the logits split by vocab,
+and ``loss`` is the cross-entropy over the vocab's blocks. Whatever the
+rules leave whole (heads or a vocab that do not divide) every coordinate
+computes whole. Block kinds "global" and "local" with the gated MLP are
+covered; the others raise (``check_tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -29,6 +42,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                      create_selective_checkpoint_contexts)
 
+from repro_torch.core import tensor_parallel as tp
+from repro_torch.core.sharding import (constrain, keep_activation_rules,
+                                       model_ways)
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -91,9 +107,12 @@ def remat(cfg: ModelConfig, unit, policy: Optional[str] = None):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return unit
+    # the recompute sees the activation rules of the forward call
     if (policy or cfg.remat) == "nothing_saveable":
-        return lambda *args: checkpoint(unit, *args, use_reentrant=False)
-    return lambda *args: checkpoint(unit, *args, use_reentrant=False,
+        return lambda *args: checkpoint(keep_activation_rules(unit), *args,
+                                        use_reentrant=False)
+    return lambda *args: checkpoint(keep_activation_rules(unit), *args,
+                                    use_reentrant=False,
                                     context_fn=_save_dots)
 
 
@@ -152,6 +171,128 @@ def block_apply(params, x, cfg: ModelConfig, kind: str, aux):
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         return x + mlp_apply(params["ffn"], h, cfg), aux
     raise ValueError(kind)
+
+
+# -- tensor parallelism: a block in lockstep over the model coordinates ------
+
+BSE = ("batch", "seq", "embed")
+TP_KINDS = ("global", "local")
+
+
+def tp_attention(parts, cfg):
+    """Each coordinate's attention parameters and first query head, and
+    whether its outputs are partial sums. Where the rules split the heads,
+    a coordinate holds its block of ``wq`` and ``wo`` (a partial sum over
+    its heads) and of ``wk`` / ``wv`` or, where the KV heads do not divide,
+    all of them. Where the heads do not divide, ``wq`` and ``wo`` are whole
+    and so is each coordinate's attention (summed once, not once per
+    coordinate); ``wk`` and ``wv``, if split, are gathered first."""
+    ps = [p["attn"] for p in parts]
+    hq = ps[0]["wq"].shape[1]
+    if hq < cfg.num_heads:
+        return [(p, m * hq) for m, p in enumerate(ps)], True
+    if ps[0]["wk"].shape[1] < cfg.num_kv_heads:
+        ps = [dict(p, **{w: tp.all_gather([q[w] for q in ps], 1).to(
+            p["wq"].device) for w in ("wk", "wv")}) for p in ps]
+    return [(p, 0) for p in ps], False
+
+
+def _residual(xs, ys, partial: bool):
+    """``xs + ys`` on every coordinate, the sublayer outputs ``ys`` summed
+    over the coordinates first where they are partial sums."""
+    ys = constrain(tp.Partial(ys) if partial else ys, BSE)
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _tp_mlp(parts, xs, cfg):
+    """The gated MLP's half of a block: ``w_gate`` and ``w_up`` by column,
+    ``w_down`` by row, each coordinate's output a partial sum (whole where
+    the rules leave the MLP whole)."""
+    hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(parts, xs)]
+    ys = [mlp_apply(p["ffn"], h, cfg) for p, h in zip(parts, hs)]
+    return _residual(xs, ys, parts[0]["ffn"]["w_down"].shape[0] < cfg.d_ff)
+
+
+def _tp_attention(parts, xs, cfg, call):
+    """The attention half of a block over the model coordinates up to the
+    residual: ``call(p, h, head0)`` on each coordinate's parameters and
+    normalised stream. -> (xs, the calls' results, whether their outputs
+    are partial sums)."""
+    xs = constrain(xs, BSE)
+    hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(parts, xs)]
+    ps, partial = tp_attention(parts, cfg)
+    return xs, [call(p, h, h0) for (p, h0), h in zip(ps, hs)], partial
+
+
+def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux):
+    """:func:`block_apply` over the model coordinates: ``parts`` each
+    coordinate's blocks of the block's parameters, ``xs`` its copy of the
+    residual stream."""
+    xs, ys, partial = _tp_attention(parts, xs, cfg, lambda p, h, h0: (
+        attn.attention_apply(p, h, cfg, kind=kind, head0=h0)))
+    return _tp_mlp(parts, _residual(xs, ys, partial), cfg), aux
+
+
+def _whole_cache(caches, cfg):
+    """One cache from the coordinates': their KV heads put together where
+    each holds a block of them, else the first coordinate's (each holds
+    them all)."""
+    if caches[0]["k"].shape[2] == cfg.num_kv_heads:
+        return caches[0]
+    return {"k": tp.all_gather([c["k"] for c in caches], 2),
+            "v": tp.all_gather([c["v"] for c in caches], 2),
+            "pos": caches[0]["pos"]}
+
+
+def tp_block_prefill(parts, xs, cfg: ModelConfig, kind: str, max_len: int):
+    """:func:`block_prefill` over the model coordinates; the cache comes
+    back whole (``_whole_cache``)."""
+    xs, outs, partial = _tp_attention(parts, xs, cfg, lambda p, h, h0: (
+        attn.attention_prefill(p, h, cfg, kind=kind, cache_len=max_len,
+                               head0=h0)))
+    xs = _residual(xs, [y for y, _ in outs], partial)
+    return _tp_mlp(parts, xs, cfg), _whole_cache([c for _, c in outs], cfg)
+
+
+def tp_block_decode(parts, xs, cfg: ModelConfig, kind: str, cache,
+                    pos: int):
+    """:func:`block_decode` over the model coordinates on a whole cache
+    (on the first coordinate's device): each coordinate writes and reads
+    its KV heads' view of it, or the whole where it holds every KV
+    head."""
+    def call(p, h, h0):
+        kv, lo = p["wk"].shape[1], h0 // (cfg.num_heads // cfg.num_kv_heads)
+        view = cache if kv == cfg.num_kv_heads else {
+            "k": cache["k"][:, :, lo:lo + kv],
+            "v": cache["v"][:, :, lo:lo + kv], "pos": cache["pos"]}
+        return attn.decode_attention(p, h, cfg, view, pos, head0=h0,
+                                     window=attn.window_of(cfg, kind))[0]
+
+    xs, ys, partial = _tp_attention(parts, xs, cfg, call)
+    return _tp_mlp(parts, _residual(xs, ys, partial), cfg), cache
+
+
+def vocab_parallel_nll(logits, firsts, labels, mask):
+    """-sum over the unmasked positions of the log-softmax at the labels,
+    where ``logits`` are fp32 blocks of the vocab, one per model
+    coordinate, block ``m`` from vocab index ``firsts[m]``: the max over
+    the blocks, the sum of the exponentials in coordinate order, and each
+    label's logit from the block that holds it; on the first block's
+    device."""
+    home = logits[0].device
+    top = torch.stack([lg.detach().amax(-1).to(home)
+                       for lg in logits]).amax(0)
+    sumexp, picked = 0, 0
+    for lg, first in zip(logits, firsts):
+        dev = lg.device
+        sumexp = sumexp + torch.exp(lg - top.to(dev)[..., None]).sum(-1).to(
+            home)
+        local = labels.to(dev) - first
+        own = (local >= 0) & (local < lg.shape[-1])
+        at = lg.gather(-1, local.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        picked = picked + torch.where(own, at, 0.0).to(home)
+    ll = picked - top - torch.log(sumexp)
+    return -(ll * mask.to(home)).sum()
 
 
 # -- block caches -------------------------------------------------------------
@@ -309,6 +450,124 @@ class CausalLM:
                                  aux)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
+    # ---- tensor parallelism inside a slice ----
+
+    def check_tensor_parallel(self):
+        """Raise for what tensor parallelism does not cover yet: block kinds
+        other than "global" and "local", and the mixture-of-experts
+        feed-forward."""
+        cfg = self.cfg
+        other = sorted(set(cfg.pattern) - set(TP_KINDS))
+        if other:
+            tp.refuse(f"{cfg.name}: block kinds {other}")
+        if cfg.family == "moe" or cfg.first_dense_layers:
+            tp.refuse(f"{cfg.name}: the mixture-of-experts feed-forward")
+
+    def _tp_parts(self, params):
+        """``params`` as one tree per model coordinate, checked."""
+        self.check_tensor_parallel()
+        if not isinstance(params, (list, tuple)) or \
+                len(params) != model_ways():
+            raise TypeError(f"under {model_ways()} model ways the model "
+                            "takes one parameter tree per model coordinate")
+        return list(params)
+
+    def _tp_embed(self, parts, tokens, extra_embeds=None):
+        """Each coordinate's copy of the embeddings: its block of the vocab's
+        rows looked up (zeros for the others) and summed, the frontend's
+        embeddings prepended."""
+        cfg = self.cfg
+        rows = parts[0]["embed"]["tokens"].shape[0]
+        xs = [embed_apply(p["embed"], tokens.to(p["final_norm"].device), cfg,
+                          first=m * rows) for m, p in enumerate(parts)]
+        xs = constrain(tp.Partial(xs) if rows < cfg.vocab_size else xs, BSE)
+        if extra_embeds is not None:
+            xs = [torch.cat([extra_embeds.to(x.device, x.dtype), x], dim=1)
+                  for x in xs]
+        return constrain(xs, BSE)
+
+    def _tp_trunk(self, parts, xs):
+        """:meth:`_trunk` in lockstep; ``remat``'s unit takes every
+        coordinate's stream and parameters."""
+        cfg = self.cfg
+        reps, tail = self._pattern_layout()
+        aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+
+        def unit(xs, aux, unit_parts):
+            for j, kind in enumerate(cfg.pattern):
+                xs, aux = tp_block_apply([u[f"p{j}"] for u in unit_parts],
+                                         xs, cfg, kind, aux)
+            return xs, aux
+
+        unit = remat(cfg, unit)
+        for r in range(reps):
+            xs, aux = unit(xs, aux, [layer(p["blocks"], r) for p in parts])
+        for t in range(tail):
+            xs, aux = tp_block_apply([p[f"tail{t}"] for p in parts], xs, cfg,
+                                     cfg.pattern[t], aux)
+        return [rms_norm(x, p["final_norm"], cfg.norm_eps)
+                for p, x in zip(parts, xs)], aux
+
+    def _tp_logits(self, parts, xs):
+        """(fp32 logits, first vocab index) of each block of the vocab: one
+        per coordinate where the rules split the vocab, else the first
+        coordinate's whole logits."""
+        cfg = self.cfg
+        n = (parts[0]["embed"]["tokens"].shape[0] if cfg.tie_embeddings
+             else parts[0]["embed"]["unembed"].shape[1])
+        if n == cfg.vocab_size:
+            return [unembed_apply(parts[0]["embed"], xs[0], cfg)], [0]
+        logits = constrain([unembed_apply(p["embed"], x, cfg)
+                            for p, x in zip(parts, xs)],
+                           ("batch", "seq", "vocab"))
+        return logits, [m * n for m in range(len(parts))]
+
+    def _tp_forward(self, parts, tokens, extra_embeds=None):
+        xs, aux = self._tp_trunk(parts, self._tp_embed(parts, tokens,
+                                                       extra_embeds))
+        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), aux
+
+    def _tp_loss(self, parts, batch, labels, mask):
+        """The summed masked cross-entropy and the aux loss, the logits by
+        ``ce_chunk`` positions (all at once without it) and the
+        cross-entropy over the vocab's blocks (``vocab_parallel_nll``)."""
+        front = batch.get("frontend")
+        n_front = 0 if front is None else front.shape[1]
+        xs, aux = self._tp_trunk(parts, self._tp_embed(
+            parts, batch["tokens"], front))
+        xs = [x[:, n_front:] for x in xs]
+        c = self.cfg.ce_chunk or xs[0].shape[1]
+        total = sum(vocab_parallel_nll(
+            *self._tp_logits(parts, [x[:, i:i + c] for x in xs]),
+            labels[:, i:i + c], mask[:, i:i + c])
+            for i in range(0, xs[0].shape[1], c))
+        return total, aux
+
+    def _tp_prefill(self, parts, tokens, max_len, extra_embeds=None):
+        cfg = self.cfg
+        xs = self._tp_embed(parts, tokens, extra_embeds)
+        cache: Dict[str, Any] = {}
+        for key, slot, kind in self._layers():
+            xs, c = tp_block_prefill([self._select(p, key, slot)
+                                      for p in parts], xs, cfg, kind,
+                                     max_len)
+            self._keep(cache, key, slot, c)
+        self._stack_cache(cache)
+        xs = [rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+              for p, x in zip(parts, xs)]
+        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), cache
+
+    def _tp_decode_step(self, parts, cache, token, pos):
+        cfg = self.cfg
+        xs = self._tp_embed(parts, token)
+        for key, slot, kind in self._layers():
+            xs, _ = tp_block_decode([self._select(p, key, slot)
+                                     for p in parts], xs, cfg, kind,
+                                    self._select(cache, key, slot), pos)
+        xs = [rms_norm(x, p["final_norm"], cfg.norm_eps)
+              for p, x in zip(parts, xs)]
+        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), cache
+
     def _embed(self, params, tokens, extra_embeds=None):
         """Token embeddings (B, S, E), after ``extra_embeds`` (B, S_front, E)
         cast to the compute type when given."""
@@ -321,6 +580,9 @@ class CausalLM:
         """tokens: (B, S) -> (fp32 logits (B, S_front + S, V), aux loss);
         ``extra_embeds`` (B, S_front, E): the modality stub's embeddings,
         prepended to the sequence."""
+        if model_ways() > 1:
+            return self._tp_forward(self._tp_parts(params), tokens,
+                                    extra_embeds)
         x, aux = self._trunk(params, self._embed(params, tokens,
                                                  extra_embeds))
         return unembed_apply(params["embed"], x, self.cfg), aux
@@ -340,6 +602,11 @@ class CausalLM:
         mask = labels >= 0
         labels = labels.clamp_min(0).long()
         denom = mask.sum().clamp_min(1)
+        if model_ways() > 1:
+            total, aux = self._tp_loss(self._tp_parts(params), batch, labels,
+                                       mask)
+            loss = total / denom.to(total.device)
+            return loss + aux, {"ce": loss, "aux": aux}
 
         def nll(logits, labels, mask):
             lp = F.log_softmax(logits.float(), dim=-1)
@@ -397,24 +664,36 @@ class CausalLM:
 
         return build("", self.cache_specs(batch, max_len))
 
+    @staticmethod
+    def _keep(cache, key, slot, c):
+        """File block ``key``'s cache ``c`` (a stacked slot's in a list)."""
+        if slot is None:
+            cache[key] = c
+        else:
+            cache.setdefault(key, {}).setdefault(slot[0], []).append(c)
+
+    @staticmethod
+    def _stack_cache(cache):
+        if "blocks" in cache:
+            cache["blocks"] = {pj: tree_stack(cs)
+                               for pj, cs in cache["blocks"].items()}
+
     def prefill(self, params, tokens, max_len: int, extra_embeds=None):
         """Run the full prompt (after ``extra_embeds``, as in forward),
         returning (last-position logits, cache). With extra embeddings the
         cache holds their positions first: decode the next token at
         ``S_front + S``."""
+        if model_ways() > 1:
+            return self._tp_prefill(self._tp_parts(params), tokens, max_len,
+                                    extra_embeds)
         cfg = self.cfg
         x = self._embed(params, tokens, extra_embeds)
         cache: Dict[str, Any] = {}
         for key, slot, kind in self._layers():
             x, c = block_prefill(self._select(params, key, slot), x, cfg,
                                  kind, max_len)
-            if slot is None:
-                cache[key] = c
-            else:
-                cache.setdefault(key, {}).setdefault(slot[0], []).append(c)
-        if "blocks" in cache:
-            cache["blocks"] = {pj: tree_stack(cs)
-                               for pj, cs in cache["blocks"].items()}
+            self._keep(cache, key, slot, c)
+        self._stack_cache(cache)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed_apply(params["embed"], x[:, -1:], cfg)
         return logits, cache
@@ -422,6 +701,9 @@ class CausalLM:
     def decode_step(self, params, cache, token, pos: int):
         """token: (B, 1) ints; pos: int. Returns (logits, cache); the cache
         is updated in place."""
+        if model_ways() > 1:
+            return self._tp_decode_step(self._tp_parts(params), cache, token,
+                                        pos)
         cfg = self.cfg
         x = embed_apply(params["embed"], token, cfg)
         for key, slot, kind in self._layers():

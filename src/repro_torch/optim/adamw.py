@@ -94,10 +94,13 @@ def _update(cfg: AdamWConfig, p, g, mu, nu, coef, scale):
 def apply_sharded_updates(cfg: AdamWConfig, params, grads, state):
     """ZeRO-1 AdamW over a mesh. ``params``: ShardedTensors laid out by the
     trainer's rules, replicated over the slices or, as ``FSDP_RULES`` lays
-    them out, cut into blocks; ``grads``: the summed gradients, whole
-    tensors on one device; ``state``: ``mu`` and ``nu`` laid out by
-    :func:`state_logical` and a replicated ``step``. The gradient norm and
-    the clipping scale come from the whole gradients, once. Each mesh
+    them out, cut into blocks, and with a model axis split over the model
+    coordinates too; ``grads``: the summed gradients, whole tensors on one
+    device (the trainer puts each slice's together from its model
+    coordinates' blocks, a block they all hold counted once); ``state``:
+    ``mu`` and ``nu`` laid out by :func:`state_logical` and a replicated
+    ``step``. The gradient norm and the clipping scale come from the whole
+    gradients, once, so no replica of a block is counted twice. Each mesh
     coordinate updates the block its moments hold (weight decay by the
     leaf's rank, which a block keeps), reading the parameters on that
     block from whichever blocks hold them: a moment's block need not lie

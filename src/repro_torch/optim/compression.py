@@ -10,12 +10,16 @@ the int32 sum is exact and only each slice's own rounding remains, which
 the feedback carries. The payload a slice sends is an int8 per element and
 an fp32 scale per 256: 0.254 times fp32's bytes.
 
-The reference runs inside ``shard_map``, one local value per slice, and its
-collectives are ``pmax`` and ``psum`` over the mesh's data axes. The port
-drives every slice from one process (``core.meshes``), so
-:func:`compressed_psum_grads` takes what the port's trainer holds before it
-sums the slices' gradients: a list of per-slice gradient trees in the
-order of ``mesh.coords()``, each on its slice's device. The max and the
+The reference runs inside ``shard_map``, one local value per mesh
+coordinate, and its collectives are ``pmax`` and ``psum`` over the mesh's
+data axes. The port drives every coordinate from one process
+(``core.meshes``), so :func:`compressed_psum_grads` takes what the port's
+trainer holds before it sums the slices' gradients: a list of gradient
+trees in the order of ``mesh.coords()``, each on its coordinate's device.
+With ``model`` > 1 (tensor parallelism inside a slice) a coordinate's tree
+holds its model block of every leaf, as the reference's ``shard_map``
+hands it out, and the sum runs over the data axes only, once per model
+coordinate. The max and the
 int32 sum are taken in slice order on the first slice's device of each
 group and copied back, so every slice gets a buffer of its own (between
 virtual slices of one card these are on-card copies). It is elementwise
@@ -28,7 +32,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.core.meshes import Mesh, mesh_model_ways
+from repro_torch.core.meshes import Mesh
 from repro_torch.core.sharding import copy_to
 from repro_torch.models.layers import tree_leaves, tree_map
 
@@ -114,16 +118,15 @@ def compressed_psum_grads(grads, mesh: Mesh, axes=("pod", "data"),
     feedback.
 
     grads: a list of gradient trees (nested dicts of tensors), one per
-    entry of ``mesh.coords()``, each on that slice's device; errors: the
-    fp32 residuals of the last call in the same form, or None (zeros). Only the
-    axes of ``axes`` that the mesh has count. Returns (means, errors), lists
-    of trees in the same order and on the same devices: every slice of a
-    group gets the group's mean, and its own residual.
+    entry of ``mesh.coords()``, each on that coordinate's device (with a
+    model axis, each coordinate's blocks); errors: the fp32 residuals of
+    the last call in the same form, or None (zeros). Only the axes of
+    ``axes`` that the mesh has count; a group is the coordinates equal
+    along every other axis (one model coordinate of every slice). Returns
+    (means, errors), lists of trees in the same order and on the same
+    devices: every coordinate of a group gets the group's mean, and its own
+    residual.
     """
-    if mesh_model_ways(mesh) > 1:
-        raise NotImplementedError(
-            "compressed all-reduce with model_ways > 1 (tensor parallelism "
-            "inside a slice) is not ported yet (ROADMAP.md, Queue 1 item 10)")
     coords = mesh.coords()
     if len(grads) != len(coords):
         raise ValueError(f"{len(grads)} gradient trees for a mesh of "
@@ -152,8 +155,10 @@ def make_compressed_allreduce(mesh: Mesh, param_specs):
     """The callable ``(per-slice grads, errors) -> (means, errors)`` of
     :func:`compressed_psum_grads` over ``mesh``'s data axes ("pod",
     "data") only. ``param_specs``: the parameters' shardings (a tree of
-    ``NamedSharding``), which must be on ``mesh``; with one way inside a
-    slice, each slice holds every parameter whole."""
+    ``NamedSharding``), which must be on ``mesh``; each coordinate's tree
+    holds the blocks they give it over the model axis
+    (``tensor_parallel.model_block``), every parameter whole with one way
+    inside a slice."""
     for spec in tree_leaves(param_specs):
         if spec.mesh is not mesh:
             raise ValueError("param_specs are not shardings on this mesh")

@@ -31,8 +31,18 @@ that restore raises, so a fault that repeats (a kernel that cannot build or
 launch) is not retried forever. ``recoveries`` lists every restore.
 
 The slices of a mesh may be cards or virtual slices of one card
-(``core.meshes.slice_devices``). Tensor parallelism inside a slice
-(``model_ways > 1``) is not ported yet and raises.
+(``core.meshes.slice_devices``). With ``model_ways > 1`` (tensor
+parallelism inside a slice) each slice is ``model_ways`` mesh
+coordinates, cards or virtual devices of one card, and a slice's step runs
+its model coordinates in lockstep under ``activation_rules``: each reads
+its model block of every parameter (``tensor_parallel.model_block``,
+gathered over the data axes under ``FSDP_RULES``), the model splits its
+sublayers over them and adds their partial sums, and the slice's gradient
+of a parameter is put together from its coordinates' blocks, those of a
+parameter every coordinate holds whole (the norms, and whatever the rules
+leave unsplit) summed in coordinate order, as GSPMD's all-reduce gives it.
+The model covers the dense attention block kinds; the others raise
+(ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -48,8 +58,9 @@ from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
                               ShardingRules, make_mesh, place, reshard,
                               resized_mesh)
 from repro_torch.core.reshard import synchronize
-from repro_torch.core.sharding import (copy_to, logical_to_sharding,
-                                       read_box, zeros)
+from repro_torch.core.sharding import (activation_rules, copy_to,
+                                       logical_to_sharding, read_box, zeros)
+from repro_torch.core.tensor_parallel import model_block, slices_of
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.models.layers import (torch_dtype, tree_leaves,
                                       tree_map)
@@ -72,11 +83,6 @@ class TrainerConfig:
     ckpt_period: int = 50
     log_period: int = 10
     rules: ShardingRules = TP_DP_RULES
-
-
-def _whole(x: ShardedTensor) -> tuple:
-    """The box of the whole of ``x``."""
-    return tuple(slice(0, n) for n in x.shape)
 
 
 def _on(device: torch.device):
@@ -106,43 +112,71 @@ def train_state_shardings(model, opt_cfg: AdamWConfig, mesh,
     return logical_to_sharding(tree_logical, tree_shapes, mesh, rules)
 
 
-def slice_grads(model, params, coord, accum: int, micro_batch, loss,
-                opt_cfg: AdamWConfig):
-    """One slice's gradients: ``params`` (ShardedTensors) read whole on
-    ``coord``'s device, gathered from their blocks where the rules split
-    them (and freed with the slice's step), then each of ``accum``
-    micro-batches (``micro_batch(i)`` -> (batch, weight)) through
-    ``model.loss``, scaled by its weight, and ``backward()``; each part's
-    loss is added into the tensor ``loss``. The gradients add up in the
-    parameters' ``.grad``, or, with ``opt_cfg.grad_reduce_dtype`` and more
-    than one micro-batch, each micro-batch's are cast to that dtype (the
-    reduction over the slices runs in it) and summed in fp32, as the
-    reference's cell step sums them. Returns the gradients, whole tensors
-    on the slice's device."""
-    dev = next(iter(tree_leaves(params))).sharding.mesh.device(coord)
-    params = tree_map(lambda x: read_box(x, _whole(x), coord).detach()
-                      .requires_grad_(True), params)
+def slice_grads(model, params, coords, accum: int, micro_batch, loss,
+                opt_cfg: AdamWConfig, rules: ShardingRules = TP_DP_RULES):
+    """One slice's gradients. ``coords``: the slice's mesh coordinates, one
+    per model coordinate, in order. Each reads its model block of every
+    parameter (``params``, ShardedTensors) on its device, gathered from the
+    blocks where the rules split it over the data axes too (and freed with
+    the slice's step); then each of ``accum`` micro-batches
+    (``micro_batch(i)`` -> (batch, weight)) goes through ``model.loss``,
+    with more than one model coordinate in lockstep under
+    ``activation_rules`` of ``rules``, scaled by its weight, and
+    ``backward()``; each part's loss is added into the tensor ``loss``.
+    The gradients add up in the blocks' ``.grad``, or, with
+    ``opt_cfg.grad_reduce_dtype`` and more than one micro-batch, each
+    micro-batch's are cast to that dtype (the reduction over the slices
+    runs in it) and summed in fp32, as the reference's cell step sums
+    them. Returns the gradients, whole tensors on the first coordinate's
+    device (``_slice_sum``)."""
+    mesh = next(iter(tree_leaves(params))).sharding.mesh
+    dev = mesh.device(coords[0])
+    parts = [tree_map(lambda x, c=c: read_box(x, model_block(x, c), c)
+                      .detach().requires_grad_(True), params)
+             for c in coords]
     low = opt_cfg.grad_reduce_dtype if accum > 1 else None
     summed = None
 
-    def grad(p):
-        return torch.zeros_like(p) if p.grad is None else p.grad
-
-    with _on(dev):
+    with _on(dev), activation_rules(mesh, rules):
         for i in range(accum):
             mb, weight = micro_batch(i)
-            part, _ = model.loss(params, mb)
+            part, _ = model.loss(parts if len(parts) > 1 else parts[0], mb)
             part = part * weight
             part.backward()
             loss += part.detach().to(loss.device)
             if low is not None:
-                g = tree_map(lambda p: grad(p).to(torch_dtype(low)).float(),
-                             params)
+                g = tree_map(lambda g: g.to(torch_dtype(low)).float(),
+                             _slice_sum(params, parts, coords))
                 summed = g if summed is None else tree_map(
                     torch.Tensor.add_, summed, g)
-                for p in tree_leaves(params):
-                    p.grad = None
-    return summed if low is not None else tree_map(grad, params)
+    return summed if low is not None else _slice_sum(params, parts, coords)
+
+
+def _slice_sum(params, parts, coords):
+    """The slice's whole gradient of each parameter from its coordinates'
+    blocks' ``.grad`` (zeros where a block got none), each cleared once
+    read: one coordinate's is the whole; several coordinates' blocks are
+    put together on the first coordinate's device, the blocks that several
+    coordinates hold whole (``model_block`` gives them one box) summed in
+    coordinate order."""
+    def grad(p):
+        return torch.zeros_like(p) if p.grad is None else p.grad
+
+    if len(coords) == 1:
+        out = tree_map(grad, parts[0])
+        for p in tree_leaves(parts[0]):
+            p.grad = None
+        return out
+
+    def leaf(x, *blocks):
+        out = torch.zeros(x.shape, dtype=blocks[0].dtype,
+                          device=blocks[0].device)
+        for c, p in zip(coords, blocks):
+            out[model_block(x, c)] += grad(p).to(out.device)
+            p.grad = None
+        return out
+
+    return tree_map(leaf, params, *parts)
 
 
 def apply_step(opt_cfg: AdamWConfig, state, grads, loss):
@@ -171,9 +205,7 @@ class ElasticTrainer:
                  rms=None, job_id: int = 0, devices=None,
                  slices: Optional[int] = None):
         if cfg.model_ways > 1:
-            raise NotImplementedError(
-                f"model_ways={cfg.model_ways}: tensor parallelism inside a "
-                "slice is not ported yet (ROADMAP.md, Queue 1 item 10)")
+            model.check_tensor_parallel()
         self.model = model
         self.opt_cfg = opt_cfg
         self.data = (SyntheticLMData(data) if isinstance(data, DataConfig)
@@ -237,10 +269,11 @@ class ElasticTrainer:
     def train_step(self, state, batch):
         """One optimizer step on the global ``batch``; returns (new state,
         metrics). Slice ``j`` takes rows ``j`` of each micro-batch cut in as
-        many blocks as there are slices."""
+        many blocks as there are slices, and runs its model coordinates
+        together (``slice_grads``)."""
         mesh, accum = self.mesh, self.cfg.grad_accum
-        coords = mesh.coords()
-        n = len(coords)
+        slices = slices_of(mesh)
+        n = len(slices)
         rows = batch["tokens"].shape[0]
         if rows % (accum * n):
             raise ValueError(f"global batch {rows} does not split into "
@@ -249,10 +282,10 @@ class ElasticTrainer:
         counts = (batch["labels"] >= 0).reshape(accum, n, -1).sum(-1)
         counts = counts.tolist()
         loss = torch.zeros((), dtype=torch.float32,
-                           device=mesh.device(coords[0]))
+                           device=mesh.device(slices[0][0]))
         reduced = None
-        for j, c in enumerate(coords):
-            dev = mesh.device(c)
+        for j, coords in enumerate(slices):
+            dev = mesh.device(coords[0])
 
             def micro_batch(i, j=j, dev=dev):
                 lo = i * micro + j * per
@@ -260,8 +293,9 @@ class ElasticTrainer:
                 return ({k: v[lo:lo + per].to(dev) for k, v in batch.items()},
                         max(counts[i][j], 1) / max(sum(counts[i]), 1) / accum)
 
-            grads = slice_grads(self.model, state["params"], c, accum,
-                                micro_batch, loss, self.opt_cfg)
+            grads = slice_grads(self.model, state["params"], coords, accum,
+                                micro_batch, loss, self.opt_cfg,
+                                self.cfg.rules)
             if reduced is None:
                 reduced = grads
             else:

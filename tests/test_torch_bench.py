@@ -57,6 +57,7 @@ def test_backward_bound_at_qwen3_train_shape():
     assert nbytes == pytest.approx(336.6e6, rel=1e-3)
 
 @pytest.mark.parametrize("label,want_ms", [("qwen3-4096", 0.2780),
+                                           ("qwen3-tp2-4096", 0.1390),
                                            ("recurrentgemma-4096", 0.1042)])
 def test_forward_bound_at_the_train_calls(label, want_ms):
     """The flash forward at the two train steps' calls, beside the
@@ -414,3 +415,28 @@ def test_rglru_backward_versions_are_told_apart(exports, version):
     current = version == bench.CURRENT["rglru_scan_bwd"]
     assert current or ("rglru_scan_bwd", version) in bench.OLD_ARGTYPES
     assert bench.ERROR_STRING["rglru_scan_bwd"] == "rglru_scan_error_string"
+
+
+@pytest.mark.parametrize("top,ok", [
+    ([("chunk_dstate_bf16", 0.1, 1), ("state_pass", 0.02, 1),
+      ("chunk_bwd_bf16", 0.5, 1), ("reduce_alog", 0.01, 1),
+      ("Memcpy DtoD (Device -> Device)", 0.01, 1)], True),
+    # a kernel the profiler listed without its device time
+    ([("chunk_dstate_bf16", 0.0, 1), ("state_pass", 0.02, 1),
+      ("chunk_bwd_bf16", 0.5, 1), ("reduce_alog", 0.01, 1)], False),
+    # a kernel it did not list at all (3 of the route's 4)
+    ([("state_pass", 0.02, 1), ("chunk_bwd_bf16", 0.5, 1),
+      ("reduce_alog", 0.01, 1)], False)])
+def test_split_kernels_fails_on_a_partly_blank_profile(monkeypatch, top, ok):
+    """A phase that splits a call into its CUDA kernels takes the route's
+    count (the SSD backward's four in bf16) and fails where one comes back
+    without device time, or not at all; copies do not count."""
+    monkeypatch.setattr(bench, "device_profile",
+                        lambda fn, top_=None, **kw: {"top": top})
+    want = bench.SSD_BWD_KERNELS
+    if ok:
+        assert len(bench.split_kernels(lambda: None, want, "ssd_scan_bwd")) \
+            == want
+    else:
+        with pytest.raises(RuntimeError, match="route launches 4"):
+            bench.split_kernels(lambda: None, want, "ssd_scan_bwd")

@@ -220,5 +220,16 @@ def test_make_compressed_allreduce_over_data_axes_only():
     other = make_mesh(4, 1, devices=cpu4)
     with pytest.raises(ValueError, match="mesh"):
         make_compressed_allreduce(other, specs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        compressed_psum_grads(grads[:2] * 2, make_mesh(2, 2, devices=cpu4))
+    # with a model axis the sum runs over the data axis once per model
+    # coordinate: coordinates (0, m) and (1, m) get the mean of their two
+    # trees, as two slices of one model way do
+    two_ways = make_mesh(2, 2, devices=cpu4)
+    got, got_err = make_compressed_allreduce(two_ways, {})(grads)
+    for m in range(2):
+        want, want_err = compressed_psum_grads(
+            [grads[m], grads[2 + m]], make_mesh(2, 1, devices=cpu4[:2]))
+        for d in range(2):
+            torch.testing.assert_close(got[2 * d + m]["g"], want[d]["g"],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(got_err[2 * d + m]["g"],
+                                       want_err[d]["g"], rtol=0, atol=0)

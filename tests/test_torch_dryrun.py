@@ -133,10 +133,10 @@ def test_meshes_have_no_model_axis_yet():
     assert make_production_mesh("h100x8").shape == {"data": 8, "model": 1}
     two_ways = Mesh(np.array([[torch.device("meta")] * 2], dtype=object),
                     ("data", "model"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         cells.build_cell("smollm-135m", "train_4k", two_ways)
     for name in perf_iterate.NEEDS_MODEL_AXIS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             perf_iterate.variant(name)
     assert perf_iterate.variant("grad_bf16")["opt_cfg"].grad_reduce_dtype \
         == "bfloat16"
