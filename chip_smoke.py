@@ -29,9 +29,11 @@ fit's FitError in (t)):
                   against the plain scores
   (d) ssd      -- the SSD-scan kernel (three CUDA kernels a call) against
                   its plain version and the chunked path (y and the final
-                  state), up to B 8, S 2048 (16 chunks of state passing)
+                  state), up to B 8, S 2048 (16 chunks of state passing),
+                  and on one model coordinate's 12 or 6 heads
   (l) rglru    -- the RG-LRU scan kernel against its plain version (ragged
-                  S, S 1, an initial state)
+                  S, S 1, an initial state, one model coordinate's 2048 or
+                  1024 channels)
   (sb) scan bwd-- the SSD and RG-LRU backward kernels against torch
                   autograd of their plain versions, every gradient: the SSD
                   at mamba2's train call (B 8, S 2048, views) in fp32 and
@@ -40,7 +42,10 @@ fit's FitError in (t)):
                   unaligned rows and S 1; the RG-LRU at recurrentgemma's
                   (B 1, S 4096, W 4096) with and without an initial state
                   (two calls bit-equal), S off and below its 128-step
-                  chunks, W 1000 with h0
+                  chunks, W 1000 with h0; both at one model coordinate's
+                  share of their train calls at model_ways 2 and 4 (as (p)
+                  holds recurrentgemma's D 256 flash backward on 8 and 4
+                  of its 16 heads)
   smollm-135m at full width (seeded random weights):
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
@@ -123,8 +128,10 @@ fit's FitError in (t)):
                   capacity and the router loss on each side; decode
                   against forward at capacity factor E / k, where no token
                   drops; bf16 held by a median over tokens
-  (w) dense    -- qwen3-4b and granite-3-2b at their published depth and
-                  widths: the same, the blocks at B1 S128
+  (w) dense    -- qwen3-4b and granite-3-2b at their published widths
+                  cut to 12 of their 36 and 40 layers (their full-depth
+                  Servers took a minute of the run's limit): the same, the
+                  blocks at B1 S128
   (x) compress -- the int8 compressed all-reduce on 2 and 4 virtual slices
                   over smollm-135m's gradient tree: bit-equal to the CPU's,
                   error feedback over 12 steps, ms a call and payload bytes
@@ -161,6 +168,26 @@ fit's FitError in (t)):
                   ElasticTrainer steps at B 2, S 4096 at model_ways 2, the
                   loss falling; the bf16 step's wall, busy, tokens/s, peak
                   and on-card copies at model_ways 1, 2 and 4
+  (tk) tp kinds-- after (tp), in a child process of its own
+                  (chip_smoke.py --tp-kinds): tensor parallelism inside a
+                  slice for the SSD, RG-LRU, mixture-of-experts and
+                  encoder-decoder blocks on virtual devices of the card,
+                  each model at its published widths and each layer at its
+                  own fan-in: mamba2-130m at full depth (an fp32 step at
+                  B 8, S 2048 at model_ways 2 and 4 against 1, 4 bf16
+                  ElasticTrainer steps at 2, the loss falling, fp32
+                  prefill and 8 decode steps at 2 against 1, the bf16
+                  step's wall, busy, idle, peak and on-card copies at 1, 2
+                  and 4); recurrentgemma-9b cut to one unit (rglru, rglru,
+                  local: the fp32 step at B 1, S 4096 at 2 and 4 against 1,
+                  4 bf16 steps at 2); deepseek-moe-16b cut to its dense
+                  first layer and two MoE layers (the routing and drops at
+                  2 equal to 1's but for near ties, the fp32 step at 2 and
+                  4 against 1, 4 bf16 steps at 2, the step's times);
+                  seamless-m4t-medium (the fp32 step of (z) at 2 and 4
+                  against 1); every kernel call on one coordinate's share
+                  (H / M SSD and query heads, W / M RG-LRU channels),
+                  exactly M times one way's launches
   slice 10, in the same child process after (x), each model at its
   published widths and depth, twice as (u)-(w) (per-layer fan-in, every
   check held; then the reference's init, fp32 printed):
@@ -218,7 +245,7 @@ fit's FitError in (t)):
                   (the flash backward also at qwen3's train call)
 
 Phases (e)-(g), (q), (r), (tps), (h)-(j), (hq), (m)-(o), (u)-(w), (y),
-(z), (mq), (wq) and (tp) are the main paths: every kernel launch count is set to 0 just
+(z), (mq), (wq), (tp) and (tk) are the main paths: every kernel launch count is set to 0 just
 before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
@@ -424,6 +451,10 @@ def bwd_d256_cases():
         (2, 4, 4, 256, 256, 256, True, None, None, bf16, "bshd"),
         (1, 16, 8, 512, 512, 256, True, 128, None, bf16, "bshd"),
         (3, 8, 1, 700, 700, 256, True, 256, 50.0, bf16, "bshd"),
+        # recurrentgemma-9b's train call on one model coordinate's heads at
+        # model_ways 2 and 4 (8 and 4 of 16), its one KV head whole
+        (1, 8, 1, 4096, 4096, 256, True, 2048, None, bf16, "bshd"),
+        (1, 4, 1, 4096, 4096, 256, True, 2048, None, bf16, "bshd"),
     ]
 
 
@@ -554,6 +585,11 @@ def ssd_cases():
         # rows not 16-byte aligned, a ragged S
         (2, 300, 3, 16, 32, 64, f32, "unaligned"),
         (2, 300, 3, 16, 32, 64, bf16, "unaligned"),
+        # one model coordinate's heads at model_ways 2 and 4 (12, 6), at
+        # the train call, as (tk) passes them
+        (TRAIN_B, TRAIN_S, 12, *m[1:], f32, "view"),
+        (TRAIN_B, TRAIN_S, 12, *m[1:], bf16, "view"),
+        (TRAIN_B, TRAIN_S, 6, *m[1:], bf16, "view"),
     ]
 
 
@@ -601,7 +637,9 @@ def rglru_cases():
     main = (PREFILL_B, PREFILL_S, 4096)
     return [(1, 32, 64, False), (2, 64, 128, False), (3, 128, 256, False),
             (*main, False), (2, 500, 4096, False), (2, 1, 4096, False),
-            (1, 4096, 4096, False), (*main, True), (2, 37, 1000, True)]
+            (1, 4096, 4096, False), (*main, True), (2, 37, 1000, True),
+            # one model coordinate's width at model_ways 2 and 4
+            (1, RG_TRAIN_S, 2048, False), (1, RG_TRAIN_S, 1024, False)]
 
 
 def phase_rglru_vs_plain():
@@ -657,6 +695,11 @@ def ssd_bwd_cases():
         (2, 300, 5, 32, 64, 64, bf16, "view", False),
         (2, 300, 3, 16, 32, 64, bf16, "unaligned", True),
         (2, 1, 3, 16, 32, 16, bf16, "contiguous", True),
+        # one model coordinate's heads at model_ways 2 and 4 (12, 6), the
+        # bf16 route walking fewer heads a block
+        (TRAIN_B, TRAIN_S, 12, *m[1:], f32, "view", False),
+        (TRAIN_B, TRAIN_S, 12, *m[1:], bf16, "view", False),
+        (TRAIN_B, TRAIN_S, 6, *m[1:], bf16, "view", False),
     ]
 
 
@@ -669,7 +712,9 @@ def rglru_bwd_cases():
     return [(1, RG_TRAIN_S, 4096, False), (1, RG_TRAIN_S, 4096, True),
             (PREFILL_B, PREFILL_S, 4096, False), (2, 37, 1000, True),
             (2, 1, 4096, True), (2, 1000, 4096, False),
-            (1, 100, 4096, False), (3, 300, 1000, True)]
+            (1, 100, 4096, False), (3, 300, 1000, True),
+            # one model coordinate's width at model_ways 2 and 4
+            (1, RG_TRAIN_S, 2048, False), (1, RG_TRAIN_S, 1024, False)]
 
 
 def phase_scan_bwd_vs_plain():
@@ -1254,7 +1299,8 @@ def train_launches(cfg):
     if cfg.family == "encdec":
         n = flash_per_pass(cfg)
         return {**out, "flash_attention": again * n, "flash_attention_bwd": n}
-    reps, tail = cfg.pattern_repeats
+    reps, tail = divmod(cfg.num_layers - cfg.first_dense_layers,
+                        len(cfg.pattern))
     for kinds, times in ((list(cfg.pattern) * reps, again),
                          (list(cfg.pattern[:tail])
                           + [cfg.pattern[0]] * cfg.first_dense_layers, 1)):
@@ -2412,9 +2458,12 @@ def phase_calibration():
 # compressed all-reduce
 
 # the decoders whose fp32 weights at their published depth do not fit the
-# card: (published depth, layers drawn at its scale and driven)
+# card, and the two whose full-depth Servers took a minute of the run's time
+# limit (qwen3-4b, granite-3-2b): (published depth, layers drawn at its
+# scale and driven)
 ZOO_CUT = {"gemma2-27b": (46, 4), "phi3.5-moe-42b-a6.6b": (32, 4),
-           "deepseek-moe-16b": (28, 4)}
+           "deepseek-moe-16b": (28, 4), "qwen3-4b": (36, 12),
+           "granite-3-2b": (40, 12)}
 # MoE routing, card against CPU from the same fp32 input: their router
 # logits differ by about 1e-5 (the attention's and the projections'
 # rounding); a token whose chosen experts differ at a logit gap under
@@ -2976,7 +3025,7 @@ def main_zoo():
             def blocks_of(cfg, params, z_toks=z_toks):
                 return cfg, params, z_toks[:2, :256], 256 + 8
         else:
-            # the whole published depth, one shorter row (the CPU's share)
+            # every layer driven, one shorter row (the CPU's share)
             def blocks_of(cfg, params, z_toks=z_toks):
                 return cfg, params, z_toks[:1, :128], 128 + 8
         counts, tok_s, peak = drive_zoo(label, cfg, depth, z_toks,
@@ -3368,17 +3417,19 @@ def view_state(whole, shardings):
         whole, shardings)
 
 
-def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg):
-    """(tp) The bf16 train step of ``trainer``'s model at model_ways 1, 2
-    and 4 from one TrainState (view_state of ``whole``) and batch: each
-    one's launches (M x layers flash forwards and backwards) and one-step
-    peak device memory (the allocator's peak reset, the state held), then
-    step_times' wall, busy and tokens/s of the three in one profiler
-    session, with the share of busy time in on-card copies (Memcpy DtoD:
-    the copies of each all-reduce's sum). Returns {M: {...}}."""
+def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg, label="tp"):
+    """(tp), (tk) The bf16 train step of ``trainer``'s model at model_ways
+    1, 2 and 4 from one TrainState (view_state of ``whole``) and batch:
+    each one's launches (M x train_launches: qwen3's M x layers flash
+    forwards and backwards) and one-step peak device memory (the
+    allocator's peak reset, the state held), then step_times' wall, busy
+    and tokens/s of the three in one profiler session, with the share of
+    busy time in on-card copies (Memcpy DtoD: the copies of each
+    all-reduce's sum and of the gathers). Returns {M: {...}}."""
     from repro_torch.core import slice_devices
     from repro_torch.runtime import ElasticTrainer, TrainerConfig
     entries, peaks = {}, {}
+    per = {k: n for k, n in train_launches(cfg).items() if n}
     for ways in (1, *QWEN_TP_WAYS):
         tr = ElasticTrainer(trainer.model, trainer.opt_cfg, trainer.data,
                             TrainerConfig(model_ways=ways),
@@ -3387,8 +3438,7 @@ def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counted_launches(lambda: tr.train_step(st, batch),
-                         {"flash_attention": ways * cfg.num_layers,
-                          "flash_attention_bwd": ways * cfg.num_layers})
+                         {k: ways * n for k, n in per.items()})
         peaks[ways] = torch.cuda.max_memory_allocated() / 2 ** 30
         key = f"{cfg.name} model_ways {ways}", 1
         entries[key] = (cfg, data_cfg, 1,
@@ -3404,13 +3454,14 @@ def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg):
                      "tok_s": tokens / walls[key] * 1e3,
                      "peak_gib": peaks[ways], "launches": launches,
                      "dtod_ms": dtod}
-        log("tp", f"{cfg.name} ({cfg.num_layers} layers) bf16 B"
-                  f"{data_cfg.global_batch} S{data_cfg.seq_len} at "
-                  f"model_ways {ways}: {walls[key]:.3f} ms wall, "
-                  f"{ms:.3f} ms busy in {launches} kernels and copies, "
-                  f"{out[ways]['tok_s']:.0f} tokens/s, on-card copies "
-                  f"{dtod:.3f} ms ({100 * dtod / ms:.2f}% of busy), peak "
-                  f"{peaks[ways]:.2f} GiB in a step")
+        log(label, f"{cfg.name} ({cfg.num_layers} layers) bf16 B"
+                   f"{data_cfg.global_batch} S{data_cfg.seq_len} at "
+                   f"model_ways {ways}: {walls[key]:.3f} ms wall, "
+                   f"{ms:.3f} ms busy in {launches} kernels and copies "
+                   f"({100 * (1 - ms / walls[key]):.1f}% idle), "
+                   f"{out[ways]['tok_s']:.0f} tokens/s, on-card copies "
+                   f"{dtod:.3f} ms ({100 * dtod / ms:.2f}% of busy), peak "
+                   f"{peaks[ways]:.2f} GiB in a step")
     return out
 
 
@@ -3456,6 +3507,403 @@ def main_tp():
     TP_RESULT.parent.mkdir(parents=True, exist_ok=True)
     TP_RESULT.write_text(json.dumps({"counts": counts, "fp32": fp32,
                                      "losses": losses, "times": times}))
+    return 0
+
+
+# -- (tk) tensor parallelism for the SSD, RG-LRU, MoE and encoder-decoder blocks
+
+TP_KINDS_RESULT = ROOT / "build" / "chip_smoke_tp_kinds.json"
+# recurrentgemma-9b cut to one pattern unit (rglru, rglru, local), and
+# deepseek-moe-16b to its dense first layer and two MoE layers; the bf16
+# ElasticTrainer steps at model_ways 2 and their learning rate; deepseek's
+# batch (B, S)
+TPK_RG_LAYERS, TPK_DS_LAYERS, TPK_STEPS, TPK_LR = 3, 3, 4, 1e-3
+TPK_MOE_B, TPK_MOE_S = 2, 1024
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """What each kernel op the models call sees, by op: the SSD scan's
+    heads, the RG-LRU scan's width, the flash kernel's (query, KV) heads
+    and head_dim. Yields {op: set}."""
+    from repro_torch.models import attention, rglru, ssm
+    seen = {"ssd_scan": set(), "rglru_scan": set(), "flash_attention": set()}
+    kept = ssm.ssd_op, rglru.rglru_op, attention.flash_attention_op
+
+    def ssd(x, *args, **kw):
+        seen["ssd_scan"].add(x.shape[2])
+        return kept[0](x, *args, **kw)
+
+    def rg(a, b, *args, **kw):
+        seen["rglru_scan"].add(a.shape[-1])
+        return kept[1](a, b, *args, **kw)
+
+    def flash(q, k, v, **kw):
+        seen["flash_attention"].add((q.shape[1], k.shape[1], q.shape[-1]))
+        return kept[2](q, k, v, **kw)
+    ssm.ssd_op, rglru.rglru_op, attention.flash_attention_op = ssd, rg, flash
+    try:
+        yield seen
+    finally:
+        ssm.ssd_op, rglru.rglru_op, attention.flash_attention_op = kept
+
+
+def tp_shares(cfg, ways):
+    """The shares launch_shapes should see at ``ways`` model coordinates:
+    H / M SSD heads, W / M RG-LRU channels, H / M query heads over KV / M
+    KV heads (the KV heads whole where they do not divide)."""
+    out = {"ssd_scan": set(), "rglru_scan": set(), "flash_attention": set()}
+    kinds = set(cfg.pattern) | ({"global"} if cfg.enc_layers else set())
+    if "ssd" in kinds:
+        out["ssd_scan"].add(cfg.ssm_heads // ways)
+    if "rglru" in kinds:
+        out["rglru_scan"].add((cfg.lru_width or cfg.d_model) // ways)
+    if kinds - {"ssd", "rglru"}:
+        kv = cfg.num_kv_heads
+        out["flash_attention"].add((cfg.num_heads // ways, kv // ways
+                                    if kv % ways == 0 else kv, cfg.head_dim))
+    return out
+
+
+@contextlib.contextmanager
+def projection_noise():
+    """Every SSD mixer's projection [z, x, B, C, dt] multiplied by 1 +- 2^-24
+    (a random sign an element, from a fixed seed): half an fp32 ulp, the
+    size of the rounding by which the same product computed in column
+    blocks may differ."""
+    from repro_torch.models import ssm
+    kept = ssm._split_proj
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def noisy(cfg, zxbcdt):
+        sign = torch.randint(0, 2, zxbcdt.shape, generator=gen,
+                             device=zxbcdt.device) * 2 - 1
+        return kept(cfg, zxbcdt * (1 + sign * 2.0 ** -24))
+    ssm._split_proj = noisy
+    try:
+        yield
+    finally:
+        ssm._split_proj = kept
+
+
+def phase_tpk_fp32(label, cfg, params, batch):
+    """(tk) One fp32 train step of ``cfg`` at model_ways 2 and 4 against 1
+    (train_grads: the coordinates in lockstep on virtual devices of the
+    card, each on its views of the same parameters), the loss and every
+    gradient max-normalised at MODEL_TOL, exactly M x train_launches(cfg)
+    launches, each kernel call on one coordinate's share (tp_shares).
+    An SSD model's step at full depth turns rounding-sized differences
+    into more than MODEL_TOL (PERF.md, Findings): for it the same step at one
+    model way with half an ulp of noise on every projection (the rounding
+    floor, projection_noise) is measured too, and the tolerance is twice
+    that floor where it exceeds MODEL_TOL. Returns {M: the largest
+    error}."""
+    per = train_launches(cfg)
+    base = train_grads(cfg, params, batch, per)
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+    tol = MODEL_TOL
+    if "ssd" in cfg.pattern:
+        with projection_noise():
+            errs = grad_errs(train_grads(cfg, params, batch, per), base)
+        top = max(errs, key=errs.get)
+        tol = max(MODEL_TOL, 2 * errs[top])
+        log(label, f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+                   f"{shape} at model_ways 1 with half an ulp of noise on "
+                   f"its projections against without (the rounding floor): "
+                   f"largest leaf {top} {errs[top]:.3e}; tolerance "
+                   f"{tol:.3e}")
+    worst = {}
+    for ways in QWEN_TP_WAYS:
+        want = {k: ways * n for k, n in per.items()}
+        with launch_shapes() as seen:
+            got = train_grads(cfg, params, batch, want, ways=ways)
+        errs = grad_errs(got, base)
+        finite = all(torch.isfinite(g).all() for g in got[1].values())
+        del got
+        top = max(errs, key=errs.get)
+        worst[ways] = errs[top] if finite else float("inf")
+        shares = {k: sorted(v) for k, v in seen.items() if v}
+        log(label, f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+                   f"{shape} at model_ways {ways} against 1: "
+                   f"{ {k: n for k, n in want.items() if n} } launches on "
+                   f"shares {shares}; loss {base[0].item():.6f}, "
+                   f"max-normalised {errs['loss']:.3e}; largest leaf {top} "
+                   f"{errs[top]:.3e} over {len(errs) - 1} leaves (tol "
+                   f"{tol:.3e})")
+        if seen != tp_shares(cfg, ways):
+            raise AssertionError(f"{cfg.name} at model_ways {ways}: kernel "
+                                 f"calls on {seen}, not each coordinate's "
+                                 f"share {tp_shares(cfg, ways)}")
+    if max(worst.values()) > tol:
+        raise AssertionError(f"{cfg.name}'s fp32 step under tensor "
+                             "parallelism disagrees with one model way")
+    return worst
+
+
+def phase_tpk_bf16(label, cfg, params, data_cfg):
+    """(tk) TPK_STEPS bf16 ElasticTrainer steps of ``cfg`` at model_ways
+    QWEN_TP_WAYS[0] on as many virtual devices of the card: every loss
+    finite, the last below the first, exactly M x train_launches(cfg)
+    launches a step. Returns (trainer, the TrainState put together whole,
+    the next batch, the losses, the peak GiB)."""
+    from repro_torch.core import gather, slice_devices
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    ways = QWEN_TP_WAYS[0]
+    tr = ElasticTrainer(
+        build_model(cfg), AdamWConfig(lr=TPK_LR, warmup_steps=1,
+                                      total_steps=TPK_STEPS),
+        data_cfg, TrainerConfig(steps=TPK_STEPS, log_period=1,
+                                model_ways=ways),
+        devices=slice_devices(ways))
+    per_step = {k: ways * n for k, n in train_launches(cfg).items() if n}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = counted_launches(
+        lambda: tr.train(state=tr.init_state(params=params)),
+        {k: TPK_STEPS * n for k, n in per_step.items()})
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in tr.metrics]
+    log(label, f"{cfg.name} ({cfg.num_layers} layers) bf16 ElasticTrainer at "
+               f"model_ways {ways} (mesh {tr.mesh.shape}), {TPK_STEPS} steps "
+               f"B{data_cfg.global_batch} S{data_cfg.seq_len}, lr {TPK_LR}, "
+               f"in {seconds:.1f} s ({per_step} launches a step); losses "
+               + ", ".join(f"{x:.4f}" for x in losses)
+               + f"; peak device memory {peak:.2f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            int(state["step"]) != TPK_STEPS:
+        raise AssertionError(f"{cfg.name}'s bf16 training at model_ways "
+                             f"{ways} did not bring the loss down")
+    whole = tree_map(gather, state)
+    return tr, whole, tr.data.batch(TPK_STEPS), losses, peak
+
+
+def phase_tpk_serve(label, cfg, params, toks, steps=8):
+    """(tk) An SSD model's fp32 prefill of all but the last ``steps``
+    tokens and ``steps`` decode steps at model_ways 2 against 1: the logits
+    of each, and every leaf of the cache after them (the SSD state and conv
+    rows put together whole), max-normalised at MODEL_TOL, the prefill's
+    SSD launches M times one way's."""
+    from repro_torch.core import TP_DP_RULES, make_mesh, slice_devices
+    from repro_torch.core.sharding import activation_rules
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_leaves
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    s = toks.shape[1] - steps
+    ways = QWEN_TP_WAYS[0]
+    mesh = make_mesh(1, ways, devices=slice_devices(ways))
+    per = sum(kind == "ssd" for kind in layer_kinds(cfg))
+
+    def run(args):
+        logits, cache = model.prefill(args, toks[:, :s], s + steps)
+        return [logits] + [model.decode_step(
+            args, cache, toks[:, s + i:s + i + 1], s + i)[0]
+            for i in range(steps)], cache
+    with torch.no_grad():
+        runs = [counted_launches(lambda: run(params), {"ssd_scan": per})]
+        with activation_rules(mesh, TP_DP_RULES):
+            views = coordinate_views(model, params, mesh)
+            runs.append(counted_launches(lambda: run(views),
+                                         {"ssd_scan": ways * per}))
+    (want, want_cache), (got, got_cache) = runs
+    err = max(max_norm_err(g, w) for g, w in zip(got, want))
+    cache_err = max(max_norm_err(g.float(), w.float()) for g, w in
+                    zip(tree_leaves(got_cache), tree_leaves(want_cache)))
+    log(label, f"{cfg.name} fp32 prefill B{toks.shape[0]} S{s} and {steps} "
+               f"decode steps at model_ways {ways} against 1: logits "
+               f"max-normalised {err:.3e}, cache {cache_err:.3e} (tol "
+               f"{MODEL_TOL})")
+    if max(err, cache_err) > MODEL_TOL:
+        raise AssertionError(f"{cfg.name}'s prefill and decode at model_ways "
+                             f"{ways} disagree with one model way")
+    return err
+
+
+@contextlib.contextmanager
+def routings():
+    """Every routing the MoE blocks make, in order: (probabilities,
+    experts) of each call of moe.route_logits."""
+    from repro_torch.models import moe
+    calls, kept = [], moe.route_logits
+
+    def spy(logits, cfg):
+        out = kept(logits, cfg)
+        calls.append((out[0].detach(), out[1].detach()))
+        return out
+    moe.route_logits = spy
+    try:
+        yield calls
+    finally:
+        moe.route_logits = kept
+
+
+def phase_tpk_routing(label, cfg, params, batch):
+    """(tk) A MoE model's routing at model_ways 2 against 1 on the same
+    batch (the loss's forward pass): every coordinate of every MoE block
+    chooses the experts one way chooses, but for near ties (a logit gap
+    below NEAR_TIE, the router's product summed in blocks), and drops the
+    same number of choices at capacity. Returns (choices, drops)."""
+    from repro_torch.core import TP_DP_RULES, make_mesh, slice_devices
+    from repro_torch.core.sharding import activation_rules
+    from repro_torch.models import build_model, moe
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    ways = QWEN_TP_WAYS[0]
+    mesh = make_mesh(1, ways, devices=slice_devices(ways))
+    seen = []
+    with torch.no_grad():
+        for args, m in ((params, make_mesh(1, 1, devices=slice_devices(1))),
+                        (coordinate_views(model, params, mesh), mesh)):
+            with routings() as calls, activation_rules(m, TP_DP_RULES):
+                model.loss(args, batch)
+            seen.append(calls)
+    one, many = seen
+    cap = moe.capacity(cfg, batch["tokens"].shape[1], cfg.capacity_factor)
+    ne = cfg.num_experts
+    flips = drops = 0
+    for i, (probs, experts) in enumerate(one):
+        dropped = int((moe.dispatch_slots(experts, ne, cap) == ne * cap)
+                      .sum())
+        drops += dropped
+        for probs_m, experts_m in many[i * ways:(i + 1) * ways]:
+            other = int((moe.dispatch_slots(experts_m, ne, cap) == ne * cap)
+                        .sum())
+            differ = (experts_m != experts).any(-1)
+            for b, t in differ.nonzero().tolist():
+                j = int((experts_m[b, t] != experts[b, t]).nonzero()[0])
+                p = probs[b, t]
+                gap = abs(float(torch.log(p[experts_m[b, t, j]])
+                                - torch.log(p[experts[b, t, j]])))
+                log(label, f"block {i}: token ({b}, {t}) chose expert "
+                           f"{int(experts_m[b, t, j])} at model_ways {ways} "
+                           f"and {int(experts[b, t, j])} at 1, logit gap "
+                           f"{gap:.3e}")
+                if gap >= NEAR_TIE:
+                    raise AssertionError(f"{cfg.name}: routing at model_ways "
+                                         f"{ways} differs beyond a near tie")
+                flips += 1
+            if not flips and other != dropped:
+                raise AssertionError(f"{cfg.name}: {other} choices dropped "
+                                     f"at model_ways {ways}, {dropped} at 1")
+    choices = sum(e.numel() for _, e in one)
+    log(label, f"{cfg.name}: routing of {choices} choices in {len(one)} MoE "
+               f"blocks (top-{cfg.top_k} of {ne}, capacity {cap}) at "
+               f"model_ways {ways} against 1: {flips} near-tie flips, "
+               f"{drops} choices dropped at capacity on both")
+    return choices, drops
+
+
+def main_tp_kinds():
+    """(tk), run by ``chip_smoke.py --tp-kinds`` in a process of its own
+    (run_child), with the card to itself: tensor parallelism inside a
+    slice for the SSD, RG-LRU, mixture-of-experts and encoder-decoder
+    blocks, on virtual devices of the card, each model at its published
+    widths, drawn on the card at each layer's own fan-in, freed after its
+    path. mamba2-130m at full depth: an fp32 step at B TRAIN_B, S TRAIN_S
+    at model_ways 2 and 4 against 1, TPK_STEPS bf16 ElasticTrainer steps
+    at 2, fp32 prefill and decode at 2 against 1, the bf16 step's times at
+    1, 2 and 4; recurrentgemma-9b cut to one unit (TPK_RG_LAYERS): the fp32
+    step at B 1, S RG_TRAIN_S at 2 and 4 against 1, bf16 steps at 2;
+    deepseek-moe-16b cut to TPK_DS_LAYERS (its dense first layer, two MoE
+    layers): the routing and drops at 2 against 1, the fp32 step at 2 and
+    4 against 1, bf16 steps at 2, the step's times; seamless-m4t-medium:
+    its fp32 step at 2 and 4 against 1, as phase (z)'s batch. Writes the
+    path's launch counts and the numbers to TP_KINDS_RESULT."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def batch_of(data):
+        return {k: t.cuda() for k, t in SyntheticLMData(data).batch(0)
+                .items()}
+    out = {"fp32": {}, "losses": {}, "peak": {}, "times": {}}
+    totals = {name: 0 for name in counters()}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] += n
+
+    mamba = get_config("mamba2-130m")
+    _, params = model_and_params(mamba, "tk", on_card=True, per_layer=True)
+    data = DataConfig(vocab_size=mamba.vocab_size, seq_len=TRAIN_S,
+                      global_batch=TRAIN_B)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, mamba.vocab_size, (PREFILL_B, PREFILL_S + 8))).cuda()
+    counts, (fp32, trained, _) = drive("tk", (
+        lambda: phase_tpk_fp32("tk", mamba, params, batch_of(data)),
+        lambda: phase_tpk_bf16("tk", mamba, params, data),
+        lambda: phase_tpk_serve("tk", mamba, params, toks)))
+    add(counts)
+    del params
+    trainer, whole, next_batch, losses, peak = trained
+    del trained
+    out["fp32"][mamba.name], out["losses"][mamba.name] = fp32, losses
+    out["peak"][mamba.name] = peak
+    out["times"][mamba.name] = phase_tp_step_times(
+        mamba, trainer, whole, next_batch, data, label="tk")
+    del trainer, whole
+    torch.cuda.empty_cache()
+
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                             num_layers=TPK_RG_LAYERS, ce_chunk=1024)
+    _, params = model_and_params(rg, "tk", init_depth=RG_DEPTH, on_card=True,
+                                 per_layer=True)
+    data = DataConfig(vocab_size=rg.vocab_size, seq_len=RG_TRAIN_S,
+                      global_batch=1)
+    counts, (fp32, trained) = drive("tk", (
+        lambda: phase_tpk_fp32("tk", rg, params, batch_of(data)),
+        lambda: phase_tpk_bf16("tk", rg, params, data)))
+    add(counts)
+    del params
+    out["fp32"][rg.name], out["losses"][rg.name] = fp32, trained[3]
+    out["peak"][rg.name] = trained[4]
+    del trained
+    torch.cuda.empty_cache()
+
+    ds = dataclasses.replace(get_config("deepseek-moe-16b"),
+                             num_layers=TPK_DS_LAYERS)
+    _, params = model_and_params(ds, "tk", init_depth=28, on_card=True,
+                                 per_layer=True)
+    data = DataConfig(vocab_size=ds.vocab_size, seq_len=TPK_MOE_S,
+                      global_batch=TPK_MOE_B)
+    counts, (routing, fp32, trained) = drive("tk", (
+        lambda: phase_tpk_routing("tk", ds, params, batch_of(data)),
+        lambda: phase_tpk_fp32("tk", ds, params, batch_of(data)),
+        lambda: phase_tpk_bf16("tk", ds, params, data)))
+    add(counts)
+    del params
+    trainer, whole, next_batch, losses, peak = trained
+    del trained
+    out["fp32"][ds.name], out["losses"][ds.name] = fp32, losses
+    out["peak"][ds.name], out["routing"] = peak, routing
+    out["times"][ds.name] = phase_tp_step_times(
+        ds, trainer, whole, next_batch, data, label="tk")
+    del trainer, whole
+    torch.cuda.empty_cache()
+
+    sm = get_config("seamless-m4t-medium")
+    _, params = model_and_params(sm, "tk", on_card=True, per_layer=True)
+    rows, seq_len = ENCDEC_TRAIN
+    data = DataConfig(vocab_size=sm.vocab_size, seq_len=seq_len,
+                      global_batch=rows, frontend=sm.frontend,
+                      d_model=sm.d_model, enc_dec=True)
+    counts, (fp32,) = drive("tk", (
+        lambda: phase_tpk_fp32("tk", sm, params, batch_of(data)),))
+    add(counts)
+    out["fp32"][sm.name] = fp32
+    for name in counters():
+        if totals[name] == 0:
+            raise AssertionError(f"the tensor-parallel kinds' path never "
+                                 f"launched {name}")
+    out["counts"] = totals
+    TP_KINDS_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    TP_KINDS_RESULT.write_text(json.dumps(out))
     return 0
 
 
@@ -3617,18 +4065,21 @@ def main():
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
         log("k", bench.describe_rglru(row))
-    ssd_bwd_rows = {label: bench.time_ssd_scan_bwd(label)
-                    for label in bench.SSD_BWD_SHAPES}
-    for row in ssd_bwd_rows.values():
-        log("k", bench.describe_ssd_bwd(row))
-    # the flash backward's CUDA kernels, before any profile of a train step
-    # and any autograd backward of the library's (after which profiles in
-    # this process have come back without device events)
+    # the backwards' CUDA kernels under the profiler before any autograd
+    # backward of a plain version or of the library's, here or in a train
+    # step's profile (after which profiles in this process have come back
+    # partly blank)
     flash_bwd_split = {label: bench.flash_bwd_kernels(label)
                        for label in bench.BWD_SHAPES}
     for label, kernels in flash_bwd_split.items():
         log("k", f"flash_attention_bwd {label}: " + ", ".join(
             f"{name} {ms:.4f} ms x{n}" for name, ms, n in kernels))
+    ssd_bwd_split = {label: bench.ssd_bwd_kernels(label)
+                     for label in bench.SSD_BWD_SHAPES}
+    ssd_bwd_rows = {label: bench.time_ssd_scan_bwd(
+        label, passes=ssd_bwd_split[label]) for label in bench.SSD_BWD_SHAPES}
+    for row in ssd_bwd_rows.values():
+        log("k", bench.describe_ssd_bwd(row))
     rglru_bwd_rows = {label: bench.time_rglru_scan_bwd(label)
                       for label in bench.RGLRU_BWD_SHAPES}
     for row in rglru_bwd_rows.values():
@@ -3693,6 +4144,22 @@ def main():
                   f"{v['peak_gib']:.2f} GiB peak"
                   for m, v in tp["times"].items()))
     tp = tp["counts"]
+    tpk = run_child("--tp-kinds", TP_KINDS_RESULT, env={
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    log("tk", "SSD, RG-LRU, MoE and encoder-decoder blocks under tensor "
+              "parallelism: fp32 step against model_ways 1, largest "
+              "max-normalised error " + "; ".join(
+                  f"{arch} " + ", ".join(f"{e:.3e} at {m}"
+                                         for m, e in v.items())
+                  for arch, v in tpk["fp32"].items())
+              + f"; bf16 losses at model_ways {QWEN_TP_WAYS[0]} " + "; ".join(
+                  f"{arch} " + ", ".join(f"{x:.4f}" for x in v)
+                  + f" (peak {tpk['peak'][arch]:.2f} GiB)"
+                  for arch, v in tpk["losses"].items()) + "; steps " + "; ".join(
+                  f"{arch} model_ways {m}: {v['wall_ms']:.3f} ms wall, "
+                  f"{v['busy_ms']:.3f} ms busy, {v['peak_gib']:.2f} GiB peak"
+                  for arch, t in tpk["times"].items() for m, v in t.items()))
+    tpk = tpk["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -3711,7 +4178,8 @@ def main():
         + elastic_counts["flash_attention"] + rg_counts["flash_attention"]
         + sum(counts["flash_attention"] for counts, _, _ in zoo.values())
         + rg_train["flash_attention"] + qwen_train["flash_attention"]
-        + tps_counts["flash_attention"] + tp["flash_attention"],
+        + tps_counts["flash_attention"] + tp["flash_attention"]
+        + tpk["flash_attention"],
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -3724,6 +4192,8 @@ def main():
         "qwen3-4b training": qwen_train["flash_attention"],
         "smollm-135m training at model_ways 2": tps_counts["flash_attention"],
         "qwen3-4b training at model_ways 2 and 4": tp["flash_attention"],
+        "recurrentgemma-9b, deepseek-moe-16b and seamless-m4t-medium "
+        "training at model_ways 2 and 4": tpk["flash_attention"],
         **{arch: counts["flash_attention"]
            for arch, (counts, _, _) in zoo.items()}}
     flash_row["recurrentgemma"] = record_row(
@@ -3766,10 +4236,11 @@ def main():
         ssd_err, ssd_rows["prefill-512"],
         f"B{PREFILL_B} S{PREFILL_S} H24 P64 N128 chunk 128 bf16, views of "
         "the conv output")
-    ssd_row["launches"] += m_train_counts["ssd_scan"]
+    ssd_row["launches"] += m_train_counts["ssd_scan"] + tpk["ssd_scan"]
     ssd_row["launches_by_path"] = {
         "mamba2-130m": mamba_counts["ssd_scan"],
-        "mamba2-130m training": m_train_counts["ssd_scan"]}
+        "mamba2-130m training": m_train_counts["ssd_scan"],
+        "mamba2-130m at model_ways 2 and 4": tpk["ssd_scan"]}
     # CUDA kernels one wrapper call launched at this shape, under the
     # profiler in this run (the passes: chunk states, state passing, chunk
     # outputs)
@@ -3781,10 +4252,12 @@ def main():
         rglru_err["prefill"], rglru_rows["prefill-512"],
         f"B{PREFILL_B} S{PREFILL_S} W4096 fp32, the gates of every rglru "
         "layer")
-    rglru_row["launches"] += rg_train["rglru_scan"]
+    rglru_row["launches"] += rg_train["rglru_scan"] + tpk["rglru_scan"]
     rglru_row["launches_by_path"] = {
         "recurrentgemma-9b": rg_counts["rglru_scan"],
-        "recurrentgemma-9b training": rg_train["rglru_scan"]}
+        "recurrentgemma-9b training": rg_train["rglru_scan"],
+        "recurrentgemma-9b training at model_ways 2 and 4":
+            tpk["rglru_scan"]}
     # and at recurrentgemma's training call, B 1, S 4096
     rglru_row["train"] = record_row(
         "rglru_scan", rglru_row["source"], rglru_row["replaces"],
@@ -3796,12 +4269,14 @@ def main():
         "ssd_scan_bwd", "src/repro_torch/kernels/ssd/csrc/ssd_scan_bwd.cu",
         "none: the Pallas kernel has no backward; the reference trains "
         "through XLA's autodiff of ssd_chunked (src/repro/models/ssm.py:53)",
-        m_train_counts["ssd_scan_bwd"], scan_bwd_err["ssd"],
+        m_train_counts["ssd_scan_bwd"] + tpk["ssd_scan_bwd"],
+        scan_bwd_err["ssd"],
         ssd_bwd_rows["train-2048"], f"B{b} S{s} H{h} P{p} N{n} chunk "
         f"{chunk} bf16, views of the conv output, from the forward's "
         "workspace")
     ssd_bwd_row["launches_by_path"] = {
-        "mamba2-130m training": m_train_counts["ssd_scan_bwd"]}
+        "mamba2-130m training": m_train_counts["ssd_scan_bwd"],
+        "mamba2-130m training at model_ways 2 and 4": tpk["ssd_scan_bwd"]}
     ssd_bwd_row["cuda_kernels_per_launch"] = ssd_bwd_rows["train-2048"][
         "cuda_kernels"]
     # each CUDA kernel of one call, device ms under the profiler
@@ -3812,11 +4287,14 @@ def main():
         "rglru_scan_bwd", "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
         "none: the Pallas kernel has no backward; the reference trains "
         "through XLA's autodiff of its associative scan "
-        "(src/repro/models/rglru.py:56)", rg_train["rglru_scan_bwd"],
+        "(src/repro/models/rglru.py:56)",
+        rg_train["rglru_scan_bwd"] + tpk["rglru_scan_bwd"],
         scan_bwd_err["rglru"], rglru_bwd_rows["train-4096"],
         f"B{b} S{s} W{w} fp32, from the forward's h")
     rglru_bwd_row["launches_by_path"] = {
-        "recurrentgemma-9b training": rg_train["rglru_scan_bwd"]}
+        "recurrentgemma-9b training": rg_train["rglru_scan_bwd"],
+        "recurrentgemma-9b training at model_ways 2 and 4":
+            tpk["rglru_scan_bwd"]}
     b, h, kv, s, d, _, _ = bench.BWD_SHAPES["train-2048"]
     bwd_row = record_row(
         "flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
@@ -3827,8 +4305,8 @@ def main():
         + elastic_counts["flash_attention_bwd"]
         + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values())
         + rg_train["flash_attention_bwd"] + qwen_train["flash_attention_bwd"]
-        + tps_counts["flash_attention_bwd"] + tp["flash_attention_bwd"],
-        bwd_err[(d, s)],
+        + tps_counts["flash_attention_bwd"] + tp["flash_attention_bwd"]
+        + tpk["flash_attention_bwd"], bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     bwd_row["launches_by_path"] = {
@@ -3841,7 +4319,9 @@ def main():
         "qwen3-4b training": qwen_train["flash_attention_bwd"],
         "smollm-135m training at model_ways 2":
             tps_counts["flash_attention_bwd"],
-        "qwen3-4b training at model_ways 2 and 4": tp["flash_attention_bwd"]}
+        "qwen3-4b training at model_ways 2 and 4": tp["flash_attention_bwd"],
+        "recurrentgemma-9b, deepseek-moe-16b and seamless-m4t-medium "
+        "training at model_ways 2 and 4": tpk["flash_attention_bwd"]}
     # CUDA kernels one call launched at this shape, under the profiler in
     # this run, and each one's device ms (delta, the main pass, dq)
     bwd_row["cuda_kernels_per_launch"] = sum(
@@ -3887,5 +4367,6 @@ def main():
 
 if __name__ == "__main__":
     sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train,
-              "--qwen-train": main_qwen_train, "--tp": main_tp}.get(
+              "--qwen-train": main_qwen_train, "--tp": main_tp,
+              "--tp-kinds": main_tp_kinds}.get(
         (sys.argv[1:] or [None])[0], main)())

@@ -26,9 +26,6 @@ from repro_torch.core.meshes import Mesh, mesh_model_ways
 from repro_torch.core.sharding import (NamedSharding, PartitionSpec,
                                        ShardedTensor, _as_tuple)
 
-ITEM_12 = "ROADMAP.md, Queue 1 item 12"
-
-
 class Partial(list):
     """One partial sum per model coordinate, in coordinate order, each on
     its coordinate's device: the value is their sum. A plain list of one
@@ -82,9 +79,41 @@ def slices_of(mesh: Mesh) -> List[list]:
     return [coords[i:i + m] for i in range(0, len(coords), m)]
 
 
-def refuse(what: str):
-    """Raise for a part of a model that tensor parallelism does not cover
-    yet."""
-    raise NotImplementedError(
-        f"{what} under tensor parallelism inside a slice (model_ways > 1) is "
-        f"not ported yet ({ITEM_12})")
+def is_split(block: torch.Tensor, whole_shape) -> bool:
+    """Whether a coordinate's ``block`` of a leaf is a block of it (the
+    rules split one of its axes over the model axis) rather than the whole
+    leaf: its shape against the whole shape of the leaf's spec."""
+    return tuple(block.shape) != tuple(whole_shape)
+
+
+def whole(blocks, whole_shape) -> List[torch.Tensor]:
+    """Each coordinate's copy of a leaf whole: the leaf itself where every
+    coordinate holds it whole, else its blocks put together along the axis
+    the rules split (``all_gather``), inside the autograd graph, so that
+    each block's gradient is its share of the whole leaf's."""
+    if not is_split(blocks[0], whole_shape):
+        return list(blocks)
+    dim = next(d for d, (b, n) in enumerate(zip(blocks[0].shape,
+                                                whole_shape)) if b != n)
+    out = all_gather(blocks, dim)
+    return [out] + [out.to(b.device, copy=True) for b in blocks[1:]]
+
+
+def whole_tree(parts, specs) -> list:
+    """``whole`` over every leaf of each coordinate's parameter tree
+    (``specs``: the tree's ParamSpecs, which carry the whole shapes)."""
+    if isinstance(specs, dict):
+        subs = {k: whole_tree([p[k] for p in parts], v)
+                for k, v in specs.items()}
+        return [{k: subs[k][m] for k in specs} for m in range(len(parts))]
+    return whole(parts, specs.shape)
+
+
+def run_whole(parts, xs, specs, run):
+    """A sublayer whose leaves the rules do not split on the boundaries its
+    computation needs, run whole: ``run(params, x)`` -> (y, extra) once,
+    on the first coordinate's leaves put together (``whole_tree``; the
+    gradients reach every coordinate's blocks) and its input; y copied to
+    every other coordinate (no partial sum). -> (ys, False, extra)."""
+    y, extra = run(whole_tree(parts, specs)[0], xs[0])
+    return [y] + [y.to(x.device, copy=True) for x in xs[1:]], False, extra

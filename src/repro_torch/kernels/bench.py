@@ -69,7 +69,8 @@ from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
 # tokens); and the forward's calls in two train steps: qwen3-4b's at B 2,
 # S 4096 (whole, and on one model coordinate's heads at model_ways 2:
 # 16 query / 4 KV) and recurrentgemma-9b's at B 1, S 4096, where the window
-# bites. All causal.
+# bites (whole, and on one model coordinate's 8 of 16 heads at model_ways
+# 2, its one KV head whole). All causal.
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
           "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
@@ -77,7 +78,8 @@ SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
           "paligemma-512": (4, 8, 1, 512, 256, "bshd", None),
           "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
           "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None),
-          "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048)}
+          "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
+          "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048)}
 # (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
 # causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
 # frames, which is also the cross attention's call of 512 tokens over them,
@@ -85,12 +87,17 @@ SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
 NONCAUSAL_SHAPES = {"seamless-512": (4, 16, 16, 512, 512, 64, "bshd"),
                     "seamless-cross-264": (4, 16, 16, 264, 256, 64, "bshd")}
 # (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
-# conv output a B 4, S 512 prefill passes, and a longer contiguous batch
+# conv output a B 4, S 512 prefill passes, a longer contiguous batch, and
+# one model coordinate's 12 of 24 heads in a B 8, S 2048 train step at
+# model_ways 2
 SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
-              "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous")}
+              "long-2048": (8, 2048, 24, 64, 128, 128, "contiguous"),
+              "train-tp2-2048": (8, 2048, 12, 64, 128, 128, "view")}
 # (B, S, W) of recurrentgemma-9b's RG-LRU scan in a B 4, S 512 prefill and
-# in its B 1, S 4096 train step
-RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096)}
+# in its B 1, S 4096 train step (whole, and one model coordinate's 2048
+# channels at model_ways 2)
+RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096),
+                "train-tp2-4096": (1, 4096, 2048)}
 # (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
 # S 2048 train step, of recurrentgemma-9b's local layers in a B 1, S 4096
 # one (window 2048), and of qwen3-4b's in a B 2, S 4096 one (32 query / 8
@@ -99,16 +106,20 @@ RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096)}
 BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None),
               "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
               "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
-              "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None)}
+              "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None),
+              "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048)}
 # the CUDA kernels one call launches at the timed (bf16) shapes: the SSD
 # scan's three passes, its backward's four (bf16 route); the flash
 # backward's three (delta, the main pass, dq), four on the bf16 D 256 route
 # where its blocks split a key tile (flash_bwd_dkdv_sum adds their parts)
 SSD_KERNELS, SSD_BWD_KERNELS = 3, 4
 # the scans' backward at their training shapes: mamba2-130m's B 8, S 2048
-# (the views of the conv output), recurrentgemma-9b's B 1, S 4096
-SSD_BWD_SHAPES = {"train-2048": (8, 2048, 24, 64, 128, 128, "view")}
-RGLRU_BWD_SHAPES = {"train-4096": (1, 4096, 4096)}
+# (the views of the conv output), recurrentgemma-9b's B 1, S 4096; and at
+# one model coordinate's share of each at model_ways 2
+SSD_BWD_SHAPES = {"train-2048": (8, 2048, 24, 64, 128, 128, "view"),
+                  "train-tp2-2048": (8, 2048, 12, 64, 128, 128, "view")}
+RGLRU_BWD_SHAPES = {"train-4096": (1, 4096, 4096),
+                    "train-tp2-4096": (1, 4096, 2048)}
 
 
 def card() -> str:
@@ -509,28 +520,42 @@ def ssd_bwd_bound(b, s, h, p, n, chunk, dtype):
     return (*bound(flops, nbytes, _peak(dtype)), flops)
 
 
-def time_ssd_scan_bwd(label: str, seed: int = 1) -> dict:
-    """The backward kernel at one of SSD_BWD_SHAPES (bf16), from the
-    forward kernel's workspace, with the bound, the CUDA kernels one call
-    launches and its plain version (torch autograd of ``ssd_ref``, its
-    graph kept and the backward replayed, eager); no library call computes
-    this function."""
+def _ssd_bwd_call(label: str, seed: int):
+    """(a call of the backward kernel at one of SSD_BWD_SHAPES (bf16), from
+    the forward kernel's workspace, its inputs, dy)."""
     from repro_torch.kernels.ssd import kernel
-    from repro_torch.kernels.ssd.ref import ssd_ref
     b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
     dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(
         torch.bfloat16)
     _, _, ws = kernel.ssd_scan(*args, chunk=chunk, keep_workspace=True)
+    return (lambda: kernel.ssd_scan_bwd(*args, dy, None, ws, chunk=chunk),
+            args, dy)
+
+
+def ssd_bwd_kernels(label: str, seed: int = 1) -> list:
+    """split_kernels of the SSD backward at one of SSD_BWD_SHAPES; profile
+    it before any autograd backward of the process, as flash_bwd_kernels."""
+    return split_kernels(_ssd_bwd_call(label, seed)[0], SSD_BWD_KERNELS,
+                         f"ssd_scan_bwd {label}")
+
+
+def time_ssd_scan_bwd(label: str, seed: int = 1, passes=None) -> dict:
+    """The backward kernel at one of SSD_BWD_SHAPES (bf16), from the
+    forward kernel's workspace, with the bound, the CUDA kernels one call
+    launches (``passes``, ssd_bwd_kernels' split, else split here before
+    the plain version's autograd backward) and its plain version (torch
+    autograd of ``ssd_ref``, its graph kept and the backward replayed,
+    eager); no library call computes this function."""
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    b, s, h, p, n, chunk, layout = SSD_BWD_SHAPES[label]
+    run, args, dy = _ssd_bwd_call(label, seed)
     bound_ms, bound_by, flops = ssd_bwd_bound(b, s, h, p, n, chunk,
                                               torch.bfloat16)
-
-    def run():
-        return kernel.ssd_scan_bwd(*args, dy, None, ws, chunk=chunk)
     ms = graph_ms(run)
-    # the profile before the plain version's autograd backward
-    passes = split_kernels(run, SSD_BWD_KERNELS, f"ssd_scan_bwd {label}")
+    if passes is None:
+        passes = split_kernels(run, SSD_BWD_KERNELS, f"ssd_scan_bwd {label}")
     plain = backward_of(lambda *t: ssd_ref(*t)[0], args, dy)
     plain_ms = eager_ms(plain, iters=1, warmup=1)
     del plain

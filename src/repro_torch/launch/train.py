@@ -18,7 +18,7 @@ frames (``data.pipeline``). Runs on ``--device`` (default ``cuda``). ``--devices
 slices of that one device (``core.meshes.slice_devices``), as the
 reference's ``--devices`` gives it N host devices of one CPU; the first
 line says so. Each slice is ``--model-ways`` virtual devices (tensor
-parallelism inside a slice, for the dense attention families), so the
+parallelism inside a slice, for every family), so the
 job's mesh draws from ``max(N, 1) * model_ways`` of them. The job starts on
 ``--slices`` slices. ``--elastic`` attaches a ``LocalRMS`` of ``max(N,
 1)`` nodes and honours its DMR decisions at a reconfiguration point every

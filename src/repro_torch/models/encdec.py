@@ -22,6 +22,14 @@ does (``models/attention.py``), while ``decode_step`` attends every frame.
 The reference's ``Server`` cannot serve this model (the reference's
 ``EncDecLM`` has no ``init_cache``), so neither does the port's launcher;
 its path is ``prefill`` + ``decode_step``.
+
+Under tensor parallelism inside a slice (``model`` > 1 in the active
+``activation_rules``) every method takes one parameter tree per model
+coordinate and runs the layers in lockstep, as ``CausalLM`` does: the
+self and cross attention by heads, the MLP by its columns, the vocab by
+rows; ``enc_in`` (("frontend", "embed")) stays whole on every coordinate,
+and each coordinate's cross attention reads its own copy of the encoder's
+output. The cross keys and values of ``prefill``'s cache come back whole.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import tensor_parallel as tp
-from repro_torch.core.sharding import model_ways
+from repro_torch.core.sharding import constrain, model_ways
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -40,8 +48,12 @@ from repro_torch.models.layers import (ParamSpec, embed_apply, embed_specs,
                                        init_from_specs, logical_tree,
                                        mlp_apply, mlp_specs, rms_norm,
                                        torch_dtype, unembed_apply)
-from repro_torch.models.transformer import (layer, remat, stack_specs,
-                                            tree_stack)
+from repro_torch.models.transformer import (BSE, kv_view, layer, remat,
+                                            stack_specs, tp_attention_half,
+                                            tp_embed, tp_ffn, tp_logits,
+                                            tp_parts, tp_residual,
+                                            tree_stack, vocab_parallel_nll,
+                                            whole_cache)
 
 
 def _norm(cfg):
@@ -75,6 +87,33 @@ def dec_block_apply(params, x, enc_out, cfg):
                                  x_kv=enc_out)
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     return x + mlp_apply(params["ffn"], h, cfg)
+
+
+# -- tensor parallelism: a layer in lockstep over the model coordinates -------
+
+
+def tp_enc_block(parts, xs, cfg, spec):
+    """:func:`enc_block_apply` over the model coordinates (``parts`` each
+    coordinate's blocks of the layer, ``spec`` its ParamSpecs)."""
+    xs, ys, partial = tp_attention_half(parts, xs, cfg, (
+        lambda p, h, h0, m: attn.attention_apply(p, h, cfg, kind="global",
+                                                 causal=False, head0=h0)))
+    return tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec)[0]
+
+
+def tp_dec_block(parts, xs, enc_outs, cfg, spec):
+    """:func:`dec_block_apply` over the model coordinates: the cross
+    attention of coordinate ``m`` reads its copy ``enc_outs[m]`` of the
+    encoder's output."""
+    xs, ys, partial = tp_attention_half(parts, xs, cfg, (
+        lambda p, h, h0, m: attn.attention_apply(p, h, cfg, kind="global",
+                                                 head0=h0)), key="self_attn")
+    xs, ys, partial = tp_attention_half(
+        parts, tp_residual(xs, ys, partial), cfg,
+        lambda p, h, h0, m: attn.attention_apply(
+            p, h, cfg, kind="cross", x_kv=enc_outs[m], head0=h0),
+        ln="ln_x", key="cross_attn")
+    return tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec)[0]
 
 
 class EncDecLM:
@@ -113,16 +152,41 @@ class EncDecLM:
 
     # ---- forward ----
 
-    def check_tensor_parallel(self):
-        """Tensor parallelism inside a slice does not cover the
-        encoder-decoder yet: raise."""
-        tp.refuse(f"{self.cfg.name}: the encoder-decoder (EncDecLM)")
+    def _tp_encode(self, parts, frames):
+        """:meth:`encode` in lockstep: each coordinate's copy of the
+        encoder's output."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        xs = constrain([frames.to(p["enc_in"].device, dt)
+                        @ p["enc_in"].to(dt) for p in parts], BSE)
+        spec = enc_block_specs(cfg)
+        body = remat(cfg, lambda xs, blks: tp_enc_block(blks, xs, cfg, spec),
+                     policy="nothing_saveable")
+        for i in range(cfg.enc_layers):
+            xs = body(xs, [layer(p["enc_blocks"], i) for p in parts])
+        return [rms_norm(x, p["enc_norm"], cfg.norm_eps)
+                for p, x in zip(parts, xs)]
+
+    def _tp_decode_all(self, parts, frames, tokens):
+        """The decoder over the whole prompt in lockstep: each
+        coordinate's normalised hidden states."""
+        cfg = self.cfg
+        enc_outs = self._tp_encode(parts, frames)
+        xs = tp_embed(parts, tokens, cfg)
+        spec = dec_block_specs(cfg)
+        body = remat(cfg, lambda xs, enc_outs, blks: tp_dec_block(
+            blks, xs, enc_outs, cfg, spec), policy="nothing_saveable")
+        for i in range(cfg.num_layers):
+            xs = body(xs, enc_outs, [layer(p["dec_blocks"], i)
+                                     for p in parts])
+        return [rms_norm(x, p["final_norm"], cfg.norm_eps)
+                for p, x in zip(parts, xs)]
 
     def encode(self, params, frames):
         """frames: (B, S_enc, E) stub frontend embeddings -> the encoder's
         normalised output (B, S_enc, E) in the compute type."""
         if model_ways() > 1:
-            self.check_tensor_parallel()
+            return self._tp_encode(tp_parts(params), frames)[0]
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         x = frames.to(dt) @ params["enc_in"].to(dt)
@@ -136,6 +200,11 @@ class EncDecLM:
         """frames (B, S_enc, E), tokens (B, S) -> (fp32 logits (B, S, V),
         aux loss 0)."""
         cfg = self.cfg
+        if model_ways() > 1:
+            parts = tp_parts(params)
+            xs = self._tp_decode_all(parts, frames, tokens)
+            return tp.all_gather(tp_logits(parts, xs, cfg)[0], -1), \
+                torch.zeros((), dtype=torch.float32, device=xs[0].device)
         enc_out = self.encode(params, frames)
         x = embed_apply(params["embed"], tokens, cfg)
         body = remat(cfg, lambda x, enc_out, blk: dec_block_apply(
@@ -149,11 +218,21 @@ class EncDecLM:
     def loss(self, params, batch):
         """batch: frontend (B, S_enc, E), tokens (B, S), labels (B, S) [-1
         = masked] -> (loss, {"ce", "aux"}): the mean fp32 cross-entropy over
-        unmasked labels (at least one in the denominator)."""
-        logits, aux = self.forward(params, batch["frontend"],
-                                   batch["tokens"])
+        unmasked labels (at least one in the denominator); under tensor
+        parallelism the cross-entropy over the vocab's blocks."""
         labels = batch["labels"]
         mask = labels >= 0
+        if model_ways() > 1:
+            parts = tp_parts(params)
+            xs = self._tp_decode_all(parts, batch["frontend"],
+                                     batch["tokens"])
+            total = vocab_parallel_nll(*tp_logits(parts, xs, self.cfg),
+                                       labels.clamp_min(0).long(), mask)
+            loss = total / mask.sum().clamp_min(1).to(total.device)
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+            return loss, {"ce": loss, "aux": aux}
+        logits, aux = self.forward(params, batch["frontend"],
+                                   batch["tokens"])
         logp = F.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
         loss = -(ll * mask).sum() / mask.sum().clamp_min(1)
@@ -191,6 +270,9 @@ class EncDecLM:
         """Encode, then run the decoder over the prompt: (last-position
         logits, cache), the cache holding each layer's self cache (``max_len``
         long) and the cross keys and values of the whole encoder output."""
+        if model_ways() > 1:
+            return self._tp_prefill(tp_parts(params), frames, tokens,
+                                    max_len)
         cfg = self.cfg
         enc_out = self.encode(params, frames)
         x = embed_apply(params["embed"], tokens, cfg)
@@ -220,7 +302,7 @@ class EncDecLM:
         """token: (B, 1) ints; pos: int. Returns (logits, cache); the self
         caches are updated in place."""
         if model_ways() > 1:
-            self.check_tensor_parallel()
+            return self._tp_decode_step(tp_parts(params), cache, token, pos)
         cfg = self.cfg
         x = embed_apply(params["embed"], token, cfg)
         for i in range(cfg.num_layers):
@@ -238,18 +320,84 @@ class EncDecLM:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed_apply(params["embed"], x, cfg), cache
 
+    def _tp_prefill(self, parts, frames, tokens, max_len: int):
+        """:meth:`prefill` in lockstep; each layer's self cache and cross
+        keys and values come back whole (``whole_cache``)."""
+        cfg = self.cfg
+        enc_outs = self._tp_encode(parts, frames)
+        xs = tp_embed(parts, tokens, cfg)
+        spec = dec_block_specs(cfg)
 
-def _cross_decode(params, x, cfg, ck, cv):
+        def cross(p, h, h0, m):
+            dt = h.dtype
+            kv = {w: torch.einsum("bse,ehd->bshd", enc_outs[m], p[f"w{w}"]
+                                  .to(dt)) for w in ("k", "v")}
+            return attn.attention_apply(p, h, cfg, kind="cross",
+                                        x_kv=enc_outs[m], head0=h0), kv
+
+        caches = []
+        for i in range(cfg.num_layers):
+            blks = [layer(p["dec_blocks"], i) for p in parts]
+            xs, outs, partial = tp_attention_half(blks, xs, cfg, (
+                lambda p, h, h0, m: attn.attention_prefill(
+                    p, h, cfg, kind="global", cache_len=max_len, head0=h0)),
+                key="self_attn")
+            xs = tp_residual(xs, [y for y, _ in outs], partial)
+            self_cache = whole_cache([c for _, c in outs], cfg)
+            xs, outs, partial = tp_attention_half(blks, xs, cfg, cross,
+                                                  ln="ln_x", key="cross_attn")
+            xs = tp_residual(xs, [y for y, _ in outs], partial)
+            kv = whole_cache([c for _, c in outs], cfg)
+            xs = tp_ffn(blks, xs, cfg, spec)[0]
+            caches.append({"self": self_cache, "cross_k": kv["k"],
+                           "cross_v": kv["v"]})
+        xs = [rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+              for p, x in zip(parts, xs)]
+        return (tp.all_gather(tp_logits(parts, xs, cfg)[0], -1),
+                {"dec_blocks": tree_stack(caches)})
+
+    def _tp_decode_step(self, parts, cache, token, pos: int):
+        """:meth:`decode_step` in lockstep on a whole cache: each
+        coordinate reads and writes its KV heads' view (``kv_view``)."""
+        cfg = self.cfg
+        xs = tp_embed(parts, token, cfg)
+        spec = dec_block_specs(cfg)
+        for i in range(cfg.num_layers):
+            blks = [layer(p["dec_blocks"], i) for p in parts]
+            c = layer(cache["dec_blocks"], i)
+            xs, ys, partial = tp_attention_half(blks, xs, cfg, (
+                lambda p, h, h0, m: attn.decode_attention(
+                    p, h, cfg, kv_view(c["self"], cfg, p, h0), pos,
+                    head0=h0)[0]), key="self_attn")
+
+            def cross(p, h, h0, m, c=c):
+                kv = kv_view({"k": c["cross_k"], "v": c["cross_v"]}, cfg, p,
+                             h0)
+                return _cross_decode(p, h, cfg, kv["k"], kv["v"], head0=h0)
+
+            xs, ys, partial = tp_attention_half(
+                blks, tp_residual(xs, ys, partial), cfg, cross, ln="ln_x",
+                key="cross_attn")
+            xs = tp_ffn(blks, tp_residual(xs, ys, partial), cfg, spec)[0]
+        xs = [rms_norm(x, p["final_norm"], cfg.norm_eps)
+              for p, x in zip(parts, xs)]
+        return tp.all_gather(tp_logits(parts, xs, cfg)[0], -1), cache
+
+
+def _cross_decode(params, x, cfg, ck, cv, head0: int = 0):
     """One query's cross attention over every frame's precomputed keys and
-    values ck / cv (B, S_enc, KV, D), in plain torch as the reference."""
+    values ck / cv (B, S_enc, KV, D), in plain torch as the reference; under
+    tensor parallelism on the query heads of ``params["wq"]`` from
+    ``head0`` on (``attention.kv_for_heads``)."""
     b = x.shape[0]
     dt = x.dtype
     q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(dt))
+    h = q.shape[2]
+    ck, cv = attn.kv_for_heads(ck, cv, cfg, head0, h)
     kvh, hd = ck.shape[2], ck.shape[3]
-    g = cfg.num_heads // kvh
-    qg = q.reshape(b, 1, kvh, g, hd)
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, ck).float()
     p = torch.softmax(logits / math.sqrt(hd), dim=-1)
     out = torch.einsum("bkgqs,bskd->bkgqd", p.to(dt), cv)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.num_heads, hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
     return torch.einsum("bshd,hde->bse", out, params["wo"].to(dt))

@@ -30,6 +30,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.models.layers import ParamSpec, act_fn, mlp_apply, mlp_specs
 
 
@@ -56,8 +57,12 @@ def route(params, x, cfg):
     """The router: fp32 probabilities (B, S, E), the top-k experts (B, S, k)
     with their renormalised weights, and the Switch load-balancing loss
     ``coef * E * sum_e f_e P_e``."""
+    return route_logits((x @ params["router"].to(x.dtype)).float(), cfg)
+
+
+def route_logits(logits, cfg):
+    """:func:`route` from the router's fp32 logits (B, S, E)."""
     ne = cfg.num_experts
-    logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                     # (B,S,E)
     weights, experts = torch.topk(probs, cfg.top_k, dim=-1)   # (B,S,k)
     weights = weights / weights.sum(-1, keepdim=True)
@@ -80,17 +85,21 @@ def dispatch_slots(experts, ne: int, cap: int):
                        torch.full_like(flat_e, ne * cap))
 
 
-def moe_apply(params, x, cfg, capacity_factor: float = None):
-    """x: (B, S, E) -> (y, aux_loss)."""
+def expert_outputs(params, x, slot, weights, cfg, cap: int, first: int = 0):
+    """The routed experts' output (B, S, E) for the experts ``params``
+    holds, from expert ``first`` on (all of them, or one model
+    coordinate's): each of their slots takes its token, and each token
+    sums its choices' slot outputs in choice order, zero for a choice that
+    dropped or whose expert another coordinate holds. slot: (B, S k) from
+    :func:`dispatch_slots`; weights: (B, S, k)."""
     bsz, s, d = x.shape
-    ne, k = cfg.num_experts, cfg.top_k
-    if capacity_factor is None:
-        capacity_factor = cfg.capacity_factor
-    cap = capacity(cfg, s, capacity_factor)
+    k = cfg.top_k
+    ne = params["w_gate"].shape[0]
     dt = x.dtype
-
-    _, experts, weights, aux = route(params, x, cfg)
-    slot = dispatch_slots(experts, ne, cap)                   # (B,S*k)
+    # this block's slots, the others' and the overflow to its own overflow
+    local = slot - first * cap
+    slot = torch.where((local >= 0) & (local < ne * cap), local,
+                       torch.full_like(local, ne * cap))
     token = (torch.arange(s * k, device=x.device) // k).expand(bsz, -1)
     # slot -> token (s: the zero row past the sequence) and its weight; the
     # last slot takes every overflow and is cut off
@@ -119,7 +128,63 @@ def moe_apply(params, x, cfg, capacity_factor: float = None):
     y = per_choice[:, :, 0]
     for j in range(1, k):
         y = y + per_choice[:, :, j]
+    return y
 
+
+def moe_apply(params, x, cfg, capacity_factor: float = None):
+    """x: (B, S, E) -> (y, aux_loss)."""
+    if capacity_factor is None:
+        capacity_factor = cfg.capacity_factor
+    cap = capacity(cfg, x.shape[1], capacity_factor)
+    _, experts, weights, aux = route(params, x, cfg)
+    slot = dispatch_slots(experts, cfg.num_experts, cap)      # (B,S*k)
+    y = expert_outputs(params, x, slot, weights, cfg, cap)
     if cfg.num_shared_experts:
         y = y + mlp_apply(params["shared"], x, cfg)
     return y, aux
+
+
+def tp_moe_apply(parts, xs, cfg, spec, capacity_factor: float = None):
+    """:func:`moe_apply` over the model coordinates: ``parts`` each
+    coordinate's blocks of the feed-forward's parameters, ``xs`` its copy
+    of the normalised stream, ``spec`` the feed-forward's ParamSpecs. ->
+    (outputs, whether they are partial sums, the aux loss).
+
+    The reference's layout (src/repro/models/moe.py:26-37) splits the
+    router's columns and the experts over the model axis, and the shared
+    experts' MLP by "mlp". The router's logits are put together from the
+    coordinates' blocks, and every coordinate routes whole (the same
+    softmax, top-k and capacity); the aux loss is the first coordinate's,
+    counted once. Each coordinate runs only its own experts' slots, so its
+    output is a partial sum over the experts, and the shared experts' part
+    joins the same partial sum: one all-reduce a block. The coordinates'
+    outputs are added in coordinate order, each a sum of its choices in
+    choice order, so the rounding differs from one model way's, which sums
+    a token's k choices in choice order alone. A part the rules leave whole
+    is computed on the first coordinate alone where the other is split (so
+    the sum counts it once), and on every coordinate where both are
+    whole."""
+    if capacity_factor is None:
+        capacity_factor = cfg.capacity_factor
+    cap = capacity(cfg, xs[0].shape[1], capacity_factor)
+    logits = [(x @ p["router"].to(x.dtype)).float()
+              for p, x in zip(parts, xs)]
+    if tp.is_split(parts[0]["router"], spec["router"].shape):
+        logits = tp.whole(logits, logits[0].shape[:-1] + (cfg.num_experts,))
+    e_split = tp.is_split(parts[0]["w_gate"], spec["w_gate"].shape)
+    s_split = bool(cfg.num_shared_experts) and tp.is_split(
+        parts[0]["shared"]["w_down"], spec["shared"]["w_down"].shape)
+    partial = e_split or s_split
+    ys, aux = [], None
+    for m, (p, x, lg) in enumerate(zip(parts, xs, logits)):
+        _, experts, weights, a = route_logits(lg, cfg)
+        aux = a if aux is None else aux
+        y = torch.zeros_like(x)
+        if e_split or not partial or m == 0:
+            slot = dispatch_slots(experts, cfg.num_experts, cap)
+            first = m * p["w_gate"].shape[0] if e_split else 0
+            y = expert_outputs(p, x, slot, weights, cfg, cap, first)
+        if cfg.num_shared_experts and (s_split or not partial or m == 0):
+            y = y + mlp_apply(p["shared"], x, cfg)
+        ys.append(y)
+    return ys, partial, aux

@@ -18,6 +18,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tensor_parallel as tp
+from repro_torch.core.sharding import constrain
 from repro_torch.device import on_card
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.models.layers import ParamSpec, rms_norm
@@ -107,32 +109,44 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int):
     return out, h_state
 
 
-def _mixer(params, x, cfg, want_cache: bool):
-    dt_proj = x @ params["in_proj"].to(x.dtype)
-    z, xc, b, c, dt = _split_proj(cfg, dt_proj)
-    conv_in = torch.cat([xc, b, c], dim=-1)
-    conv_out = causal_conv1d(conv_in, params["conv_w"], params["conv_b"])
-    di, n = cfg.d_inner, cfg.ssm_state
-    xc, b, c = torch.split(conv_out, [di, n, n], dim=-1)
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+def _conv_scan(params, conv_in, dt, cfg, conv_w, conv_b):
+    """The conv and the scan on the heads of ``params["A_log"]`` (all of
+    them, or one model coordinate's): conv_in (B, S, d + 2N) is those
+    heads' x channels, then B and C; dt (B, S, heads) before its bias.
+    -> (y (B, S, d) before the gate, h_final (B, heads, P, N) fp32)."""
+    conv_out = causal_conv1d(conv_in, conv_w, conv_b)
+    h, p, n = params["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state
+    xc, b, c = torch.split(conv_out, [h * p, n, n], dim=-1)
     xh = xc.reshape(*xc.shape[:-1], h, p)      # a view of conv_out
     dt = F.softplus(dt.float() + params["dt_bias"].float())
-    if on_card(x):
+    if on_card(conv_in):
         y, h_final = ssd_op(xh, dt, params["A_log"].float(), b, c,
                             chunk=cfg.ssd_chunk)
     else:
         y, h_final = ssd_chunked(xh, dt, params["A_log"], b, c,
                                  cfg.ssd_chunk)
-    y = y + xh * params["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(*xc.shape[:-1], di)
+    y = y + xh * params["D"].to(conv_in.dtype)[None, None, :, None]
+    return y.reshape(*xc.shape[:-1], h * p), h_final
+
+
+def _conv_cache(conv_in, k: int):
+    """The conv input's last k - 1 rows; Python's slice semantics, as the
+    reference's, keep fewer when the prompt is shorter (ssd_decode then
+    refuses it)."""
+    return conv_in[:, conv_in.shape[1] - (k - 1):]
+
+
+def _mixer(params, x, cfg, want_cache: bool):
+    dt_proj = x @ params["in_proj"].to(x.dtype)
+    z, xc, b, c, dt = _split_proj(cfg, dt_proj)
+    conv_in = torch.cat([xc, b, c], dim=-1)
+    y, h_final = _conv_scan(params, conv_in, dt, cfg, params["conv_w"],
+                            params["conv_b"])
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     out = y @ params["out_proj"].to(x.dtype)
     if not want_cache:
         return out, None
-    k = params["conv_w"].shape[0]
-    # the last k - 1 rows; Python's slice semantics, as the reference's,
-    # keep fewer when the prompt is shorter (ssd_decode then refuses it)
-    cache = {"conv": conv_in[:, conv_in.shape[1] - (k - 1):],
+    cache = {"conv": _conv_cache(conv_in, params["conv_w"].shape[0]),
              "state": h_final}
     return out, cache
 
@@ -169,39 +183,176 @@ def ssd_init_cache(cfg, batch: int, dtype, device):
                                  dtype=torch.float32, device=device)}
 
 
-def ssd_decode(params, x, cfg, cache):
-    """One-token step. x: (B,1,E). The cache is updated in place (the
-    reference returns a new one) and returned."""
-    k = params["conv_w"].shape[0]
+def _check_conv_cache(cache, k: int):
     if cache["conv"].shape[1] != k - 1:
         raise ValueError(
             f"ssd_decode: the conv cache holds {cache['conv'].shape[1]} "
             f"rows, not conv_width - 1 = {k - 1}; a prefill prompt shorter "
             f"than {k - 1} tokens leaves it short (the reference keeps such "
             "a cache too, and its ssd_decode then fails)")
-    dt_proj = x @ params["in_proj"].to(x.dtype)
-    z, xc, b, c, dt = _split_proj(cfg, dt_proj)
-    conv_in = torch.cat([xc, b, c], dim=-1)                # (B,1,C)
-    window = torch.cat([cache["conv"], conv_in], dim=1)
-    w, bias = params["conv_w"], params["conv_b"]
-    conv_out = torch.einsum("bkc,kc->bc", window, w.to(x.dtype)) \
-        + bias.to(x.dtype)
+
+
+def _decode_heads(params, window, dt, state, cfg, conv_w, conv_b):
+    """One step of the heads of ``params["A_log"]`` (all, or one model
+    coordinate's): window (B, k, d + 2N), the conv's k rows of those heads'
+    x channels then B and C; dt (B, 1, heads) before its bias; state (B,
+    heads, P, N). -> (y (B, 1, d) before the gate, the new state)."""
+    dtype = window.dtype
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w.to(dtype)) \
+        + conv_b.to(dtype)
     conv_out = F.silu(conv_out)[:, None, :]
-    di, n = cfg.d_inner, cfg.ssm_state
-    xc, b, c = torch.split(conv_out, [di, n, n], dim=-1)
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    h, p, n = params["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state
+    xc, b, c = torch.split(conv_out, [h * p, n, n], dim=-1)
     xh = xc.reshape(-1, h, p).float()
     dt = F.softplus(dt.float() + params["dt_bias"].float())[:, 0]
     a = -torch.exp(params["A_log"].float())
     da = torch.exp(dt * a[None, :])                        # (B,H)
     bx = torch.einsum("bn,bhp->bhpn", b[:, 0].float(), xh * dt[..., None])
-    state = cache["state"] * da[..., None, None] + bx
+    state = state * da[..., None, None] + bx
     y = torch.einsum("bn,bhpn->bhp", c[:, 0].float(), state)
-    y = y.to(x.dtype) + xh.to(x.dtype) * \
-        params["D"].to(x.dtype)[None, :, None]
-    y = y.reshape(-1, 1, di)
+    y = y.to(dtype) + xh.to(dtype) * params["D"].to(dtype)[None, :, None]
+    return y.reshape(-1, 1, h * p), state
+
+
+def ssd_decode(params, x, cfg, cache):
+    """One-token step. x: (B,1,E). The cache is updated in place (the
+    reference returns a new one) and returned."""
+    _check_conv_cache(cache, params["conv_w"].shape[0])
+    dt_proj = x @ params["in_proj"].to(x.dtype)
+    z, xc, b, c, dt = _split_proj(cfg, dt_proj)
+    conv_in = torch.cat([xc, b, c], dim=-1)                # (B,1,C)
+    window = torch.cat([cache["conv"], conv_in], dim=1)
+    y, state = _decode_heads(params, window, dt, cache["state"], cfg,
+                             params["conv_w"], params["conv_b"])
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
     out = y @ params["out_proj"].to(x.dtype)
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(state)
     return out, cache
+
+
+# -- tensor parallelism inside a slice ------------------------------------------
+#
+# The reference's layout (src/repro/models/ssm.py:20-33): ``in_proj``'s
+# columns, the conv's channels and the norm over "mlp", A_log / D / dt_bias
+# over "heads", ``out_proj``'s rows over "mlp". A coordinate's columns of
+# the projection do not line up with the five parts [z, x, B, C, dt], nor
+# its conv channels with the heads: the projection's blocks are put
+# together (``all_gather``, as the logits are) and the conv's weights
+# gathered, and each coordinate runs the conv and the scan on its heads,
+# the ones its rows of ``out_proj`` (and its A_log, D, dt_bias and norm)
+# hold, with B and C whole (n_groups 1). Its output is a partial sum.
+
+
+def _tp_heads(parts, cfg, spec):
+    """Each coordinate's (channel, head) ranges where the rules split
+    ``out_proj``'s rows, and with them the heads' leaves, on head
+    boundaries; else None."""
+    p = parts[0]
+    rows = p["out_proj"].shape[0]
+    hh = p["A_log"].shape[0]
+    if not tp.is_split(p["out_proj"], spec["out_proj"].shape) or \
+            hh * cfg.ssm_head_dim != rows or p["norm"].shape[0] != rows:
+        return None
+    return [(m * rows, (m + 1) * rows, m * hh, (m + 1) * hh)
+            for m in range(len(parts))]
+
+
+def _tp_proj(parts, hs, spec):
+    """The whole projection [z, x, B, C, dt] (B, S, 2 di + 2N + H) on the
+    first coordinate's device: the coordinates' column blocks put together,
+    or the first's where each holds ``in_proj`` whole."""
+    if not tp.is_split(parts[0]["in_proj"], spec["in_proj"].shape):
+        return hs[0] @ parts[0]["in_proj"].to(hs[0].dtype)
+    return tp.all_gather([h @ p["in_proj"].to(h.dtype)
+                          for p, h in zip(parts, hs)], -1)
+
+
+def _channels(t, lo, hi, di):
+    """Channels ``lo:hi`` of x and then B and C, of a tensor whose last
+    axis is [x (di), B, C]: a coordinate's conv channels."""
+    return torch.cat([t[..., lo:hi], t[..., di:]], dim=-1)
+
+
+def _tp_conv_weights(parts, spec, ranges, di):
+    ws = tp.whole([p["conv_w"] for p in parts], spec["conv_w"].shape)
+    bs = tp.whole([p["conv_b"] for p in parts], spec["conv_b"].shape)
+    return [(_channels(w, lo, hi, di), _channels(b, lo, hi, di))
+            for w, b, (lo, hi, _, _) in zip(ws, bs, ranges)]
+
+
+def _tp_gated_norm(parts, ys, zs, cfg):
+    """The reference's ``rms_norm(y * silu(z), norm)`` with each
+    coordinate's channels of y and z: the mean is over the whole d_inner,
+    so the sums of squares are added over the coordinates (in coordinate
+    order) before any coordinate normalises its channels."""
+    gs = [y * F.silu(z.to(y.device)) for y, z in zip(ys, zs)]
+    sums = constrain(tp.Partial([g.float().square().sum(-1, keepdim=True)
+                                 for g in gs]), ("batch", "seq", None))
+    return [(g.float() * torch.rsqrt(s / cfg.d_inner + cfg.norm_eps)
+             * (1.0 + p["norm"]).float()).to(g.dtype)
+            for p, g, s in zip(parts, gs, sums)]
+
+
+def tp_mixer(parts, hs, cfg, spec, want_cache: bool = False):
+    """The mixer over the model coordinates: ``parts`` each coordinate's
+    blocks of the mixer's parameters, ``hs`` its copy of the normalised
+    stream, ``spec`` the mixer's ParamSpecs. -> (outputs, whether they are
+    partial sums, the cache whole or None). The cache's state is put
+    together from the heads' blocks; its conv rows are the whole
+    projection's x, B and C."""
+    ranges = _tp_heads(parts, cfg, spec)
+    if ranges is None:
+        return tp.run_whole(parts, hs, spec, lambda p, h: _mixer(
+            p, h, cfg, want_cache))
+    di, n = cfg.d_inner, cfg.ssm_state
+    proj = _tp_proj(parts, hs, spec)
+    convs = _tp_conv_weights(parts, spec, ranges, di)
+    ys, zs, states = [], [], []
+    for p, h, (lo, hi, h0, h1), (cw, cb) in zip(parts, hs, ranges, convs):
+        dev = h.device
+        conv_in = _channels(proj[..., di:2 * di + 2 * n], lo, hi, di)
+        dt = proj[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h1]
+        y, h_final = _conv_scan(p, conv_in.to(dev), dt.to(dev), cfg, cw, cb)
+        ys.append(y)
+        zs.append(proj[..., lo:hi])
+        states.append(h_final)
+    ys = _tp_gated_norm(parts, ys, zs, cfg)
+    outs = [y @ p["out_proj"].to(y.dtype) for p, y in zip(parts, ys)]
+    if not want_cache:
+        return outs, True, None
+    cache = {"conv": _conv_cache(proj[..., di:2 * di + 2 * n],
+                                 parts[0]["conv_w"].shape[0]),
+             "state": tp.all_gather(states, 1)}
+    return outs, True, cache
+
+
+def tp_decode(parts, hs, cfg, spec, cache):
+    """:func:`ssd_decode` over the model coordinates on a whole cache (on
+    the first coordinate's device): each coordinate steps its heads' view
+    of the state; the conv rows are written once, from the whole
+    projection. -> (outputs, whether they are partial sums)."""
+    ranges = _tp_heads(parts, cfg, spec)
+    if ranges is None:
+        return tp.run_whole(parts, hs, spec, lambda p, h: ssd_decode(
+            p, h, cfg, cache))[:2]
+    _check_conv_cache(cache, parts[0]["conv_w"].shape[0])
+    di, n = cfg.d_inner, cfg.ssm_state
+    proj = _tp_proj(parts, hs, spec)
+    window = torch.cat([cache["conv"], proj[..., di:2 * di + 2 * n]], dim=1)
+    convs = _tp_conv_weights(parts, spec, ranges, di)
+    ys, zs, states = [], [], []
+    for p, h, (lo, hi, h0, h1), (cw, cb) in zip(parts, hs, ranges, convs):
+        dev = h.device
+        dt = proj[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h1]
+        y, state = _decode_heads(
+            p, _channels(window, lo, hi, di).to(dev), dt.to(dev),
+            cache["state"][:, h0:h1].to(dev), cfg, cw, cb)
+        ys.append(y)
+        zs.append(proj[..., lo:hi])
+        states.append(state)
+    ys = _tp_gated_norm(parts, ys, zs, cfg)
+    cache["conv"].copy_(window[:, 1:])
+    for (_, _, h0, h1), state in zip(ranges, states):
+        cache["state"][:, h0:h1].copy_(state)
+    return [y @ p["out_proj"].to(y.dtype) for p, y in zip(parts, ys)], True

@@ -27,11 +27,12 @@ coordinate's blocks (``core.tensor_parallel.model_block``), and run the
 blocks in lockstep over the coordinates: each sublayer once per
 coordinate, its partial sums added by ``constrain`` at the reference's
 points. The attention splits by heads and the MLP by its columns (the
-down projection by rows); the embedding and the logits split by vocab,
-and ``loss`` is the cross-entropy over the vocab's blocks. Whatever the
-rules leave whole (heads or a vocab that do not divide) every coordinate
-computes whole. Block kinds "global" and "local" with the gated MLP are
-covered; the others raise (``check_tensor_parallel``).
+down projection by rows); the SSD mixer by heads and the RG-LRU mixer by
+its width (``ssm.tp_mixer``, ``rglru.tp_mixer``); the mixture of experts
+by experts (``moe.tp_moe_apply``); the embedding and the logits split by
+vocab, and ``loss`` is the cross-entropy over the vocab's blocks. Whether
+a leaf is split is read from its shape against the whole shape of its
+spec; whatever the rules leave whole every coordinate computes whole.
 """
 from __future__ import annotations
 
@@ -176,18 +177,27 @@ def block_apply(params, x, cfg: ModelConfig, kind: str, aux):
 # -- tensor parallelism: a block in lockstep over the model coordinates ------
 
 BSE = ("batch", "seq", "embed")
-TP_KINDS = ("global", "local")
+MIXERS = {"ssd": ssm_mod, "rglru": rglru_mod}
 
 
-def tp_attention(parts, cfg):
-    """Each coordinate's attention parameters and first query head, and
-    whether its outputs are partial sums. Where the rules split the heads,
-    a coordinate holds its block of ``wq`` and ``wo`` (a partial sum over
-    its heads) and of ``wk`` / ``wv`` or, where the KV heads do not divide,
-    all of them. Where the heads do not divide, ``wq`` and ``wo`` are whole
-    and so is each coordinate's attention (summed once, not once per
-    coordinate); ``wk`` and ``wv``, if split, are gathered first."""
-    ps = [p["attn"] for p in parts]
+def tp_parts(params) -> list:
+    """``params`` as one tree per model coordinate, checked."""
+    if not isinstance(params, (list, tuple)) or len(params) != model_ways():
+        raise TypeError(f"under {model_ways()} model ways the model takes "
+                        "one parameter tree per model coordinate")
+    return list(params)
+
+
+def tp_attention(parts, cfg, key: str = "attn"):
+    """Each coordinate's attention parameters (``parts[m][key]``) and first
+    query head, and whether its outputs are partial sums. Where the rules
+    split the heads, a coordinate holds its block of ``wq`` and ``wo`` (a
+    partial sum over its heads) and of ``wk`` / ``wv`` or, where the KV
+    heads do not divide, all of them. Where the heads do not divide,
+    ``wq`` and ``wo`` are whole and so is each coordinate's attention
+    (summed once, not once per coordinate); ``wk`` and ``wv``, if split,
+    are gathered first."""
+    ps = [p[key] for p in parts]
     hq = ps[0]["wq"].shape[1]
     if hq < cfg.num_heads:
         return [(p, m * hq) for m, p in enumerate(ps)], True
@@ -197,79 +207,158 @@ def tp_attention(parts, cfg):
     return [(p, 0) for p in ps], False
 
 
-def _residual(xs, ys, partial: bool):
+def tp_residual(xs, ys, partial: bool):
     """``xs + ys`` on every coordinate, the sublayer outputs ``ys`` summed
     over the coordinates first where they are partial sums."""
     ys = constrain(tp.Partial(ys) if partial else ys, BSE)
     return [x + y for x, y in zip(xs, ys)]
 
 
-def _tp_mlp(parts, xs, cfg):
-    """The gated MLP's half of a block: ``w_gate`` and ``w_up`` by column,
-    ``w_down`` by row, each coordinate's output a partial sum (whole where
-    the rules leave the MLP whole)."""
+def tp_ffn(parts, xs, cfg, spec, capacity_factor=None):
+    """The feed-forward half of a block (``ln2``, ``ffn``) over the model
+    coordinates: the gated MLP, ``w_gate`` and ``w_up`` by column and
+    ``w_down`` by row, or the mixture of experts
+    (``moe.tp_moe_apply``); each coordinate's output a partial sum where
+    the rules split the leaves, which ``spec`` (the block's ParamSpecs)
+    tells from the leaves' whole shapes. -> (xs, the aux loss or None)."""
     hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(parts, xs)]
-    ys = [mlp_apply(p["ffn"], h, cfg) for p, h in zip(parts, hs)]
-    return _residual(xs, ys, parts[0]["ffn"]["w_down"].shape[0] < cfg.d_ff)
+    ffn = [p["ffn"] for p in parts]
+    if "router" in ffn[0]:
+        ys, partial, aux = moe_mod.tp_moe_apply(ffn, hs, cfg, spec["ffn"],
+                                                capacity_factor)
+    else:
+        ys = [mlp_apply(p, h, cfg) for p, h in zip(ffn, hs)]
+        partial = tp.is_split(ffn[0]["w_down"], spec["ffn"]["w_down"].shape)
+        aux = None
+    return tp_residual(xs, ys, partial), aux
 
 
-def _tp_attention(parts, xs, cfg, call):
+def tp_attention_half(parts, xs, cfg, call, ln: str = "ln1",
+                      key: str = "attn"):
     """The attention half of a block over the model coordinates up to the
-    residual: ``call(p, h, head0)`` on each coordinate's parameters and
-    normalised stream. -> (xs, the calls' results, whether their outputs
-    are partial sums)."""
+    residual: ``call(p, h, head0, m)`` on each coordinate ``m``'s
+    parameters and normalised stream. -> (xs, the calls' results, whether
+    their outputs are partial sums)."""
+    xs = constrain(xs, BSE)
+    hs = [rms_norm(x, p[ln], cfg.norm_eps) for p, x in zip(parts, xs)]
+    ps, partial = tp_attention(parts, cfg, key)
+    return xs, [call(p, h, h0, m)
+                for m, ((p, h0), h) in enumerate(zip(ps, hs))], partial
+
+
+def _tp_mixer_half(parts, xs, cfg, kind, spec, call):
+    """The mixer half of an "ssd" or "rglru" block over the model
+    coordinates, to the residual: ``call(module, mixer blocks, hs, mixer
+    specs)`` -> (ys, whether partial sums, extra). -> (xs, extra)."""
+    if kind not in MIXERS:
+        raise ValueError(kind)
     xs = constrain(xs, BSE)
     hs = [rms_norm(x, p["ln1"], cfg.norm_eps) for p, x in zip(parts, xs)]
-    ps, partial = tp_attention(parts, cfg)
-    return xs, [call(p, h, h0) for (p, h0), h in zip(ps, hs)], partial
+    ys, partial, extra = call(MIXERS[kind], [p["mixer"] for p in parts], hs,
+                              spec["mixer"])
+    return tp_residual(xs, ys, partial), extra
 
 
-def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux):
+def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux, spec):
     """:func:`block_apply` over the model coordinates: ``parts`` each
     coordinate's blocks of the block's parameters, ``xs`` its copy of the
-    residual stream."""
-    xs, ys, partial = _tp_attention(parts, xs, cfg, lambda p, h, h0: (
-        attn.attention_apply(p, h, cfg, kind=kind, head0=h0)))
-    return _tp_mlp(parts, _residual(xs, ys, partial), cfg), aux
+    residual stream, ``spec`` the block's ParamSpecs."""
+    if kind in attn.KINDS:
+        xs, ys, partial = tp_attention_half(parts, xs, cfg, (
+            lambda p, h, h0, m: attn.attention_apply(p, h, cfg, kind=kind,
+                                                     head0=h0)))
+        xs, a = tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec)
+        return xs, aux if a is None else aux + a
+    xs, _ = _tp_mixer_half(parts, xs, cfg, kind, spec, lambda mod, ps, hs, sp:
+                           mod.tp_mixer(ps, hs, cfg, sp))
+    return (xs if kind == "ssd" else tp_ffn(parts, xs, cfg, spec)[0]), aux
 
 
-def _whole_cache(caches, cfg):
-    """One cache from the coordinates': their KV heads put together where
-    each holds a block of them, else the first coordinate's (each holds
-    them all)."""
+def whole_cache(caches, cfg):
+    """One KV cache from the coordinates': their KV heads put together
+    where each holds a block of them, else the first coordinate's (each
+    holds them all); its other entries the first coordinate's."""
     if caches[0]["k"].shape[2] == cfg.num_kv_heads:
         return caches[0]
-    return {"k": tp.all_gather([c["k"] for c in caches], 2),
-            "v": tp.all_gather([c["v"] for c in caches], 2),
-            "pos": caches[0]["pos"]}
+    return dict(caches[0], k=tp.all_gather([c["k"] for c in caches], 2),
+                v=tp.all_gather([c["v"] for c in caches], 2))
 
 
-def tp_block_prefill(parts, xs, cfg: ModelConfig, kind: str, max_len: int):
+def tp_block_prefill(parts, xs, cfg: ModelConfig, kind: str, max_len: int,
+                     spec):
     """:func:`block_prefill` over the model coordinates; the cache comes
-    back whole (``_whole_cache``)."""
-    xs, outs, partial = _tp_attention(parts, xs, cfg, lambda p, h, h0: (
-        attn.attention_prefill(p, h, cfg, kind=kind, cache_len=max_len,
-                               head0=h0)))
-    xs = _residual(xs, [y for y, _ in outs], partial)
-    return _tp_mlp(parts, xs, cfg), _whole_cache([c for _, c in outs], cfg)
+    back whole (``whole_cache``, the mixers' ``tp_mixer``)."""
+    if kind in attn.KINDS:
+        xs, outs, partial = tp_attention_half(parts, xs, cfg, (
+            lambda p, h, h0, m: attn.attention_prefill(
+                p, h, cfg, kind=kind, cache_len=max_len, head0=h0)))
+        xs = tp_residual(xs, [y for y, _ in outs], partial)
+        return (tp_ffn(parts, xs, cfg, spec)[0],
+                whole_cache([c for _, c in outs], cfg))
+    xs, cache = _tp_mixer_half(parts, xs, cfg, kind, spec, (
+        lambda mod, ps, hs, sp: mod.tp_mixer(ps, hs, cfg, sp,
+                                             want_cache=True)))
+    return (xs if kind == "ssd" else tp_ffn(parts, xs, cfg, spec)[0]), cache
+
+
+def kv_view(cache, cfg, p, head0: int):
+    """The KV heads of a whole cache that a coordinate whose attention
+    parameters are ``p`` and whose first query head is ``head0`` reads and
+    writes: a view of its block, or the whole where it holds every KV
+    head."""
+    kv = p["wk"].shape[1]
+    if kv == cfg.num_kv_heads:
+        return cache
+    lo = head0 // (cfg.num_heads // cfg.num_kv_heads)
+    return dict(cache, k=cache["k"][:, :, lo:lo + kv],
+                v=cache["v"][:, :, lo:lo + kv])
 
 
 def tp_block_decode(parts, xs, cfg: ModelConfig, kind: str, cache,
-                    pos: int):
+                    pos: int, spec):
     """:func:`block_decode` over the model coordinates on a whole cache
     (on the first coordinate's device): each coordinate writes and reads
-    its KV heads' view of it, or the whole where it holds every KV
-    head."""
-    def call(p, h, h0):
-        kv, lo = p["wk"].shape[1], h0 // (cfg.num_heads // cfg.num_kv_heads)
-        view = cache if kv == cfg.num_kv_heads else {
-            "k": cache["k"][:, :, lo:lo + kv],
-            "v": cache["v"][:, :, lo:lo + kv], "pos": cache["pos"]}
-        return attn.decode_attention(p, h, cfg, view, pos, head0=h0,
-                                     window=attn.window_of(cfg, kind))[0]
+    its view of it (``kv_view``; the mixers' ``tp_decode``)."""
+    if kind in attn.KINDS:
+        xs, ys, partial = tp_attention_half(parts, xs, cfg, (
+            lambda p, h, h0, m: attn.decode_attention(
+                p, h, cfg, kv_view(cache, cfg, p, h0), pos, head0=h0,
+                window=attn.window_of(cfg, kind))[0]))
+        xs, _ = tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec,
+                       capacity_factor=float(cfg.top_k))
+        return xs, cache
+    xs, _ = _tp_mixer_half(parts, xs, cfg, kind, spec, (
+        lambda mod, ps, hs, sp: (*mod.tp_decode(ps, hs, cfg, sp, cache),
+                                 None)))
+    return (xs if kind == "ssd" else tp_ffn(parts, xs, cfg, spec)[0]), cache
 
-    xs, ys, partial = _tp_attention(parts, xs, cfg, call)
-    return _tp_mlp(parts, _residual(xs, ys, partial), cfg), cache
+
+def tp_embed(parts, tokens, cfg, extra_embeds=None):
+    """Each coordinate's copy of the embeddings: its block of the vocab's
+    rows looked up (zeros for the others) and summed, the frontend's
+    embeddings prepended."""
+    rows = parts[0]["embed"]["tokens"].shape[0]
+    xs = [embed_apply(p["embed"], tokens.to(p["final_norm"].device), cfg,
+                      first=m * rows) for m, p in enumerate(parts)]
+    xs = constrain(tp.Partial(xs) if rows < cfg.vocab_size else xs, BSE)
+    if extra_embeds is not None:
+        xs = [torch.cat([extra_embeds.to(x.device, x.dtype), x], dim=1)
+              for x in xs]
+    return constrain(xs, BSE)
+
+
+def tp_logits(parts, xs, cfg):
+    """(fp32 logits, first vocab index) of each block of the vocab: one per
+    coordinate where the rules split the vocab, else the first
+    coordinate's whole logits."""
+    n = (parts[0]["embed"]["tokens"].shape[0] if cfg.tie_embeddings
+         else parts[0]["embed"]["unembed"].shape[1])
+    if n == cfg.vocab_size:
+        return [unembed_apply(parts[0]["embed"], xs[0], cfg)], [0]
+    logits = constrain([unembed_apply(p["embed"], x, cfg)
+                        for p, x in zip(parts, xs)],
+                       ("batch", "seq", "vocab"))
+    return logits, [m * n for m in range(len(parts))]
 
 
 def vocab_parallel_nll(logits, firsts, labels, mask):
@@ -452,39 +541,15 @@ class CausalLM:
 
     # ---- tensor parallelism inside a slice ----
 
-    def check_tensor_parallel(self):
-        """Raise for what tensor parallelism does not cover yet: block kinds
-        other than "global" and "local", and the mixture-of-experts
-        feed-forward."""
+    def _block_spec(self, key: str, kind: str):
+        """The ParamSpecs of one block ``key`` of ``kind`` (unstacked), as
+        ``specs()`` declares it: the whole shapes a coordinate's blocks are
+        cut from."""
         cfg = self.cfg
-        other = sorted(set(cfg.pattern) - set(TP_KINDS))
-        if other:
-            tp.refuse(f"{cfg.name}: block kinds {other}")
-        if cfg.family == "moe" or cfg.first_dense_layers:
-            tp.refuse(f"{cfg.name}: the mixture-of-experts feed-forward")
-
-    def _tp_parts(self, params):
-        """``params`` as one tree per model coordinate, checked."""
-        self.check_tensor_parallel()
-        if not isinstance(params, (list, tuple)) or \
-                len(params) != model_ways():
-            raise TypeError(f"under {model_ways()} model ways the model "
-                            "takes one parameter tree per model coordinate")
-        return list(params)
-
-    def _tp_embed(self, parts, tokens, extra_embeds=None):
-        """Each coordinate's copy of the embeddings: its block of the vocab's
-        rows looked up (zeros for the others) and summed, the frontend's
-        embeddings prepended."""
-        cfg = self.cfg
-        rows = parts[0]["embed"]["tokens"].shape[0]
-        xs = [embed_apply(p["embed"], tokens.to(p["final_norm"].device), cfg,
-                          first=m * rows) for m, p in enumerate(parts)]
-        xs = constrain(tp.Partial(xs) if rows < cfg.vocab_size else xs, BSE)
-        if extra_embeds is not None:
-            xs = [torch.cat([extra_embeds.to(x.device, x.dtype), x], dim=1)
-                  for x in xs]
-        return constrain(xs, BSE)
+        if key.startswith("head"):
+            return block_specs(cfg, kind,
+                               dense_ff=cfg.first_dense_ff or cfg.d_ff)
+        return block_specs(cfg, kind)
 
     def _tp_trunk(self, parts, xs):
         """:meth:`_trunk` in lockstep; ``remat``'s unit takes every
@@ -492,11 +557,16 @@ class CausalLM:
         cfg = self.cfg
         reps, tail = self._pattern_layout()
         aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+        for i in range(cfg.first_dense_layers):
+            xs, aux = tp_block_apply(
+                [p[f"head{i}"] for p in parts], xs, cfg, cfg.pattern[0], aux,
+                self._block_spec(f"head{i}", cfg.pattern[0]))
+        specs = [block_specs(cfg, kind) for kind in cfg.pattern]
 
         def unit(xs, aux, unit_parts):
             for j, kind in enumerate(cfg.pattern):
                 xs, aux = tp_block_apply([u[f"p{j}"] for u in unit_parts],
-                                         xs, cfg, kind, aux)
+                                         xs, cfg, kind, aux, specs[j])
             return xs, aux
 
         unit = remat(cfg, unit)
@@ -504,28 +574,14 @@ class CausalLM:
             xs, aux = unit(xs, aux, [layer(p["blocks"], r) for p in parts])
         for t in range(tail):
             xs, aux = tp_block_apply([p[f"tail{t}"] for p in parts], xs, cfg,
-                                     cfg.pattern[t], aux)
+                                     cfg.pattern[t], aux, specs[t])
         return [rms_norm(x, p["final_norm"], cfg.norm_eps)
                 for p, x in zip(parts, xs)], aux
 
-    def _tp_logits(self, parts, xs):
-        """(fp32 logits, first vocab index) of each block of the vocab: one
-        per coordinate where the rules split the vocab, else the first
-        coordinate's whole logits."""
-        cfg = self.cfg
-        n = (parts[0]["embed"]["tokens"].shape[0] if cfg.tie_embeddings
-             else parts[0]["embed"]["unembed"].shape[1])
-        if n == cfg.vocab_size:
-            return [unembed_apply(parts[0]["embed"], xs[0], cfg)], [0]
-        logits = constrain([unembed_apply(p["embed"], x, cfg)
-                            for p, x in zip(parts, xs)],
-                           ("batch", "seq", "vocab"))
-        return logits, [m * n for m in range(len(parts))]
-
     def _tp_forward(self, parts, tokens, extra_embeds=None):
-        xs, aux = self._tp_trunk(parts, self._tp_embed(parts, tokens,
-                                                       extra_embeds))
-        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), aux
+        xs, aux = self._tp_trunk(parts, tp_embed(parts, tokens, self.cfg,
+                                                 extra_embeds))
+        return tp.all_gather(tp_logits(parts, xs, self.cfg)[0], -1), aux
 
     def _tp_loss(self, parts, batch, labels, mask):
         """The summed masked cross-entropy and the aux loss, the logits by
@@ -533,40 +589,41 @@ class CausalLM:
         cross-entropy over the vocab's blocks (``vocab_parallel_nll``)."""
         front = batch.get("frontend")
         n_front = 0 if front is None else front.shape[1]
-        xs, aux = self._tp_trunk(parts, self._tp_embed(
-            parts, batch["tokens"], front))
+        xs, aux = self._tp_trunk(parts, tp_embed(
+            parts, batch["tokens"], self.cfg, front))
         xs = [x[:, n_front:] for x in xs]
         c = self.cfg.ce_chunk or xs[0].shape[1]
         total = sum(vocab_parallel_nll(
-            *self._tp_logits(parts, [x[:, i:i + c] for x in xs]),
+            *tp_logits(parts, [x[:, i:i + c] for x in xs], self.cfg),
             labels[:, i:i + c], mask[:, i:i + c])
             for i in range(0, xs[0].shape[1], c))
         return total, aux
 
     def _tp_prefill(self, parts, tokens, max_len, extra_embeds=None):
         cfg = self.cfg
-        xs = self._tp_embed(parts, tokens, extra_embeds)
+        xs = tp_embed(parts, tokens, cfg, extra_embeds)
         cache: Dict[str, Any] = {}
         for key, slot, kind in self._layers():
             xs, c = tp_block_prefill([self._select(p, key, slot)
                                       for p in parts], xs, cfg, kind,
-                                     max_len)
+                                     max_len, self._block_spec(key, kind))
             self._keep(cache, key, slot, c)
         self._stack_cache(cache)
         xs = [rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
               for p, x in zip(parts, xs)]
-        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), cache
+        return tp.all_gather(tp_logits(parts, xs, cfg)[0], -1), cache
 
     def _tp_decode_step(self, parts, cache, token, pos):
         cfg = self.cfg
-        xs = self._tp_embed(parts, token)
+        xs = tp_embed(parts, token, cfg)
         for key, slot, kind in self._layers():
             xs, _ = tp_block_decode([self._select(p, key, slot)
                                      for p in parts], xs, cfg, kind,
-                                    self._select(cache, key, slot), pos)
+                                    self._select(cache, key, slot), pos,
+                                    self._block_spec(key, kind))
         xs = [rms_norm(x, p["final_norm"], cfg.norm_eps)
               for p, x in zip(parts, xs)]
-        return tp.all_gather(self._tp_logits(parts, xs)[0], -1), cache
+        return tp.all_gather(tp_logits(parts, xs, cfg)[0], -1), cache
 
     def _embed(self, params, tokens, extra_embeds=None):
         """Token embeddings (B, S, E), after ``extra_embeds`` (B, S_front, E)
@@ -581,7 +638,7 @@ class CausalLM:
         ``extra_embeds`` (B, S_front, E): the modality stub's embeddings,
         prepended to the sequence."""
         if model_ways() > 1:
-            return self._tp_forward(self._tp_parts(params), tokens,
+            return self._tp_forward(tp_parts(params), tokens,
                                     extra_embeds)
         x, aux = self._trunk(params, self._embed(params, tokens,
                                                  extra_embeds))
@@ -603,7 +660,7 @@ class CausalLM:
         labels = labels.clamp_min(0).long()
         denom = mask.sum().clamp_min(1)
         if model_ways() > 1:
-            total, aux = self._tp_loss(self._tp_parts(params), batch, labels,
+            total, aux = self._tp_loss(tp_parts(params), batch, labels,
                                        mask)
             loss = total / denom.to(total.device)
             return loss + aux, {"ce": loss, "aux": aux}
@@ -684,7 +741,7 @@ class CausalLM:
         cache holds their positions first: decode the next token at
         ``S_front + S``."""
         if model_ways() > 1:
-            return self._tp_prefill(self._tp_parts(params), tokens, max_len,
+            return self._tp_prefill(tp_parts(params), tokens, max_len,
                                     extra_embeds)
         cfg = self.cfg
         x = self._embed(params, tokens, extra_embeds)
@@ -702,7 +759,7 @@ class CausalLM:
         """token: (B, 1) ints; pos: int. Returns (logits, cache); the cache
         is updated in place."""
         if model_ways() > 1:
-            return self._tp_decode_step(self._tp_parts(params), cache, token,
+            return self._tp_decode_step(tp_parts(params), cache, token,
                                         pos)
         cfg = self.cfg
         x = embed_apply(params["embed"], token, cfg)

@@ -41,8 +41,8 @@ sublayers over them and adds their partial sums, and the slice's gradient
 of a parameter is put together from its coordinates' blocks, those of a
 parameter every coordinate holds whole (the norms, and whatever the rules
 leave unsplit) summed in coordinate order, as GSPMD's all-reduce gives it.
-The model covers the dense attention block kinds; the others raise
-(ROADMAP.md, Queue 1 item 12).
+Every model family splits so: the attention and MLP blocks, the SSD and
+RG-LRU mixers, the mixture of experts and the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -204,8 +204,6 @@ class ElasticTrainer:
     def __init__(self, model, opt_cfg: AdamWConfig, data, cfg: TrainerConfig,
                  rms=None, job_id: int = 0, devices=None,
                  slices: Optional[int] = None):
-        if cfg.model_ways > 1:
-            model.check_tensor_parallel()
         self.model = model
         self.opt_cfg = opt_cfg
         self.data = (SyntheticLMData(data) if isinstance(data, DataConfig)

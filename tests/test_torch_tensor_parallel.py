@@ -8,12 +8,17 @@ here against the reference: ``constrain`` without a context, the sharding
 rules and the ZeRO-1 layout on ``(data, model)`` meshes, the loss and
 every gradient against ``jax.value_and_grad`` at ``model_ways`` 2 and 4
 (heads split with the KV heads whole or split, local and global layers
-with softcaps, a tied and an untied table, a vocab that does not divide),
-the remats and ``ce_chunk``, and, in one subprocess with 8 forced host
-devices, the reference's elastic run at ``model_ways`` 2 under both rule
-tables and its compressed all-reduce over a ``(2, 2)`` mesh. Then the
-port alone: prefill and decode against ``model_ways`` 1, checkpoints
-across slice counts and the fault path, and the launcher.
+with softcaps, a tied and an untied table, a vocab that does not divide;
+the SSD mixer by heads, and whole where its rows do not split on head
+boundaries; the RG-LRU mixer by width; the mixture of experts by experts
+with the shared experts and a dense first layer wider than d_ff; the
+encoder-decoder), the remats and ``ce_chunk``, and, in one subprocess with
+8 forced host devices, the reference's elastic run at ``model_ways`` 2
+under both rule tables (and mamba2's under ``TP_DP_RULES``) and its
+compressed all-reduce over a ``(2, 2)`` mesh. Then the port alone: prefill
+and decode against ``model_ways`` 1, the SSD mixer's gated norm,
+resizes, checkpoints across slice counts and the fault path, and the
+launcher.
 """
 import dataclasses
 import functools
@@ -75,7 +80,28 @@ CASES = {
     "odd-vocab": ("smollm-135m", {"vocab_size": 2049}),
     # an untied unembedding, split by vocab
     "untied": ("smollm-135m", {"tie_embeddings": False}),
+    # the SSD mixer: 16 heads of 16, in_proj's 560 columns split off the
+    # boundaries of [z, x, B, C, dt], the conv's 288 channels off the heads'
+    "mamba2": ("mamba2-130m", {}),
+    # 15 heads: out_proj's 240 rows split, but not on head boundaries, and
+    # in_proj's 527 columns whole: the mixer runs whole
+    "mamba2-odd-heads": ("mamba2-130m", {"d_model": 120}),
+    # rglru, rglru, local (4 query heads, 1 KV head, window 64); W 128
+    "recurrentgemma": ("recurrentgemma-9b", {}),
+    # 8 experts, top 2, no shared experts; 4 query heads, 1 KV head
+    "phi35-moe": ("phi3.5-moe-42b-a6.6b", {}),
+    # a dense first layer 4 times d_ff wide (as deepseek's 10944 against
+    # 1408), then 8 experts, top 2, and 2 shared experts
+    "deepseek-moe": ("deepseek-moe-16b", {"first_dense_ff": 1024}),
+    # encoder and decoder, non-causal and cross attention, 4 heads, 16
+    # frames (lm_batch)
+    "seamless": ("seamless-m4t-medium", {}),
 }
+# one case of each family with SSD, RG-LRU, mixture-of-experts or
+# encoder-decoder blocks
+KIND_CASES = ("mamba2", "recurrentgemma", "phi35-moe", "deepseek-moe",
+              "seamless")
+FRAMES = 16
 
 
 @pytest.fixture(autouse=True)
@@ -142,11 +168,29 @@ def max_norm_err(got, want):
 
 
 def lm_batch(cfg, b=2, s=32, seed=0):
+    """Tokens and labels (a quarter masked); an encoder-decoder's batch
+    also FRAMES frames of the stub frontend (fewer than the tokens, within
+    one chunk: tests/test_torch_encdec.py)."""
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     labels[rng.random((b, s)) < 0.25] = -1
-    return {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.enc_layers:
+        batch["frontend"] = rng.standard_normal(
+            (b, FRAMES, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def attention_calls(cfg):
+    """The attention calls of one forward pass, per model coordinate: one
+    a layer of an attention kind; an encoder-decoder's encoder layers and
+    its decoder's self and cross attention."""
+    if cfg.enc_layers:
+        return cfg.enc_layers + 2 * cfg.num_layers
+    model = build_model(ModelConfig(**dataclasses.asdict(cfg)),
+                        device="cpu")
+    return sum(kind in attn.KINDS for _, _, kind in model._layers())
 
 
 def model_mesh(ways, data=1):
@@ -164,9 +208,10 @@ def coordinate_views(model, params, mesh, rules=TP_DP_RULES):
             for c in tp.slices_of(mesh)[0]]
 
 
-def port_loss_and_grads(pcfg, np_params, batch, ways):
-    """The port's loss and whole gradients at ``ways`` model coordinates,
-    and the query / KV head counts each attention call saw."""
+def port_loss_and_grads(pcfg, np_params, batch, ways, rules=TP_DP_RULES):
+    """The port's loss and whole gradients at ``ways`` model coordinates
+    (each coordinate's blocks and the activation rules by ``rules``), and
+    the query / KV head counts each attention call saw."""
     model = build_model(pcfg, device="cpu")
     params = params_from_jax(np_params, device="cpu")
     for p in tree_leaves(params):
@@ -180,9 +225,9 @@ def port_loss_and_grads(pcfg, np_params, batch, ways):
 
     attn._attend = spy
     try:
-        with activation_rules(mesh, TP_DP_RULES):
+        with activation_rules(mesh, rules):
             loss, parts = model.loss(
-                coordinate_views(model, params, mesh),
+                coordinate_views(model, params, mesh, rules),
                 {k: torch.from_numpy(v) for k, v in batch.items()})
     finally:
         attn._attend = attend
@@ -214,13 +259,16 @@ def test_constrain_without_a_context_returns_its_input():
 
 @pytest.mark.parametrize("data,ways", [(1, 2), (2, 2), (1, 4), (4, 2)])
 def test_spec_for_and_zero1_match_reference_on_model_meshes(data, ways):
-    """Every leaf of the reduced smollm, qwen3, granite and gemma2 trees
-    under both rule tables, beside
+    """Every leaf of every family's reduced tree (the SSD and RG-LRU
+    mixers, the experts and the router, the encoder-decoder) under both
+    rule tables, beside
     test_torch_elastic.py::test_spec_for_and_zero1_match_reference's
     meshes of one model way."""
     mesh = make_mesh(data, ways, devices=["cpu"] * 16)
     jmesh = AbstractMesh((data, ways), ("data", "model"))
-    for arch in ("smollm-135m", "qwen3-4b", "granite-3-2b", "gemma2-27b"):
+    for arch in ("smollm-135m", "qwen3-4b", "granite-3-2b", "gemma2-27b",
+                 "mamba2-130m", "recurrentgemma-9b", "phi3.5-moe-42b-a6.6b",
+                 "deepseek-moe-16b", "seamless-m4t-medium"):
         cfg = jax_reduced_config(jax_get_model(arch)[1])
         specs = build_model(ModelConfig(**dataclasses.asdict(cfg)),
                             device="cpu").specs()
@@ -243,10 +291,16 @@ def test_loss_and_grads_match_jax(case, ways):
     """``loss`` and every gradient leaf at ``ways`` model coordinates
     against ``jax.value_and_grad`` of the reference's loss; each attention
     call runs on its coordinate's heads (H / ways query heads, their KV
-    heads), once per layer and coordinate."""
+    heads), once per attention layer and coordinate."""
     cfg, pcfg, params, batch, jloss, jce, want = jax_loss_and_grads(
-        case, s=96 if case == "gemma2" else 32)
-    loss, parts, grads, seen = port_loss_and_grads(pcfg, params, batch, ways)
+        case, s=96 if case in ("gemma2", "recurrentgemma") else 32)
+    check_against_jax(cfg, pcfg, params, batch, jloss, jce, want, ways)
+
+
+def check_against_jax(cfg, pcfg, params, batch, jloss, jce, want, ways,
+                      rules=TP_DP_RULES):
+    loss, parts, grads, seen = port_loss_and_grads(pcfg, params, batch, ways,
+                                                   rules)
     np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
     np.testing.assert_allclose(parts["ce"].item(), jce, rtol=LOSS_RTOL)
     assert set(grads) == set(want)
@@ -254,8 +308,73 @@ def test_loss_and_grads_match_jax(case, ways):
         err = max_norm_err(g.numpy(), want[path])
         assert err < GRAD_TOL, (path, err)
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    local_kv = kv // ways if kv % ways == 0 else max(h // ways // (h // kv), 1)
-    assert seen == [(h // ways, local_kv)] * (cfg.num_layers * ways)
+    if h:
+        local_kv = kv // ways if kv % ways == 0 else max(
+            h // ways // (h // kv), 1)
+        assert seen == [(h // ways, local_kv)] * (attention_calls(cfg) * ways)
+    else:
+        assert seen == []
+
+
+@pytest.mark.parametrize("case", KIND_CASES)
+def test_loss_and_grads_match_jax_under_fsdp_rules(case):
+    """The families of the SSD, RG-LRU, mixture-of-experts and
+    encoder-decoder blocks at 2 model coordinates under FSDP_RULES (the
+    model blocks the same, the embed axis whole inside a slice) against
+    ``jax.value_and_grad``, as under TP_DP_RULES."""
+    args = jax_loss_and_grads(case, s=96 if case == "recurrentgemma" else 32)
+    check_against_jax(*args, 2, rules=FSDP_RULES)
+
+
+def test_dense_first_layer_sums_its_partial_sums():
+    """deepseek's first layer is a gated MLP wider than d_ff (10944
+    against 1408; here 1024 against 256): at 2 model coordinates each holds
+    512 of its columns, no fewer than d_ff, and its outputs are partial
+    sums all the same. A split is read from the leaf's shape against its
+    spec's, so the loss and the first layer's gradients match JAX."""
+    cfg, pcfg, params, batch, jloss, _, want = jax_loss_and_grads(
+        "deepseek-moe")
+    model = build_model(pcfg, device="cpu")
+    mesh = model_mesh(2)
+    views = coordinate_views(model, params_from_jax(params, "cpu"), mesh)
+    assert views[0]["head0"]["ffn"]["w_down"].shape[0] == 512 >= cfg.d_ff
+    assert tp.is_split(views[0]["head0"]["ffn"]["w_down"],
+                       model.specs()["head0"]["ffn"]["w_down"].shape)
+    loss, _, grads, _ = port_loss_and_grads(pcfg, params, batch, 2)
+    np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
+    for path, g in grads.items():
+        if path[0] == "head0":
+            assert max_norm_err(g.numpy(), want[path]) < GRAD_TOL, path
+
+
+def test_ssd_gated_norm_takes_its_mean_over_the_whole_width():
+    """The SSD mixer's gated RMSNorm at 2 and 4 model coordinates, each
+    coordinate holding its heads' channels of y and z: the sums of squares
+    are added over the coordinates before any normalises, so the
+    coordinates' outputs put together equal the whole norm's; normalising
+    each coordinate's channels alone would be off by far more."""
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm
+    _, pcfg = fp32_config("mamba2")
+    rng = np.random.default_rng(3)
+    di = pcfg.d_inner
+    y, z = (torch.from_numpy(rng.standard_normal((2, 8, di)).astype(
+        np.float32)) for _ in range(2))
+    # channels of unequal scale, as heads are
+    y = y * torch.linspace(0.2, 3.0, di)
+    norm = torch.from_numpy(rng.standard_normal(di).astype(np.float32))
+    want = rms_norm(y * torch.nn.functional.silu(z), norm, pcfg.norm_eps)
+    for ways in (2, 4):
+        w = di // ways
+        cut = [slice(m * w, (m + 1) * w) for m in range(ways)]
+        parts = [{"norm": norm[c]} for c in cut]
+        with activation_rules(model_mesh(ways), TP_DP_RULES):
+            got = ssm._tp_gated_norm(parts, [y[..., c] for c in cut],
+                                     [z[..., c] for c in cut], pcfg)
+        assert max_norm_err(torch.cat(got, -1), want) < 1e-6
+        alone = torch.cat([rms_norm(y[..., c] * torch.nn.functional.silu(
+            z[..., c]), norm[c], pcfg.norm_eps) for c in cut], -1)
+        assert max_norm_err(alone, want) > 0.1
 
 
 @pytest.mark.parametrize("ce_chunk", [0, 12])
@@ -307,26 +426,92 @@ def test_prefill_and_decode_match_one_way():
                 assert max_norm_err(got, want) < 1e-5, (ways, i)
 
 
-def test_forward_gathers_the_vocab_and_refuses_other_kinds():
-    """forward's logits put together from the vocab's blocks; under the
-    context the block kinds that tensor parallelism does not cover yet
-    raise, naming ROADMAP Queue 1 item 12."""
-    cfg, pcfg = fp32_config("smollm")
+@pytest.mark.parametrize("case", KIND_CASES)
+def test_prefill_and_decode_of_each_kind_match_one_way(case):
+    """prefill and decode_step at 2 and 4 model coordinates against 1 for
+    the SSD, RG-LRU (past its local layer's window), mixture-of-experts and
+    encoder-decoder families: the logits to 1e-5 max-normalised, and the
+    cache whole (the SSD state, h, the KV and cross KV heads put together
+    from their blocks), each leaf to 1e-5."""
+    cfg, pcfg = fp32_config(case)
     model = build_model(pcfg, device="cpu")
     params = params_from_jax(init_params(pcfg), "cpu")
-    toks = torch.from_numpy(lm_batch(cfg)["tokens"]).long()
-    want, _ = model.forward(params, toks)
-    mesh = model_mesh(2)
+    # the encoder-decoder's prompt within one chunk of queries (its cross
+    # attention's key cut: tests/test_torch_encdec.py)
+    n = 30 if cfg.enc_layers else 70
+    batch = lm_batch(cfg, s=n + 2)
+    toks = torch.from_numpy(batch["tokens"]).long()
+    front = (torch.from_numpy(batch["frontend"]),) if cfg.enc_layers else ()
+    want_logits, want_cache = model.prefill(params, *front, toks[:, :n],
+                                            n + 10)
+    want_cache = tree_map(torch.clone, want_cache)
+    step_cache = tree_map(torch.clone, want_cache)
+    want_steps = [model.decode_step(params, step_cache, toks[:, i:i + 1],
+                                    i)[0] for i in (n, n + 1)]
+    for ways in (2, 4):
+        mesh = model_mesh(ways)
+        parts = coordinate_views(model, params, mesh)
+        with activation_rules(mesh, TP_DP_RULES):
+            logits, cache = model.prefill(parts, *front, toks[:, :n], n + 10)
+            assert max_norm_err(logits, want_logits) < 1e-5, ways
+            for got, want in zip(tree_leaves(cache),
+                                 tree_leaves(want_cache)):
+                assert got.shape == want.shape
+                assert max_norm_err(got.float(), want.float()) < 1e-5, ways
+            for i, want in zip((n, n + 1), want_steps):
+                got, _ = model.decode_step(parts, cache, toks[:, i:i + 1], i)
+                assert max_norm_err(got, want) < 1e-5, (ways, i)
+            for got, want in zip(tree_leaves(cache),
+                                 tree_leaves(step_cache)):
+                assert max_norm_err(got.float(), want.float()) < 1e-5, ways
+
+
+@pytest.mark.parametrize("case", ["mamba2", "recurrentgemma", "phi35-moe",
+                                  "deepseek-moe"])
+def test_blocks_run_whole_where_three_ways_split_nothing(case):
+    """At 3 model coordinates the rules split none of these reduced
+    configs' heads, widths, experts or vocab (16 SSD heads, W 128, 8
+    experts, 2048 rows): the SSD and RG-LRU mixers put their leaves
+    together and run whole (``tensor_parallel.run_whole``), the experts and
+    router run whole on every coordinate, and forward, prefill and decode
+    give one way's logits."""
+    cfg, pcfg = fp32_config(case)
+    model = build_model(pcfg, device="cpu")
+    params = params_from_jax(init_params(pcfg), "cpu")
+    toks = torch.from_numpy(lm_batch(cfg, s=34)["tokens"]).long()
+    want, _ = model.forward(params, toks[:, :32])
+    want_pre, cache = model.prefill(params, toks[:, :32], 40)
+    want_step, _ = model.decode_step(params, cache, toks[:, 32:33], 32)
+    mesh = model_mesh(3)
+    parts = coordinate_views(model, params, mesh)
     with activation_rules(mesh, TP_DP_RULES):
-        got, _ = model.forward(coordinate_views(model, params, mesh), toks)
+        got, _ = model.forward(parts, toks[:, :32])
+        got_pre, cache = model.prefill(parts, toks[:, :32], 40)
+        got_step, _ = model.decode_step(parts, cache, toks[:, 32:33], 32)
+    for g, w in ((got, want), (got_pre, want_pre), (got_step, want_step)):
+        assert max_norm_err(g, w) < 1e-5, case
+
+
+def test_forward_gathers_the_vocab_and_refuses_other_kinds():
+    """forward's logits put together from the vocab's blocks; under the
+    context the block kinds that once raised (the SSD and RG-LRU mixers,
+    the mixture of experts, the encoder-decoder) now run at 2 model
+    coordinates, their logits those of one."""
+    for case in ("smollm", "mamba2", "recurrentgemma", "phi35-moe",
+                 "seamless"):
+        cfg, pcfg = fp32_config(case)
+        model = build_model(pcfg, device="cpu")
+        params = params_from_jax(init_params(pcfg), "cpu")
+        batch = lm_batch(cfg)
+        args = ((torch.from_numpy(batch["frontend"]),) if cfg.enc_layers
+                else ()) + (torch.from_numpy(batch["tokens"]).long(),)
+        want, _ = model.forward(params, *args)
+        mesh = model_mesh(2)
+        with activation_rules(mesh, TP_DP_RULES):
+            got, _ = model.forward(coordinate_views(model, params, mesh),
+                                   *args)
         assert got.shape == want.shape
-        assert max_norm_err(got, want) < 1e-5
-        for arch in ("mamba2-130m", "recurrentgemma-9b",
-                     "phi3.5-moe-42b-a6.6b", "seamless-m4t-medium"):
-            other = build_model(ModelConfig(**dataclasses.asdict(
-                jax_reduced_config(jax_get_model(arch)[1]))), device="cpu")
-            with pytest.raises(NotImplementedError, match="item 12"):
-                other.check_tensor_parallel()
+        assert max_norm_err(got, want) < 1e-5, case
 
 
 # -- the reference's elastic run and compressed all-reduce, in one subprocess ------
@@ -358,17 +543,25 @@ class ScriptedRMS:
         return True, 0.0
 
 
-cfg = dataclasses.replace(reduced_config(get_model("smollm-135m")[1]),
-                          dtype="float32")
-params = {}
-for name, value in np.load(PARAMS).items():
-    *keys, last = name.split("/")
-    node = params
-    for k in keys:
-        node = node.setdefault(k, {})
-    node[last] = value
+def load(path):
+    params = {}
+    for name, value in np.load(path).items():
+        *keys, last = name.split("/")
+        node = params
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return params
+
+
 runs, arrays = {}, {}
-for rules in ("TP_DP_RULES", "FSDP_RULES"):
+for key, arch, path, rules in (
+        ("TP_DP_RULES", "smollm-135m", PARAMS, "TP_DP_RULES"),
+        ("FSDP_RULES", "smollm-135m", PARAMS, "FSDP_RULES"),
+        ("mamba2", "mamba2-130m", PARAMS_MAMBA2, "TP_DP_RULES")):
+    cfg = dataclasses.replace(reduced_config(get_model(arch)[1]),
+                              dtype="float32")
+    params = load(path)
     tr = ElasticTrainer(build_model(cfg), AdamWConfig(**OPT),
                         DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                                    global_batch=8),
@@ -388,14 +581,14 @@ for rules in ("TP_DP_RULES", "FSDP_RULES"):
         name = "/".join(k.key for k in path)
         for sh in leaf.addressable_shards:
             d, m = coord[sh.device.id]
-            arrays[f"{rules}|{name}|{d}|{m}"] = np.asarray(sh.data)
+            arrays[f"{key}|{name}|{d}|{m}"] = np.asarray(sh.data)
             index[f"{name}|{d}|{m}"] = [list(s.indices(n))[:2] for s, n in
                                         zip(sh.index, leaf.shape)]
-    runs[rules] = {"metrics": tr.metrics,
-                   "resizes": [(r["action"], r["from"], r["to"])
-                               for r in tr.resize_log],
-                   "rng": np.asarray(out["rng"]).tolist(),
-                   "mesh": list(tr.mesh.devices.shape), "index": index}
+    runs[key] = {"metrics": tr.metrics,
+                 "resizes": [(r["action"], r["from"], r["to"])
+                             for r in tr.resize_log],
+                 "rng": np.asarray(out["rng"]).tolist(),
+                 "mesh": list(tr.mesh.devices.shape), "index": index}
 
 # the compressed all-reduce on (data 2, model 2): leaf "a" split over the
 # model axis on its last dimension, leaf "b" whole on both model coordinates
@@ -437,9 +630,9 @@ def reference_run(tmp_path_factory):
     """One subprocess with 8 forced host devices, started before the
     module's first test so that it runs beside them: the reference's
     elastic run at model_ways 2 (2 slices, an EXPAND to 4 at the first
-    reconfiguration point, 5 fp32 steps) under both rule tables, and its
-    compressed all-reduce on a (2, 2) mesh over STEPS error-feedback
-    steps."""
+    reconfiguration point, 5 fp32 steps) of smollm under both rule tables
+    and of mamba2 under TP_DP_RULES, and its compressed all-reduce on a
+    (2, 2) mesh over STEPS error-feedback steps."""
     out = tmp_path_factory.mktemp("tp_reference")
     rng = np.random.default_rng(11)
     grads = {"a": rng.standard_normal((STEPS, 2, 3, 200)).astype(np.float32),
@@ -447,14 +640,18 @@ def reference_run(tmp_path_factory):
                  np.float32)}
     grads["b"][:, 1, :256] *= 50.0       # one slice sets block 0's scale
     np.savez(out / "in.npz", **grads)
-    _, pcfg = fp32_config("smollm")
-    np.savez(out / "params.npz", **{"/".join(k): v for k, v in
-                                    leaves(init_params(pcfg)).items()})
+    for case, name in (("smollm", "params.npz"),
+                       ("mamba2", "params_mamba2.npz")):
+        _, pcfg = fp32_config(case)
+        np.savez(out / name, **{"/".join(k): v for k, v in
+                                leaves(init_params(pcfg)).items()})
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     code = (f"OPT = {OPT!r}\nTCFG = {TCFG!r}\nIN = {str(out / 'in.npz')!r}\n"
-            f"PARAMS = {str(out / 'params.npz')!r}\nOUT = {str(out)!r}\n"
+            f"PARAMS = {str(out / 'params.npz')!r}\n"
+            f"PARAMS_MAMBA2 = {str(out / 'params_mamba2.npz')!r}\n"
+            f"OUT = {str(out)!r}\n"
             + textwrap.dedent(REFERENCE_RUN))
     with open(out / "stderr.txt", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c", code], env=env,
@@ -515,9 +712,20 @@ def test_elastic_run_at_two_ways_reproduces_reference(reference, rules):
     lr whatever the size of its gradient, so an element whose gradient is
     rounding noise in both runs may move either way), each block equal to
     the port's whole leaf there."""
+    check_elastic_run(reference, rules, "smollm", rules)
+
+
+def test_mamba2_elastic_run_at_two_ways_reproduces_reference(reference):
+    """The same for the reduced mamba2-130m under TP_DP_RULES: its SSD
+    mixers split by heads, with the gated norm's sums of squares and the
+    projection's blocks put together over the model coordinates."""
+    check_elastic_run(reference, "mamba2", "mamba2", "TP_DP_RULES")
+
+
+def check_elastic_run(reference, key, case, rules):
     runs, arrays, _ = reference
-    ref = runs[rules]
-    cfg, pcfg = fp32_config("smollm")
+    ref = runs[key]
+    cfg, pcfg = fp32_config(case)
     params = init_params(pcfg)
     start = {"params": params, "opt": jax_init_state(params),
              "rng": jax.random.PRNGKey(1), "step": jnp.int32(0)}
@@ -539,8 +747,8 @@ def test_elastic_run_at_two_ways_reproduces_reference(reference, rules):
         [m["slices"] for m in ref["metrics"]] == [2, 2, 4, 4, 4]
     for got, want in zip(port.metrics, ref["metrics"]):
         assert got["step"] == want["step"]
-        for key in ("loss", "lr", "grad_norm"):
-            np.testing.assert_allclose(got[key], want[key], rtol=1e-4)
+        for k in ("loss", "lr", "grad_norm"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4)
     assert gather(out["rng"]).tolist() == ref["rng"]
     assert list(port.mesh.devices.shape) == ref["mesh"] == [4, 2]
     first = leaves(params)
@@ -550,7 +758,7 @@ def test_elastic_run_at_two_ways_reproduces_reference(reference, rules):
         for (d, m), block in leaf.shards.items():
             box = [[s.start, s.stop] for s in leaf.index((d, m))]
             assert box == ref["index"][f"{name}|{d}|{m}"], (name, d, m)
-            theirs = arrays[f"{rules}|{name}|{d}|{m}"]
+            theirs = arrays[f"{key}|{name}|{d}|{m}"]
             moved = theirs - first[path][leaf.index((d, m))]
             assert np.linalg.norm(block.numpy() - theirs) <= \
                 1e-3 * np.linalg.norm(moved), (name, d, m)
@@ -697,14 +905,42 @@ def test_train_launcher_runs_at_two_model_ways(capsys):
     assert "'action': 'EXPAND', 'from': 1, 'to': 2" in out
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "seamless-m4t-medium"])
+def test_train_launcher_runs_each_family_at_two_and_four_model_ways(arch,
+                                                                    capsys):
+    """launch.train takes the SSD, RG-LRU, mixture-of-experts and
+    encoder-decoder families at --model-ways 2 and 4 (one slice, then two
+    virtual slices of two coordinates with an EXPAND), each step's loss
+    finite."""
+    from repro_torch.launch import train
+    for ways, devices in ((4, "1"), (2, "2")):
+        assert train.main(["--arch", arch, "--device", "cpu", "--model-ways",
+                           str(ways), "--devices", devices, "--slices", "1",
+                           "--elastic", "--steps", "2", "--global-batch",
+                           "4", "--seq-len", "16"]) == 0
+        out = capsys.readouterr().out
+        assert f"{ways} model coordinates each" in out.splitlines()[0]
+        losses = [float(line.split()[3]) for line in out.splitlines()
+                  if line.startswith("step ")]
+        assert len(losses) == 2 and np.isfinite(losses).all(), out
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-4b", "granite-3-2b",
-                                  "gemma2-27b", "paligemma-3b"])
+                                  "gemma2-27b", "paligemma-3b",
+                                  "mamba2-130m", "recurrentgemma-9b",
+                                  "phi3.5-moe-42b-a6.6b", "deepseek-moe-16b",
+                                  "seamless-m4t-medium"])
 def test_trainer_trains_each_dense_family_at_two_and_four_ways(arch):
     """ElasticTrainer at model_ways 2 and 4 (one slice) and at (2, 2),
-    under TP_DP_RULES and FSDP_RULES, for each dense attention family
-    (paligemma's batches carry its patch embeddings): two fp32 steps whose
-    losses match the same steps at model_ways 1 to 1e-5, every replica of
-    a block bit-equal to its first."""
+    under TP_DP_RULES and FSDP_RULES, for every family, the dense attention
+    ones, the SSD and RG-LRU ones, the mixtures of experts and the
+    encoder-decoder (paligemma's batches carry its patch embeddings,
+    seamless's its frames): two fp32 steps whose losses match the same
+    steps at model_ways 1 on as many slices to 1e-5, every replica of a
+    block bit-equal to its first; and, but for the mixtures of experts, one
+    slice's the two slices' (a router's loss is a product of means over
+    each slice's rows: ROADMAP.md, Queue 3)."""
     cfg = ModelConfig(**dataclasses.asdict(dataclasses.replace(
         jax_reduced_config(jax_get_model(arch)[1]), dtype="float32")))
     model = build_model(cfg, device="cpu")
@@ -726,9 +962,111 @@ def test_trainer_trains_each_dense_family_at_two_and_four_ways(arch):
                 assert torch.equal(block, whole[x.index(c)])
         return [m["loss"] for m in tr.metrics]
 
-    want = losses(1, 1, TP_DP_RULES)
-    assert all(np.isfinite(want))
+    want = {slices: losses(slices, 1, TP_DP_RULES) for slices in (1, 2)}
+    assert all(np.isfinite(want[1] + want[2]))
+    if cfg.family != "moe":
+        np.testing.assert_allclose(want[2], want[1], rtol=1e-5)
     for rules in (TP_DP_RULES, FSDP_RULES):
         for slices, ways in ((1, 2), (1, 4), (2, 2)):
-            np.testing.assert_allclose(losses(slices, ways, rules), want,
-                                       rtol=1e-5, err_msg=f"{slices} x {ways}")
+            np.testing.assert_allclose(losses(slices, ways, rules),
+                                       want[slices], rtol=1e-5,
+                                       err_msg=f"{slices} x {ways}")
+
+
+@pytest.mark.parametrize("case", KIND_CASES)
+def test_bridge_carries_reference_params_into_coordinate_blocks(case):
+    """The reference's own parameters (its init, as numpy) through
+    ``bridge.params_from_jax`` into a TrainState on a (1, 2) mesh: each
+    coordinate's model block of every leaf, as ``slice_grads`` reads it,
+    equals the tests' ``coordinate_views``, and the blocks put together
+    again (as ``_slice_sum`` puts gradients together) are the reference's
+    arrays bit for bit: the SSD and RG-LRU mixers, the router and the
+    experts, the encoder-decoder."""
+    from repro_torch.core.sharding import read_box
+    cfg, pcfg = fp32_config(case)
+    jparams = jax.tree.map(np.asarray,
+                           jax_build_model(cfg).init(jax.random.PRNGKey(0)))
+    model = build_model(pcfg, device="cpu")
+    params = params_from_jax(jparams, "cpu")
+    tr = ElasticTrainer(model, AdamWConfig(), DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2),
+        TrainerConfig(model_ways=2), devices=CPU8[:2])
+    placed = tr.init_state(params=params)["params"]
+    views = [leaves(v) for v in coordinate_views(model, params, tr.mesh)]
+    want = leaves(jparams)
+    for path, x in leaves(placed).items():
+        back = np.zeros(x.shape, np.float32)
+        for m, c in enumerate(tp.slices_of(tr.mesh)[0]):
+            box = tp.model_block(x, c)
+            block = read_box(x, box, c)
+            assert torch.equal(block, views[m][path]), (path, m)
+            back[box] = block.numpy()
+        np.testing.assert_array_equal(back, want[path])
+
+
+@pytest.mark.parametrize("case", ["mamba2", "deepseek-moe"])
+def test_resize_checkpoint_and_compression_take_ssd_and_moe(case, tmp_path):
+    """ZeRO-1 moments, resizes, checkpoints and the compressed all-reduce
+    take an SSD and a mixture-of-experts model at model_ways 2 as they take
+    the dense ones: 4 fp32 steps on 2 slices of 2 coordinates with an
+    EXPAND to 4 at the first reconfiguration point (the parameters and the
+    ZeRO-1 moments resharded 2 -> 4 in memory) end bit-equal to 2 steps on
+    2 slices, checkpointed, restored onto 4 and run on; the checkpoint of
+    the resized run restores onto 1 and 4 slices block for block; and
+    compressed_psum_grads over one step's per-coordinate gradient blocks on
+    a (2, 2) mesh gives each coordinate the mean of its slices' blocks
+    within the int8 rounding (half a scale)."""
+    from repro_torch.core.tensor_parallel import model_block
+    from repro_torch.runtime.trainer import slice_grads
+    cfg, pcfg = fp32_config(case)
+    model = build_model(pcfg, device="cpu")
+    params = params_from_jax(init_params(pcfg), "cpu")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=8)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+    def trainer(steps, slices, ckpt_dir, rms=None):
+        return ElasticTrainer(model, opt, data, TrainerConfig(
+            steps=steps, model_ways=2, max_slices=4, check_period=2,
+            log_period=1, ckpt_dir=str(tmp_path / ckpt_dir), ckpt_period=2),
+            rms=rms, devices=CPU8, slices=slices)
+
+    tr = trainer(4, 2, "elastic", ScriptedRMS({1: Decision(Action.EXPAND,
+                                                          4)}))
+    out = tr.train(state=tr.init_state(params=params))
+    assert [(r["action"], r["from"], r["to"]) for r in tr.resize_log] == \
+        [("EXPAND", 2, 4)]
+    fixed_tr = trainer(2, 2, "restart")
+    fixed = fixed_tr.train(state=fixed_tr.init_state(params=params))
+    wide = trainer(4, 4, "restart")
+    sh = wide._state_shardings(wide.mesh)
+    restarted = wide.train(state=wide.store.restore(2, sh, sh))
+    for got, want in zip(tree_leaves(out), tree_leaves(restarted)):
+        assert torch.equal(gather(got), gather(want))
+    for slices in (1, 4):
+        sh = tr._state_shardings(make_mesh(slices, 2, devices=CPU8))
+        back = tr.store.restore(4, sh, sh)
+        for got, want in zip(tree_leaves(back), tree_leaves(out)):
+            whole = gather(want)
+            for c, block in got.shards.items():
+                assert torch.equal(block, whole[got.index(c)])
+
+    mesh = fixed_tr.mesh
+    batch = fixed_tr.data.batch(0)
+    trees = []
+    for j, coords in enumerate(tp.slices_of(mesh)):
+        loss = torch.zeros(())
+        grads = slice_grads(model, fixed["params"], coords, 1, lambda i, j=j: (
+            {k: v[4 * j:4 * j + 4] for k, v in batch.items()}, 0.5), loss,
+            opt)
+        trees += [tree_map(lambda g, x, c=c: g[model_block(x, c)].clone(),
+                           grads, fixed["params"]) for c in coords]
+    means, _ = compressed_psum_grads(trees, mesh, axes=("data",))
+    coords = mesh.coords()
+    for i, (d, m) in enumerate(coords):
+        mate = coords.index((1 - d, m))
+        for got, a, b in zip(tree_leaves(means[i]), tree_leaves(trees[i]),
+                             tree_leaves(trees[mate])):
+            exact = (a + b) / 2
+            half_scale = 0.5 * max(a.abs().max(), b.abs().max()) / 127
+            assert got.shape == a.shape
+            assert (got - exact).abs().max() <= half_scale * 1.001 + 1e-30

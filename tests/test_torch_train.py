@@ -506,10 +506,10 @@ def test_loss_descends():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Tensor parallelism inside a slice of the block kinds it does not
-    cover yet is all that still raises (ROADMAP Queue 1 item 12: "ssd",
-    "rglru", the mixture-of-experts feed-forward, the encoder-decoder);
-    smollm at model_ways 2 is taken. FSDP_RULES, more slices, a checkpoint
+    """Nothing the trainer takes raises any more: tensor parallelism inside
+    a slice of the block kinds that once raised ("ssd", "rglru", the
+    mixture-of-experts feed-forward, the encoder-decoder) is taken at
+    model_ways 2, as smollm's is. FSDP_RULES, more slices, a checkpoint
     directory and an RMS are taken, and under FSDP_RULES each slice holds
     its half of every parameter with an embed axis."""
     _, pcfg = smollm_fp32()
@@ -518,10 +518,9 @@ def test_trainer_refuses_what_is_not_ported():
     for arch in ("mamba2-130m", "recurrentgemma-9b", "deepseek-moe-16b",
                  "seamless-m4t-medium"):
         other = build_model(reduced_config(get_config(arch)), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            ElasticTrainer(other, AdamWConfig(), data,
-                           TrainerConfig(model_ways=2),
-                           devices=["cpu"] * 2)
+        tp = ElasticTrainer(other, AdamWConfig(), data,
+                            TrainerConfig(model_ways=2), devices=["cpu"] * 2)
+        assert tp.mesh.shape == {"data": 1, "model": 2}, arch
     tp = ElasticTrainer(model, AdamWConfig(), data,
                         TrainerConfig(model_ways=2), devices=["cpu"] * 2)
     assert tp.mesh.shape == {"data": 1, "model": 2}
