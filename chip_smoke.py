@@ -167,7 +167,10 @@ fit's FitError in (t)):
                   12 x M backward flash launches on H / M heads; 4 bf16
                   ElasticTrainer steps at B 2, S 4096 at model_ways 2, the
                   loss falling; the bf16 step's wall, busy, tokens/s, peak
-                  and on-card copies at model_ways 1, 2 and 4
+                  and on-card copies at model_ways 1, 2 and 4, the peak
+                  and busy time at 2 and 4 held against M times the
+                  dry-run's count of one coordinate's share (a (1, M)
+                  mesh), counted before any step
   (tk) tp kinds-- after (tp), in a child process of its own
                   (chip_smoke.py --tp-kinds): tensor parallelism inside a
                   slice for the SSD, RG-LRU, mixture-of-experts and
@@ -183,8 +186,10 @@ fit's FitError in (t)):
                   4 bf16 steps at 2); deepseek-moe-16b cut to its dense
                   first layer and two MoE layers (the routing and drops at
                   2 equal to 1's but for near ties, the fp32 step at 2 and
-                  4 against 1, 4 bf16 steps at 2, the step's times);
-                  seamless-m4t-medium (the fp32 step of (z) at 2 and 4
+                  4 against 1, 4 bf16 steps at 2, the step's times, and
+                  one fp32 step on 2 virtual data slices against 1, the
+                  router's loss over the whole batch by the trainer's
+                  routing pre-pass); seamless-m4t-medium (the fp32 step of (z) at 2 and 4
                   against 1); every kernel call on one coordinate's share
                   (H / M SSD and query heads, W / M RG-LRU channels),
                   exactly M times one way's launches
@@ -244,6 +249,14 @@ fit's FitError in (t)):
                   busy share; the Servers' tokens/s; the backwards last
                   (the flash backward also at qwen3's train call)
 
+  (nc) node    -- from the start, in two processes of their own on the
+                  host's CPU (chip_smoke.py --node-count NAME, the card
+                  hidden): the dry-run's count of qwen3-4b's train_4k cell
+                  at its published size on one HGX node laid out 1 x 8
+                  and 2 x 4 (data x model): one card's compute, memory and
+                  collective terms and the collectives by kind, printed
+                  at the end
+
 Phases (e)-(g), (q), (r), (tps), (h)-(j), (hq), (m)-(o), (u)-(w), (y),
 (z), (mq), (wq), (tp) and (tk) are the main paths: every kernel launch count is set to 0 just
 before each path and read just after it. The last
@@ -251,6 +264,7 @@ lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
 no card is present or when run outside a checkout of the repository.
 """
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -3043,11 +3057,13 @@ def main_zoo():
 
 
 
-def predict_cell(label, cfg, batch, seq, opt_cfg, remats):
+def predict_cell(label, cfg, batch, seq, opt_cfg, remats, ways=1):
     """The dry-run's count (repro_torch.launch.dryrun, on the meta device in
     this process, touching no card) of ``cfg``'s train step at B ``batch``,
     S ``seq`` on one card under each of ``remats`` (None: cfg's own), as the
-    trainer runs it: replicated parameters, one micro-batch, ``opt_cfg``.
+    trainer runs it: replicated parameters, one micro-batch, ``opt_cfg``;
+    at ``ways`` > 1 in the layout one card runs with tensor parallelism, a
+    (1, ways) mesh of virtual devices, the count one coordinate's share.
     Returns {remat: the dry-run's record}."""
     from repro_torch.core import TP_DP_RULES
     from repro_torch.launch.dryrun import run_cell
@@ -3059,14 +3075,17 @@ def predict_cell(label, cfg, batch, seq, opt_cfg, remats):
         t0 = time.perf_counter()
         rec = run_cell(cfg.name, ShapeSpec(f"{label}-cut", seq, batch,
                                            "train"),
-                       "h100x1", None, verbose=False, rules=TP_DP_RULES,
+                       "h100x1" if ways == 1 else (1, ways), None,
+                       verbose=False, rules=TP_DP_RULES,
                        cfg_overrides=overrides, accum=1, opt_cfg=opt_cfg)
         if rec["status"] != "ok":
             raise AssertionError(f"the dry-run could not count {cfg.name}: "
                                  f"{rec.get('error')}")
         rl, cost, mem = rec["roofline"], rec["cost"], rec["memory"]
+        where = "on one card" if ways == 1 else \
+            f"a coordinate's share at model_ways {ways}"
         log(label, f"dry-run of {cfg.name} ({cfg.num_layers} layers, remat "
-                   f"{overrides['remat']}) B{batch} S{seq} on one card "
+                   f"{overrides['remat']}) B{batch} S{seq} {where} "
                    f"(meta, {time.perf_counter() - t0:.1f} s): predicted "
                    f"one-step peak {mem['peak_bytes'] / 2 ** 30:.2f} GiB "
                    f"(TrainState {mem['argument_size_in_bytes'] / 2 ** 30:.2f}"
@@ -3076,20 +3095,26 @@ def predict_cell(label, cfg, batch, seq, opt_cfg, remats):
                    f"{rl['memory_s'] * 1e3:.1f} ms, step "
                    f"{rl['step_s'] * 1e3:.1f} ms ({rl['dominant']}); model "
                    f"FLOPs {rl['model_flops']:.4e}; kernel ops "
-                   f"{cost['kernel_calls']}")
+                   f"{cost['kernel_calls']}; collectives "
+                   f"{rec['collectives']}")
         out[remat] = rec
     return out
 
 
-def hold_prediction(label, name, rec, peak_gib, busy_ms):
+def hold_prediction(label, name, rec, peak_gib, busy_ms, ways=1):
     """Print the dry-run's prediction ``rec`` beside the measured one-step
     peak and card busy time, with the step's MFU (model FLOPs over busy
     time at the bf16 peak) and the card's memory beside the HBM constant;
     fail when the peak is off by more than PEAK_MARGIN or the busy time is
-    below the predicted compute time (FLOPs at the peak rate bound it)."""
+    below the predicted compute time (FLOPs at the peak rate bound it).
+    ``ways`` > 1: ``rec`` is one coordinate's share of a step whose
+    ``ways`` coordinates all ran on this card, so the prediction is
+    ``ways`` times the share's peak and compute time."""
     from repro_torch.roofline.hardware import HBM_BYTES, PEAK_BF16_FLOPS
-    rl = rec["roofline"]
-    predicted = rec["memory"]["peak_bytes"] / 2 ** 30
+    rl = dict(rec["roofline"])
+    for k in ("compute_s", "memory_s", "step_s"):
+        rl[k] *= ways
+    predicted = ways * rec["memory"]["peak_bytes"] / 2 ** 30
     off = predicted / peak_gib - 1
     mfu = rl["model_flops"] / (busy_ms / 1e3 * PEAK_BF16_FLOPS)
     total = torch.cuda.get_device_properties(0).total_memory
@@ -3474,8 +3499,11 @@ def main_tp():
     QWEN_FP32_S at model_ways 2 and 4 against 1 (phase_tp_fp32), then
     QWEN_TP_STEPS bf16 ElasticTrainer steps at B QWEN_TRAIN_B, S
     QWEN_TRAIN_S at model_ways 2, the loss falling (phase_tp_bf16), then
-    the step's times and peaks at 1, 2 and 4 (phase_tp_step_times). Writes
-    the path's launch counts and the numbers to TP_RESULT."""
+    the step's times and peaks at 1, 2 and 4 (phase_tp_step_times). Before
+    any step, the dry-run counts the bf16 step at model_ways 2 and 4 in
+    the layout it runs here (predict_cell); each one's peak and busy time
+    are held against M times a coordinate's count (hold_prediction).
+    Writes the path's launch counts and the numbers to TP_RESULT."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
     if not torch.cuda.is_available():
@@ -3483,9 +3511,18 @@ def main_tp():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.optim import AdamWConfig
     cfg = dataclasses.replace(get_config("qwen3-4b"),
                               num_layers=QWEN_TRAIN_LAYERS,
                               ce_chunk=QWEN_CE_CHUNK, remat="dots")
+    t0 = time.perf_counter()
+    opt = AdamWConfig(lr=QWEN_TRAIN_LR, warmup_steps=1,
+                      total_steps=QWEN_TP_STEPS)
+    predicted = {ways: predict_cell("tp", cfg, QWEN_TRAIN_B, QWEN_TRAIN_S,
+                                    opt, ("dots",), ways=ways)["dots"]
+                 for ways in QWEN_TP_WAYS}
+    log("tp", f"the dry-run's counts at model_ways {QWEN_TP_WAYS} in "
+              f"{time.perf_counter() - t0:.1f} s")
     _, params = model_and_params(cfg, "tp", init_depth=QWEN_DEPTH,
                                  on_card=True, per_layer=True)
     one = DataConfig(vocab_size=cfg.vocab_size, seq_len=QWEN_FP32_S,
@@ -3504,6 +3541,11 @@ def main_tp():
     trainer, whole, next_batch, losses = trained
     del trained
     times = phase_tp_step_times(cfg, trainer, whole, next_batch, data)
+    for ways, rec in predicted.items():
+        times[ways]["prediction"] = hold_prediction(
+            "tp", f"{cfg.name} ({cfg.num_layers} layers) remat dots at "
+                  f"model_ways {ways}", rec, times[ways]["peak_gib"],
+            times[ways]["busy_ms"], ways=ways)
     TP_RESULT.parent.mkdir(parents=True, exist_ok=True)
     TP_RESULT.write_text(json.dumps({"counts": counts, "fp32": fp32,
                                      "losses": losses, "times": times}))
@@ -3729,8 +3771,8 @@ def routings():
     from repro_torch.models import moe
     calls, kept = [], moe.route_logits
 
-    def spy(logits, cfg):
-        out = kept(logits, cfg)
+    def spy(logits, cfg, load=None):
+        out = kept(logits, cfg, load)
         calls.append((out[0].detach(), out[1].detach()))
         return out
     moe.route_logits = spy
@@ -3795,6 +3837,62 @@ def phase_tpk_routing(label, cfg, params, batch):
     return choices, drops
 
 
+def phase_tpk_slices(label, cfg, params, batch):
+    """(tk) One fp32 train step of a mixture-of-experts ``cfg`` on 2 virtual
+    data slices of the card against 1, from the same parameters and batch:
+    the loss and every gradient as ElasticTrainer.train_step hands them to
+    apply_step (kept from running), max-normalised at MODEL_TOL. The
+    router's loss is a product of two means over the whole batch, so at 2
+    slices each slice's takes the whole batch's routed shares from the
+    trainer's routing pre-pass, one forward a slice more than the step's
+    launches. Returns the largest error."""
+    from repro_torch.core import slice_devices
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import ElasticTrainer, TrainerConfig
+    from repro_torch.runtime import trainer as trainer_mod
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    per = {k: n for k, n in train_launches(cfg).items() if n}
+    seen, kept, got = {}, trainer_mod.apply_step, {}
+
+    def spy(opt_cfg, state, grads, loss):
+        seen["step"] = loss, tree_paths(grads)
+        return state, {"loss": loss}
+
+    trainer_mod.apply_step = spy
+    try:
+        for slices in (1, 2):
+            tr = ElasticTrainer(model, AdamWConfig(), None,
+                                TrainerConfig(max_slices=slices),
+                                devices=slice_devices(2), slices=slices)
+            state = tr.init_state(params=params)
+            want = {k: slices * n for k, n in per.items()}
+            if slices > 1:
+                want["flash_attention"] += slices * flash_per_pass(cfg)
+            t0 = time.perf_counter()
+            counted_launches(lambda: tr.train_step(state, batch), want)
+            got[slices] = seen.pop("step")
+            log(label, f"{cfg.name} ({cfg.num_layers} layers) fp32 train "
+                       f"step at {slices} data slice(s): loss "
+                       f"{got[slices][0].item():.6f}, {want} launches, "
+                       f"{time.perf_counter() - t0:.2f} s")
+            del state, tr
+            torch.cuda.empty_cache()
+    finally:
+        trainer_mod.apply_step = kept
+    errs = grad_errs(got[2], got[1])
+    top = max(errs, key=errs.get)
+    log(label, f"{cfg.name} fp32 step at 2 data slices against 1, B"
+               f"{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}: "
+               f"loss max-normalised {errs['loss']:.3e}; largest leaf {top} "
+               f"{errs[top]:.3e} over {len(errs) - 1} leaves (tol "
+               f"{MODEL_TOL})")
+    if errs[top] > MODEL_TOL:
+        raise AssertionError(f"{cfg.name}'s step at 2 data slices disagrees "
+                             "with one slice")
+    return errs[top]
+
+
 def main_tp_kinds():
     """(tk), run by ``chip_smoke.py --tp-kinds`` in a process of its own
     (run_child), with the card to itself: tensor parallelism inside a
@@ -3808,7 +3906,8 @@ def main_tp_kinds():
     step at B 1, S RG_TRAIN_S at 2 and 4 against 1, bf16 steps at 2;
     deepseek-moe-16b cut to TPK_DS_LAYERS (its dense first layer, two MoE
     layers): the routing and drops at 2 against 1, the fp32 step at 2 and
-    4 against 1, bf16 steps at 2, the step's times; seamless-m4t-medium:
+    4 against 1, bf16 steps at 2, the step's times, and its fp32 step at 2
+    data slices against 1 (phase_tpk_slices); seamless-m4t-medium:
     its fp32 step at 2 and 4 against 1, as phase (z)'s batch. Writes the
     path's launch counts and the numbers to TP_KINDS_RESULT."""
     from repro_torch.configs import get_config
@@ -3872,9 +3971,10 @@ def main_tp_kinds():
                                  per_layer=True)
     data = DataConfig(vocab_size=ds.vocab_size, seq_len=TPK_MOE_S,
                       global_batch=TPK_MOE_B)
-    counts, (routing, fp32, trained) = drive("tk", (
+    counts, (routing, fp32, slices_err, trained) = drive("tk", (
         lambda: phase_tpk_routing("tk", ds, params, batch_of(data)),
         lambda: phase_tpk_fp32("tk", ds, params, batch_of(data)),
+        lambda: phase_tpk_slices("tk", ds, params, batch_of(data)),
         lambda: phase_tpk_bf16("tk", ds, params, data)))
     add(counts)
     del params
@@ -3882,6 +3982,7 @@ def main_tp_kinds():
     del trained
     out["fp32"][ds.name], out["losses"][ds.name] = fp32, losses
     out["peak"][ds.name], out["routing"] = peak, routing
+    out["slices"] = {ds.name: slices_err}
     out["times"][ds.name] = phase_tp_step_times(
         ds, trainer, whole, next_batch, data, label="tk")
     del trainer, whole
@@ -3905,6 +4006,78 @@ def main_tp_kinds():
     TP_KINDS_RESULT.parent.mkdir(parents=True, exist_ok=True)
     TP_KINDS_RESULT.write_text(json.dumps(out))
     return 0
+
+
+# (nc) the dry-run's count of qwen3-4b's train_4k cell on the node layouts
+# with a model axis, each in a process of its own on the host's CPU beside
+# the card's phases
+NODE_LAYOUTS = ("h100x8_m8", "h100x8_m4")
+
+
+def node_count_result(name):
+    return ROOT / "build" / f"chip_smoke_node_{name}.json"
+
+
+def main_node_count():
+    """(nc), run by ``chip_smoke.py --node-count NAME`` (start_node_counts):
+    the dry-run's count of qwen3-4b's train_4k cell at its published size
+    on the node layout NAME, on the meta device (one card's share, the
+    collectives by kind), written to node_count_result(NAME). Touches no
+    card, and yields the host's cores to the card's phases (nice 19, one
+    thread)."""
+    from repro_torch.launch.dryrun import run_cell
+    name = sys.argv[2]
+    os.nice(19)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rec = run_cell("qwen3-4b", "train_4k", name, None, verbose=False)
+    rec["seconds"] = time.perf_counter() - t0
+    node_count_result(name).parent.mkdir(parents=True, exist_ok=True)
+    node_count_result(name).write_text(json.dumps(rec, default=str))
+    return 0 if rec["status"] == "ok" else 1
+
+
+def start_node_counts():
+    """Start main_node_count for each of NODE_LAYOUTS, the card hidden from
+    it; each is killed when this process exits."""
+    procs = {}
+    for name in NODE_LAYOUTS:
+        node_count_result(name).unlink(missing_ok=True)
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--node-count",
+             name], stdout=subprocess.DEVNULL,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": "1"})
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def finish_node_counts(procs, timeout=600):
+    """Wait for start_node_counts' processes and print each layout's
+    per-card terms and collectives; a count that failed fails the run."""
+    out = {}
+    for name, proc in procs.items():
+        rc = proc.wait(timeout=timeout)
+        path = node_count_result(name)
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rc != 0 or rec.get("status") != "ok":
+            raise AssertionError(f"the dry-run's count on {name} failed "
+                                 f"(exit {rc}): {rec.get('error')}")
+        rl, mem = rec["roofline"], rec["memory"]
+        log("nc", f"qwen3-4b train_4k on {name} ({rec['chips']} cards, "
+                  f"{rec['rules']}, {rec['note']}), per card, counted in "
+                  f"{rec['seconds']:.1f} s on the host: compute "
+                  f"{rl['compute_s'] * 1e3:.1f} ms, memory "
+                  f"{rl['memory_s'] * 1e3:.1f} ms, collective "
+                  f"{rl['collective_s'] * 1e3:.1f} ms ({rl['dominant']}), "
+                  f"MFU {rl['mfu']:.4f}, peak "
+                  f"{mem['peak_bytes'] / 2 ** 30:.2f} GiB (fits "
+                  f"{mem['fits']}); collectives " + ", ".join(
+                      f"{k} {v / 1e6:.1f} MB" for k, v in
+                      sorted(rec["collectives"].items())))
+        out[name] = rec
+    return out
 
 
 def run_child(flag, result, env=None):
@@ -3944,6 +4117,7 @@ def main():
     smi = bench.card()
     log("a", f"{smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
              f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    node_counts = start_node_counts()
     build_kernels()
     flash_err = phase_kernel_vs_plain()
     bwd_err = phase_flash_bwd_vs_plain()
@@ -4141,7 +4315,10 @@ def main():
               f"{QWEN_TRAIN_B} S{QWEN_TRAIN_S} " + "; ".join(
                   f"model_ways {m}: {v['wall_ms']:.3f} ms wall, "
                   f"{v['busy_ms']:.3f} ms busy, {v['tok_s']:.0f} tokens/s, "
-                  f"{v['peak_gib']:.2f} GiB peak"
+                  f"{v['peak_gib']:.2f} GiB peak" + (
+                      f" (the dry-run's {v['prediction']['predicted_gib']:.2f}"
+                      f", compute {v['prediction']['compute_ms']:.1f} ms)"
+                      if "prediction" in v else "")
                   for m, v in tp["times"].items()))
     tp = tp["counts"]
     tpk = run_child("--tp-kinds", TP_KINDS_RESULT, env={
@@ -4158,7 +4335,9 @@ def main():
                   for arch, v in tpk["losses"].items()) + "; steps " + "; ".join(
                   f"{arch} model_ways {m}: {v['wall_ms']:.3f} ms wall, "
                   f"{v['busy_ms']:.3f} ms busy, {v['peak_gib']:.2f} GiB peak"
-                  for arch, t in tpk["times"].items() for m, v in t.items()))
+                  for arch, t in tpk["times"].items() for m, v in t.items())
+              + "; fp32 step at 2 data slices against 1: " + ", ".join(
+                  f"{arch} {e:.3e}" for arch, e in tpk["slices"].items()))
     tpk = tpk["counts"]
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
@@ -4167,6 +4346,7 @@ def main():
                  (f"{tok_s:.1f} tok/s" if tok_s is not None else "no Server")
                  + f" ({arch}, peak {peak:.2f} GiB)"
                  for arch, (_, tok_s, peak) in zoo.items()))
+    finish_node_counts(node_counts)
     log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     # each kernel's row at the shape its first main path launches; flash
     # attention runs on two paths: its launches are both paths', and its
@@ -4368,5 +4548,6 @@ def main():
 if __name__ == "__main__":
     sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train,
               "--qwen-train": main_qwen_train, "--tp": main_tp,
-              "--tp-kinds": main_tp_kinds}.get(
+              "--tp-kinds": main_tp_kinds,
+              "--node-count": main_node_count}.get(
         (sys.argv[1:] or [None])[0], main)())

@@ -11,13 +11,20 @@ coordinate's blocks of the weights (``model_block``), and then the
 coordinates' partial sums are added (``all_reduce``) before anything reads
 them. One coordinate cannot run its whole forward before the next, since a
 sum over the coordinates needs every coordinate's part at the same point.
-All of it is one autograd graph, so the backward of each collective is
-autograd's own: the sum hands every part the gradient of the whole, and
-the copies of the sum add their gradients back, which is the all-reduce of
-the gradients GSPMD writes.
+All of it is one autograd graph. Each collective is an autograd Function
+whose backward is the collective GSPMD writes for the gradients: an
+all-reduce's copies add their gradients back (an all-reduce), and the
+blocks of a leaf put together take their shares of its gradient (a
+reduce-scatter).
+
+Each collective runs inside :func:`collective`, which tells the watchers
+(``roofline/count.py``, counting a step on the meta device) its kind and
+the bytes a card sends for it on N cards (a ring's): the count files them
+as collectives, not as HBM traffic.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import torch
@@ -26,6 +33,40 @@ from repro_torch.core.meshes import Mesh, mesh_model_ways
 from repro_torch.core.sharding import (NamedSharding, PartitionSpec,
                                        ShardedTensor, _as_tuple)
 
+# the counters of ``roofline/count.py`` that are counting a step now
+WATCHERS: list = []
+
+
+def ring_bytes(kind: str, nbytes: int, ways: int) -> float:
+    """Bytes a card sends, in a ring over ``ways`` cards, for a collective
+    of ``kind`` over ``nbytes``: an all-reduce's partial sums (a
+    reduce-scatter and an all-gather), or the whole that an all-gather puts
+    together, a reduce-scatter cuts up or a broadcast or a reduce copies
+    out from one card."""
+    if ways < 2:
+        return 0.0
+    share = (ways - 1) / ways * nbytes
+    return 2 * share if kind == "all-reduce" else share
+
+
+@contextlib.contextmanager
+def collective(kind: str, nbytes: int, ways: int):
+    """The ops inside make one collective of ``kind`` over the model
+    axis, ``nbytes`` as :func:`ring_bytes` reads them; the watchers hear
+    of it (none outside a count)."""
+    for w in WATCHERS:
+        w.enter(f"{kind} (model axis)", ring_bytes(kind, nbytes, ways))
+    try:
+        yield
+    finally:
+        for w in WATCHERS:
+            w.exit()
+
+
+def _size(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class Partial(list):
     """One partial sum per model coordinate, in coordinate order, each on
     its coordinate's device: the value is their sum. A plain list of one
@@ -33,23 +74,72 @@ class Partial(list):
     block of, where the layout splits it)."""
 
 
+def _sum_copies(parts) -> list:
+    """The all-reduce itself: the sum in coordinate order on the first
+    coordinate's device, a copy of it on each other's."""
+    with collective("all-reduce", _size(parts[0]), len(parts)):
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device)
+        return [total] + [total.to(p.device, copy=True) for p in parts[1:]]
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        return tuple(_sum_copies(parts))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(_sum_copies(grads))
+
+
 def all_reduce(parts) -> List[torch.Tensor]:
     """The sum of ``parts`` in coordinate order, on the first coordinate's
     device, and a copy of it on every other coordinate's device (its own
     buffer, even where virtual coordinates share a card): deterministic,
-    and the same on one card or on N."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(total.device)
-    return [total] + [total.to(p.device, copy=True) for p in parts[1:]]
+    and the same on one card or on N. Its backward is the same all-reduce
+    of the copies' gradients."""
+    return list(_AllReduce.apply(*parts))
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks put together on the first block's device (``copies``:
+    and a copy of the whole on each other's); the backward adds the
+    copies' gradients and cuts the sum into the blocks' shares, each on
+    its block's device."""
+
+    @staticmethod
+    def forward(ctx, dim, copies, *parts):
+        ctx.dim = dim
+        ctx.blocks = [(p.shape[dim], p.device) for p in parts]
+        home = parts[0].device
+        with collective("all-gather", sum(map(_size, parts)), len(parts)):
+            out = torch.cat([p.to(home) for p in parts], dim=dim)
+            if not copies:
+                return out
+            return (out,) + tuple(out.to(p.device, copy=True)
+                                  for p in parts[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0]
+        with collective("reduce-scatter", _size(total), len(ctx.blocks)):
+            for g in grads[1:]:
+                total = total + g.to(total.device)
+            out, lo = [], 0
+            for n, dev in ctx.blocks:
+                out.append(total.narrow(ctx.dim, lo, n).to(dev))
+                lo += n
+        return (None, None) + tuple(out)
 
 
 def all_gather(parts, dim: int) -> torch.Tensor:
     """The coordinates' blocks of a tensor split over the model axis along
     ``dim`` (the logits' vocab), put together in coordinate order on the
-    first coordinate's device."""
-    home = parts[0].device
-    return torch.cat([p.to(home) for p in parts], dim=dim)
+    first coordinate's device; its backward gives each block its share of
+    the whole's gradient."""
+    return _Gather.apply(dim, False, *parts)
 
 
 def model_spec(sharding: NamedSharding) -> NamedSharding:
@@ -95,8 +185,7 @@ def whole(blocks, whole_shape) -> List[torch.Tensor]:
         return list(blocks)
     dim = next(d for d, (b, n) in enumerate(zip(blocks[0].shape,
                                                 whole_shape)) if b != n)
-    out = all_gather(blocks, dim)
-    return [out] + [out.to(b.device, copy=True) for b in blocks[1:]]
+    return list(_Gather.apply(dim, True, *blocks))
 
 
 def whole_tree(parts, specs) -> list:
@@ -116,4 +205,6 @@ def run_whole(parts, xs, specs, run):
     gradients reach every coordinate's blocks) and its input; y copied to
     every other coordinate (no partial sum). -> (ys, False, extra)."""
     y, extra = run(whole_tree(parts, specs)[0], xs[0])
-    return [y] + [y.to(x.device, copy=True) for x in xs[1:]], False, extra
+    with collective("broadcast", _size(y), len(xs)):
+        copies = [y.to(x.device, copy=True) for x in xs[1:]]
+    return [y] + copies, False, extra

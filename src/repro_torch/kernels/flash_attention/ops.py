@@ -66,7 +66,9 @@ def _save(ctx, inputs, output):
 def _grad(ctx, do, _dlse):
     q, k, v, out, lse = ctx.saved_tensors
     if not aligned(do):
-        do = do.contiguous()
+        # not .contiguous(): it keeps the strides of a size-1 dim (one head
+        # a model coordinate), which may be 1
+        do = do.clone(memory_format=torch.contiguous_format)
     dq, dk, dv = flash_bwd_op(q, k, v, out, lse, do, *ctx.options)
     return dq, dk, dv, None, None, None, None
 

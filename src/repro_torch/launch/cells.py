@@ -16,15 +16,34 @@ every op as it is dispatched, the layers' loop, the micro-batches and a
 remat's recompute included.
 
 The train step is the trainer's own (``runtime/trainer.py``), for the
-first card: ``slice_grads`` over the card's share of ``accum``
+first slice: ``slice_grads`` over the slice's share of ``accum``
 micro-batches, on its whole parameters (gathered from their blocks under
 ``FSDP_RULES``), then ``apply_step`` (``apply_sharded_updates`` on the
-card's ZeRO-1 moment blocks, each parameter block put back together from
-the updated blocks). Its TrainState holds the first card's blocks only;
-the parts of a gathered buffer that other cards hold are left to the
-collectives counted beside the step, and so is the gradients' sum over the
-cards. ``AdamWConfig.grad_reduce_dtype`` casts each micro-batch's
-gradients before they are summed in fp32 (for ``accum`` > 1, as the
+slice's ZeRO-1 moment blocks, each parameter block put back together from
+the updated blocks). With routers on several slices it first runs the
+trainer's routing pre-pass over the slice's rows (``slice_router_loads``).
+Its TrainState holds the first slice's blocks only; the parts of a
+gathered buffer that other cards hold are left to the collectives counted
+beside the step, and so are the gradients' sum over the data slices and
+the router loads' (E fp32 values a MoE block and micro-batch).
+
+On a mesh with a model axis (``model`` > 1) a slice is that many cards,
+one model coordinate each, and the step runs them in lockstep as the
+trainer does (``core/tensor_parallel.py``): every coordinate's blocks are
+arguments, and ``roofline/count.py`` takes one card's share of the count
+(``Cell.ways``) and the model axis's collectives from the step's own
+calls. Serving cells take each coordinate's parameter blocks the same way;
+a decode takes the cache whole over the model axis where the lockstep
+decode reads it so (its heads' views), and each coordinate's block where
+the rules split its sequence (``kv_seq``: each coordinate attends over its
+block, and the partial outputs' combine is counted beside), the blocks the
+other coordinates hold beside it as a buffer the step does not touch.
+Under rules that cut the batch over the model axis too (``perf_iterate``'s
+``dp_only``), the model axis is data parallelism: the mesh is counted as
+that many data slices.
+
+``AdamWConfig.grad_reduce_dtype`` casts each micro-batch's gradients
+before they are summed in fp32 (for ``accum`` > 1, as the
 reference's cell does); the trainer reads it the same way. Each
 micro-batch weighs 1/``accum``, where the trainer weighs it by its share
 of the batch's unmasked labels, which only a batch's values give. The
@@ -44,14 +63,18 @@ from repro_torch.configs import get_config
 from repro_torch.core.meshes import Mesh, mesh_model_ways, mesh_num_slices
 from repro_torch.core.sharding import (FSDP_RULES, LONG_CONTEXT_RULES,
                                        TP_DP_RULES, NamedSharding,
-                                       ShardedTensor, ShardingRules,
-                                       intersect, rules_for_shape)
+                                       PartitionSpec, ShardedTensor,
+                                       ShardingRules, _as_tuple,
+                                       activation_rules, intersect,
+                                       rules_for_shape)
+from repro_torch.core.tensor_parallel import model_spec, slices_of
 from repro_torch.launch.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.models import build_model
 from repro_torch.models.layers import tree_leaves, tree_map, torch_dtype
 from repro_torch.optim import AdamWConfig
 from repro_torch.roofline.hardware import HBM_BYTES
-from repro_torch.runtime.trainer import (apply_step, slice_grads,
+from repro_torch.runtime.trainer import (apply_step, routers, slice_grads,
+                                         slice_router_loads,
                                          train_state_shardings)
 
 # -- per-cell deployment configuration (copies of the reference's) ------------
@@ -115,15 +138,19 @@ class Cell:
     collectives: Dict[str, float]     # bytes a card sends, by kind
     note: str = ""
     shardings: Any = None             # a train cell's TrainState layout
+    ways: int = 1                     # model coordinates run in lockstep
 
 
 # -- one card's blocks -----------------------------------------------------------
 
 
-def _box(shape, logical, rules: ShardingRules, mesh: Mesh) -> tuple:
-    """The first card's block of a tensor of ``shape`` (global slices)."""
+def _box(shape, logical, rules: ShardingRules, mesh: Mesh,
+         coord=None) -> tuple:
+    """Card ``coord``'s block (default: the first card's) of a tensor of
+    ``shape`` (global slices)."""
     spec = rules.spec_for(logical, shape, mesh)
-    return NamedSharding(mesh, spec).index(shape, mesh.coords()[0])
+    return NamedSharding(mesh, spec).index(
+        shape, mesh.coords()[0] if coord is None else coord)
 
 
 def _extent(box) -> tuple:
@@ -148,10 +175,6 @@ def _overlap(a: tuple, b: tuple) -> int:
     return 0 if inter is None else _numel(inter)
 
 
-def _whole_box(shape) -> tuple:
-    return tuple(slice(0, n) for n in shape)
-
-
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
@@ -162,20 +185,26 @@ def _ring(n: int) -> float:
     return 2.0 * (n - 1) / n if n > 1 else 0.0
 
 
+def _as_data(mesh: Mesh) -> Mesh:
+    """``mesh`` with its model axis folded into the data axis."""
+    return Mesh(mesh.devices.reshape(-1, 1), ("data", "model"))
+
+
 # -- the train cell ----------------------------------------------------------------
 
 
 def _train_cell(arch, shape, cfg, model, mesh, rules, opt_cfg, accum,
                 dtype_param):
     n = mesh_num_slices(mesh)
-    first = mesh.coords()[0]
+    coords = slices_of(mesh)[0]
+    first = coords[0]
     shapes = tree_map(lambda s: tuple(s.shape), model.specs())
     sh = train_state_shardings(model, opt_cfg, mesh, rules)
 
     def block(shape, dtype, sharding):
-        box = sharding.index(torch.Size(shape), first)
-        return ShardedTensor(shape, dtype, sharding,
-                             {first: _meta(_extent(box), dtype)})
+        return ShardedTensor(shape, dtype, sharding, {
+            c: _meta(_extent(sharding.index(torch.Size(shape), c)), dtype)
+            for c in coords})
 
     def blocks(dtype, tree):
         return tree_map(lambda s, h: block(s, dtype, h), shapes, tree)
@@ -192,16 +221,26 @@ def _train_cell(arch, shape, cfg, model, mesh, rules, opt_cfg, accum,
         raise ValueError(f"{arch} x {shape.name}: {rows} rows a card do not "
                          f"split into {accum} micro-batches")
     batch = _batch(cfg, shape, rows, "meta")
+    moe_blocks = routers(model.specs()) if n > 1 else 0
 
     def train_step(state, batch):
         per = batch["tokens"].shape[0] // accum
         loss = torch.zeros((), dtype=torch.float32,
                            device=mesh.device(first))
-        grads = slice_grads(
-            model, state["params"], [first], accum,
-            lambda i: ({k: v[i * per:(i + 1) * per]
-                        for k, v in batch.items()}, 1 / accum),
-            loss, opt_cfg)
+
+        def micro_batch(i):
+            return ({k: v[i * per:(i + 1) * per] for k, v in batch.items()},
+                    1 / accum)
+
+        loads = aux_weight = None
+        if moe_blocks:
+            # the slice's own loads stand for their mean over the slices
+            loads = slice_router_loads(model, state["params"], coords, accum,
+                                       micro_batch, rules)
+            aux_weight = 1 / (n * accum)
+        grads = slice_grads(model, state["params"], coords, accum,
+                            micro_batch, loss, opt_cfg, rules, loads,
+                            aux_weight)
         return apply_step(opt_cfg, state, grads, loss)
 
     # what the step moves between cards, per card: the parameters gathered
@@ -210,15 +249,18 @@ def _train_cell(arch, shape, cfg, model, mesh, rules, opt_cfg, accum,
     # all-reduce, per micro-batch as the reference's scan pins each one's
     # gradients to the parameters' sharding (in grad_reduce_dtype when
     # accum > 1); the updated blocks the card's parameter block is put
-    # back together from
+    # back together from; a card's share of each, its model block over the
+    # data axes; and the router loads' all-reduce
     pbox = tree_map(lambda s, h: h.index(torch.Size(s), first), shapes,
                     sh["params"])
     mbox = tree_map(lambda s, h: h.index(torch.Size(s), first), shapes,
                     sh["opt"]["mu"])
+    wbox = tree_map(lambda s, h: model_spec(h).index(torch.Size(s), first),
+                    shapes, sh["params"])
     isize = torch.tensor([], dtype=dtype_param).element_size()
-    leaves = list(zip(tree_leaves(shapes), tree_leaves(pbox),
+    leaves = list(zip(tree_leaves(wbox), tree_leaves(pbox),
                       tree_leaves(mbox)))
-    gathered = sum(_numel(_whole_box(s)) - _numel(p) for s, p, _ in leaves)
+    gathered = sum(_numel(w) - _numel(p) for w, p, _ in leaves)
     gathered += sum(_numel(m) - _overlap(m, p) for _, p, m in leaves
                     if not _inside(m, p))
     coll = {}
@@ -227,16 +269,19 @@ def _train_cell(arch, shape, cfg, model, mesh, rules, opt_cfg, accum,
     if n > 1:
         low = opt_cfg.grad_reduce_dtype if accum > 1 else None
         gsize = torch_dtype(low).itemsize if low else 4
-        full = sum(_numel(_whole_box(s)) for s, _, _ in leaves)
+        full = sum(_numel(w) for w, _, _ in leaves)
         coll["all-reduce (gradients)"] = accum * _ring(n) * full * gsize
         back = sum(_numel(p) - _overlap(m, p) for _, p, m in leaves)
         if back:
             coll["all-gather (ZeRO-1 parameter blocks)"] = back * isize
+        if moe_blocks:
+            coll["all-reduce (router loads)"] = \
+                accum * _ring(n) * moe_blocks * cfg.num_experts * 4
     tokens = shape.global_batch * shape.seq_len
     return Cell(arch, shape.name, train_step, (state, batch),
                 model_flops=6.0 * cfg.active_param_count() * tokens,
                 tokens=tokens, rules=rules, collectives=coll,
-                note=f"accum={accum}", shardings=sh)
+                note=f"accum={accum}", shardings=sh, ways=len(coords))
 
 
 def _batch(cfg, shape: ShapeSpec, rows: int, device) -> dict:
@@ -264,29 +309,60 @@ def _batch(cfg, shape: ShapeSpec, rows: int, device) -> dict:
 # -- serving cells -----------------------------------------------------------------
 
 
+def _model_on_seq_only(spec: PartitionSpec, logical) -> PartitionSpec:
+    """``spec`` with the model axis kept on the cache's sequence
+    (``kv_seq``) only: the lockstep decode reads a cache whole over the
+    model axis (each coordinate its heads' view) but for a sequence the
+    rules split over it."""
+    out = []
+    for part, name in zip(spec, logical):
+        axes = _as_tuple(part)
+        if name != "kv_seq":
+            axes = tuple(ax for ax in axes if ax != "model")
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return PartitionSpec(*out)
+
+
 def _cache_blocks(model, cfg, batch: int, max_len: int, rules, mesh):
     """The first card's block of each cache leaf, in the dtypes of
-    ``init_cache``: positions int32, recurrent states fp32, the rest the
-    compute type."""
+    ``init_cache`` (positions int32, recurrent states fp32, the rest the
+    compute type); what the lockstep decode takes of it (whole over the
+    model axis but where it splits the sequence); and a buffer of the
+    bytes the other model coordinates hold beside that (none where the
+    leaf holds their blocks)."""
     dtype = torch_dtype(cfg.dtype)
+    ways = mesh_model_ways(mesh)
+    first = mesh.coords()[0]
+    spare = 0
 
     def build(name, spec):
+        nonlocal spare
         if isinstance(spec, dict):
-            return {k: build(k, v) for k, v in spec.items()}
-        box = _box(tuple(spec.shape), spec.logical, rules, mesh)
+            pairs = {k: build(k, v) for k, v in spec.items()}
+            return ({k: v[0] for k, v in pairs.items()},
+                    {k: v[1] for k, v in pairs.items()})
         dt = (torch.int32 if name == "pos" else
               torch.float32 if name in ("state", "h") else dtype)
-        return _meta(_extent(box), dt)
+        shape = tuple(spec.shape)
+        part = rules.spec_for(spec.logical, shape, mesh)
+        card = _meta(_extent(NamedSharding(mesh, part).index(shape, first)),
+                     dt)
+        held = _meta(_extent(NamedSharding(mesh, _model_on_seq_only(
+            part, spec.logical)).index(shape, first)), dt)
+        spare += ways * card.nbytes - held.nbytes
+        return card, held
 
     specs = model.cache_specs(batch, max_len)
-    return build("", specs), specs
+    cards, held = build("", specs)
+    return cards, held, _meta((spare,), torch.uint8), specs
 
 
-def _combine_bytes(specs, blocks, cfg, n: int) -> float:
+def _combine_bytes(specs, blocks, cfg) -> float:
     """Bytes a card sends to combine a decode's attention over a cache
-    whose sequence (``kv_seq``) is split over the cards: each split layer's
-    partial output (B, H, D) and its rows' max and sum, fp32,
-    all-reduced."""
+    whose sequence (``kv_seq``) is split over the cards (the data axes or
+    the model axis): each split layer's partial output (B, H, D) and its
+    rows' max and sum, fp32, all-reduced over the cards that split it."""
     total = 0.0
 
     def walk(spec, block):
@@ -298,21 +374,23 @@ def _combine_bytes(specs, blocks, cfg, n: int) -> float:
             if k != "k" or "kv_seq" not in sub.logical:
                 continue
             axis = sub.logical.index("kv_seq")
-            if block[k].shape[axis] == sub.shape[axis]:
-                continue
+            ways = sub.shape[axis] // block[k].shape[axis]
             layers = sub.shape[0] if sub.logical[0] == "layers" else 1
             rows = block[k].shape[sub.logical.index("batch")]
-            total += layers * rows * cfg.num_heads * (cfg.head_dim + 2) * 4
+            total += _ring(ways) * layers * rows * cfg.num_heads * (
+                cfg.head_dim + 2) * 4
 
     walk(specs, blocks)
-    return _ring(n) * total
+    return total
 
 
 def _serve_cell(arch, shape, cfg, model, mesh, rules, dtype_param):
-    n = mesh_num_slices(mesh)
+    coords = slices_of(mesh)[0]
     specs = model.specs()
-    params = tree_map(lambda s: _meta(_extent(_box(
-        tuple(s.shape), s.logical, rules, mesh)), dtype_param), specs)
+    parts = [tree_map(lambda s, c=c: _meta(_extent(_box(
+        tuple(s.shape), s.logical, rules, mesh, c)), dtype_param), specs)
+        for c in coords]
+    params = parts if len(parts) > 1 else parts[0]
     rows = _extent(_box((shape.global_batch, 1), ("batch", None), rules,
                         mesh))[0]
     n_active = cfg.active_param_count()
@@ -322,34 +400,36 @@ def _serve_cell(arch, shape, cfg, model, mesh, rules, dtype_param):
 
         @torch.no_grad()
         def prefill_step(params, batch):
-            if cfg.family == "encdec":
-                return model.prefill(params, batch["frontend"],
-                                     batch["tokens"], s // 2)
-            return model.prefill(params, batch["tokens"], s,
-                                 extra_embeds=batch.get("frontend"))
+            with activation_rules(mesh, rules):
+                if cfg.family == "encdec":
+                    return model.prefill(params, batch["frontend"],
+                                         batch["tokens"], s // 2)
+                return model.prefill(params, batch["tokens"], s,
+                                     extra_embeds=batch.get("frontend"))
 
         tokens = shape.global_batch * s
         return Cell(arch, shape.name, prefill_step, (params, batch),
                     model_flops=2.0 * n_active * tokens, tokens=tokens,
-                    rules=rules, collectives={})
+                    rules=rules, collectives={}, ways=len(coords))
     max_len = shape.seq_len if cfg.family != "encdec" else shape.seq_len // 2
-    cache, cspecs = _cache_blocks(model, cfg, shape.global_batch, max_len,
-                                  rules, mesh)
+    cards, cache, spare, cspecs = _cache_blocks(
+        model, cfg, shape.global_batch, max_len, rules, mesh)
     token = _meta((rows, 1), torch.int32)
     pos = max_len - 1
 
     @torch.no_grad()
-    def serve_step(params, cache, token):
-        return model.decode_step(params, cache, token, pos)
+    def serve_step(params, cache, token, spare):
+        with activation_rules(mesh, rules):
+            return model.decode_step(params, cache, token, pos)
 
     coll = {}
-    combine = _combine_bytes(cspecs, cache, cfg, n)
+    combine = _combine_bytes(cspecs, cards, cfg)
     if combine:
         coll["all-reduce (attention over the split cache)"] = combine
-    return Cell(arch, shape.name, serve_step, (params, cache, token),
+    return Cell(arch, shape.name, serve_step, (params, cache, token, spare),
                 model_flops=2.0 * n_active * shape.global_batch,
                 tokens=shape.global_batch, rules=rules, collectives=coll,
-                note=f"decode at pos {pos}")
+                note=f"decode at pos {pos}", ways=len(coords))
 
 
 def build_cell(arch: str, shape: Union[str, ShapeSpec], mesh: Mesh,
@@ -366,11 +446,8 @@ def build_cell(arch: str, shape: Union[str, ShapeSpec], mesh: Mesh,
         if not ok:
             raise ValueError(f"{arch} x {shape} skipped: {why}")
         shape = SHAPES[shape]
-    if mesh_model_ways(mesh) > 1:
-        raise NotImplementedError(
-            "the dry-run's meshes with model > 1 (tensor parallelism inside "
-            "a slice, counted for one card) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 13)")
+    if rules is not None and "model" in rules.mesh_axes_for("batch"):
+        mesh = _as_data(mesh)
     cfg = cell_config(get_config(arch), shape)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)

@@ -6,11 +6,15 @@ eager program, run once on meta tensors (``roofline/count.py``): nothing is
 allocated, no kernel is built or launched and CUDA is never touched, so it
 runs on a host with no card and no ``nvcc``. For every live cell it:
 
-  1. builds the mesh (``h100x1``: one card; ``h100x8``: one HGX node of 8),
+  1. builds the mesh (``launch/mesh.py``: ``h100x1``, one card; one HGX
+     node of 8 as 8 data slices, ``h100x8``, or with a model axis, 1 x 8
+     ``h100x8_m8`` and 2 x 4 ``h100x8_m4``),
   2. builds the cell (``launch/cells.py``): one card's blocks under the
-     cell's rules,
-  3. counts its step: FLOPs, HBM bytes, peak memory (the arguments held),
-  4. counts the bytes a card sends to the others under those rules,
+     cell's rules (a slice's model coordinates' blocks, run in lockstep),
+  3. counts its step: one card's FLOPs, HBM bytes, peak memory (the
+     arguments held) and the collectives over the model axis that the step
+     calls, by kind,
+  4. adds the bytes a card sends over the data axes under those rules,
   5. derives the roofline terms against the H100 (``roofline/analysis.py``)
      and whether the peak fits the card's HBM,
   6. writes a JSON artifact, which ``python -m repro_torch.roofline.report``
@@ -18,8 +22,12 @@ runs on a host with no card and no ``nvcc``. For every live cell it:
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-      --shape all --mesh both [--out build/dryrun] [--skip-existing] \\
+      --shape all --mesh all [--out build/dryrun] [--skip-existing] \\
       [--reduced]
+
+``--mesh`` takes ``single`` (h100x1), ``node`` (h100x8), ``node_m8``
+(h100x8_m8), ``node_m4`` (h100x8_m4), ``both`` (single and node) or
+``all`` (the four).
 
 ``--reduced`` counts each arch's reduced config (``models.reduced_config``,
 a few narrow layers) at the same shapes: a quick check of the tooling, in
@@ -40,13 +48,15 @@ import traceback
 from typing import Optional, Union
 
 from repro_torch.launch.cells import build_cell, rules_name
-from repro_torch.launch.mesh import MESHES, make_production_mesh
+from repro_torch.launch.mesh import MESHES, meta_mesh
 from repro_torch.launch.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.roofline.analysis import (cost_summary, memory_summary,
                                            roofline_terms)
 from repro_torch.roofline.count import count_step
 
-MESH_OF = {"single": "h100x1", "node": "h100x8"}
+MESH_OF = {"single": "h100x1", "node": "h100x8", "node_m8": "h100x8_m8",
+           "node_m4": "h100x8_m4"}
+MESH_SETS = {"both": ["single", "node"], "all": list(MESH_OF)}
 DEFAULT_OUT = "build/dryrun"
 
 
@@ -56,16 +66,22 @@ def artifact_path(out_dir: pathlib.Path, arch: str, shape: str,
     return out_dir / f"{arch}__{shape}__{mesh_name}{suffix}.json"
 
 
-def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_name: str,
-             out_dir: Optional[pathlib.Path], verbose: bool = True,
-             rules=None, cfg_overrides=None, accum=None, opt_cfg=None,
-             tag: str = "") -> dict:
+def run_cell(arch: str, shape: Union[str, ShapeSpec],
+             mesh_name: Union[str, tuple], out_dir: Optional[pathlib.Path],
+             verbose: bool = True, rules=None, cfg_overrides=None,
+             accum=None, opt_cfg=None, tag: str = "") -> dict:
     """Count one cell and write its artifact (unless ``out_dir`` is None);
     returns the record. ``shape`` is a name of ``SHAPES`` or a
     ``ShapeSpec`` (a cut cell, with ``cfg_overrides`` such as
-    ``num_layers``)."""
+    ``num_layers``); ``mesh_name`` a name of ``MESHES`` or a (data, model)
+    pair (a layout of virtual devices on one card, named ``d{data}m{model}``
+    in the record)."""
     shape_name = shape if isinstance(shape, str) else shape.name
-    chips = MESHES[mesh_name]["data"] * MESHES[mesh_name]["model"]
+    if isinstance(mesh_name, str):
+        dims = (MESHES[mesh_name]["data"], MESHES[mesh_name]["model"])
+    else:
+        dims, mesh_name = tuple(mesh_name), "d{}m{}".format(*mesh_name)
+    chips = dims[0] * dims[1]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "chips": chips, "status": "ok", "tag": tag}
     ok, why = applicable(arch, shape_name)
@@ -73,23 +89,24 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_name: str,
         rec.update(status="skipped", reason=why)
     else:
         try:
-            mesh = make_production_mesh(mesh_name)
+            mesh = meta_mesh(*dims)
             t0 = time.perf_counter()
             kw = {} if opt_cfg is None else {"opt_cfg": opt_cfg}
             cell = build_cell(arch, shape, mesh, rules=rules,
                               cfg_overrides=cfg_overrides, accum=accum, **kw)
             t1 = time.perf_counter()
-            _, count = count_step(cell.fn, *cell.args)
+            _, count = count_step(cell.fn, *cell.args, ways=cell.ways)
             t2 = time.perf_counter()
             mem = memory_summary(count)
             cost = cost_summary(count)
-            coll_total = float(sum(cell.collectives.values()))
+            coll = dict(cell.collectives, **count.collectives)
+            coll_total = float(sum(coll.values()))
             rl = roofline_terms(per_device_flops=count.flops,
                                 per_device_bytes=count.bytes,
                                 per_device_coll_bytes=coll_total,
                                 chips=chips, model_flops=cell.model_flops)
             rec.update(build_s=round(t1 - t0, 2), count_s=round(t2 - t1, 2),
-                       memory=mem, cost=cost, collectives=cell.collectives,
+                       memory=mem, cost=cost, collectives=coll,
                        roofline=rl.as_dict(), tokens=cell.tokens,
                        fits=mem["fits"], rules=rules_name(cell.rules),
                        note=cell.note)
@@ -105,7 +122,7 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], mesh_name: str,
                       f"bytes/card={count.bytes:.3e} ops={count.ops}")
                 print("  collectives/card: " + (", ".join(
                     f"{k}={v/1e6:.1f}MB"
-                    for k, v in sorted(cell.collectives.items())) or "none"))
+                    for k, v in sorted(coll.items())) or "none"))
                 print(f"  roofline: compute={rl.compute_s*1e3:.2f}ms "
                       f"memory={rl.memory_s*1e3:.2f}ms "
                       f"collective={rl.collective_s*1e3:.2f}ms "
@@ -138,7 +155,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both",
-                    choices=["single", "node", "both"])
+                    choices=sorted(set(MESH_OF) | set(MESH_SETS)))
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--reduced", action="store_true")
@@ -147,8 +164,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import list_archs
     archs = list_archs() if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
-    meshes = {"single": ["single"], "node": ["node"],
-              "both": ["single", "node"]}[args.mesh]
+    meshes = MESH_SETS.get(args.mesh, [args.mesh])
     out = pathlib.Path(args.out)
 
     n_ok = n_skip = n_err = 0

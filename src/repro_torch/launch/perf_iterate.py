@@ -5,16 +5,18 @@ Counterpart of ``benchmarks/perf_iterate.py``, on the dry-run's meta
 count (``launch/dryrun.py``):
 
   PYTHONPATH=src python -m repro_torch.launch.perf_iterate \\
-      --arch smollm-135m --shape train_4k --variant ce_chunk [--node]
+      --arch smollm-135m --shape train_4k --variant dp_only \\
+      [--mesh h100x8_m4 | --node]
 
 Each variant writes a tagged artifact next to the baseline's directory.
-The meshes have ``model`` 1 (the dry-run's meshes with a model axis are
-ROADMAP Queue 1 item 13), so the variants that need a model axis raise
-and say so: ``decode_seq`` and ``decode_seq_bf16`` shard the KV cache over it, and
-``dp_only*`` fold it into the data axes, which on a mesh of model 1 is the
-baseline's layout. The reference's ``attn_chunk_2k``, ``attn_chunk_512``
-and ``ssd_chunk_1k`` raise too: they would count the baseline's program
-under another name (``KERNEL_TILES``).
+``dp_only*`` cut the batch over the model axis too, which makes it data
+parallelism (``DP_ONLY_RULES``), and ``decode_seq*`` split the KV cache's
+sequence over it and leave the attention whole on every coordinate
+(``DECODE_SEQ_RULES``): on a mesh with a model axis (``h100x8_m8``,
+``h100x8_m4``) each counts its layout; on one of model 1 it is the
+baseline's. The reference's ``attn_chunk_2k``, ``attn_chunk_512`` and
+``ssd_chunk_1k`` raise: they would count the baseline's program under
+another name (``KERNEL_TILES``).
 """
 from __future__ import annotations
 
@@ -23,13 +25,25 @@ import json
 import pathlib
 
 from repro_torch.core.sharding import FSDP_RULES, TP_DP_RULES
-from repro_torch.launch.dryrun import DEFAULT_OUT, artifact_path, run_cell
+from repro_torch.launch.dryrun import (DEFAULT_OUT, artifact_path,
+                                       reduced_overrides, run_cell)
+from repro_torch.launch.mesh import MESHES
 from repro_torch.optim import AdamWConfig
 
-_ITEM_13 = ("needs a model axis: the dry-run's meshes with model > 1 are "
-            "not ported yet (ROADMAP.md, Queue 1 item 13)")
-NEEDS_MODEL_AXIS = {"decode_seq", "decode_seq_bf16", "dp_only",
-                    "dp_only_ce", "dp_only_dots", "dp_only_dots_ce"}
+# copies of the reference's (benchmarks/perf_iterate.py): the batch cut
+# over both axes, the model axis extra data parallelism, for models whose
+# attention cannot use tensor parallelism
+DP_ONLY_RULES = TP_DP_RULES.replace(
+    batch=("pod", "data", "model"), heads=(), kv_heads=(), mlp=(),
+    experts=(), vocab=(), zero1=("pod", "data", "model"))
+
+# flash-decode: the KV cache cut along its sequence over the model axis,
+# for GQA models whose KV heads are fewer than the model ways (the cache
+# would otherwise be whole on every coordinate); the query and the
+# attention's weights whole on every coordinate, each attending over its
+# block, the partial softmaxes combined
+DECODE_SEQ_RULES = TP_DP_RULES.replace(
+    kv_seq=("model",), heads=(), kv_heads=())
 # the reference's chunk variants, which cannot change the port's program
 KERNEL_TILES = {
     "attn_chunk_2k": "the flash kernel tiles on its own; attn_chunk steers "
@@ -53,13 +67,22 @@ VARIANTS = {
     "no_zero1": {"opt_cfg": AdamWConfig(zero1=False)},
     "grad_bf16": {"opt_cfg": AdamWConfig(grad_reduce_dtype="bfloat16")},
     "remat_dots": {"cfg_overrides": {"remat": "dots"}},
+    "decode_seq": {"rules": DECODE_SEQ_RULES},
+    "decode_seq_bf16": {"rules": DECODE_SEQ_RULES,
+                        "cfg_overrides": {"param_dtype": "bfloat16"}},
+    "dp_only": {"rules": DP_ONLY_RULES},
+    "dp_only_ce": {"rules": DP_ONLY_RULES,
+                   "cfg_overrides": {"ce_chunk": 512}},
+    "dp_only_dots": {"rules": DP_ONLY_RULES,
+                     "cfg_overrides": {"remat": "dots"}},
+    "dp_only_dots_ce": {"rules": DP_ONLY_RULES,
+                        "cfg_overrides": {"remat": "dots",
+                                          "ce_chunk": 1024}},
 }
 
 
 def variant(name: str) -> dict:
     """The ``run_cell`` keywords of variant ``name``."""
-    if name in NEEDS_MODEL_AXIS:
-        raise NotImplementedError(f"variant {name} {_ITEM_13}")
     if name in KERNEL_TILES:
         raise ValueError(f"variant {name} counts the baseline's program: "
                          f"{KERNEL_TILES[name]}")
@@ -86,23 +109,30 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--variant", required=True,
-                    choices=sorted(set(VARIANTS) | NEEDS_MODEL_AXIS
-                                   | set(KERNEL_TILES)))
+                    choices=sorted(set(VARIANTS) | set(KERNEL_TILES)))
+    ap.add_argument("--mesh", default="h100x1", choices=sorted(MESHES))
     ap.add_argument("--node", action="store_true",
-                    help="the 8-card mesh (h100x8) instead of one card")
+                    help="the 8-card mesh h100x8 (as --mesh h100x8)")
     ap.add_argument("--base", default=DEFAULT_OUT)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced config, as dryrun --reduced "
+                         "(compared with --base's artifact of the cell)")
     ap.add_argument("--out", default="build/perf")
     args = ap.parse_args(argv)
 
-    mesh_name = "h100x8" if args.node else "h100x1"
+    mesh_name = "h100x8" if args.node else args.mesh
     spec = variant(args.variant)
     base_path = artifact_path(pathlib.Path(args.base), args.arch, args.shape,
                               mesh_name)
     base = json.loads(base_path.read_text()) if base_path.exists() else None
     if base:
         show(base, "baseline")
+    overrides = spec.pop("cfg_overrides", {})
+    if args.reduced:
+        overrides = dict(reduced_overrides(args.arch), **overrides)
     rec = run_cell(args.arch, args.shape, mesh_name, pathlib.Path(args.out),
-                   verbose=False, tag=args.variant, **spec)
+                   verbose=False, tag=args.variant,
+                   cfg_overrides=overrides or None, **spec)
     rl = show(rec, args.variant)
     if base and rl and base.get("status") == "ok":
         b = base["roofline"]

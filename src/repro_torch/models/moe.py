@@ -53,20 +53,33 @@ def capacity(cfg, seq: int, factor: float = 1.25) -> int:
     return max(8, min(c, seq))
 
 
-def route(params, x, cfg):
+def route(params, x, cfg, load=None):
     """The router: fp32 probabilities (B, S, E), the top-k experts (B, S, k)
     with their renormalised weights, and the Switch load-balancing loss
     ``coef * E * sum_e f_e P_e``."""
-    return route_logits((x @ params["router"].to(x.dtype)).float(), cfg)
+    return route_logits((x @ params["router"].to(x.dtype)).float(), cfg,
+                        load)
 
 
-def route_logits(logits, cfg):
-    """:func:`route` from the router's fp32 logits (B, S, E)."""
+def route_logits(logits, cfg, load=None):
+    """:func:`route` from the router's fp32 logits (B, S, E).
+
+    ``load`` is the routed share f_e (E,) of a whole batch of which this
+    call sees some rows (one data slice's, ``runtime/trainer.py``): the
+    loss takes it in place of the call's own share. f_e carries no
+    gradient, so the loss is linear in P_e, and the slices' losses with
+    their own P_e, each weighed 1/n, add up to the whole batch's. A list
+    for ``load`` takes the call's own share, appended to it (the trainer's
+    routing pre-pass)."""
     ne = cfg.num_experts
     probs = torch.softmax(logits, dim=-1)                     # (B,S,E)
     weights, experts = torch.topk(probs, cfg.top_k, dim=-1)   # (B,S,k)
     weights = weights / weights.sum(-1, keepdim=True)
     f_e = F.one_hot(experts, ne).float().sum(2).mean((0, 1))  # routed share
+    if isinstance(load, list):
+        load.append(f_e)
+    elif load is not None:
+        f_e = load.to(f_e.device)
     p_e = probs.mean((0, 1))
     aux = cfg.router_aux_coef * ne * (f_e * p_e).sum()
     return probs, experts, weights, aux
@@ -131,12 +144,12 @@ def expert_outputs(params, x, slot, weights, cfg, cap: int, first: int = 0):
     return y
 
 
-def moe_apply(params, x, cfg, capacity_factor: float = None):
-    """x: (B, S, E) -> (y, aux_loss)."""
+def moe_apply(params, x, cfg, capacity_factor: float = None, load=None):
+    """x: (B, S, E) -> (y, aux_loss); ``load`` as :func:`route_logits`."""
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
     cap = capacity(cfg, x.shape[1], capacity_factor)
-    _, experts, weights, aux = route(params, x, cfg)
+    _, experts, weights, aux = route(params, x, cfg, load)
     slot = dispatch_slots(experts, cfg.num_experts, cap)      # (B,S*k)
     y = expert_outputs(params, x, slot, weights, cfg, cap)
     if cfg.num_shared_experts:
@@ -144,7 +157,8 @@ def moe_apply(params, x, cfg, capacity_factor: float = None):
     return y, aux
 
 
-def tp_moe_apply(parts, xs, cfg, spec, capacity_factor: float = None):
+def tp_moe_apply(parts, xs, cfg, spec, capacity_factor: float = None,
+                 load=None):
     """:func:`moe_apply` over the model coordinates: ``parts`` each
     coordinate's blocks of the feed-forward's parameters, ``xs`` its copy
     of the normalised stream, ``spec`` the feed-forward's ParamSpecs. ->
@@ -155,8 +169,9 @@ def tp_moe_apply(parts, xs, cfg, spec, capacity_factor: float = None):
     experts' MLP by "mlp". The router's logits are put together from the
     coordinates' blocks, and every coordinate routes whole (the same
     softmax, top-k and capacity); the aux loss is the first coordinate's,
-    counted once. Each coordinate runs only its own experts' slots, so its
-    output is a partial sum over the experts, and the shared experts' part
+    counted once, and only the first takes ``load`` (:func:`route_logits`).
+    Each coordinate runs only its own experts' slots, so its output is a
+    partial sum over the experts, and the shared experts' part
     joins the same partial sum: one all-reduce a block. The coordinates'
     outputs are added in coordinate order, each a sum of its choices in
     choice order, so the rounding differs from one model way's, which sums
@@ -177,7 +192,8 @@ def tp_moe_apply(parts, xs, cfg, spec, capacity_factor: float = None):
     partial = e_split or s_split
     ys, aux = [], None
     for m, (p, x, lg) in enumerate(zip(parts, xs, logits)):
-        _, experts, weights, a = route_logits(lg, cfg)
+        _, experts, weights, a = route_logits(lg, cfg,
+                                              load if m == 0 else None)
         aux = a if aux is None else aux
         y = torch.zeros_like(x)
         if e_split or not partial or m == 0:

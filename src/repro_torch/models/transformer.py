@@ -70,6 +70,18 @@ def layer(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
+def layer_key(key: str, slot=None) -> str:
+    """The name of a block of ``CausalLM._layers()``: ``head{i}``,
+    ``blocks.p{j}.{repeat}`` or ``tail{t}``."""
+    return key if slot is None else f"{key}.{slot[0]}.{slot[1]}"
+
+
+def block_load(loads, key: str, slot=None):
+    """Block ``key`` (``slot``)'s entry of ``loads`` (its ``load``, by
+    layer key: ``CausalLM.router_loads``), or None."""
+    return None if loads is None else loads.get(layer_key(key, slot))
+
+
 def tree_stack(trees):
     """Trees of one structure -> one tree of tensors stacked on a new axis 0."""
     if isinstance(trees[0], dict):
@@ -145,23 +157,26 @@ def block_specs(cfg: ModelConfig, kind: str, dense_ff: Optional[int] = None
     raise ValueError(kind)
 
 
-def ffn_apply(params, h, cfg: ModelConfig, capacity_factor=None):
+def ffn_apply(params, h, cfg: ModelConfig, capacity_factor=None,
+              load=None):
     """The feed-forward of an attention block: the mixture of experts where
-    it has a router, else the gated MLP. -> (y, aux loss or None)."""
+    it has a router (``load`` as ``moe.route_logits``), else the gated
+    MLP. -> (y, aux loss or None)."""
     if "router" in params:
         return moe_mod.moe_apply(params, h, cfg,
-                                 capacity_factor=capacity_factor)
+                                 capacity_factor=capacity_factor, load=load)
     return mlp_apply(params, h, cfg), None
 
 
-def block_apply(params, x, cfg: ModelConfig, kind: str, aux):
+def block_apply(params, x, cfg: ModelConfig, kind: str, aux, load=None):
     """One block, training / prefill path (full sequence). -> (x, aux plus
-    the block's router loss)."""
+    the block's router loss); ``load``: the block's routed share of the
+    whole batch, or a list to append its own to (``moe.route_logits``)."""
     if kind in attn.KINDS:
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         x = x + attn.attention_apply(params["attn"], h, cfg, kind=kind)
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        y, a = ffn_apply(params["ffn"], h, cfg)
+        y, a = ffn_apply(params["ffn"], h, cfg, load=load)
         return x + y, aux if a is None else aux + a
     if kind == "ssd":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
@@ -214,18 +229,19 @@ def tp_residual(xs, ys, partial: bool):
     return [x + y for x, y in zip(xs, ys)]
 
 
-def tp_ffn(parts, xs, cfg, spec, capacity_factor=None):
+def tp_ffn(parts, xs, cfg, spec, capacity_factor=None, load=None):
     """The feed-forward half of a block (``ln2``, ``ffn``) over the model
     coordinates: the gated MLP, ``w_gate`` and ``w_up`` by column and
     ``w_down`` by row, or the mixture of experts
-    (``moe.tp_moe_apply``); each coordinate's output a partial sum where
-    the rules split the leaves, which ``spec`` (the block's ParamSpecs)
-    tells from the leaves' whole shapes. -> (xs, the aux loss or None)."""
+    (``moe.tp_moe_apply``, which takes ``load``); each coordinate's output
+    a partial sum where the rules split the leaves, which ``spec`` (the
+    block's ParamSpecs) tells from the leaves' whole shapes. -> (xs, the
+    aux loss or None)."""
     hs = [rms_norm(x, p["ln2"], cfg.norm_eps) for p, x in zip(parts, xs)]
     ffn = [p["ffn"] for p in parts]
     if "router" in ffn[0]:
         ys, partial, aux = moe_mod.tp_moe_apply(ffn, hs, cfg, spec["ffn"],
-                                                capacity_factor)
+                                                capacity_factor, load)
     else:
         ys = [mlp_apply(p, h, cfg) for p, h in zip(ffn, hs)]
         partial = tp.is_split(ffn[0]["w_down"], spec["ffn"]["w_down"].shape)
@@ -259,7 +275,8 @@ def _tp_mixer_half(parts, xs, cfg, kind, spec, call):
     return tp_residual(xs, ys, partial), extra
 
 
-def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux, spec):
+def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux, spec,
+                   load=None):
     """:func:`block_apply` over the model coordinates: ``parts`` each
     coordinate's blocks of the block's parameters, ``xs`` its copy of the
     residual stream, ``spec`` the block's ParamSpecs."""
@@ -267,7 +284,8 @@ def tp_block_apply(parts, xs, cfg: ModelConfig, kind: str, aux, spec):
         xs, ys, partial = tp_attention_half(parts, xs, cfg, (
             lambda p, h, h0, m: attn.attention_apply(p, h, cfg, kind=kind,
                                                      head0=h0)))
-        xs, a = tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec)
+        xs, a = tp_ffn(parts, tp_residual(xs, ys, partial), cfg, spec,
+                       load=load)
         return xs, aux if a is None else aux + a
     xs, _ = _tp_mixer_half(parts, xs, cfg, kind, spec, lambda mod, ps, hs, sp:
                            mod.tp_mixer(ps, hs, cfg, sp))
@@ -517,26 +535,37 @@ class CausalLM:
 
     # ---- forward (training / prefill trunk) ----
 
-    def _trunk(self, params, x):
-        """-> (normalised hidden states, the routers' summed loss, fp32)."""
+    def _unit_loads(self, loads, r: int) -> list:
+        """Each block's load of pattern unit ``r`` (``block_load``)."""
+        return [block_load(loads, "blocks", (f"p{j}", r))
+                for j in range(len(self.cfg.pattern))]
+
+    def _trunk(self, params, x, loads=None):
+        """-> (normalised hidden states, the routers' summed loss, fp32).
+        ``loads``: each MoE block's ``load`` by layer key (the whole
+        batch's routed shares, or lists to collect the blocks' own:
+        ``router_loads``); ``remat``'s unit takes its blocks' loads as an
+        argument, so that a recompute reads the same."""
         cfg = self.cfg
         reps, tail = self._pattern_layout()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.first_dense_layers):
             x, aux = block_apply(params[f"head{i}"], x, cfg, cfg.pattern[0],
-                                 aux)
+                                 aux, block_load(loads, f"head{i}"))
 
-        def unit(x, aux, unit_params):
+        def unit(x, aux, unit_params, unit_loads):
             for j, kind in enumerate(cfg.pattern):
-                x, aux = block_apply(unit_params[f"p{j}"], x, cfg, kind, aux)
+                x, aux = block_apply(unit_params[f"p{j}"], x, cfg, kind, aux,
+                                     unit_loads[j])
             return x, aux
 
         unit = remat(cfg, unit)
         for r in range(reps):
-            x, aux = unit(x, aux, layer(params["blocks"], r))
+            x, aux = unit(x, aux, layer(params["blocks"], r),
+                          self._unit_loads(loads, r))
         for t in range(tail):
             x, aux = block_apply(params[f"tail{t}"], x, cfg, cfg.pattern[t],
-                                 aux)
+                                 aux, block_load(loads, f"tail{t}"))
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     # ---- tensor parallelism inside a slice ----
@@ -551,7 +580,7 @@ class CausalLM:
                                dense_ff=cfg.first_dense_ff or cfg.d_ff)
         return block_specs(cfg, kind)
 
-    def _tp_trunk(self, parts, xs):
+    def _tp_trunk(self, parts, xs, loads=None):
         """:meth:`_trunk` in lockstep; ``remat``'s unit takes every
         coordinate's stream and parameters."""
         cfg = self.cfg
@@ -560,21 +589,25 @@ class CausalLM:
         for i in range(cfg.first_dense_layers):
             xs, aux = tp_block_apply(
                 [p[f"head{i}"] for p in parts], xs, cfg, cfg.pattern[0], aux,
-                self._block_spec(f"head{i}", cfg.pattern[0]))
+                self._block_spec(f"head{i}", cfg.pattern[0]),
+                block_load(loads, f"head{i}"))
         specs = [block_specs(cfg, kind) for kind in cfg.pattern]
 
-        def unit(xs, aux, unit_parts):
+        def unit(xs, aux, unit_parts, unit_loads):
             for j, kind in enumerate(cfg.pattern):
                 xs, aux = tp_block_apply([u[f"p{j}"] for u in unit_parts],
-                                         xs, cfg, kind, aux, specs[j])
+                                         xs, cfg, kind, aux, specs[j],
+                                         unit_loads[j])
             return xs, aux
 
         unit = remat(cfg, unit)
         for r in range(reps):
-            xs, aux = unit(xs, aux, [layer(p["blocks"], r) for p in parts])
+            xs, aux = unit(xs, aux, [layer(p["blocks"], r) for p in parts],
+                           self._unit_loads(loads, r))
         for t in range(tail):
             xs, aux = tp_block_apply([p[f"tail{t}"] for p in parts], xs, cfg,
-                                     cfg.pattern[t], aux, specs[t])
+                                     cfg.pattern[t], aux, specs[t],
+                                     block_load(loads, f"tail{t}"))
         return [rms_norm(x, p["final_norm"], cfg.norm_eps)
                 for p, x in zip(parts, xs)], aux
 
@@ -583,14 +616,14 @@ class CausalLM:
                                                  extra_embeds))
         return tp.all_gather(tp_logits(parts, xs, self.cfg)[0], -1), aux
 
-    def _tp_loss(self, parts, batch, labels, mask):
+    def _tp_loss(self, parts, batch, labels, mask, loads=None):
         """The summed masked cross-entropy and the aux loss, the logits by
         ``ce_chunk`` positions (all at once without it) and the
         cross-entropy over the vocab's blocks (``vocab_parallel_nll``)."""
         front = batch.get("frontend")
         n_front = 0 if front is None else front.shape[1]
         xs, aux = self._tp_trunk(parts, tp_embed(
-            parts, batch["tokens"], self.cfg, front))
+            parts, batch["tokens"], self.cfg, front), loads)
         xs = [x[:, n_front:] for x in xs]
         c = self.cfg.ce_chunk or xs[0].shape[1]
         total = sum(vocab_parallel_nll(
@@ -644,14 +677,17 @@ class CausalLM:
                                                  extra_embeds))
         return unembed_apply(params["embed"], x, self.cfg), aux
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, loads=None):
         """batch: tokens (B, S), labels (B, S) [-1 = masked], optionally
         frontend embeddings (B, S_front, E) -> (loss + aux, {"ce", "aux"}):
         the mean fp32 cross-entropy over unmasked labels (at least one in
         the denominator); the frontend positions carry no labels. With
         ``cfg.ce_chunk`` the trunk runs once, then the unembedding and
         log-softmax per chunk of that many positions, so the (B, S, V)
-        logits never materialise."""
+        logits never materialise. ``loads``: each MoE block's routed share
+        of a batch of which ``batch`` is one data slice's rows, by layer
+        key (:meth:`router_loads`, averaged over the slices), for the
+        router losses (``moe.route_logits``)."""
         cfg = self.cfg
         front = batch.get("frontend")
         n_front = 0 if front is None else front.shape[1]
@@ -661,7 +697,7 @@ class CausalLM:
         denom = mask.sum().clamp_min(1)
         if model_ways() > 1:
             total, aux = self._tp_loss(tp_parts(params), batch, labels,
-                                       mask)
+                                       mask, loads)
             loss = total / denom.to(total.device)
             return loss + aux, {"ce": loss, "aux": aux}
 
@@ -670,11 +706,11 @@ class CausalLM:
             ll = lp.gather(-1, labels[..., None])[..., 0]
             return -(ll * mask).sum()
 
-        if cfg.ce_chunk:
+        if cfg.ce_chunk or loads is not None:
             x, aux = self._trunk(params, self._embed(params, batch["tokens"],
-                                                     front))
+                                                     front), loads)
             x = x[:, n_front:]
-            c = cfg.ce_chunk
+            c = cfg.ce_chunk or x.shape[1]
             total = sum(nll(unembed_apply(params["embed"], x[:, i:i + c],
                                           cfg),
                             labels[:, i:i + c], mask[:, i:i + c])
@@ -684,6 +720,24 @@ class CausalLM:
             total = nll(logits[:, n_front:], labels, mask)
         loss = total / denom
         return loss + aux, {"ce": loss, "aux": aux}
+
+    @torch.no_grad()
+    def router_loads(self, params, batch):
+        """The routing pre-pass of a batch cut over data slices: a forward
+        of the trunk without a graph, which returns each MoE block's
+        routed share f_e (E,) of ``batch``'s rows by layer key (a dense
+        first layer has none), for :meth:`loss`'s ``loads``. Under tensor
+        parallelism the first coordinate's routing."""
+        front = batch.get("frontend")
+        loads = {layer_key(key, slot): [] for key, slot, _ in self._layers()}
+        if model_ways() > 1:
+            parts = tp_parts(params)
+            self._tp_trunk(parts, tp_embed(parts, batch["tokens"], self.cfg,
+                                           front), loads)
+        else:
+            self._trunk(params, self._embed(params, batch["tokens"], front),
+                        loads)
+        return {k: v[0] for k, v in loads.items() if v}
 
     # ---- serving ----
 

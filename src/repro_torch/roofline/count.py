@@ -26,6 +26,18 @@ card would do, per device:
   op's implementation runs under the count, so its workspace counts while
   the call holds it. The caching allocator's rounding and cuBLAS's
   workspace are not counted.
+- **collectives**: the bytes a card sends for the collectives over the
+  model axis that the step calls (``core/tensor_parallel.py``, forward
+  and backward, a remat's recompute too), by kind, at a ring's bytes
+  (``tensor_parallel.ring_bytes``); their ops move no HBM bytes in the
+  count.
+
+A step of ``ways`` model coordinates runs them in lockstep, every
+coordinate's blocks on the one meta device (``launch/cells.py``): the
+coordinates are symmetric, so one card's share of FLOPs, bytes and live
+storage is the count over ``ways`` (a leaf every coordinate holds whole is
+an argument once per coordinate, as each card holds it). A collective's
+bytes are a card's already.
 
 Nothing here builds, loads or launches a kernel, and nothing touches CUDA.
 """
@@ -41,6 +53,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.core import tensor_parallel as tp
 from repro_torch.core.sharding import ShardedTensor
 from repro_torch.kernels.work import KERNEL_IMPL, KERNEL_WORK
 
@@ -61,6 +74,7 @@ class StepCount:
     ops: int                      # ops dispatched
     kernel_flops: Dict[str, float]   # by kernel op
     kernel_calls: Dict[str, int]     # by kernel op
+    collectives: Dict[str, float]    # bytes a card sends, by kind
 
 
 def _tensors(tree):
@@ -91,6 +105,17 @@ class _Counter(TorchDispatchMode):
         self.peak = 0
         self.kernel_flops = collections.Counter()
         self.kernel_calls = collections.Counter()
+        self.collectives = collections.Counter()
+        self.inside = 0           # collectives the ops now run inside
+
+    def enter(self, kind: str, nbytes: float) -> None:
+        """A collective starts (``tensor_parallel.collective``)."""
+        if not self.inside:
+            self.collectives[kind] += nbytes
+        self.inside += 1
+
+    def exit(self) -> None:
+        self.inside -= 1
 
     def hold(self, t: torch.Tensor) -> None:
         storage = t.untyped_storage()
@@ -113,7 +138,7 @@ class _Counter(TorchDispatchMode):
             self.kernel_flops[str(packet)] += flops
             self.kernel_calls[str(packet)] += 1
             return nbytes
-        if func.is_view or packet in _ALLOCATE:
+        if func.is_view or packet in _ALLOCATE or self.inside:
             return 0
         inputs = _tensors((args, kwargs))
         if packet in _OVERWRITE:
@@ -140,17 +165,25 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-def count_step(fn, *args) -> tuple:
-    """(fn's result, :class:`StepCount`) of ``fn(*args)`` on meta tensors;
+def count_step(fn, *args, ways: int = 1) -> tuple:
+    """(fn's result, :class:`StepCount`) of ``fn(*args)`` on meta tensors,
+    one card's share of a step of ``ways`` model coordinates in lockstep;
     every tensor leaf of ``args`` counts as alive from the start."""
     counter = _Counter()
     for t in _tensors(args):
         counter.hold(t)
     arg_bytes = counter.current
-    with counter:
-        result = fn(*args)
+    tp.WATCHERS.append(counter)
+    try:
+        with counter:
+            result = fn(*args)
+    finally:
+        tp.WATCHERS.remove(counter)
     return result, StepCount(
-        flops=float(counter.flops), bytes=float(counter.bytes),
-        peak_bytes=counter.peak, arg_bytes=arg_bytes, ops=counter.ops,
-        kernel_flops=dict(counter.kernel_flops),
-        kernel_calls=dict(counter.kernel_calls))
+        flops=counter.flops / ways, bytes=counter.bytes / ways,
+        peak_bytes=round(counter.peak / ways),
+        arg_bytes=round(arg_bytes / ways), ops=counter.ops,
+        kernel_flops={k: v / ways for k, v in counter.kernel_flops.items()},
+        kernel_calls={k: round(v / ways)
+                      for k, v in counter.kernel_calls.items()},
+        collectives=dict(counter.collectives))

@@ -1,25 +1,30 @@
 """Elastic trainer: the runtime that drives a malleable job.
 
 Counterpart of ``repro.runtime.trainer``. ``ElasticTrainer`` owns a
-TrainState (``params``, AdamW's ``opt``, the ``rng`` key and ``step``) laid
-out on a mesh of data-parallel slices by ``cfg.rules``, each leaf a
-``ShardedTensor``: the parameters replicated under ``TP_DP_RULES``, or each
-slice holding its block of them where the rules split a parameter axis
-over the data slices (``FSDP_RULES``: the ``embed`` axis); the moments
-ZeRO-1 sharded (``optim.state_logical``). The train step runs every
-slice's share of the batch in turn (``model.loss``, ``backward()`` over
-``grad_accum`` micro-batches) on that slice's whole parameters, gathered
-from the blocks first where they are sharded and freed after the slice's
-backward; it sums the slices' gradients in slice order and applies
+TrainState (``params``, AdamW's ``opt``, the ``rng`` key and ``step``)
+laid out on a mesh of data-parallel slices by ``cfg.rules``, each leaf a
+``ShardedTensor``: the parameters replicated under ``TP_DP_RULES``, or
+each slice holding its block of them where the rules split a parameter
+axis over the data slices (``FSDP_RULES``: the ``embed`` axis); the
+moments ZeRO-1 sharded (``optim.state_logical``). The train step runs
+every slice's share of the batch in turn (``model.loss``, ``backward()``
+over ``grad_accum`` micro-batches) on that slice's whole parameters,
+gathered from the blocks first where they are sharded and freed after the
+slice's backward; it sums the slices' gradients in slice order and applies
 ``apply_sharded_updates``, which updates each block from its part of the
 sum: an FSDP step's all-gather and reduce-scatter, carried out on one
 card. The numbers do not depend on the layout. Each slice's loss is scaled
 by its share of the global batch's unmasked labels, so the gradients and
 the reported loss are the global batch's mean, as in the reference's
-jitted step. With ``AdamWConfig.grad_reduce_dtype`` set and more than one
-micro-batch, each micro-batch's gradients are cast to it and summed in
-fp32, as the reference's dry-run cell sums them (``launch/cells.py``
-counts this step: ``slice_grads`` and ``apply_step`` for one card).
+jitted step. A mixture of experts' router loss is a product of two means
+over the batch, so on several slices the step first routes every slice's
+rows without a graph (``slice_router_loads``), and each slice's router
+loss takes the whole micro-batch's routed shares, weighed 1 / (slices x
+accum) (``moe.route_logits``); on one slice the step is as it was. With
+``AdamWConfig.grad_reduce_dtype`` set and more than one micro-batch, each
+micro-batch's gradients are cast to it and summed in fp32, as the
+reference's dry-run cell sums them (``launch/cells.py`` counts this step:
+``slice_grads`` and ``apply_step`` for one card).
 
 The training loop exposes *reconfiguration points* at step boundaries:
 every ``check_period`` steps it calls the DMR API; on EXPAND or SHRINK it
@@ -60,7 +65,8 @@ from repro_torch.core import (DMR, TP_DP_RULES, Action, ShardedTensor,
 from repro_torch.core.reshard import synchronize
 from repro_torch.core.sharding import (activation_rules, copy_to,
                                        logical_to_sharding, read_box, zeros)
-from repro_torch.core.tensor_parallel import model_block, slices_of
+from repro_torch.core.tensor_parallel import (collective, model_block,
+                                              slices_of)
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.models.layers import (torch_dtype, tree_leaves,
                                       tree_map)
@@ -112,8 +118,50 @@ def train_state_shardings(model, opt_cfg: AdamWConfig, mesh,
     return logical_to_sharding(tree_logical, tree_shapes, mesh, rules)
 
 
+def routers(specs) -> int:
+    """The mixture-of-experts blocks of a model's ParamSpecs: one a
+    router, a stacked router one a layer."""
+    if "router" in specs:
+        shape = specs["router"].shape
+        return shape[0] if len(shape) == 3 else 1
+    return sum(routers(v) for v in specs.values() if isinstance(v, dict))
+
+
+def _coordinate_parts(params, coords):
+    """Each of ``coords``' model block of every parameter (ShardedTensors),
+    on its device: a view of its own block, or gathered from the blocks
+    where the rules split the parameter over the data axes too."""
+    return [tree_map(lambda x, c=c: read_box(x, model_block(x, c), c),
+                     params) for c in coords]
+
+
+def slice_router_loads(model, params, coords, accum: int, micro_batch,
+                       rules: ShardingRules = TP_DP_RULES) -> list:
+    """One slice's routing pre-pass: for each of its ``accum`` micro-batches
+    (``micro_batch(i)`` -> (batch, weight)), each MoE block's routed share
+    of the slice's rows by layer key (``model.router_loads``), on the first
+    coordinate's device; no graph is kept, and the parameters read are
+    freed on return."""
+    mesh = next(iter(tree_leaves(params))).sharding.mesh
+    parts = _coordinate_parts(params, coords)
+    with _on(mesh.device(coords[0])), activation_rules(mesh, rules):
+        return [model.router_loads(parts if len(parts) > 1 else parts[0],
+                                   micro_batch(i)[0]) for i in range(accum)]
+
+
+def mean_loads(shares: list) -> dict:
+    """The whole micro-batch's routed share of each MoE block from its
+    slices' equal-sized shares: their sum in slice order over their
+    number, on the first's device (on N cards, an all-reduce of E fp32
+    values a block)."""
+    home = next(iter(shares[0].values())).device
+    return {k: sum(s[k].to(home) for s in shares) / len(shares)
+            for k in shares[0]}
+
+
 def slice_grads(model, params, coords, accum: int, micro_batch, loss,
-                opt_cfg: AdamWConfig, rules: ShardingRules = TP_DP_RULES):
+                opt_cfg: AdamWConfig, rules: ShardingRules = TP_DP_RULES,
+                loads=None, aux_weight: float = None):
     """One slice's gradients. ``coords``: the slice's mesh coordinates, one
     per model coordinate, in order. Each reads its model block of every
     parameter (``params``, ShardedTensors) on its device, gathered from the
@@ -127,21 +175,31 @@ def slice_grads(model, params, coords, accum: int, micro_batch, loss,
     ``opt_cfg.grad_reduce_dtype`` and more than one micro-batch, each
     micro-batch's are cast to that dtype (the reduction over the slices
     runs in it) and summed in fp32, as the reference's cell step sums
-    them. Returns the gradients, whole tensors on the first coordinate's
-    device (``_slice_sum``)."""
+    them. ``loads``, where the slice is one of several data slices of a
+    model with routers, gives each micro-batch's routed shares of its
+    whole rows (``mean_loads`` of the slices' ``slice_router_loads``): the
+    cross-entropy then takes the micro-batch's weight, and the router loss
+    ``aux_weight`` (1 / (slices x accum)), so that the slices' router
+    losses add up to the whole micro-batch's (``moe.route_logits``).
+    Returns the gradients, whole tensors on the first coordinate's device
+    (``_slice_sum``)."""
     mesh = next(iter(tree_leaves(params))).sharding.mesh
     dev = mesh.device(coords[0])
-    parts = [tree_map(lambda x, c=c: read_box(x, model_block(x, c), c)
-                      .detach().requires_grad_(True), params)
-             for c in coords]
+    parts = [tree_map(lambda x: x.detach().requires_grad_(True), p)
+             for p in _coordinate_parts(params, coords)]
     low = opt_cfg.grad_reduce_dtype if accum > 1 else None
     summed = None
 
     with _on(dev), activation_rules(mesh, rules):
         for i in range(accum):
             mb, weight = micro_batch(i)
-            part, _ = model.loss(parts if len(parts) > 1 else parts[0], mb)
-            part = part * weight
+            p = parts if len(parts) > 1 else parts[0]
+            if loads is None:
+                part, _ = model.loss(p, mb)
+                part = part * weight
+            else:
+                _, terms = model.loss(p, mb, loads[i])
+                part = terms["ce"] * weight + terms["aux"] * aux_weight
             part.backward()
             loss += part.detach().to(loss.device)
             if low is not None:
@@ -158,7 +216,7 @@ def _slice_sum(params, parts, coords):
     read: one coordinate's is the whole; several coordinates' blocks are
     put together on the first coordinate's device, the blocks that several
     coordinates hold whole (``model_block`` gives them one box) summed in
-    coordinate order."""
+    coordinate order: on N cards an all-reduce over the model axis."""
     def grad(p):
         return torch.zeros_like(p) if p.grad is None else p.grad
 
@@ -171,9 +229,13 @@ def _slice_sum(params, parts, coords):
     def leaf(x, *blocks):
         out = torch.zeros(x.shape, dtype=blocks[0].dtype,
                           device=blocks[0].device)
-        for c, p in zip(coords, blocks):
-            out[model_block(x, c)] += grad(p).to(out.device)
-            p.grad = None
+        boxes = [model_block(x, c) for c in coords]
+        summed = boxes[0] == boxes[-1]
+        with collective("all-reduce", out.nbytes, len(coords)) if summed \
+                else contextlib.nullcontext():
+            for box, p in zip(boxes, blocks):
+                out[box] += grad(p).to(out.device)
+                p.grad = None
         return out
 
     return tree_map(leaf, params, *parts)
@@ -268,7 +330,12 @@ class ElasticTrainer:
         """One optimizer step on the global ``batch``; returns (new state,
         metrics). Slice ``j`` takes rows ``j`` of each micro-batch cut in as
         many blocks as there are slices, and runs its model coordinates
-        together (``slice_grads``)."""
+        together (``slice_grads``). A model with routers on several slices
+        first routes every slice's rows without a graph
+        (``slice_router_loads``), so that each slice's router loss takes
+        the whole micro-batch's routed shares, as the reference's step
+        over the whole batch does; each slice's activations are still
+        freed after its backward."""
         mesh, accum = self.mesh, self.cfg.grad_accum
         slices = slices_of(mesh)
         n = len(slices)
@@ -281,19 +348,30 @@ class ElasticTrainer:
         counts = counts.tolist()
         loss = torch.zeros((), dtype=torch.float32,
                            device=mesh.device(slices[0][0]))
-        reduced = None
-        for j, coords in enumerate(slices):
-            dev = mesh.device(coords[0])
 
-            def micro_batch(i, j=j, dev=dev):
+        def micro_batch(j):
+            dev = mesh.device(slices[j][0])
+
+            def rows(i):
                 lo = i * micro + j * per
                 # this slice's share of micro-batch i's unmasked labels
                 return ({k: v[lo:lo + per].to(dev) for k, v in batch.items()},
                         max(counts[i][j], 1) / max(sum(counts[i]), 1) / accum)
+            return rows
 
+        loads = aux_weight = None
+        if n > 1 and routers(self.model.specs()):
+            shares = [slice_router_loads(self.model, state["params"], coords,
+                                         accum, micro_batch(j),
+                                         self.cfg.rules)
+                      for j, coords in enumerate(slices)]
+            loads = [mean_loads([s[i] for s in shares]) for i in range(accum)]
+            aux_weight = 1 / (n * accum)
+        reduced = None
+        for j, coords in enumerate(slices):
             grads = slice_grads(self.model, state["params"], coords, accum,
-                                micro_batch, loss, self.opt_cfg,
-                                self.cfg.rules)
+                                micro_batch(j), loss, self.opt_cfg,
+                                self.cfg.rules, loads, aux_weight)
             if reduced is None:
                 reduced = grads
             else:

@@ -13,6 +13,7 @@ launches a kernel.
 """
 import dataclasses
 import json
+import math
 import types
 
 import numpy as np
@@ -39,6 +40,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import cells, dryrun, perf_iterate, shapes  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models import build_model, reduced_config  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
@@ -67,12 +69,15 @@ def which(rules, module) -> str:
 # -- the cells against the reference's -----------------------------------------
 
 
+MESH_NAMES = ("h100x1", "h100x8_m8", "h100x8_m4")
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_cells_apply_count_tokens_and_model_flops_as_the_reference(arch):
-    """For each of the 40 (arch, shape) cells: applicability and its
-    reason, tokens and model FLOPs (6 or 2 x active parameters x tokens)
-    equal the reference cell's."""
-    mesh = make_production_mesh("h100x1")
+    """For each of the 40 (arch, shape) cells, on one card and on the node
+    layouts with a model axis: applicability and its reason, tokens and
+    model FLOPs (6 or 2 x active parameters x tokens) equal the reference
+    cell's."""
     assert list(shapes.SHAPES) == list(jax_shapes.SHAPES)
     for shape in shapes.SHAPES:
         assert dataclasses.asdict(shapes.SHAPES[shape]) == \
@@ -82,14 +87,18 @@ def test_cells_apply_count_tokens_and_model_flops_as_the_reference(arch):
         if not ok:
             with pytest.raises(ValueError) as theirs:
                 jax_cells.build_cell(arch, shape, JAX_MESH)
-            with pytest.raises(ValueError) as ours:
-                cells.build_cell(arch, shape, mesh)
-            assert str(ours.value) == str(theirs.value)
+            for name in MESH_NAMES:
+                with pytest.raises(ValueError) as ours:
+                    cells.build_cell(arch, shape, make_production_mesh(name))
+                assert str(ours.value) == str(theirs.value)
             continue
         want = jax_cells.build_cell(arch, shape, JAX_MESH)
-        got = cells.build_cell(arch, shape, mesh)
-        assert got.tokens == want.tokens
-        assert got.model_flops == pytest.approx(want.model_flops, rel=1e-12)
+        for name in MESH_NAMES:
+            got = cells.build_cell(arch, shape, make_production_mesh(name))
+            assert got.tokens == want.tokens
+            assert got.model_flops == pytest.approx(want.model_flops,
+                                                    rel=1e-12)
+            assert got.ways == make_production_mesh(name).shape["model"]
 
 
 @pytest.mark.parametrize("data", [1, 2, 8, 16, 64, 256, 512])
@@ -113,12 +122,14 @@ def test_rule_choice_matches_the_reference(data):
                                                          ref.ssd_chunk)
 
 
-@pytest.mark.parametrize("model", [1, 16])
+@pytest.mark.parametrize("model", [1, 16, 8, 4])
 def test_train_rules_match_the_reference_at_its_threshold(model):
     """``train_rules`` with the threshold passed as the reference's 6e9
-    bytes agrees with the reference's on every arch; by default it takes
-    0.375 of the H100's 80 GB."""
-    mesh = types.SimpleNamespace(shape={"data": 16, "model": model})
+    bytes agrees with the reference's on every arch, on the reference's
+    16 x 1 and 16 x 16 meshes and the node layouts 1 x 8 and 2 x 4; by
+    default it takes 0.375 of the H100's 80 GB."""
+    data = {8: 1, 4: 2}.get(model, 16)
+    mesh = types.SimpleNamespace(shape={"data": data, "model": model})
     for arch in list_archs():
         mine = cells.train_rules(get_config(arch), mesh, threshold=6e9)
         theirs = jax_cells.train_rules(jax_get_model(arch)[1], mesh)
@@ -128,18 +139,73 @@ def test_train_rules_match_the_reference_at_its_threshold(model):
     assert cells.TRAIN_ACCUM == jax_cells.TRAIN_ACCUM
 
 
-def test_meshes_have_no_model_axis_yet():
-    assert make_production_mesh("h100x1").shape == {"data": 1, "model": 1}
-    assert make_production_mesh("h100x8").shape == {"data": 8, "model": 1}
+def test_node_layouts_have_a_model_axis():
+    """One card, and one HGX node as 8 data slices, 1 x 8 and 2 x 4 (data
+    x model), every entry the meta device; a cell takes any of them, and a
+    (1, 2) layout too."""
+    want = {"h100x1": (1, 1), "h100x8": (8, 1), "h100x8_m8": (1, 8),
+            "h100x8_m4": (2, 4)}
+    assert set(mesh_mod.MESHES) == set(want)
+    for name, (data, model) in want.items():
+        mesh = make_production_mesh(name)
+        assert mesh.shape == {"data": data, "model": model}
+        assert {d.type for d in mesh.devices.flat} == {"meta"}
     two_ways = Mesh(np.array([[torch.device("meta")] * 2], dtype=object),
                     ("data", "model"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        cells.build_cell("smollm-135m", "train_4k", two_ways)
-    for name in perf_iterate.NEEDS_MODEL_AXIS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            perf_iterate.variant(name)
+    cell = cells.build_cell("smollm-135m", "train_4k", two_ways)
+    assert cell.ways == 2
     assert perf_iterate.variant("grad_bf16")["opt_cfg"].grad_reduce_dtype \
         == "bfloat16"
+
+
+def test_model_axis_variants_are_the_references_rules():
+    """``dp_only*`` cut the batch and the ZeRO-1 moments over the data and
+    model axes and split nothing else over the model axis;
+    ``decode_seq*`` split the cache's sequence over it and leave the heads
+    whole; each variant names the reference's overrides."""
+    dp, seq = perf_iterate.DP_ONLY_RULES, perf_iterate.DECODE_SEQ_RULES
+    assert dp.mesh_axes_for("batch") == ("pod", "data", "model")
+    assert dp.mesh_axes_for("zero1") == ("pod", "data", "model")
+    for axis in ("heads", "kv_heads", "mlp", "experts", "vocab"):
+        assert dp.mesh_axes_for(axis) == ()
+    assert seq.mesh_axes_for("kv_seq") == ("model",)
+    assert seq.mesh_axes_for("heads") == seq.mesh_axes_for("kv_heads") == ()
+    assert seq.mesh_axes_for("mlp") == ("model",)
+    for name in ("dp_only", "dp_only_ce", "dp_only_dots", "dp_only_dots_ce"):
+        assert perf_iterate.variant(name)["rules"] == dp
+    assert perf_iterate.variant("dp_only_dots_ce")["cfg_overrides"] == {
+        "remat": "dots", "ce_chunk": 1024}
+    assert perf_iterate.variant("decode_seq_bf16") == {
+        "rules": seq, "cfg_overrides": {"param_dtype": "bfloat16"}}
+
+
+@pytest.mark.parametrize("name", ["dp_only", "dp_only_ce", "dp_only_dots",
+                                  "dp_only_dots_ce", "decode_seq",
+                                  "decode_seq_bf16"])
+def test_model_axis_variants_count_on_the_node_layouts(name, tmp_path,
+                                                       capsys):
+    """Each model-axis variant of ``perf_iterate`` counts a reduced cell on
+    both node layouts into an ok record: ``dp_only*`` a train cell as 8
+    data slices (the gradients all-reduced over the 8 cards, nothing over
+    the model axis), ``decode_seq*`` a decode over each coordinate's block
+    of the cache's sequence."""
+    arch, shape = (("smollm-135m", "train_4k") if name.startswith("dp")
+                   else ("qwen3-4b", "decode_32k"))
+    for mesh in ("h100x8_m8", "h100x8_m4"):
+        assert perf_iterate.main(["--arch", arch, "--shape", shape,
+                                  "--variant", name, "--mesh", mesh,
+                                  "--reduced", "--base", str(tmp_path),
+                                  "--out", str(tmp_path)]) == 0
+        rec = json.loads(dryrun.artifact_path(tmp_path, arch, shape, mesh,
+                                              name).read_text())
+        assert rec["status"] == "ok" and rec["chips"] == 8
+        coll = rec["collectives"]
+        if name.startswith("dp"):
+            assert coll["all-reduce (gradients)"] > 0
+            assert not any("model axis" in k for k in coll)
+        else:
+            assert coll["all-reduce (attention over the split cache)"] > 0
+    assert name in capsys.readouterr().out
 
 
 def test_chunk_variants_that_cannot_move_the_count_raise():
@@ -217,22 +283,28 @@ def test_cell_train_step_matches_the_reference_cell():
     assert np.array_equal(new["rng"].numpy(), want["rng"])
 
 
-@pytest.mark.parametrize("accum,low", [(1, None), (2, None),
-                                       (2, "bfloat16")])
-def test_cell_train_step_is_the_trainers(accum, low):
+@pytest.mark.parametrize("accum,low,ways", [
+    pytest.param(1, None, 1, id="1-None"),
+    pytest.param(2, None, 1, id="2-None"),
+    pytest.param(2, "bfloat16", 1, id="2-bfloat16"),
+    pytest.param(1, None, 2, id="1-None-model2"),
+    pytest.param(2, "bfloat16", 4, id="2-bfloat16-model4")])
+def test_cell_train_step_is_the_trainers(accum, low, ways):
     """The cell's train step and ``ElasticTrainer.train_step`` on one CPU
-    slice are one program: from the same state and batch (every label
-    unmasked, where the trainer's weights by label count are the cell's
-    1/accum) the new states and the loss are bit-equal, with and without
-    ``grad_reduce_dtype``, which moves the trainer's step as it moves the
-    cell's."""
+    slice of ``ways`` model coordinates are one program: from the same
+    state and batch (every label unmasked, where the trainer's weights by
+    label count are the cell's 1/accum) the new states and the loss are
+    bit-equal, with and without ``grad_reduce_dtype``, which moves the
+    trainer's step as it moves the cell's."""
+    from repro_torch.core import slice_devices
     from repro_torch.data import DataConfig
     from repro_torch.runtime.trainer import ElasticTrainer, TrainerConfig
     cfg = dataclasses.replace(reduced_config(get_config("smollm-135m")),
                               dtype="float32")
     overrides = {k: v for k, v in dataclasses.asdict(cfg).items()
                  if getattr(get_config("smollm-135m"), k) != v}
-    mesh = make_mesh(1, 1, devices=[torch.device("cpu")])
+    devices = slice_devices(ways, "cpu")
+    mesh = make_mesh(1, ways, devices=devices)
     rng = np.random.default_rng(3)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
                                  .astype(np.int32))
@@ -248,7 +320,8 @@ def test_cell_train_step_is_the_trainers(accum, low):
             build_model(cfg, device="cpu"), opt,
             DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                        global_batch=4),
-            TrainerConfig(grad_accum=accum), devices=[torch.device("cpu")])
+            TrainerConfig(grad_accum=accum, model_ways=ways),
+            devices=devices)
         state = trainer.init_state(seed=1)
         outs = [fn(state, batch) for fn in (trainer.train_step, cell.fn)]
         (a, ma), (b, mb) = [(tree_leaves(tree_map(sharding.gather, new)),
@@ -314,6 +387,73 @@ def test_products_of_a_dense_step_are_the_hand_count():
     assert c.flops == 3 * (n * layer + logits) + n * (fwd + bwd)
     assert c.kernel_calls == {"repro_torch.flash_attention_fwd": n,
                               "repro_torch.flash_attention_bwd": n}
+
+
+def tp_products(cfg, t, ways):
+    """(train products, prefill products at the last position's logits) of
+    one model coordinate of a reduced smollm at ``ways`` for ``t`` tokens:
+    its H / M query heads, the one KV head whole (it does not divide), its
+    d_ff / M MLP columns and V / M rows of the tied table; 2 M N K each,
+    three times in a step (forward and the two of its backward)."""
+    e, h, kv, d, f, v = (cfg.d_model, cfg.num_heads // ways, cfg.num_kv_heads,
+                         cfg.head_dim, cfg.d_ff // ways,
+                         cfg.vocab_size // ways)
+    layer = 2 * t * (e * h * d + 2 * e * kv * d + h * d * e + 3 * e * f)
+    return cfg.num_layers * layer, 2 * t * e * v
+
+
+@pytest.mark.parametrize("data,ways", [(1, 2), (2, 4)])
+def test_dense_cell_at_a_model_axis_is_the_hand_count(data, ways):
+    """A reduced smollm's train and prefill cells on a (data, ways) mesh:
+    one card's products and flash calls are one model coordinate's hand
+    count, and the model axis's collectives, read from the step's own
+    calls, are the hand count at a ring's bytes: the residual stream's
+    all-reduces (the embedding's and two a layer, again in the backward),
+    the gradients of the leaves every coordinate holds whole (the norms,
+    the one KV head's projections), and at prefill the vocab's all-gather
+    of the last position's logits."""
+    b, s = 4, 64
+    cfg = reduced_config(get_config("smollm-135m"))
+    overrides = {k: v for k, v in dataclasses.asdict(cfg).items()
+                 if getattr(get_config("smollm-135m"), k) != v}
+    mesh = Mesh(np.array([[torch.device("meta")] * ways] * data,
+                         dtype=object), ("data", "model"))
+    rows = b // data
+    ring = cells._ring(ways)
+    act = rows * s * cfg.d_model * 2            # a bf16 residual stream
+    h = cfg.num_heads // ways
+    fwd, _ = bench.work.attention_work(rows, h, cfg.num_kv_heads, s, s,
+                                       cfg.head_dim, 2)
+    bwd, _ = bench.work.attention_bwd_work(rows, h, cfg.num_kv_heads, s, s,
+                                           cfg.head_dim, 2)
+    layers, logits = tp_products(cfg, rows * s, ways)
+
+    cell = cells.build_cell("smollm-135m", shapes.ShapeSpec("cut", s, b,
+                                                            "train"),
+                            mesh, cfg_overrides=overrides, accum=1)
+    _, c = count_step(cell.fn, *cell.args, ways=cell.ways)
+    n = cfg.num_layers
+    assert c.flops == 3 * (layers + logits) + n * (fwd + bwd)
+    assert c.kernel_calls == {"repro_torch.flash_attention_fwd": n,
+                              "repro_torch.flash_attention_bwd": n}
+    model = build_model(cfg, device="meta")
+    whole = sum(math.prod(spec.shape) for spec in tree_leaves(model.specs())
+                if "model" not in sharding.TP_DP_RULES.spec_for(
+                    spec.logical, spec.shape, mesh))
+    assert c.collectives == {"all-reduce (model axis)": pytest.approx(
+        ring * (2 * (1 + 2 * n) * act + 4 * whole), rel=1e-12)}
+
+    cell = cells.build_cell("smollm-135m", shapes.ShapeSpec("cut", s, b,
+                                                            "prefill"),
+                            mesh, cfg_overrides=overrides)
+    _, c = count_step(cell.fn, *cell.args, ways=cell.ways)
+    assert c.flops == layers + 2 * rows * cfg.d_model * (
+        cfg.vocab_size // ways) + n * fwd
+    assert c.collectives == {
+        "all-reduce (model axis)": pytest.approx(ring * (1 + 2 * n) * act,
+                                                 rel=1e-12),
+        "all-gather (model axis)": pytest.approx(
+            (ways - 1) / ways * rows * cfg.vocab_size * 4, rel=1e-12)}
 
 
 def test_remat_recompute_adds_one_forward():
@@ -480,6 +620,87 @@ def test_dryrun_and_report_at_reduced_configs(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "smollm-135m,train_4k,ok,TP_DP_RULES," in out
     assert ",True," in out
+
+
+def test_dryrun_counts_the_node_layouts_at_reduced_configs(tmp_path, capsys):
+    """``dryrun --mesh node_m8`` and ``node_m4`` count reduced cells into
+    ok records of 8 cards, one card's share with the model axis's
+    collectives by kind; the report prints each kind's bytes."""
+    for arch, shape in (("smollm-135m", "train_4k"),
+                        ("smollm-135m", "decode_32k"),
+                        ("deepseek-moe-16b", "train_4k")):
+        for mesh in ("node_m8", "node_m4"):
+            assert dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                                mesh, "--out", str(tmp_path),
+                                "--reduced"]) == 0
+    for mesh in ("h100x8_m8", "h100x8_m4"):
+        rows = {(r["arch"], r["shape"]): r for r in report.load(tmp_path,
+                                                                mesh)}
+        train = rows[("smollm-135m", "train_4k")]
+        assert train["status"] == "ok" and train["chips"] == 8
+        assert train["collectives"]["all-reduce (model axis)"] > 0
+        assert train["roofline"]["collective_s"] > 0
+        moe_train = rows[("deepseek-moe-16b", "train_4k")]
+        assert moe_train["collectives"]["all-gather (model axis)"] > 0
+        assert moe_train["collectives"]["reduce-scatter (model axis)"] > 0
+        assert rows[("smollm-135m", "decode_32k")]["status"] == "ok"
+    m4 = rows[("deepseek-moe-16b", "train_4k")]["collectives"]
+    assert m4["all-reduce (router loads)"] > 0      # 2 data slices
+    capsys.readouterr()
+    report.main(["--art", str(tmp_path), "--mesh", "node_m4"])
+    out = capsys.readouterr().out
+    assert "all-reduce (model axis)=" in out and "h100x8_m4" in out
+
+
+def test_decode_seq_attends_over_each_coordinates_block():
+    """Under DECODE_SEQ_RULES on the 2 x 4 layout a decode cell's cache
+    arguments are each coordinate's block of the sequence (the lockstep
+    decode attends over it), the blocks of the other coordinates beside it
+    as a buffer, and the partial outputs' combine is counted as an
+    all-reduce over the 4 coordinates."""
+    arch = "qwen3-4b"
+    cfg = reduced_config(get_config(arch))
+    cell = cells.build_cell(arch, "decode_32k",
+                            make_production_mesh("h100x8_m4"),
+                            rules=perf_iterate.DECODE_SEQ_RULES,
+                            cfg_overrides=dryrun.reduced_overrides(arch))
+    _, cache, token, spare = cell.args
+    k = cache["blocks"]["p0"]["k"]
+    rows = 128 // 2
+    assert tuple(k.shape) == (cfg.num_layers, rows, 32768 // 4,
+                              cfg.num_kv_heads, cfg.head_dim)
+    assert spare.nbytes == 3 * sum(t.nbytes for t in tree_leaves(cache))
+    assert cell.collectives == {
+        "all-reduce (attention over the split cache)": pytest.approx(
+            cells._ring(4) * cfg.num_layers * rows * cfg.num_heads
+            * (cfg.head_dim + 2) * 4, rel=1e-12)}
+    _, c = count_step(cell.fn, *cell.args, ways=cell.ways)
+    assert c.kernel_calls == {}
+
+
+def test_moe_cell_counts_the_router_pre_pass():
+    """A reduced deepseek-moe train cell on 8 data slices runs the
+    trainer's routing pre-pass: one forward more a micro-batch (its flash
+    forwards), and the loads' all-reduce, E fp32 values a MoE block and
+    micro-batch; on one card neither."""
+    arch = "deepseek-moe-16b"
+    cfg = reduced_config(get_config(arch))
+    over = dict(dryrun.reduced_overrides(arch), remat="none")
+    calls = {}
+    for name in ("h100x1", "h100x8"):
+        cell = cells.build_cell(arch, "train_4k", make_production_mesh(name),
+                                cfg_overrides=over, accum=2)
+        _, c = count_step(cell.fn, *cell.args)
+        calls[name] = c.kernel_calls["repro_torch.flash_attention_fwd"]
+        routers = cfg.num_layers - cfg.first_dense_layers
+        load = cell.collectives.get("all-reduce (router loads)")
+        if name == "h100x1":
+            assert load is None
+        else:
+            assert load == pytest.approx(2 * cells._ring(8) * routers
+                                         * cfg.num_experts * 4)
+    assert calls == {"h100x1": 2 * cfg.num_layers,
+                     "h100x8": 4 * cfg.num_layers}
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-130m",

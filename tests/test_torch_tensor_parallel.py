@@ -938,9 +938,9 @@ def test_trainer_trains_each_dense_family_at_two_and_four_ways(arch):
     encoder-decoder (paligemma's batches carry its patch embeddings,
     seamless's its frames): two fp32 steps whose losses match the same
     steps at model_ways 1 on as many slices to 1e-5, every replica of a
-    block bit-equal to its first; and, but for the mixtures of experts, one
-    slice's the two slices' (a router's loss is a product of means over
-    each slice's rows: ROADMAP.md, Queue 3)."""
+    block bit-equal to its first; and one slice's the two slices' (for the
+    mixtures of experts by the trainer's routing pre-pass, which gives
+    each slice's router loss the whole batch's routed shares)."""
     cfg = ModelConfig(**dataclasses.asdict(dataclasses.replace(
         jax_reduced_config(jax_get_model(arch)[1]), dtype="float32")))
     model = build_model(cfg, device="cpu")
@@ -964,8 +964,7 @@ def test_trainer_trains_each_dense_family_at_two_and_four_ways(arch):
 
     want = {slices: losses(slices, 1, TP_DP_RULES) for slices in (1, 2)}
     assert all(np.isfinite(want[1] + want[2]))
-    if cfg.family != "moe":
-        np.testing.assert_allclose(want[2], want[1], rtol=1e-5)
+    np.testing.assert_allclose(want[2], want[1], rtol=1e-5)
     for rules in (TP_DP_RULES, FSDP_RULES):
         for slices, ways in ((1, 2), (1, 4), (2, 2)):
             np.testing.assert_allclose(losses(slices, ways, rules),
