@@ -121,7 +121,9 @@ fit's FitError in (t)):
                   prefill of 4160 tokens + 8 decode steps against forward;
                   Server
   (v) moe      -- phi3.5-moe-42b-a6.6b and deepseek-moe-16b at full width
-                  cut to 4 layers (deepseek: head0 dense + 3 MoE): the
+                  cut to 2 layers (deepseek: head0 dense + 1 MoE; 4
+                  layers until slice 19, whose training paths (zt) took
+                  the time): the
                   same, the blocks at B2 S256 with each MoE block's chosen
                   experts against the CPU's for every token (a flip at a
                   near tie reported with its gap), the choices dropped at
@@ -129,9 +131,10 @@ fit's FitError in (t)):
                   against forward at capacity factor E / k, where no token
                   drops; bf16 held by a median over tokens
   (w) dense    -- qwen3-4b and granite-3-2b at their published widths
-                  cut to 12 of their 36 and 40 layers (their full-depth
-                  Servers took a minute of the run's limit): the same, the
-                  blocks at B1 S128
+                  cut to 4 of their 36 and 40 layers (their full-depth
+                  Servers took a minute of the run's limit, 12 layers half
+                  a minute, which (zt) needs; granite trains at its 40
+                  layers there): the same, the blocks at B1 S128
   (x) compress -- the int8 compressed all-reduce on 2 and 4 virtual slices
                   over smollm-135m's gradient tree: bit-equal to the CPU's,
                   error feedback over 12 steps, ms a call and payload bytes
@@ -193,6 +196,29 @@ fit's FitError in (t)):
                   against 1); every kernel call on one coordinate's share
                   (H / M SSD and query heads, W / M RG-LRU channels),
                   exactly M times one way's launches
+  (zt) zoo train-- after (tk), in a child process of its own
+                  (chip_smoke.py --zoo-train): the four families whose
+                  training no other path runs, each at its published widths
+                  and each layer at its own fan-in, freed after its path:
+                  gemma2-27b cut to one (local, global) unit (fp32 and bf16
+                  at B 1, S 4352: the flash backward with softcap 50, the
+                  window of 4096 biting in the local layer; the final
+                  softcap 30 in the chunked loss), paligemma-3b at its 18
+                  layers (fp32 at B 2, bf16 at B 8, 256 patches + 256
+                  tokens: the bf16 D 256 backward without a window),
+                  phi3.5-moe at 2 layers where they fit, else 1 (fp32 at
+                  B 2, S 1024, bf16 at B 2, S 4096; first each MoE block's
+                  experts through the kernels against chunked, a near-tie
+                  flip printed with its gap) and granite-3-2b at its 40
+                  layers (fp32 at B 1, S 2048, bf16 at B 2, S 4096: the
+                  D 64 backward), each cut no deeper than the dry-run's
+                  count allows (a one-step peak within 74 GiB, all four
+                  counted on the meta device before any draw): an fp32 step
+                  under remat "dots" against the chunked path (the loss and
+                  every gradient), 4 bf16 ElasticTrainer steps, the loss
+                  falling, exactly one flash forward and one backward a
+                  layer and step, the step's wall, busy, idle, tokens/s and
+                  one-step peak, held within 2% of the count
   slice 10, in the same child process after (x), each model at its
   published widths and depth, twice as (u)-(w) (per-layer fan-in, every
   check held; then the reference's init, fp32 printed):
@@ -247,7 +273,11 @@ fit's FitError in (t)):
                   smollm's train step at 1, 2 and 4 slices (at 2 and 4
                   also under FSDP_RULES) and mamba2's, with the card's
                   busy share; the Servers' tokens/s; the backwards last
-                  (the flash backward also at qwen3's train call)
+                  (the flash backward also at qwen3's train call), and
+                  the flash forward and backward at gemma2's, paligemma's
+                  and granite's train calls (zt; with gemma2's softcap
+                  the library call is flex_attention under torch.compile,
+                  held to the plain version)
 
   (nc) node    -- from the start, in two processes of their own on the
                   host's CPU (chip_smoke.py --node-count NAME, the card
@@ -258,7 +288,7 @@ fit's FitError in (t)):
                   at the end
 
 Phases (e)-(g), (q), (r), (tps), (h)-(j), (hq), (m)-(o), (u)-(w), (y),
-(z), (mq), (wq), (tp) and (tk) are the main paths: every kernel launch count is set to 0 just
+(z), (mq), (wq), (tp), (tk) and (zt) are the main paths: every kernel launch count is set to 0 just
 before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
@@ -429,6 +459,43 @@ def zoo_kernel_cases():
             for dt in (torch.bfloat16, torch.float32)]
 
 
+# slice 19's bf16 flash calls on its training paths (zt), causal, as the
+# models pass them ((B, S, H, D) views): {label in bench.SHAPES and
+# bench.BWD_SHAPES: the path's model}. gemma2-27b's local layer (window
+# 4096, scores capped at 50), paligemma-3b's at B 8 (8 query heads on 1 KV
+# head of 256, 256 patches + 256 tokens, no window), granite-3-2b's at B 2,
+# S 4096 (32 / 8 heads of 64)
+ZT_ROWS = {"gemma2-4352": "gemma2-27b", "paligemma-train-512": "paligemma-3b",
+           "granite-4096": "granite-3-2b"}
+
+
+def zt_call(label):
+    """(B, H, KV, S, D, window, softcap) of one of ZT_ROWS."""
+    from repro_torch.kernels import bench
+    b, h, kv, s, d, _, window, softcap = bench.SHAPES[label]
+    return b, h, kv, s, d, window, softcap
+
+
+def zt_kernel_cases():
+    """ZT_ROWS' calls in bf16, then gemma2's global layer in the same step
+    (softcap 50 without a window, S 4352)."""
+    calls = [zt_call(label) for label in ZT_ROWS]
+    return [(b, h, kv, s, s, d, True, window, softcap, torch.bfloat16,
+             "bshd") for b, h, kv, s, d, window, softcap in
+            (*calls, (1, 32, 16, 4352, 128, None, 50.0))]
+
+
+def zt_label(case):
+    """The ZT_ROWS label of a case of the table, or None."""
+    b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
+    if not causal or sq != sk or layout != "bshd" or \
+            dtype != torch.bfloat16:
+        return None
+    return next((label for label in ZT_ROWS
+                 if zt_call(label) == (b, h, kv, sq, d, window, softcap)),
+                None)
+
+
 # -- (p) flash backward against plain ----------------------------------------------
 
 # backward kernel vs the plain fp32 gradients (torch autograd of
@@ -477,15 +544,18 @@ def phase_flash_bwd_vs_plain():
     smollm's and qwen3-4b's training calls (bf16, B 8, S 2048, D 64; B 2,
     S 4096, D 128; (B, S, H, D) views) and the
     case table's other bf16 calls on such views, slice 10's among them
-    (seamless's non-causal calls train in phase z); the D 256 route also at
-    every option (bwd_d256_cases)."""
+    (seamless's non-causal calls train in phase z), and by label at each of
+    slice 10's and slice 19's calls (SLICE10_CALLS, ZT_ROWS, with
+    gemma2's global layer: the softcap route without a window); the D 256
+    route also at every option (bwd_d256_cases)."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import (attention_lse,
                                                          attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_err = {}
-    cases = kernel_cases() + slice10_kernel_cases() + bwd_d256_cases() + [
+    cases = kernel_cases() + slice10_kernel_cases() + bwd_d256_cases() + \
+        zt_kernel_cases() + [
         # smollm-135m's train step: B 8, S 2048, (B, S, H, D) views
         (8, 9, 3, 2048, 2048, 64, True, None, None, torch.bfloat16, "bshd"),
         # qwen3-4b's bf16 train step (wq): B 2, S 4096, GQA 32 / 8, D 128;
@@ -523,8 +593,9 @@ def phase_flash_bwd_vs_plain():
         if dtype == torch.bfloat16 and layout == "bshd":
             main_err[(d, sq)] = max((g.float() - w).abs().max().item()
                                     for g, w in zip(grads, want))
-            if slice10_label(case) is not None:
-                main_err[slice10_label(case)] = main_err[(d, sq)]
+            label = slice10_label(case) or zt_label(case)
+            if label is not None:
+                main_err[label] = main_err[(d, sq)]
     return main_err
 
 
@@ -532,13 +603,15 @@ def phase_kernel_vs_plain():
     """Returns {head_dim: max |kernel - plain|} at the main paths' prefill
     calls (bf16, B 4, S 512, (B, S, H, D) views; the largest over the
     head_dim 128 calls of slice 9), and by label at each of SLICE10_CALLS
-    in bf16."""
+    and ZT_ROWS in bf16."""
     from repro_torch.kernels.bench import make_qkv
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = {}
-    for case in kernel_cases() + zoo_kernel_cases() + slice10_kernel_cases():
+    cases = kernel_cases() + zoo_kernel_cases() + slice10_kernel_cases()
+    cases += [case for case in zt_kernel_cases() if case not in cases]
+    for case in cases:
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -563,8 +636,9 @@ def phase_kernel_vs_plain():
             raise AssertionError(f"kernel disagrees with plain: {name}")
         if layout == "bshd" and dtype == torch.bfloat16 and sq == PREFILL_S:
             main_err[d] = max(main_err.get(d, 0.0), err.max().item())
-        if slice10_label(case) is not None:
-            main_err[slice10_label(case)] = err.max().item()
+        label = slice10_label(case) or zt_label(case)
+        if label is not None:
+            main_err[label] = err.max().item()
     return main_err
 
 
@@ -1377,6 +1451,27 @@ def grad_errs(got, want):
     return errs
 
 
+def held_train_step(label, cfg, params, batch):
+    """One fp32 train step of ``cfg`` through the flash kernels (the forward
+    with the log-sum-exp and the backward kernel, exactly train_launches'
+    launches) against attn_impl="chunked" (none) on the card, from the same
+    parameters and batch. Raises where a gradient through the kernels is not
+    finite or the loss or a gradient leaf parts from the chunked path's by
+    more than MODEL_TOL, max-normalised. Returns (the kernels' (loss,
+    gradients), {"loss" or leaf: distance})."""
+    off = {"flash_attention": 0, "flash_attention_bwd": 0}
+    kernel = train_grads(cfg, params, batch, train_launches(cfg))
+    errs = grad_errs(kernel, train_grads(cfg, params, batch, off,
+                                         attn_impl="chunked"))
+    if not all(torch.isfinite(g).all() for g in kernel[1].values()) or \
+            max(errs.values()) > MODEL_TOL:
+        raise AssertionError(
+            f"({label}) {cfg.name}'s fp32 train step through the kernels "
+            f"disagrees with the chunked path (tol {MODEL_TOL}): "
+            f"{sorted(errs.items(), key=lambda e: -e[1])[:5]}")
+    return kernel, errs
+
+
 def phase_train_fp32(cfg, model, params, batch):
     """(q) One fp32 train step at full width, the loss and every gradient
     leaf, through the kernels (attn_impl="auto": the flash forward with the
@@ -1391,9 +1486,7 @@ def phase_train_fp32(cfg, model, params, batch):
     n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
     shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
     sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
-    held = grad_errs(train_grads(cfg, sane, batch, train_launches(cfg)),
-                     train_grads(cfg, sane, batch, n_off,
-                                 attn_impl="chunked"))
+    held = held_train_step("q", cfg, sane, batch)[1]
     kernel = train_grads(cfg, params, batch, train_launches(cfg))
     chunked = train_grads(cfg, params, batch, n_off, attn_impl="chunked")
     floor = grad_errs(train_grads(cfg, params, batch, n_off,
@@ -1410,18 +1503,18 @@ def phase_train_fp32(cfg, model, params, batch):
              f"{chunked[0].item():.6f} chunked; kernels vs chunked, largest "
              f"leaf {max(seen.values()):.3e}; chunked at attn_chunk 256 vs "
              f"512 (the rounding floor) {max(floor.values()):.3e}")
-    if not all(torch.isfinite(g).all() for g in kernel[1].values()) or \
-            max(held.values()) > MODEL_TOL:
+    if not all(torch.isfinite(g).all() for g in kernel[1].values()):
         raise AssertionError("the fp32 train step through the kernels "
-                             "disagrees with the chunked path")
+                             "is not finite at the reference's init")
 
 
 def phase_train_bf16(cfg, params, data_cfg, steps, label="q", lr=3e-3):
     """(q) ``steps`` bf16 steps of ElasticTrainer.train at ``lr`` from
-    ``params``: every loss finite, the last below the first, and exactly
-    the kernel launches the layers and remat imply per step
-    (train_launches). Returns (trainer, state, the next batch), for the
-    step times of (k)."""
+    ``params`` (or from what a callable ``params`` returns, so that the
+    caller need hold no reference to the tree while the steps replace it):
+    every loss finite, the last below the first, and exactly the kernel
+    launches the layers and remat imply per step (train_launches). Returns
+    (trainer, state, the next batch), for the step times of (k)."""
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import ElasticTrainer, TrainerConfig
@@ -1433,7 +1526,8 @@ def phase_train_bf16(cfg, params, data_cfg, steps, label="q", lr=3e-3):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = counted_launches(
-        lambda: trainer.train(state=trainer.init_state(params=params)),
+        lambda: trainer.train(state=trainer.init_state(
+            params=params() if callable(params) else params)),
         {name: steps * n for name, n in per_step.items()})
     seconds = time.perf_counter() - t0
     losses = [m["loss"] for m in trainer.metrics]
@@ -2474,10 +2568,13 @@ def phase_calibration():
 # the decoders whose fp32 weights at their published depth do not fit the
 # card, and the two whose full-depth Servers took a minute of the run's time
 # limit (qwen3-4b, granite-3-2b): (published depth, layers drawn at its
-# scale and driven)
-ZOO_CUT = {"gemma2-27b": (46, 4), "phi3.5-moe-42b-a6.6b": (32, 4),
-           "deepseek-moe-16b": (28, 4), "qwen3-4b": (36, 12),
-           "granite-3-2b": (40, 12)}
+# scale and driven). Since slice 19, whose training paths (zt) take the
+# time, qwen3 and granite are cut from 12 layers to 4 and the MoE models
+# from 4 to 2 (at 4 their two paths took 71.0 s of a 1188.9 s run on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+ZOO_CUT = {"gemma2-27b": (46, 4), "phi3.5-moe-42b-a6.6b": (32, 2),
+           "deepseek-moe-16b": (28, 2), "qwen3-4b": (36, 4),
+           "granite-3-2b": (40, 4)}
 # MoE routing, card against CPU from the same fp32 input: their router
 # logits differ by about 1e-5 (the attention's and the projections'
 # rounding); a token whose chosen experts differ at a logit gap under
@@ -2682,10 +2779,7 @@ def phase_encdec_grads(label, cfg, params, batch):
     so) against attn_impl="chunked", from the same parameters and batch:
     the loss and every gradient leaf max-normalised at MODEL_TOL, with
     exactly the launches train_launches gives."""
-    n_off = {"flash_attention": 0, "flash_attention_bwd": 0}
-    kernel = train_grads(cfg, params, batch, train_launches(cfg))
-    errs = grad_errs(kernel, train_grads(cfg, params, batch, n_off,
-                                         attn_impl="chunked"))
+    errs = held_train_step(label, cfg, params, batch)[1]
     worst = max(errs, key=errs.get)
     log(label, f"{cfg.name} fp32 train step B{batch['tokens'].shape[0]}, "
                f"{batch['frontend'].shape[1]} frames, "
@@ -2694,10 +2788,6 @@ def phase_encdec_grads(label, cfg, params, batch):
                f"chunked, max-normalised: loss {errs['loss']:.3e}, "
                f"{len(errs) - 1} gradient leaves, largest {worst} "
                f"{errs[worst]:.3e} (tol {MODEL_TOL})")
-    if not all(torch.isfinite(g).all() for g in kernel[1].values()) or \
-            errs[worst] > MODEL_TOL:
-        raise AssertionError("the fp32 train step through the kernels "
-                             "disagrees with the chunked path")
 
 
 def drive_with_inputs(label, cfg, rng):
@@ -2998,6 +3088,48 @@ def record_row(name, source, replaces, launches, err, row, shape):
             "library_ms": row["library_ms"], "shape": shape}
 
 
+def held_library(rows, tol):
+    """Raises where the library call of a flash row, flex_attention's where
+    a softcap is on, parts from the plain version by more than ``tol``
+    (``library_err``, max-normalised): its time would not be that of the
+    kernel's function."""
+    for label, row in rows.items():
+        if row.get("library_err", 0.0) > tol:
+            raise AssertionError(f"{label}: the library call parts from the "
+                                 f"plain version by {row['library_err']:.3e}"
+                                 f" (tol {tol})")
+
+
+def zt_path(arch, result):
+    """The name of ``arch``'s training path (zt) in launches_by_path, with
+    the flash routes it put on a main path."""
+    routes = {"gemma2-27b": "D 128 with softcap 50, window 4096 in the "
+                            "local layer, none in the global",
+              "paligemma-3b": "bf16 D 256 without a window, GQA 8:1",
+              "phi3.5-moe-42b-a6.6b": "D 128, GQA 4:1, under a MoE",
+              "granite-3-2b": "D 64, GQA 4:1"}[arch]
+    return f"{arch} training, {result['layers']} layers ({routes})"
+
+
+def zt_record_row(name, row, label, result, err, timed):
+    """A kernel row at one of ZT_ROWS, its launches those of the path
+    ``result`` (main_zoo_train's), the shape from bench's tables."""
+    from repro_torch.kernels import bench
+    b, h, kv, s, d, _, window, softcap = bench.BWD_SHAPES[label]
+    options = "".join((f", window {window}" if window else "",
+                       f", softcap {softcap:g}" if softcap else ""))
+    what = ("dq / dk / dv from the forward's lse"
+            if name == "flash_attention_bwd" else "the forward's output")
+    out = record_row(name, row["source"], row["replaces"],
+                     result["counts"][name], err, timed,
+                     f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal{options}, "
+                     f"(B, S, H, D) views, {what}")
+    out["library_backend"] = timed["library_backend"]
+    if "library_err" in timed:
+        out["library_err"] = timed["library_err"]
+    return out
+
+
 def main_zoo():
     """(u)-(x), run by ``chip_smoke.py --zoo`` in a process of its own (see
     run_child): each decoder of slice 9 at its published widths, its depth
@@ -3042,9 +3174,13 @@ def main_zoo():
             # every layer driven, one shorter row (the CPU's share)
             def blocks_of(cfg, params, z_toks=z_toks):
                 return cfg, params, z_toks[:1, :128], 128 + 8
+        t0 = time.perf_counter()
         counts, tok_s, peak = drive_zoo(label, cfg, depth, z_toks,
                                         blocks_of, long_toks)
-        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak}
+        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak,
+                     "seconds": time.perf_counter() - t0}
+        log(label, f"{arch} ({cfg.num_layers} layers): both draws' paths "
+                   f"in {zoo[arch]['seconds']:.1f} s")
         torch.cuda.empty_cache()
     phase_compression()
     for arch, label in (("paligemma-3b", "y"), ("seamless-m4t-medium", "z")):
@@ -3222,16 +3358,10 @@ def phase_remat_train_fp32(cfg, params, batch):
         got = train_launches(dataclasses.replace(cfg, remat=remat))
         if {k: got[k] for k in counts} != counts:
             raise AssertionError(f"train_launches under {remat}: {got}")
-    off = {name: 0 for name in want["dots"]}
-    kernel = train_grads(dots, params, batch, want["dots"])
-    saving = train_grads(cfg, params, batch, want["nothing_saveable"],
-                         remat="nothing_saveable")
-    other = grad_errs(saving, kernel)
-    del saving
-    chunked = train_grads(dots, params, batch, off, attn_impl="chunked")
-    held = grad_errs(kernel, chunked)
-    finite = all(torch.isfinite(g).all() for g in kernel[1].values())
-    del chunked
+    kernel, held = held_train_step("wq", dots, params, batch)
+    other = grad_errs(train_grads(cfg, params, batch,
+                                  want["nothing_saveable"],
+                                  remat="nothing_saveable"), kernel)
     shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
     for name, errs in (("through the kernels vs chunked", held),
                        ('"dots" vs "nothing_saveable" through the kernels',
@@ -3243,9 +3373,9 @@ def phase_remat_train_fp32(cfg, params, batch):
                   f"max-normalised, loss {errs['loss']:.3e}, largest leaf "
                   f"{top} {errs[top]:.3e} over {len(errs) - 1} leaves (tol "
                   f"{MODEL_TOL})")
-    if not finite or max(held.values()) > MODEL_TOL or \
-            max(other.values()) > MODEL_TOL:
-        raise AssertionError("qwen3's fp32 train step disagrees")
+    if max(other.values()) > MODEL_TOL:
+        raise AssertionError("qwen3's fp32 train step disagrees between "
+                             "the remats")
 
 
 def phase_remat_step_times(cfg, trainer, state, batch, data_cfg):
@@ -3764,6 +3894,37 @@ def phase_tpk_serve(label, cfg, params, toks, steps=8):
     return err
 
 
+def routing_flips(label, cfg, i, probs, experts, other, cap, sides):
+    """The tokens of MoE block ``i`` whose experts ``other`` differ from
+    ``experts`` (chosen from ``probs``), each printed with its logit gap;
+    raises on one beyond a near tie (NEAR_TIE), and where none flipped, on
+    a different number of choices dropped at capacity ``cap``. ``sides``:
+    how to name ``other``'s path and ``experts``' path. Returns the number
+    of flipped tokens."""
+    from repro_torch.models import moe
+    flips = 0
+    for b, t in (other != experts).any(-1).nonzero().tolist():
+        j = int((other[b, t] != experts[b, t]).nonzero()[0])
+        p = probs[b, t]
+        gap = abs(float(torch.log(p[other[b, t, j]])
+                        - torch.log(p[experts[b, t, j]])))
+        log(label, f"{cfg.name} block {i}: token ({b}, {t}) chose expert "
+                   f"{int(other[b, t, j])} {sides[0]} and "
+                   f"{int(experts[b, t, j])} {sides[1]}, logit gap "
+                   f"{gap:.3e}")
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"{cfg.name}: routing {sides[0]} differs "
+                                 f"beyond a near tie")
+        flips += 1
+    ne = cfg.num_experts
+    dropped = [int((moe.dispatch_slots(e, ne, cap) == ne * cap).sum())
+               for e in (other, experts)]
+    if not flips and dropped[0] != dropped[1]:
+        raise AssertionError(f"{cfg.name}: block {i} drops {dropped[0]} "
+                             f"choices {sides[0]}, {dropped[1]} {sides[1]}")
+    return flips
+
+
 @contextlib.contextmanager
 def routings():
     """Every routing the MoE blocks make, in order: (probabilities,
@@ -3806,29 +3967,11 @@ def phase_tpk_routing(label, cfg, params, batch):
     ne = cfg.num_experts
     flips = drops = 0
     for i, (probs, experts) in enumerate(one):
-        dropped = int((moe.dispatch_slots(experts, ne, cap) == ne * cap)
-                      .sum())
-        drops += dropped
-        for probs_m, experts_m in many[i * ways:(i + 1) * ways]:
-            other = int((moe.dispatch_slots(experts_m, ne, cap) == ne * cap)
-                        .sum())
-            differ = (experts_m != experts).any(-1)
-            for b, t in differ.nonzero().tolist():
-                j = int((experts_m[b, t] != experts[b, t]).nonzero()[0])
-                p = probs[b, t]
-                gap = abs(float(torch.log(p[experts_m[b, t, j]])
-                                - torch.log(p[experts[b, t, j]])))
-                log(label, f"block {i}: token ({b}, {t}) chose expert "
-                           f"{int(experts_m[b, t, j])} at model_ways {ways} "
-                           f"and {int(experts[b, t, j])} at 1, logit gap "
-                           f"{gap:.3e}")
-                if gap >= NEAR_TIE:
-                    raise AssertionError(f"{cfg.name}: routing at model_ways "
-                                         f"{ways} differs beyond a near tie")
-                flips += 1
-            if not flips and other != dropped:
-                raise AssertionError(f"{cfg.name}: {other} choices dropped "
-                                     f"at model_ways {ways}, {dropped} at 1")
+        drops += int((moe.dispatch_slots(experts, ne, cap) == ne * cap)
+                     .sum())
+        for _, experts_m in many[i * ways:(i + 1) * ways]:
+            flips += routing_flips(label, cfg, i, probs, experts, experts_m,
+                                   cap, (f"at model_ways {ways}", "at 1"))
     choices = sum(e.numel() for _, e in one)
     log(label, f"{cfg.name}: routing of {choices} choices in {len(one)} MoE "
                f"blocks (top-{cfg.top_k} of {ne}, capacity {cap}) at "
@@ -4008,6 +4151,206 @@ def main_tp_kinds():
     return 0
 
 
+# -- (zt) gemma2-27b, paligemma-3b, phi3.5-moe and granite-3-2b training -------------
+
+# the four families whose training no card had run before slice 19:
+# {arch: (published depth, the cuts tried, deepest first, the fp32 step's
+# (B, S), the bf16 steps' (B, S))}. gemma2: one (local, global) unit, else
+# the local layer alone, S 4352 where the window of 4096 bites; paligemma:
+# 256 patches + 256 tokens a row; phi3.5: two MoE layers, else one;
+# granite: all 40 layers
+ZT_CELLS = {"gemma2-27b": (46, (2, 1), (1, 4352), (1, 4352)),
+            "paligemma-3b": (18, (18, 12), (2, 512), (8, 512)),
+            "phi3.5-moe-42b-a6.6b": (32, (2, 1), (2, 1024), (2, 4096)),
+            "granite-3-2b": (40, (40, 32), (1, 2048), (2, 4096))}
+# bf16 ElasticTrainer steps under remat "dots", their learning rate, the
+# loss's ce_chunk, and the largest counted one-step peak a cut may have (the
+# card's 79.19 GiB less room for the allocator's blocks of other sizes and
+# the fp32 check's gradients, which the bf16 count does not hold)
+ZT_STEPS, ZT_LR, ZT_CE_CHUNK, ZT_PEAK_GIB = 4, 1e-3, 1024, 74.0
+ZOO_TRAIN_RESULT = ROOT / "build" / "chip_smoke_zoo_train.json"
+
+
+def zt_config(arch, layers):
+    """``arch`` at its published widths cut to ``layers``, the loss by
+    ZT_CE_CHUNK, remat "dots"."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               ce_chunk=ZT_CE_CHUNK, remat="dots")
+
+
+def zt_count(arch):
+    """The dry-run's count of ``arch``'s bf16 train step (ZT_CELLS' bf16
+    shape, remat "dots", the trainer's step on the meta device) at each of
+    ZT_CELLS' cuts in turn, up to the first whose one-step peak is at most
+    ZT_PEAK_GIB, which it takes. Returns {"layers", "counted": {layers:
+    peak GiB}, "record": the chosen cut's record}."""
+    from repro_torch.optim import AdamWConfig
+    _, cuts, _, (b, s) = ZT_CELLS[arch]
+    opt = AdamWConfig(lr=ZT_LR, warmup_steps=1, total_steps=ZT_STEPS)
+    counted = {}
+    for layers in cuts:
+        record = predict_cell("zt", zt_config(arch, layers), b, s, opt,
+                              ("dots",))["dots"]
+        counted[layers] = record["memory"]["peak_bytes"] / 2 ** 30
+        if counted[layers] <= ZT_PEAK_GIB:
+            break
+    else:
+        raise AssertionError(f"{arch}: no cut's counted peak is within "
+                             f"{ZT_PEAK_GIB} GiB: {counted}")
+    log("zt", f"{arch}: the deepest cut within {ZT_PEAK_GIB} GiB is "
+              f"{layers} layers; counted one-step peaks " + ", ".join(
+                  f"{n} layers {g:.2f} GiB" for n, g in counted.items()))
+    return {"layers": layers, "counted": counted, "record": record}
+
+
+def phase_zt_routing(cfg, params, batch):
+    """(zt) A MoE model's routing through the flash kernels against the
+    chunked path on the same fp32 batch (the loss's forward): each MoE
+    block chooses the same experts for every token but for near ties (a
+    logit gap below NEAR_TIE: the two attentions round differently), each
+    flip printed with its gap, and drops as many choices at capacity.
+    Returns (choices, flips, drops)."""
+    from repro_torch.models import build_model, moe
+    seen = []
+    with torch.no_grad():
+        for impl in ("auto", "chunked"):
+            model = build_model(dataclasses.replace(cfg, dtype="float32",
+                                                    attn_impl=impl))
+            with routings() as calls:
+                model.loss(params, batch)
+            seen.append(calls)
+    kernel, chunked = seen
+    cap = moe.capacity(cfg, batch["tokens"].shape[1], cfg.capacity_factor)
+    ne = cfg.num_experts
+    flips = drops = 0
+    for i, ((probs, experts), (_, other)) in enumerate(zip(chunked, kernel)):
+        drops += int((moe.dispatch_slots(experts, ne, cap) == ne * cap)
+                     .sum())
+        flips += routing_flips("zt", cfg, i, probs, experts, other, cap,
+                               ("through the kernels", "chunked"))
+    choices = sum(e.numel() for _, e in chunked)
+    log("zt", f"{cfg.name}: routing of {choices} choices in {len(chunked)} "
+              f"MoE blocks (top-{cfg.top_k} of {ne}, capacity {cap}) through "
+              f"the kernels against chunked: {flips} near-tie flips, "
+              f"{drops} choices dropped at capacity")
+    return choices, flips, drops
+
+
+def phase_zt_fp32(cfg, params, batch):
+    """(zt) held_train_step of ``cfg`` (remat "dots"), each layer at its own
+    fan-in. Returns the largest distance."""
+    kernel, held = held_train_step("zt", cfg, params, batch)
+    want = train_launches(cfg)
+    top = max(held, key=held.get)
+    shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
+    if "frontend" in batch:
+        shape += f" (+ {batch['frontend'].shape[1]} patch embeddings)"
+    log("zt", f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
+              f"{shape}, remat dots ({want['flash_attention']} + "
+              f"{want['flash_attention_bwd']} flash launches), each layer "
+              f"at its own fan-in: loss {kernel[0].item():.6f} through the "
+              f"kernels; against chunked, max-normalised, loss "
+              f"{held['loss']:.3e}, largest leaf {top} {held[top]:.3e} over "
+              f"{len(held) - 1} leaves (tol {MODEL_TOL})")
+    return max(held.values())
+
+
+def zt_data(cfg, b, s):
+    """The synthetic stream's config for ``cfg`` at B ``b``, S ``s``
+    (paligemma: s - 256 text tokens after its patch embeddings)."""
+    from repro_torch.data import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                      frontend=cfg.frontend,
+                      frontend_tokens=cfg.frontend_tokens,
+                      d_model=cfg.d_model)
+
+
+def drive_zt(arch, count):
+    """(zt) One model's training path, ``count`` its zt_count: the model
+    drawn on the card at the counted cut, each layer at its own fan-in; for
+    a MoE, the routing through the kernels against chunked; the fp32 step
+    against chunked; ZT_STEPS bf16 ElasticTrainer steps, the loss falling;
+    then the step's wall, busy, idle and tokens/s (step_times) and its peak
+    (the TrainState held) against the count. Returns the path's numbers."""
+    from repro_torch.data import SyntheticLMData
+    depth, _, (fb, fs), (b, s) = ZT_CELLS[arch]
+    cfg = zt_config(arch, count["layers"])
+    box = {"params": model_and_params(cfg, "zt", init_depth=depth,
+                                      on_card=True, per_layer=True)[1]}
+    fp32_batch = {k: t.cuda() for k, t in SyntheticLMData(
+        zt_data(cfg, fb, fs)).batch(0).items()}
+    data = zt_data(cfg, b, s)
+    phases = [lambda: phase_zt_fp32(cfg, box["params"], fp32_batch),
+              lambda: phase_train_bf16(cfg, lambda: box.pop("params"), data,
+                                       ZT_STEPS, label="zt", lr=ZT_LR)]
+    if cfg.num_experts:
+        phases.insert(0, lambda: phase_zt_routing(cfg, box["params"],
+                                                  fp32_batch))
+    counts, (*checks, trained) = drive("zt", phases)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] == 0:
+            raise AssertionError(f"{arch}'s training path never launched "
+                                 f"{name}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer, state, next_batch = trained
+    del trained, fp32_batch
+    # step_times' steps from the held TrainState: their peak is one step's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, busy = step_times({(cfg.name, 1): (
+        cfg, data, 1, lambda: trainer.train_step(state, next_batch))})
+    one_step = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, busy = walls[cfg.name, 1], busy[cfg.name, 1][0]
+    held = hold_prediction("zt", f"{cfg.name} ({cfg.num_layers} layers)",
+                           count["record"], one_step, busy)
+    out = {"layers": cfg.num_layers, "counts": counts, "peak": peak,
+           "fp32_err": checks[-1],
+           "losses": [m["loss"] for m in trainer.metrics],
+           "times": {"wall_ms": wall, "busy_ms": busy,
+                     "idle": 1 - busy / wall,
+                     "tok_s": b * s / wall * 1e3, "peak_gib": one_step},
+           "prediction": held, "counted": count["counted"]}
+    if cfg.num_experts:
+        out["routing"] = dict(zip(("choices", "flips", "drops"), checks[0]))
+    log("zt", f"{cfg.name} ({cfg.num_layers} layers) bf16 step B{b} S{s}: "
+              f"{wall:.3f} ms wall, {busy:.3f} ms busy "
+              f"({100 * out['times']['idle']:.1f}% idle), "
+              f"{out['times']['tok_s']:.0f} tokens/s, one-step peak "
+              f"{one_step:.2f} GiB (the dry-run's "
+              f"{held['predicted_gib']:.2f}), path peak {peak:.2f} GiB")
+    return out
+
+
+def main_zoo_train():
+    """(zt), run by ``chip_smoke.py --zoo-train`` in a process of its own
+    (run_child), with the card to itself: the training of gemma2-27b,
+    paligemma-3b, phi3.5-moe-42b-a6.6b and granite-3-2b at their published
+    widths (ZT_CELLS), each at the deepest cut whose counted one-step peak
+    is within ZT_PEAK_GIB (zt_count, all four counted before any draw), each
+    freed after its path (drive_zt). Writes each path's numbers to
+    ZOO_TRAIN_RESULT."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if "ZT_COUNTS" in os.environ:
+        counts = json.loads(Path(os.environ["ZT_COUNTS"]).read_text())
+    else:
+        counts = {arch: zt_count(arch) for arch in ZT_CELLS}
+        log("zt", f"the four counts in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for arch in ZT_CELLS:
+        out[arch] = drive_zt(arch, counts[arch])
+        torch.cuda.empty_cache()
+    log("zt", f"the four training paths in {time.perf_counter() - t0:.1f} s")
+    ZOO_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
+    ZOO_TRAIN_RESULT.write_text(json.dumps(out))
+    return 0
+
+
 # (nc) the dry-run's count of qwen3-4b's train_4k cell on the node layouts
 # with a model axis, each in a process of its own on the host's CPU beside
 # the card's phases
@@ -4080,6 +4423,69 @@ def finish_node_counts(procs, timeout=600):
     return out
 
 
+# (hw) host work beside the card's phases, in one process of its own at
+# nice 19 started once the kernels are built (start_host_work): the first
+# calls of the flex_attention yardstick at the softcapped calls, which
+# leave torch.compile's caches warm for (k), then the dry-run's counts of
+# the zt cells, which the zt child reads (ZT_COUNTS); its log
+HOST_WORK_LOG = ROOT / "build" / "chip_smoke_host_work.log"
+ZT_COUNTS = ROOT / "build" / "chip_smoke_zt_counts.json"
+
+
+def compile_caches():
+    """torch.compile's and Triton's caches in the checkout's build
+    directory, for this process and the ones it starts."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+
+
+def main_host_work():
+    """(hw), run by ``chip_smoke.py --host-work`` (start_host_work), at nice
+    19: bench.warm_flex at each softcapped label of bench.SHAPES, then
+    zt_count of each of ZT_CELLS, written to ZT_COUNTS."""
+    from repro_torch.kernels import bench
+    os.nice(19)
+    compile_caches()
+    t0 = time.perf_counter()
+    labels = [label for label, shape in bench.SHAPES.items()
+              if shape[-1] is not None]
+    for label in labels:
+        bench.warm_flex(label)
+    log("hw", f"flex_attention's forward and backward compiled at {labels} "
+              f"in {time.perf_counter() - t0:.1f} s")
+    counts = {arch: zt_count(arch) for arch in ZT_CELLS}
+    ZT_COUNTS.write_text(json.dumps(counts))
+    log("hw", f"done in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def start_host_work():
+    """Start main_host_work, its output to HOST_WORK_LOG; it is killed when
+    this process exits."""
+    ZT_COUNTS.unlink(missing_ok=True)
+    HOST_WORK_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with HOST_WORK_LOG.open("w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--host-work"],
+            stdout=out, stderr=subprocess.STDOUT,
+            env={**os.environ, "OMP_NUM_THREADS": "1"})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_host_work(proc, timeout=600):
+    """Wait for start_host_work's process and print its log; its failure
+    fails the run."""
+    rc = proc.wait(timeout=timeout)
+    for line in HOST_WORK_LOG.read_text().splitlines():
+        if line.startswith("["):
+            print(line, flush=True)
+    if rc != 0 or not ZT_COUNTS.exists():
+        raise AssertionError(f"chip_smoke.py --host-work failed (exit {rc}):"
+                             f" {HOST_WORK_LOG.read_text()[-2000:]}")
+
+
 def run_child(flag, result, env=None):
     """Run ``chip_smoke.py flag`` in a child process and return the JSON it
     wrote to ``result``. The child loads the kernels this process built.
@@ -4092,12 +4498,14 @@ def run_child(flag, result, env=None):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     result.unlink(missing_ok=True)
+    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                            flag], check=False,
                           env=None if env is None else {**os.environ, **env})
     if proc.returncode != 0:
         raise AssertionError(f"chip_smoke.py {flag} failed (exit "
                              f"{proc.returncode})")
+    log("k", f"chip_smoke.py {flag} ran {time.perf_counter() - t0:.1f} s")
     return json.loads(result.read_text())
 
 
@@ -4118,7 +4526,9 @@ def main():
     log("a", f"{smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
              f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     node_counts = start_node_counts()
+    compile_caches()
     build_kernels()
+    host_work = start_host_work()
     flash_err = phase_kernel_vs_plain()
     bwd_err = phase_flash_bwd_vs_plain()
     ssd_err = phase_ssd_vs_plain()
@@ -4225,10 +4635,13 @@ def main():
             raise AssertionError(f"recurrentgemma's path never launched "
                                  f"{name}")
 
+    finish_host_work(host_work)
+    log("k", f"the kernel timings from {time.perf_counter() - start:.1f} s")
     flash_rows = {label: bench.time_flash_attention(label)
                   for label in (*bench.SHAPES, *bench.NONCAUSAL_SHAPES)}
     for row in flash_rows.values():
         log("k", bench.describe(row))
+    held_library(flash_rows, BF16_ROW_TOL)
     ssd_rows = {label: bench.time_ssd_scan(label)
                 for label in bench.SSD_SHAPES}
     # each split (bench.split_kernels) fails where the profile misses one
@@ -4271,6 +4684,7 @@ def main():
                 for label in bench.BWD_SHAPES}
     for row in bwd_rows.values():
         log("k", bench.describe_bwd(row))
+    held_library(bwd_rows, BWD_TOL[torch.bfloat16])
     # slice 9 in a process of its own, with the card's memory this one no
     # longer needs
     del params, m_params, rg_params, model, m_model, rg_model, trained
@@ -4279,6 +4693,7 @@ def main():
     log("k", f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
              f" GiB of the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
              f"reserved) while the child runs")
+    log("k", f"the children from {time.perf_counter() - start:.1f} s")
     zoo = {arch: (v["counts"], v["tok_s"], v["peak"])
            for arch, v in run_child("--zoo", ZOO_RESULT).items()}
     # the allocator's expandable segments: its 65 GiB peak leaves no room
@@ -4339,6 +4754,22 @@ def main():
               + "; fp32 step at 2 data slices against 1: " + ", ".join(
                   f"{arch} {e:.3e}" for arch, e in tpk["slices"].items()))
     tpk = tpk["counts"]
+    zt = run_child("--zoo-train", ZOO_TRAIN_RESULT, env={
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+        "ZT_COUNTS": str(ZT_COUNTS)})
+    log("zt", "gemma2-27b, paligemma-3b, phi3.5-moe and granite-3-2b "
+              "training: " + "; ".join(
+                  f"{arch} ({v['layers']} layers) fp32 step within "
+                  f"{v['fp32_err']:.3e} of chunked, bf16 losses "
+                  + ", ".join(f"{x:.4f}" for x in v["losses"])
+                  + f", step {v['times']['wall_ms']:.3f} ms wall, "
+                  f"{v['times']['busy_ms']:.3f} ms busy, "
+                  f"{v['times']['tok_s']:.0f} tokens/s, one-step peak "
+                  f"{v['times']['peak_gib']:.2f} GiB (the dry-run's "
+                  f"{v['prediction']['predicted_gib']:.2f}), launches "
+                  f"{v['counts']['flash_attention']} + "
+                  f"{v['counts']['flash_attention_bwd']}"
+                  for arch, v in zt.items()))
     log("k", f"Server {smollm_tok_s:.1f} tok/s (smollm-135m bf16, batch 4), "
              f"{mamba_tok_s:.1f} tok/s (mamba2-130m bf16, batch 4), "
              f"{rg_tok_s:.1f} tok/s (recurrentgemma-9b at {RG_LAYERS} "
@@ -4359,7 +4790,8 @@ def main():
         + sum(counts["flash_attention"] for counts, _, _ in zoo.values())
         + rg_train["flash_attention"] + qwen_train["flash_attention"]
         + tps_counts["flash_attention"] + tp["flash_attention"]
-        + tpk["flash_attention"],
+        + tpk["flash_attention"]
+        + sum(v["counts"]["flash_attention"] for v in zt.values()),
         flash_err[64], flash_rows["prefill-512"],
         f"B{PREFILL_B} H9 KV3 S{PREFILL_S} D64 bf16 causal, (B, S, H, D) "
         "views")
@@ -4375,7 +4807,9 @@ def main():
         "recurrentgemma-9b, deepseek-moe-16b and seamless-m4t-medium "
         "training at model_ways 2 and 4": tpk["flash_attention"],
         **{arch: counts["flash_attention"]
-           for arch, (counts, _, _) in zoo.items()}}
+           for arch, (counts, _, _) in zoo.items()},
+        **{zt_path(arch, v): v["counts"]["flash_attention"]
+           for arch, v in zt.items()}}
     flash_row["recurrentgemma"] = record_row(
         "flash_attention", flash_row["source"], flash_row["replaces"],
         rg_counts["flash_attention"], flash_err[256],
@@ -4410,6 +4844,12 @@ def main():
             flash_rows[label],
             f"B{b} H{h} KV{kv} Sq{sq} Sk{sk} D{d} bf16 "
             f"{'causal' if causal else 'non-causal'}, (B, S, H, D) views")
+    # and slice 19's training calls (zt): gemma2-27b's local layer, with its
+    # softcap; paligemma-3b's at B 8; granite-3-2b's (each path's launches)
+    for label, arch in ZT_ROWS.items():
+        flash_row[label] = zt_record_row(
+            "flash_attention", flash_row, label, zt[arch], flash_err[label],
+            flash_rows[label])
     ssd_row = record_row(
         "ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd/kernel.py:67", mamba_counts["ssd_scan"],
@@ -4475,7 +4915,7 @@ def main():
         "recurrentgemma-9b training": rg_train["rglru_scan_bwd"],
         "recurrentgemma-9b training at model_ways 2 and 4":
             tpk["rglru_scan_bwd"]}
-    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["train-2048"]
+    b, h, kv, s, d, *_ = bench.BWD_SHAPES["train-2048"]
     bwd_row = record_row(
         "flash_attention_bwd", "src/repro_torch/kernels/flash_attention/"
         "csrc/flash_attention_bwd.cu", "none: the Pallas kernel has no "
@@ -4486,7 +4926,9 @@ def main():
         + sum(counts["flash_attention_bwd"] for counts, _, _ in zoo.values())
         + rg_train["flash_attention_bwd"] + qwen_train["flash_attention_bwd"]
         + tps_counts["flash_attention_bwd"] + tp["flash_attention_bwd"]
-        + tpk["flash_attention_bwd"], bwd_err[(d, s)],
+        + tpk["flash_attention_bwd"]
+        + sum(v["counts"]["flash_attention_bwd"] for v in zt.values()),
+        bwd_err[(d, s)],
         bwd_rows["train-2048"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     bwd_row["launches_by_path"] = {
@@ -4501,7 +4943,9 @@ def main():
             tps_counts["flash_attention_bwd"],
         "qwen3-4b training at model_ways 2 and 4": tp["flash_attention_bwd"],
         "recurrentgemma-9b, deepseek-moe-16b and seamless-m4t-medium "
-        "training at model_ways 2 and 4": tpk["flash_attention_bwd"]}
+        "training at model_ways 2 and 4": tpk["flash_attention_bwd"],
+        **{zt_path(arch, v): v["counts"]["flash_attention_bwd"]
+           for arch, v in zt.items()}}
     # CUDA kernels one call launched at this shape, under the profiler in
     # this run, and each one's device ms (delta, the main pass, dq)
     bwd_row["cuda_kernels_per_launch"] = sum(
@@ -4509,7 +4953,7 @@ def main():
     bwd_row["cuda_kernel_ms"] = {
         name: ms for name, ms, _ in flash_bwd_split["train-2048"]}
     # and at recurrentgemma's training call: D 256, window 2048, S 4096
-    b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
+    b, h, kv, s, d, _, window, _ = bench.BWD_SHAPES["recurrentgemma-4096"]
     bwd_row["recurrentgemma"] = record_row(
         "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
         rg_train["flash_attention_bwd"], bwd_err[(d, s)],
@@ -4517,20 +4961,28 @@ def main():
         f"causal, window {window}, (B, S, H, D) views, dq / dk / dv from the "
         "forward's lse")
     # and at qwen3-4b's: D 128, GQA 32 / 8, S 4096, B 2, its bf16 steps
-    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["qwen3-4096"]
+    b, h, kv, s, d, *_ = bench.BWD_SHAPES["qwen3-4096"]
     bwd_row["qwen3"] = record_row(
         "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
         qwen_train["flash_attention_bwd"], bwd_err[(d, s)],
         bwd_rows["qwen3-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal, "
         "(B, S, H, D) views, dq / dk / dv from the forward's lse")
     # and at one model coordinate's heads of qwen3-4b's at model_ways 2
-    b, h, kv, s, d, _, _ = bench.BWD_SHAPES["qwen3-tp2-4096"]
+    b, h, kv, s, d, *_ = bench.BWD_SHAPES["qwen3-tp2-4096"]
     bwd_row["qwen3_tp2"] = record_row(
         "flash_attention_bwd", bwd_row["source"], bwd_row["replaces"],
         tp["flash_attention_bwd"], bwd_err[(d, s)],
         bwd_rows["qwen3-tp2-4096"], f"B{b} H{h} KV{kv} S{s} D{d} bf16 "
         "causal, (B, S, H, D) views, dq / dk / dv from the forward's lse: "
         "one model coordinate's heads at model_ways 2")
+    # and slice 19's training calls: gemma2's local layer (the softcap
+    # route), paligemma's (the bf16 D 256 route without a window), granite's
+    for label, arch in ZT_ROWS.items():
+        bwd_row[label] = zt_record_row(
+            "flash_attention_bwd", bwd_row, label, zt[arch], bwd_err[label],
+            bwd_rows[label])
+        bwd_row[label]["cuda_kernel_ms"] = {
+            name: ms for name, ms, _ in flash_bwd_split[label]}
     # the library's backward in device time (a CUDA graph, like the
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
@@ -4548,6 +5000,7 @@ def main():
 if __name__ == "__main__":
     sys.exit({"--zoo": main_zoo, "--rg-train": main_rg_train,
               "--qwen-train": main_qwen_train, "--tp": main_tp,
-              "--tp-kinds": main_tp_kinds,
+              "--tp-kinds": main_tp_kinds, "--zoo-train": main_zoo_train,
+              "--host-work": main_host_work,
               "--node-count": main_node_count}.get(
         (sys.argv[1:] or [None])[0], main)())

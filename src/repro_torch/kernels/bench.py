@@ -22,13 +22,16 @@ are called with their own (``launch_old``). All write the same logical
 layout, which ``max|new - old|`` compares. A shape the old source does not
 take is reported and skipped: a version-1 flash backward takes no window.
 
-The flash-attention backward is timed at smollm-135m's training shape and
-at recurrentgemma-9b's windowed one beside its plain version (torch
+The flash-attention backward is timed at the training calls of
+``BWD_SHAPES`` beside its plain version (torch
 autograd of ``attention_ref``) and the backward of
 ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its output,
 captured in a CUDA graph like the kernel, so both are device times; the
 eager call is printed beside it, named so, with the backend PyTorch picks;
-with a window, through an explicit boolean mask). The SSD and RG-LRU
+with a window, through an explicit boolean mask; with a softcap, as at
+gemma2-27b's calls, where ``scaled_dot_product_attention`` cannot cap the
+scores, the backward of ``flex_attention`` compiled by ``torch.compile``,
+the cap its ``score_mod`` and the mask a block mask). The SSD and RG-LRU
 backward kernels are timed at mamba2-130m's and recurrentgemma-9b's
 training shapes beside their plain versions (torch autograd of
 ``ssd_ref`` and ``rglru_ref``, the backward replayed eagerly). ``--profile`` also lists the library backward's kernels by device
@@ -61,25 +64,32 @@ from repro_torch.kernels import work
 from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
                                            PEAK_FP32_FLOPS)
 
-# (B, H, KV, S, D, layout, window) of smollm-135m's attention: at its full
-# context, and the (B, S, H, D) views a B 4, S 512 prefill passes; of
-# recurrentgemma-9b's local layers in the same prefill (window 2048); of
+# (B, H, KV, S, D, layout, window, softcap) of smollm-135m's attention: at
+# its full context, and the (B, S, H, D) views a B 4, S 512 prefill passes;
+# of recurrentgemma-9b's local layers in the same prefill (window 2048); of
 # qwen3-4b's and phi3.5-moe's (32 query / 8 KV heads of 128); of
 # paligemma-3b's (8 query heads on 1 KV head of 256, 256 patches and 256
-# tokens); and the forward's calls in two train steps: qwen3-4b's at B 2,
+# tokens); and the forward's calls in the train steps: qwen3-4b's at B 2,
 # S 4096 (whole, and on one model coordinate's heads at model_ways 2:
-# 16 query / 4 KV) and recurrentgemma-9b's at B 1, S 4096, where the window
+# 16 query / 4 KV), recurrentgemma-9b's at B 1, S 4096, where the window
 # bites (whole, and on one model coordinate's 8 of 16 heads at model_ways
-# 2, its one KV head whole). All causal.
-SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None),
-          "prefill-512": (4, 9, 3, 512, 64, "bshd", None),
-          "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048),
-          "d128-512": (4, 32, 8, 512, 128, "bshd", None),
-          "paligemma-512": (4, 8, 1, 512, 256, "bshd", None),
-          "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
-          "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None),
-          "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
-          "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048)}
+# 2, its one KV head whole), gemma2-27b's local layer at B 1, S 4352 (32
+# query / 16 KV heads of 128, window 4096, scores capped at 50),
+# paligemma-3b's at B 8 (256 patches and 256 tokens) and granite-3-2b's at
+# B 2, S 4096 (32 query / 8 KV heads of 64). All causal.
+SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None, None),
+          "prefill-512": (4, 9, 3, 512, 64, "bshd", None, None),
+          "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048, None),
+          "d128-512": (4, 32, 8, 512, 128, "bshd", None, None),
+          "paligemma-512": (4, 8, 1, 512, 256, "bshd", None, None),
+          "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None, None),
+          "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None, None),
+          "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048, None),
+          "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048,
+                                      None),
+          "gemma2-4352": (1, 32, 16, 4352, 128, "bshd", 4096, 50.0),
+          "paligemma-train-512": (8, 8, 1, 512, 256, "bshd", None, None),
+          "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None)}
 # (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
 # causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
 # frames, which is also the cross attention's call of 512 tokens over them,
@@ -98,16 +108,23 @@ SSD_SHAPES = {"prefill-512": (4, 512, 24, 64, 128, 128, "view"),
 # channels at model_ways 2)
 RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096),
                 "train-tp2-4096": (1, 4096, 2048)}
-# (B, H, KV, S, D, layout, window) of smollm-135m's attention in a B 8,
-# S 2048 train step, of recurrentgemma-9b's local layers in a B 1, S 4096
-# one (window 2048), and of qwen3-4b's in a B 2, S 4096 one (32 query / 8
-# KV heads of 128; 16 / 4 on each model coordinate at model_ways 2), for
-# the backward
-BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None),
-              "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048),
-              "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None),
-              "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None),
-              "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048)}
+# (B, H, KV, S, D, layout, window, softcap) of smollm-135m's attention in a
+# B 8, S 2048 train step, of recurrentgemma-9b's local layers in a B 1,
+# S 4096 one (window 2048), of qwen3-4b's in a B 2, S 4096 one (32 query /
+# 8 KV heads of 128; 16 / 4 on each model coordinate at model_ways 2), and
+# of the train steps of gemma2-27b's local layer, paligemma-3b and
+# granite-3-2b (SHAPES' calls of the same names), for the backward
+BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None, None),
+              "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048,
+                                      None),
+              "qwen3-4096": (2, 32, 8, 4096, 128, "bshd", None, None),
+              "qwen3-tp2-4096": (2, 16, 4, 4096, 128, "bshd", None, None),
+              "recurrentgemma-tp2-4096": (1, 8, 1, 4096, 256, "bshd", 2048,
+                                          None),
+              "gemma2-4352": (1, 32, 16, 4352, 128, "bshd", 4096, 50.0),
+              "paligemma-train-512": (8, 8, 1, 512, 256, "bshd", None,
+                                      None),
+              "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None)}
 # the CUDA kernels one call launches at the timed (bf16) shapes: the SSD
 # scan's three passes, its backward's four (bf16 route); the flash
 # backward's three (delta, the main pass, dq), four on the bf16 D 256 route
@@ -222,16 +239,16 @@ def flash_bwd_kernels(label: str, seed: int = 1) -> list:
     autograd backward of the process (library_backward's): after one,
     later profiles have come back without device events."""
     from repro_torch.kernels.flash_attention import kernel
-    b, h, kv, s, d, layout, window = BWD_SHAPES[label]
+    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
     do = torch.randn_like(q)
     out, lse = kernel.flash_attention(q, k, v, window=window,
-                                      return_lse=True)
+                                      softcap=softcap, return_lse=True)
     splits = kernel.bwd_splits(b, h, kv, s, d, torch.bfloat16)
     return split_kernels(
         lambda: kernel.flash_attention_bwd(q, k, v, out, lse, do,
-                                           window=window),
+                                           window=window, softcap=softcap),
         3 + (splits > 1), f"flash_attention_bwd {label}")
 
 
@@ -252,21 +269,40 @@ def _itemsize(dtype) -> int:
     return torch.tensor([], dtype=dtype).element_size()
 
 
-def attention_bound(b, h, kv, sq, sk, d, dtype, causal=True, window=None):
+def capped(ms: float, by: str, cap_ops: float):
+    """(ms, by) of a bound, or the time of a softcap's ``cap_ops`` fp32
+    operations at the card's fp32 rate where that takes longer: they run
+    on the CUDA cores, beside the products on the tensor cores."""
+    cap_ms = 1e3 * cap_ops / PEAK_FP32_FLOPS
+    return (cap_ms, "operations") if cap_ms > ms else (ms, by)
+
+
+def attention_bound(b, h, kv, sq, sk, d, dtype, causal=True, window=None,
+                    softcap=None):
     """(bound ms, "operations" | "bytes", flops) for attention on these
-    inputs (``work.attention_work``)."""
+    inputs (``work.attention_work``; with a ``softcap``, its operations
+    too, ``work.softcap_ops``)."""
     flops, nbytes = work.attention_work(b, h, kv, sq, sk, d, _itemsize(dtype),
                                         causal, window)
-    return (*bound(flops, nbytes, _peak(dtype)), flops)
+    ms, by = bound(flops, nbytes, _peak(dtype))
+    if softcap is not None:
+        ms, by = capped(ms, by, work.softcap_ops(b, h, sq, sk, causal,
+                                                 window))
+    return ms, by, flops
 
 
 def attention_bwd_bound(b, h, kv, sq, sk, d, dtype, causal=True,
-                        window=None):
+                        window=None, softcap=None):
     """(bound ms, "operations" | "bytes", flops) for the attention backward
-    on these inputs (``work.attention_bwd_work``)."""
+    on these inputs (``work.attention_bwd_work``; with a ``softcap``, its
+    operations too, ``work.softcap_ops``)."""
     flops, nbytes = work.attention_bwd_work(b, h, kv, sq, sk, d,
                                             _itemsize(dtype), causal, window)
-    return (*bound(flops, nbytes, _peak(dtype)), flops)
+    ms, by = bound(flops, nbytes, _peak(dtype))
+    if softcap is not None:
+        ms, by = capped(ms, by, work.softcap_ops(b, h, sq, sk, causal, window,
+                                                 backward=True))
+    return ms, by, flops
 
 
 def make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout):
@@ -296,37 +332,121 @@ def sdpa(q, k, v, causal: bool = True, mask=None):
 
 
 def flash_call(label: str) -> tuple:
-    """(B, H, KV, Sq, Sk, D, layout, causal, window) of a label of SHAPES
-    or NONCAUSAL_SHAPES."""
+    """(B, H, KV, Sq, Sk, D, layout, causal, window, softcap) of a label of
+    SHAPES or NONCAUSAL_SHAPES."""
     if label in SHAPES:
-        b, h, kv, s, d, layout, window = SHAPES[label]
-        return b, h, kv, s, s, d, layout, True, window
+        b, h, kv, s, d, layout, window, softcap = SHAPES[label]
+        return b, h, kv, s, s, d, layout, True, window, softcap
     b, h, kv, sq, sk, d, layout = NONCAUSAL_SHAPES[label]
-    return b, h, kv, sq, sk, d, layout, False, None
+    return b, h, kv, sq, sk, d, layout, False, None, None
+
+
+def max_norm_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def flex_library(q, k, v, causal: bool = True, window=None,
+                 softcap=None):
+    """The library yardstick where a softcap is on, which
+    ``scaled_dot_product_attention`` cannot apply (it adds a mask or a bias
+    to the scores): a function (q, k, v) -> output of
+    ``torch.nn.attention.flex_attention`` with the cap ``c * tanh(s / c)``
+    as its ``score_mod``, the causal and window mask as a block mask (query
+    rows right-aligned to the keys, as the kernel's) and GQA; compiled by
+    ``torch.compile`` on the card (its fused Triton kernels), eager on the
+    CPU (the scores materialised). The port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    sq, sk = q.shape[2], k.shape[2]
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        lag = q_idx + (sk - sq) - kv_idx
+        keep = lag >= 0 if causal else lag > -sk
+        return keep & (lag < window) if window is not None else keep
+
+    block_mask = None
+    if causal or window is not None:
+        block_mask = create_block_mask(mask_mod, None, None, sq, sk,
+                                       device=q.device)
+    fn = (torch.compile(flex_attention, dynamic=False) if q.is_cuda
+          else flex_attention)
+    return lambda q, k, v: fn(
+        q, k, v, score_mod=None if softcap is None else score_mod,
+        block_mask=block_mask, enable_gqa=True)
+
+
+def flex_compiled(fn):
+    """``fn()``'s first call, where torch.compile builds its kernels, in
+    this process (no pool of compile workers left behind)."""
+    from torch._inductor import config
+    with config.patch(compile_threads=1):
+        out = fn()
+    torch.cuda.synchronize()
+    return out
+
+
+def warm_flex(label: str) -> None:
+    """The first calls of flex_library's forward and backward at a label
+    of SHAPES with a softcap (and BWD_SHAPES', the same call), as
+    time_flash_attention and time_flash_attention_bwd make them, untimed:
+    run in another process first, they leave torch.compile's caches on
+    disk warm for those calls."""
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = flash_call(label)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    flex = flex_library(qc, kc, vc, causal=causal, window=window,
+                        softcap=softcap)
+    flex_compiled(lambda: flex(qc, kc, vc))
+    library, stream = library_backward(q, k, v, torch.randn_like(q), window,
+                                       softcap)
+    with torch.cuda.stream(stream):
+        flex_compiled(library)
 
 
 def time_flash_attention(label: str, seed: int = 1) -> dict:
     """Kernel, plain version and library call at one of SHAPES (bf16,
     causal, within the shape's window: where it bites, the library call
-    takes it as an explicit mask) or NONCAUSAL_SHAPES, with the bound."""
+    takes it as an explicit mask; with a softcap the library call is
+    flex_library's, its max-normalised distance from the plain version in
+    the row, ``library_err``) or
+    NONCAUSAL_SHAPES, with the bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, sq, sk, d, layout, causal, window = flash_call(label)
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = flash_call(label)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     mask = (window_mask(sk, window, q.device)
             if window is not None and window < sk else None)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     bound_ms, bound_by, flops = attention_bound(b, h, kv, sq, sk, d,
                                                 torch.bfloat16, **kw)
     ms = graph_ms(lambda: kernel.flash_attention(q, k, v, **kw))
+    if softcap is None:
+        library = {"library_ms": graph_ms(lambda: sdpa(qc, kc, vc, causal,
+                                                       mask)),
+                   "library_backend": sdpa_backend(qc, kc, vc, mask,
+                                                   causal)}
+    else:
+        flex = flex_library(qc, kc, vc, **kw)
+        got = flex_compiled(lambda: flex(qc, kc, vc))
+        library = {"library_ms": graph_ms(lambda: flex(qc, kc, vc)),
+                   "library_backend": "flex_attention",
+                   "library_err": max_norm_err(got, attention_ref(q, k, v,
+                                                                  **kw))}
+        del got
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
         tflops=flops / ms / 1e9,
         plain_ms=graph_ms(lambda: attention_ref(q, k, v, **kw), iters=3),
-        library_ms=graph_ms(lambda: sdpa(qc, kc, vc, causal, mask)),
-        library_backend=sdpa_backend(qc, kc, vc, mask, causal),
+        **library,
         eager_ms=eager_ms(lambda: kernel.flash_attention(q, k, v, **kw)))
 
 
@@ -348,11 +468,12 @@ def window_mask(s: int, window: int, device) -> torch.Tensor:
     return (diff >= 0) & (diff < window)
 
 
-def library_backward(q, k, v, do, window=None):
+def library_backward(q, k, v, do, window=None, softcap=None):
     """(fn, stream): ``fn`` computes the gradients of :func:`sdpa` on q, k,
     v (contiguous copies) for the output gradient ``do``, replaying the
     backward of one forward kept on ``stream``; with a ``window``, of
-    ``scaled_dot_product_attention`` under that window's explicit mask.
+    ``scaled_dot_product_attention`` under that window's explicit mask;
+    with a ``softcap``, of :func:`flex_library` (causal, ``window``).
     Autograd runs each backward op on its forward's stream, so the forward
     runs there and a CUDA graph of ``fn`` is captured on it."""
     stream = torch.cuda.Stream()
@@ -360,7 +481,10 @@ def library_backward(q, k, v, do, window=None):
     with torch.cuda.stream(stream):
         leaves = [x.detach().contiguous().requires_grad_(True)
                   for x in (q, k, v)]
-        if window is None:
+        if softcap is not None:
+            flex = flex_library(*leaves, window=window, softcap=softcap)
+            res = flex_compiled(lambda: flex(*leaves))
+        elif window is None:
             res = sdpa(*leaves)
         else:
             res = torch.nn.functional.scaled_dot_product_attention(
@@ -375,36 +499,51 @@ def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     forward kernel's output and log-sum-exp, its plain version (torch
     autograd of ``attention_ref``, its graph kept and the backward
     replayed, eager) and the backward of ``scaled_dot_product_attention``
-    (device time from a CUDA graph, and one eager call), with the bound."""
+    (device time from a CUDA graph, and one eager call; with a softcap,
+    of flex_library's, its largest max-normalised distance from the plain
+    gradients over dq, dk and dv in the row, ``library_err``), with the
+    bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, s, d, layout, window = BWD_SHAPES[label]
+    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
     do = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)[0]
-    out, lse = kernel.flash_attention(q, k, v, window=window,
-                                      return_lse=True)
+    kw = dict(window=window, softcap=softcap)
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
     bound_ms, bound_by, flops = attention_bwd_bound(
-        b, h, kv, s, s, d, torch.bfloat16, window=window)
+        b, h, kv, s, s, d, torch.bfloat16, **kw)
 
     def run():
-        return kernel.flash_attention_bwd(q, k, v, out, lse, do,
-                                          window=window)
+        return kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
     ms = graph_ms(run)
-    plain = backward_of(lambda *t: attention_ref(*t, window=window),
-                        (q, k, v), do)
+    plain = backward_of(lambda *t: attention_ref(*t, **kw), (q, k, v), do)
     plain_ms = eager_ms(plain, iters=2, warmup=1)
-    del plain
-    library, stream = library_backward(q, k, v, do, window)
+    if softcap is None:
+        del plain
+        library, stream = library_backward(q, k, v, do, window)
+        lib = {"library_ms": graph_ms(library, stream=stream),
+               "library_eager_ms": eager_ms(library),
+               "library_backend": sdpa_backend(
+                   q.contiguous(), k.contiguous(), v.contiguous(),
+                   None if window is None
+                   else window_mask(s, window, q.device))}
+    else:
+        want = plain()
+        del plain
+        library, stream = library_backward(q, k, v, do, window, softcap)
+        with torch.cuda.stream(stream):
+            got = flex_compiled(library)
+        err = max(max_norm_err(g, w) for g, w in zip(got, want))
+        del got, want
+        lib = {"library_ms": graph_ms(library, stream=stream),
+               "library_eager_ms": eager_ms(library),
+               "library_backend": "flex_attention",
+               "library_err": err}
     return dict(
         label=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-        tflops=flops / ms / 1e9, plain_ms=plain_ms,
-        library_ms=graph_ms(library, stream=stream),
-        library_eager_ms=eager_ms(library),
-        library_backend=sdpa_backend(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            None if window is None else window_mask(s, window, q.device)),
+        tflops=flops / ms / 1e9, plain_ms=plain_ms, **lib,
         eager_ms=eager_ms(run))
 
 
@@ -417,39 +556,52 @@ def backward_of(fn, inputs, grad):
     return lambda: torch.autograd.grad(res, leaves, grad, retain_graph=True)
 
 
+def options(window, softcap) -> str:
+    """" window W", " softcap C", both or nothing."""
+    return ((f" window {window}" if window is not None else "")
+            + (f" softcap {softcap:g}" if softcap is not None else ""))
+
+
+def library_name(row: dict, explicit: bool = False) -> str:
+    """The library call of a flash row, with its backend: cuDNN's or
+    another backend of ``scaled_dot_product_attention`` (``explicit``:
+    under an explicit mask), or ``flex_attention`` with its distance from
+    the plain version."""
+    if row["library_backend"] == "flex_attention":
+        return (f"flex_attention (torch.compile, the softcap its score_mod; "
+                f"{row['library_err']:.3e} from plain, max-normalised)")
+    return (f"scaled_dot_product_attention ({row['library_backend']}"
+            f"{', explicit mask' if explicit else ''})")
+
+
 def describe_bwd(row: dict) -> str:
-    b, h, kv, s, d, layout, window = BWD_SHAPES[row["label"]]
-    mask = "causal" + (f" window {window}" if window is not None else "")
-    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 {mask} "
-            f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
-            f"TFLOP/s), plain (autograd of attention_ref, eager) "
-            f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention's "
-            f"backward ({row['library_backend']}) {row['library_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-            f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x, "
-            f"kernel/library {row['ms'] / row['library_ms']:.2f}x (device "
-            f"times); one eager call: kernel {row['eager_ms']:.4f} ms, "
-            f"library {row['library_eager_ms']:.4f} ms")
+    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[row["label"]]
+    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 causal"
+            f"{options(window, softcap)} {layout}: kernel {row['ms']:.4f} "
+            f"ms ({row['tflops']:.1f} TFLOP/s), plain (autograd of "
+            f"attention_ref, eager) {row['plain_ms']:.4f} ms, the backward "
+            f"of {library_name(row)} {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x, kernel/library "
+            f"{row['ms'] / row['library_ms']:.2f}x (device times); one eager "
+            f"call: kernel {row['eager_ms']:.4f} ms, library "
+            f"{row['library_eager_ms']:.4f} ms")
 
 
 def describe(row: dict) -> str:
-    b, h, kv, sq, sk, d, layout, causal, window = flash_call(row["label"])
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = flash_call(
+        row["label"])
     length = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
-    mask = ("causal" if causal else "non-causal") + (
-        f" window {window}" if window is not None else "")
-    library = "scaled_dot_product_attention"
-    if "library_backend" in row:
-        explicit = window is not None and window < sk
-        library += (f" ({row['library_backend']}"
-                    f"{', explicit mask' if explicit else ''})")
+    mask = ("causal" if causal else "non-causal") + options(window, softcap)
+    library = library_name(row, window is not None and window < sk)
     return (f"flash_attention B{b} H{h} KV{kv} {length} D{d} bf16 {mask} "
             f"{layout}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} "
-            f"TFLOP/s), plain {row['plain_ms']:.4f} ms, "
-            f"{library} {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
-            f"kernel/bound {row['ms'] / row['bound_ms']:.2f}x, "
-            f"kernel/library {row['ms'] / row['library_ms']:.2f}x (device "
-            f"times); one eager call {row['eager_ms']:.4f} ms")
+            f"TFLOP/s), plain {row['plain_ms']:.4f} ms, {library} "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); kernel/bound "
+            f"{row['ms'] / row['bound_ms']:.2f}x, kernel/library "
+            f"{row['ms'] / row['library_ms']:.2f}x (device times); one eager "
+            f"call {row['eager_ms']:.4f} ms")
 
 
 def ssd_bound(b, s, h, p, n, chunk, dtype):
@@ -695,11 +847,11 @@ def profile_kernels(seed: int = 1) -> None:
     from repro_torch.kernels.ssd import kernel as ssd
     gen = torch.Generator(device="cuda").manual_seed(seed)
     calls = {}
-    for label, (b, h, kv, s, d, layout, window) in SHAPES.items():
+    for label, (b, h, kv, s, d, layout, window, cap) in SHAPES.items():
         q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
         calls[f"flash_attention {label}"] = (
-            lambda q=q, k=k, v=v, w=window: flash.flash_attention(
-                q, k, v, window=w))
+            lambda q=q, k=k, v=v, w=window, c=cap: flash.flash_attention(
+                q, k, v, window=w, softcap=c))
     for label, (b, s, h, p, n, chunk, layout) in SSD_SHAPES.items():
         args = make_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16, layout)
         calls[f"ssd_scan {label}"] = (
@@ -720,16 +872,17 @@ def profile_kernels(seed: int = 1) -> None:
         h, dh = rglru.rglru_scan(a, bb), torch.randn_like(a)
         calls[f"rglru_scan_bwd {label}"] = (
             lambda a=a, h=h, dh=dh: rglru.rglru_scan_bwd(a, h, None, dh))
-    for label, (b, h, kv, s, d, layout, window) in BWD_SHAPES.items():
+    for label, (b, h, kv, s, d, layout, window, cap) in BWD_SHAPES.items():
         q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
         do = torch.randn_like(q)
-        out, lse = flash.flash_attention(q, k, v, window=window,
+        out, lse = flash.flash_attention(q, k, v, window=window, softcap=cap,
                                          return_lse=True)
         calls[f"flash_attention_bwd {label}"] = (
-            lambda a=(q, k, v, out, lse, do), w=window:
-            flash.flash_attention_bwd(*a, window=w))
-        calls[f"scaled_dot_product_attention backward {label}"] = \
-            library_backward(q, k, v, do, window)[0]
+            lambda a=(q, k, v, out, lse, do), w=window, c=cap:
+            flash.flash_attention_bwd(*a, window=w, softcap=c))
+        if cap is None:
+            calls[f"scaled_dot_product_attention backward {label}"] = \
+                library_backward(q, k, v, do, window)[0]
     for name, fn in calls.items():
         prof = device_profile(fn, top=8)
         print(f"profile {name}: busy {prof['busy_ms'] * 1e3:.1f} us; "
@@ -810,11 +963,12 @@ def interface_version(lib: ctypes.CDLL, name: str) -> int:
 
 def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
     """Call a library of ``name`` with an older C interface on the current
-    stream: flash_attention (q, k, v, out, window), causal (version 1:
-    ``out`` contiguous; version 2: through its strides, no log-sum-exp);
+    stream: flash_attention (q, k, v, out, window, softcap), causal
+    (version 1: ``out`` contiguous; version 2: through its strides, no
+    log-sum-exp);
     ssd_scan version 1 (x, dt, a_log, b, c, y, h_final, chunk);
     flash_attention_bwd (q, k, v, o, lse, do, dq, dk, dv, workspace,
-    window), causal: version 1 with a workspace of
+    window, softcap), causal: version 1 with a workspace of
     ``old_bwd_workspace_numel`` and no window, version 2 with one of
     ``bwd_workspace_numel``; ssd_scan_bwd version 1 (x, dt, a_log, b, c,
     dy, dh_final, the forward's workspace, dx, ddt, da_log, db, dc,
@@ -844,7 +998,7 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
                  dh.stride(1), stream)
     elif name == "flash_attention_bwd":
         from repro_torch.kernels.flash_attention import kernel as flash
-        q, k, v, o, lse, do, dq, dk, dv, ws, window = args
+        q, k, v, o, lse, do, dq, dk, dv, ws, window, softcap = args
         b, h, sq, d = q.shape
         if version == 1 and window is not None:
             raise ValueError("a version-1 backward takes no window")
@@ -858,9 +1012,10 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
                  1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1], sq,
                  k.shape[2], d, *(st for t in (q, k, v, o, do, dq, dk, dv)
                                   for st in t.stride()[:3]),
-                 1, window or 0, 0.0, 1.0 / math.sqrt(d), stream)
+                 1, window or 0, float(softcap or 0.0), 1.0 / math.sqrt(d),
+                 stream)
     elif name == "flash_attention":
-        q, k, v, out, window = args
+        q, k, v, out, window, softcap = args
         if version == 1 and not out.is_contiguous():
             raise ValueError("a version-1 library writes a contiguous out")
         b, h, sq, d = q.shape
@@ -868,8 +1023,8 @@ def launch_old(name: str, version: int, lib: ctypes.CDLL, *args) -> None:
         rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  1 if q.dtype == torch.bfloat16 else 0, b, h, k.shape[1],
                  sq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], *out_strides, 1, window or 0, 0.0,
-                 1.0 / math.sqrt(d), stream)
+                 *v.stride()[:3], *out_strides, 1, window or 0,
+                 float(softcap or 0.0), 1.0 / math.sqrt(d), stream)
     else:
         x, dt, a_log, b, c, y, h_final, chunk = args
         bsz, s, h, p = x.shape
@@ -927,7 +1082,7 @@ def compare(old_source: Path, seed: int = 1):
     for kind, label in jobs:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         if kind == "flash_attention_bwd":
-            b, h, kv, s, d, layout, window = BWD_SHAPES[label]
+            b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
             if window is not None and version == 1:
                 print(f"{name} {label}: a window, which a version-1 source "
                       "does not take; skipped", flush=True)
@@ -936,7 +1091,7 @@ def compare(old_source: Path, seed: int = 1):
                                layout)
             do = torch.randn_like(q)
             o, lse = flash.flash_attention(q, k, v, window=window,
-                                           return_lse=True)
+                                           softcap=softcap, return_lse=True)
             grads = [torch.empty_like(t) for t in (q, k, v)]
             splits = flash.bwd_splits(b, h, kv, s, d, torch.bfloat16)
             ws = torch.empty(
@@ -948,15 +1103,16 @@ def compare(old_source: Path, seed: int = 1):
             def run_old():
                 if not current:
                     launch_old(name, version, lib, q, k, v, o, lse, do,
-                               *grads, ws, window)
+                               *grads, ws, window, softcap)
                 else:
                     flash.launch_bwd(lib, q, k, v, o, lse, do, *grads, ws,
                                      causal=True, window=window,
-                                     softcap=None, splits=splits)
+                                     softcap=softcap, splits=splits)
 
             def run_new():
                 return flash.flash_attention_bwd(q, k, v, o, lse, do,
-                                                 window=window)
+                                                 window=window,
+                                                 softcap=softcap)
             out = grads
         elif kind == "rglru_scan_bwd":
             b, s, w = RGLRU_BWD_SHAPES[label]
@@ -1038,20 +1194,22 @@ def compare(old_source: Path, seed: int = 1):
                 return ssd.ssd_scan(*args, chunk=chunk)[0]
             out = y
         else:
-            b, h, kv, s, d, layout, window = SHAPES[label]
+            b, h, kv, s, d, layout, window, softcap = SHAPES[label]
             q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16,
                                layout)
             out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
 
             def run_old():
                 if not current:
-                    launch_old(name, version, lib, q, k, v, out, window)
+                    launch_old(name, version, lib, q, k, v, out, window,
+                               softcap)
                 else:
                     flash.launch(lib, q, k, v, out, causal=True,
-                                 window=window, softcap=None)
+                                 window=window, softcap=softcap)
 
             def run_new():
-                return flash.flash_attention(q, k, v, window=window)
+                return flash.flash_attention(q, k, v, window=window,
+                                             softcap=softcap)
         new = run_new()
         try:
             run_old()

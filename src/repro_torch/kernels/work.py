@@ -56,6 +56,18 @@ def attention_work(b, h, kv, sq, sk, d, itemsize, causal=True,
     return flops, nbytes
 
 
+def softcap_ops(b, h, sq, sk, causal=True, window=None, backward=False):
+    """fp32 operations of a softcap ``c tanh(s / c)`` over the scores the
+    mask lets through: a divide, a tanh and a multiply for each (query, key)
+    pair and head; the backward recomputes them and multiplies dP by the
+    cap's derivative ``1 - tanh^2`` (two more). They run on the CUDA
+    cores beside the products, so they are kept out of the FLOPs of
+    ``attention_work`` (the tensor cores' products, the kernel op's FLOP
+    formula) and bound a call on their own (``bench.capped``)."""
+    return float((5 if backward else 3) * b * h
+                 * attention_pairs(sq, sk, causal, window))
+
+
 def attention_bwd_work(b, h, kv, sq, sk, d, itemsize, causal=True,
                        window=None):
     """q, k, v, o, do and the fp32 lse read and dq, dk, dv written once,

@@ -25,7 +25,10 @@ job's mesh draws from ``max(N, 1) * model_ways`` of them. The job starts on
 ``max(steps // 10, 1)`` steps, up to that many slices. ``--ckpt-dir``
 checkpoints every 50 steps. It prints the per-step lines, the
 ``resize_log`` and, on the card, each resize's time, the wall time of the
-steps and the peak of allocated device memory.
+steps and the peak of allocated device memory. On the card it refuses,
+before drawing, a model whose fp32 training state does not fit the card
+(``training_state_refusal``): at ``--no-reduced`` on an 80 GB card,
+gemma2-27b, phi3.5-moe-42b-a6.6b, deepseek-moe-16b and recurrentgemma-9b.
 
 Reference behaviour it departs from, on purpose (``repro.launch.train``):
 
@@ -43,6 +46,25 @@ import sys
 import time
 
 import torch
+
+
+# bytes of fp32 training state a parameter holds: the parameter, its
+# gradient and AdamW's two moments
+TRAIN_STATE_BYTES = 16
+
+
+def training_state_refusal(cfg, have_bytes: int):
+    """Why ``cfg``'s fp32 training state (TRAIN_STATE_BYTES a parameter by
+    ``cfg.param_count()``) cannot fit a device of ``have_bytes``, or None
+    where it can (activations not counted)."""
+    need = TRAIN_STATE_BYTES * cfg.param_count()
+    if need <= have_bytes:
+        return None
+    return (f"{cfg.name}: {need / 1e9:.1f} GB of fp32 training state "
+            f"(parameters, gradients and two AdamW moments, "
+            f"{TRAIN_STATE_BYTES} bytes a parameter, {cfg.param_count()} "
+            f"parameters at {cfg.num_layers} layers) do not fit the card's "
+            f"{have_bytes / 1e9:.1f} GB")
 
 
 def main(argv=None):
@@ -79,6 +101,11 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced_config(cfg)
     model = build_model(cfg, device=args.device)
+    if model.device.type == "cuda":
+        why = training_state_refusal(cfg, torch.cuda.get_device_properties(
+            model.device).total_memory)
+        if why is not None:
+            raise SystemExit(why)
     nodes = max(args.devices, 1)
     devices = slice_devices(nodes * args.model_ways, args.device)
     if args.devices:

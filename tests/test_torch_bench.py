@@ -14,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import bench  # noqa: E402
+from repro_torch.kernels import bench, work  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rglru  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd  # noqa: E402
@@ -26,8 +26,8 @@ def test_backward_bound_at_the_train_shape():
     """B8 H9 KV3 S2048 D64 bf16 causal: five products of 2 D flops per
     visible (query, key) pair, 9.67e10 flop, bound by operations at 989
     TFLOP/s: 0.0978 ms."""
-    b, h, kv, s, d, _, window = bench.BWD_SHAPES["train-2048"]
-    assert window is None
+    b, h, kv, s, d, _, window, softcap = bench.BWD_SHAPES["train-2048"]
+    assert window is None and softcap is None
     ms, by, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
                                               torch.bfloat16)
     pairs = s * (s + 1) // 2
@@ -45,8 +45,9 @@ def test_backward_bound_at_qwen3_train_shape():
     """qwen3-4b's bf16 train step, B2 H32 KV8 S4096 D128 causal: 6.87e11
     flop, bound by operations at 989 TFLOP/s: 0.695 ms; the 672 MB it
     must move would take 0.20 ms."""
-    b, h, kv, s, d, _, window = bench.BWD_SHAPES["qwen3-4096"]
-    assert (b, h, kv, s, d, window) == (2, 32, 8, 4096, 128, None)
+    b, h, kv, s, d, _, window, softcap = bench.BWD_SHAPES["qwen3-4096"]
+    assert (b, h, kv, s, d, window, softcap) == (2, 32, 8, 4096, 128, None,
+                                                 None)
     ms, by, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
                                               torch.bfloat16)
     assert flops == 5 * 2 * d * b * h * (s * (s + 1) // 2)
@@ -65,11 +66,11 @@ def test_forward_bound_at_the_train_calls(label, want_ms):
     flop) and recurrentgemma-9b's B1 H16 KV1 S4096 D256 within its window
     of 2048 (1.03e11), each bound by operations at 989 TFLOP/s. The window
     bites there, so the library call takes it as an explicit mask."""
-    b, h, kv, s, d, layout, window = bench.SHAPES[label]
-    assert (b, h, kv, s, d, window) == bench.BWD_SHAPES[label][:5] + (
-        bench.BWD_SHAPES[label][6],)
+    b, h, kv, s, d, layout, window, softcap = bench.SHAPES[label]
+    assert (b, h, kv, s, d, window, softcap) == bench.BWD_SHAPES[label][:5] \
+        + bench.BWD_SHAPES[label][6:]
     assert bench.flash_call(label) == (b, h, kv, s, s, d, layout, True,
-                                       window)
+                                       window, softcap)
     ms, by, flops = bench.attention_bound(b, h, kv, s, s, d, torch.bfloat16,
                                           window=window)
     lags = torch.arange(s)[:, None] - torch.arange(s)[None, :]
@@ -85,6 +86,94 @@ def test_forward_bound_at_the_train_calls(label, want_ms):
     text = bench.describe(row)
     assert "kernel/bound 2.00x" in text and "kernel/library 2.00x" in text
     assert ("explicit mask" in text) == (window is not None)
+
+
+@pytest.mark.parametrize("label,fwd_ms,bwd_ms,by", [
+    ("gemma2-4352", 0.1564, 0.3909, "operations"),
+    ("paligemma-train-512", 0.0113, 0.0226, "bytes"),
+    ("granite-4096", 0.1390, 0.3475, "operations")])
+def test_bounds_at_the_zoo_train_calls(label, fwd_ms, bwd_ms, by):
+    """The flash calls of gemma2-27b's, paligemma-3b's and granite-3-2b's
+    train steps: gemma2's local layer B1 H32 KV16 S4352 D128 within its
+    window of 4096 (9,439,232 pairs a head) with its scores capped at 50,
+    paligemma's B8 H8 KV1 S512 D256 (bound by its 37.7 MB of bytes: one KV
+    head for 8 query heads), granite's B2 H32 KV8 S4096 D64. The softcap's
+    fp32 operations (3 a pair and head forward, 5 backward: 9.06e8, 0.0135
+    ms at 67 TFLOP/s) stay under the products' time, so the products bound
+    gemma2's call; forward and backward take the same shape."""
+    b, h, kv, s, d, layout, window, softcap = bench.SHAPES[label]
+    assert bench.BWD_SHAPES[label] == bench.SHAPES[label]
+    assert layout == "bshd"
+    ms, got_by, flops = bench.attention_bound(
+        b, h, kv, s, s, d, torch.bfloat16, window=window, softcap=softcap)
+    bms, bwd_by, _ = bench.attention_bwd_bound(
+        b, h, kv, s, s, d, torch.bfloat16, window=window, softcap=softcap)
+    assert ms == pytest.approx(fwd_ms, abs=5e-5)
+    assert bms == pytest.approx(bwd_ms, abs=5e-5)
+    assert got_by == bwd_by == by
+    pairs = work.attention_pairs(s, s, True, window)
+    assert flops == 4 * d * b * h * pairs
+    if softcap is None:
+        assert bench.attention_bound(b, h, kv, s, s, d, torch.bfloat16,
+                                     window=window)[0] == ms
+        return
+    assert (window, softcap) == (4096, 50.0)
+    assert pairs == 9_439_232
+    cap = work.softcap_ops(b, h, s, s, True, window)
+    assert cap == 3 * b * h * pairs
+    assert work.softcap_ops(b, h, s, s, True, window, backward=True) == \
+        5 * b * h * pairs
+    assert 1e3 * cap / bench.PEAK_FP32_FLOPS == pytest.approx(0.0135,
+                                                              abs=5e-5)
+    # a cap that took longer than the products would bound the call
+    assert bench.capped(0.001, "bytes", cap) == (
+        1e3 * cap / bench.PEAK_FP32_FLOPS, "operations")
+
+
+def test_describe_names_flex_attention_for_a_softcapped_call():
+    """With a softcap the library column is flex_attention's time, its
+    distance from the plain version beside it, and kernel / library is
+    taken from it."""
+    row = dict(label="gemma2-4352", ms=0.3, tflops=515.0, plain_ms=30.0,
+               library_ms=0.6, library_backend="flex_attention",
+               library_err=3.9e-3, bound_ms=0.1564,
+               bound_by="operations", eager_ms=0.35)
+    text = bench.describe(row)
+    assert "window 4096 softcap 50" in text
+    assert "flex_attention (torch.compile, the softcap its score_mod; " \
+        "3.900e-03 from plain, max-normalised) 0.6000 ms" in text
+    assert "kernel/bound 1.92x" in text and "kernel/library 0.50x" in text
+    row.update(library_eager_ms=0.7, bound_ms=0.3909)
+    text = bench.describe_bwd(row)
+    assert "causal window 4096 softcap 50" in text
+    assert "the backward of flex_attention" in text
+    assert "kernel/library 0.50x" in text and "library 0.7000 ms" in text
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window,softcap", [
+    (2, 4, 2, 40, 40, 16, True, 8, 5.0),
+    (1, 4, 2, 136, 136, 16, True, 100, 50.0),
+    (1, 4, 1, 24, 40, 32, True, None, 3.0),
+    (1, 2, 2, 24, 40, 16, False, None, 2.0)])
+def test_flex_library_computes_the_kernels_function(b, h, kv, sq, sk, d,
+                                                    causal, window,
+                                                    softcap):
+    """The softcapped calls' library yardstick computes what the kernel
+    does (attention_ref): the cap as a score_mod, the causal and window
+    mask with the query rows right-aligned to the keys, GQA; and a window
+    one key narrower does not."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(b, h, sq, d, generator=gen)
+    k, v = (torch.randn(b, kv, sk, d, generator=gen) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = attention_ref(q, k, v, **kw)
+    got = bench.flex_library(q, k, v, **kw)(q, k, v)
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+    if window is not None:
+        kw["window"] = window - 1
+        assert (bench.flex_library(q, k, v, **kw)(q, k, v)
+                - want).abs().max() > 1e-3
 
 
 def test_rglru_bound_at_the_prefill_shape():
@@ -104,7 +193,7 @@ def test_windowed_backward_bound_counts_the_window():
     """recurrentgemma-9b's local layers at B1 S4096, window 2048: each
     query sees at most 2048 keys, so the pairs are the causal triangle's
     less the (2048 x 2049 / 2) the window cuts off."""
-    b, h, kv, s, d, _, window = bench.BWD_SHAPES["recurrentgemma-4096"]
+    b, h, kv, s, d, _, window, _ = bench.BWD_SHAPES["recurrentgemma-4096"]
     assert window == 2048 and s == 2 * window
     _, _, flops = bench.attention_bwd_bound(b, h, kv, s, s, d,
                                             torch.bfloat16, window=window)

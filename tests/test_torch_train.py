@@ -440,30 +440,90 @@ class FedBatches:
                 for k, v in self.source.batch(step).items()}
 
 
-def test_trainer_reproduces_reference_losses():
+def reduced_fp32(arch):
+    """The reference's reduced config of ``arch`` in fp32 and the port's
+    copy of it."""
+    cfg = dataclasses.replace(jax_reduced_config(jax_get_model(arch)[1]),
+                              dtype="float32")
+    return cfg, ModelConfig(**dataclasses.asdict(cfg))
+
+
+def per_layer_params(pcfg, seed=0):
+    """Parameters drawn with numpy as the reference's init draws them, but
+    each stacked weight at its layer's own fan-in (its second axis, where
+    the reference takes the stacked layers axis); norms at zero, as both
+    inits. The weights ``chip_smoke.py`` holds the card's train steps at."""
+    rng = np.random.default_rng(seed)
+
+    def draw(spec):
+        if spec.init == "zeros":
+            return jnp.zeros(spec.shape, jnp.float32)
+        stacked = spec.logical[0] == "layers" and len(spec.shape) > 2
+        fan_in = spec.shape[1] if stacked else spec.shape[0]
+        return jnp.asarray((rng.standard_normal(spec.shape) * spec.scale
+                            / np.sqrt(fan_in)).astype(np.float32))
+
+    return tree_map(draw, build_model(pcfg, device="cpu").specs())
+
+
+# (arch, sequence length) of the trainer's runs: smollm from the
+# reference's init drawn at its published depth (init_params); gemma2,
+# paligemma, phi3.5-moe and granite from weights at each layer's own
+# fan-in (per_layer_params): gemma2 past its reduced window of 64 (the
+# local layer's window biting, the softcaps on the scores and the logits),
+# paligemma with its 8 patch embeddings in every batch (the stream's text
+# is S - 8 tokens), phi3.5 with the routers' loss in every step, granite's
+# dense GQA
+TRAINER_CASES = [("smollm-135m", 32), ("gemma2-27b", 96),
+                 ("paligemma-3b", 40), ("phi3.5-moe-42b-a6.6b", 32),
+                 ("granite-3-2b", 32)]
+
+
+@pytest.mark.parametrize("arch,seq_len", TRAINER_CASES)
+def test_trainer_reproduces_reference_losses(arch, seq_len):
     """Started from the reference trainer's own init state and fed its
     batches, the port's trainer gives the reference's losses (and lr, grad
     norms) over 5 fp32 steps, to 1e-4 (relative; fp32 on both sides).
 
-    The state's parameters are drawn at smollm-135m's depth (see
+    smollm's parameters are drawn at smollm-135m's depth (see
     ``init_params``): at the 2-layer draw the model is chaotic, the first
     step's losses still agree, but AdamW's early, sign-like updates carry
     the gradients' rounding on, and by step 5 the losses part by more than
-    the tolerance (PERF.md, section 7)."""
-    cfg, pcfg = smollm_fp32()
-    data = JaxDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                         global_batch=8)
+    the tolerance (PERF.md, section 7). gemma2's 4 layers drawn so at its
+    46 layers' depth are chaotic too at S 96 (and at every S from 64 to
+    128): its first step agrees (loss 6e-8, grad norm 7e-7 relative), but
+    the grad norms part by 3.6e-4 at step 3 and 2.6e-3 at step 4, and the
+    port's own run from a start perturbed by 1e-7 (relative, each weight)
+    parts from the unperturbed one as far (3.0e-4, 3.0e-3): the rounding's
+    floor, not the port, so the other four cases draw each layer at its
+    own fan-in (``per_layer_params``), as chip_smoke.py's held train steps do.
+    There every case's grad norms agree within 1e-5 over the 5 steps, and
+    a perturbed run stays as close to the unperturbed one."""
+    cfg, pcfg = reduced_fp32(arch)
+    data = JaxDataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                         global_batch=8, frontend=cfg.frontend,
+                         frontend_tokens=cfg.frontend_tokens,
+                         d_model=cfg.d_model if cfg.frontend else 0)
     opt = dict(lr=3e-3, warmup_steps=2, total_steps=10)
     tcfg = dict(steps=5, model_ways=1, max_slices=1, log_period=1)
     ref = JaxTrainer(jax_build_model(cfg), JaxAdamWConfig(**opt), data,
                      JaxTrainerConfig(**tcfg))
     state = ref.init_state(seed=0)
-    state["params"] = init_params(cfg)
+    state["params"] = (init_params(cfg) if arch == "smollm-135m"
+                       else per_layer_params(pcfg))
     state["opt"] = jax_init_state(state["params"])
     start = state_from_jax(jax.tree.map(np.array, state), device="cpu")
     ref.train(state=state)
-    port = ElasticTrainer(build_model(pcfg, device="cpu"), AdamWConfig(**opt),
-                          FedBatches(ref.data), TrainerConfig(**tcfg))
+    if cfg.frontend:
+        assert ref.data.batch(0)["frontend"].shape == (
+            8, cfg.frontend_tokens, cfg.d_model)
+    model = build_model(pcfg, device="cpu")
+    with torch.no_grad():
+        _, parts = model.loss(start["params"], FedBatches(ref.data).batch(0))
+    # phi3.5's steps carry the routers' loss; the others' carry none
+    assert (float(parts["aux"]) > 0) == (cfg.family == "moe")
+    port = ElasticTrainer(model, AdamWConfig(**opt), FedBatches(ref.data),
+                          TrainerConfig(**tcfg))
     port.train(state=start)
     assert [m["step"] for m in port.metrics] == [1, 2, 3, 4, 5]
     for got, want in zip(port.metrics, ref.metrics):
@@ -581,6 +641,57 @@ def test_train_launcher_needs_a_card_unless_asked_for_cpu(monkeypatch):
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--steps", "1", "--devices", "4", "--elastic"])
+
+
+@pytest.mark.parametrize("arch,fits", [
+    ("smollm-135m", True), ("granite-3-2b", True), ("paligemma-3b", True),
+    ("qwen3-4b", True), ("seamless-m4t-medium", True),
+    ("gemma2-27b", False), ("phi3.5-moe-42b-a6.6b", False),
+    ("deepseek-moe-16b", False), ("recurrentgemma-9b", False)])
+def test_train_launcher_refuses_training_state_beyond_the_card(arch, fits):
+    """The launcher refuses, before drawing, a model whose fp32 training
+    state (16 bytes a parameter: the parameter, its gradient and AdamW's two
+    moments) exceeds the card's memory: a pure function of the config and
+    a memory size. At 80 GB gemma2-27b's 27.2 B parameters (435.6 GB)
+    are refused, granite-3-2b's 2.53 B (40.5 GB) are not; a card one byte
+    short of a model's state refuses it, one of exactly its size takes
+    it."""
+    from repro_torch.launch import train
+    from repro_torch.roofline.hardware import HBM_BYTES
+    cfg = get_config(arch)
+    need = 16 * cfg.param_count()
+    why = train.training_state_refusal(cfg, HBM_BYTES)
+    assert (why is None) == fits
+    if not fits:
+        assert f"{need / 1e9:.1f} GB of fp32 training state" in why
+        assert f"{HBM_BYTES / 1e9:.1f} GB" in why and cfg.name in why
+    assert train.training_state_refusal(cfg, need) is None
+    assert train.training_state_refusal(cfg, need - 1) is not None
+    assert train.training_state_refusal(
+        reduced_config(cfg), 2 ** 30) is None
+
+
+def test_train_launcher_refuses_before_drawing_on_the_card(monkeypatch):
+    """On the card the refusal comes before any weight is drawn: the
+    launcher exits with the reason and never builds a trainer."""
+    from repro_torch.launch import train
+    from repro_torch.runtime import trainer as trainer_mod
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: type("P", (), {
+                            "total_memory": 80 * 10 ** 9})())
+    import repro_torch.models as models
+    build = models.build_model
+
+    def on_cuda(cfg, device="cuda"):
+        model = build(cfg, device="cpu")
+        model.device = torch.device("cuda")
+        return model
+    monkeypatch.setattr(models, "build_model", on_cuda)
+    monkeypatch.setattr(trainer_mod.ElasticTrainer, "__init__",
+                        lambda *a, **k: pytest.fail("a trainer was built"))
+    with pytest.raises(SystemExit, match="gemma2-27b: 435.6 GB of fp32 "
+                                         "training state"):
+        train.main(["--arch", "gemma2-27b", "--no-reduced"])
 
 
 def test_train_launcher_runs_elastic_on_cpu_slices(capsys):
