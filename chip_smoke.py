@@ -19,7 +19,10 @@ fit's FitError in (t)):
                   prefill, D 256 causal without a window, 8 / 1 heads;
                   seamless's encoder and cross attention without a causal
                   mask, 16 / 16 heads of 64, Sq 512 = Sk and Sq 264 over
-                  Sk 256)
+                  Sk 256; the zt training calls, among them seamless's at
+                  B 8, S 2048: the encoder's and the cross attention's
+                  without a causal mask, the decoder's causal, each
+                  case with its own mask)
   (p) backward -- the flash-attention backward kernel (dq, dk, dv from the
                   forward's log-sum-exp) against torch autograd of the
                   plain version, on (c)'s cases (slice 10's too),
@@ -162,12 +165,12 @@ fit's FitError in (t)):
                   flash launches a step; the step's wall, busy, tokens/s
                   and peak memory under both remats
   (tp) tp      -- after (wq), in a child process of its own
-                  (chip_smoke.py --tp): the same qwen3-4b cut with tensor
+                  (chip_smoke.py --tp): qwen3-4b cut to 6 layers with tensor
                   parallelism inside a slice on virtual devices of the
                   card: one fp32 step at B 1, S 2048 at model_ways 2 and 4
                   against 1 (the loss and every gradient, put together from
-                  the coordinates' blocks), exactly 12 x M forward and
-                  12 x M backward flash launches on H / M heads; 4 bf16
+                  the coordinates' blocks), exactly 6 x M forward and
+                  6 x M backward flash launches on H / M heads; 4 bf16
                   ElasticTrainer steps at B 2, S 4096 at model_ways 2, the
                   loss falling; the bf16 step's wall, busy, tokens/s, peak
                   and on-card copies at model_ways 1, 2 and 4, the peak
@@ -193,13 +196,16 @@ fit's FitError in (t)):
                   one fp32 step on 2 virtual data slices against 1, the
                   router's loss over the whole batch by the trainer's
                   routing pre-pass); seamless-m4t-medium (the fp32 step of (z) at 2 and 4
-                  against 1); every kernel call on one coordinate's share
+                  against 1, 4 bf16 ElasticTrainer steps at 2 at B 2 of
+                  2048 frames and 2048 tokens under remat "dots", the loss
+                  falling, the bf16 step's times at 1, 2 and 4); every
+                  kernel call on one coordinate's share
                   (H / M SSD and query heads, W / M RG-LRU channels),
                   exactly M times one way's launches
   (zt) zoo train-- after (tk), in a child process of its own
-                  (chip_smoke.py --zoo-train): the four families whose
-                  training no other path runs, each at its published widths
-                  and each layer at its own fan-in, freed after its path:
+                  (chip_smoke.py --zoo-train): the families whose training
+                  no other path runs, each at its published widths and
+                  each layer at its own fan-in, freed after its path:
                   gemma2-27b cut to one (local, global) unit (fp32 and bf16
                   at B 1, S 4352: the flash backward with softcap 50, the
                   window of 4096 biting in the local layer; the final
@@ -211,9 +217,15 @@ fit's FitError in (t)):
                   experts through the kernels against chunked, a near-tie
                   flip printed with its gap) and granite-3-2b at its 40
                   layers (fp32 at B 1, S 2048, bf16 at B 2, S 4096: the
-                  D 64 backward), each cut no deeper than the dry-run's
-                  count allows (a one-step peak within 74 GiB, all four
-                  counted on the meta device before any draw): an fp32 step
+                  D 64 backward) and seamless-m4t-medium at all 12 + 12
+                  layers (fp32 at B 2 of 512 frames and 512 tokens, bf16 at
+                  B 8 of 2048 frames and 2048 tokens: the bf16 flash
+                  forward and backward at S 2048, the encoder's and the
+                  cross attention without a causal mask, the decoder's
+                  causal; the tied embedding's gradient through both its
+                  uses), each cut no deeper than the dry-run's count
+                  allows (a one-step peak within 74 GiB, every one counted
+                  on the meta device before any draw): an fp32 step
                   under remat "dots" against the chunked path (the loss and
                   every gradient), 4 bf16 ElasticTrainer steps, the loss
                   falling, exactly one flash forward and one backward a
@@ -226,8 +238,10 @@ fit's FitError in (t)):
                   B 4 of 256 patch embeddings + 256 tokens, kernel vs
                   chunked (fp32, and bf16 by its distance from fp32),
                   exactly 18 launches a prefill; prefill + 8 decode steps
-                  after the patches against forward; Server (text, as the
-                  reference's Server); step times
+                  after the patches against forward; at the reference's
+                  init cut to 4 layers drawn at the 18 layers' scale (all
+                  18 train in zt): the same, Server (text, as the
+                  reference's Server) and step times
   (z) encdec   -- seamless-m4t-medium (12 + 12 layers, 0.72 B
                   parameters): prefill at B 4 of 512 frames and 512 tokens,
                   kernel vs chunked, exactly 36 launches a prefill (12
@@ -264,6 +278,10 @@ fit's FitError in (t)):
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
                   both in device time) as a yardstick the port never calls,
+                  every busy reading held by bench.check_profile (each
+                  profiled interval lists every CUDA kernel the wrappers
+                  launched in it, by name, each with device time, else
+                  the phase fails),
                   at slice 10's call shapes too, the scans' backward at
                   their train calls (the SSD scan's, its backward's and
                   the flash backward's CUDA kernels each under the
@@ -350,6 +368,9 @@ RG_TRAIN_S, RG_TRAIN_LAYERS, RG_TRAIN_STEPS, RG_TRAIN_LR = 4096, 5, 6, 1e-3
 QWEN_DEPTH, QWEN_TRAIN_LAYERS, QWEN_FP32_S = 36, 12, 2048
 QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS, QWEN_TRAIN_LR = 2, 4096, 6, 1e-3
 QWEN_CE_CHUNK = 1024
+# qwen3-4b's layers in (tp): 12 (wq's cut, whose step (tp) timed again at
+# model_ways 1) until slice 20, whose new phases took their seconds
+TP_LAYERS = 6
 # the dry-run's predicted one-step peak memory of the wq and mq cells may be
 # off the measured one by at most this share (PERF.md, section 2): room for
 # the allocator's rounding and cuBLAS's workspace, less than one layer's
@@ -459,40 +480,50 @@ def zoo_kernel_cases():
             for dt in (torch.bfloat16, torch.float32)]
 
 
-# slice 19's bf16 flash calls on its training paths (zt), causal, as the
-# models pass them ((B, S, H, D) views): {label in bench.SHAPES and
-# bench.BWD_SHAPES: the path's model}. gemma2-27b's local layer (window
-# 4096, scores capped at 50), paligemma-3b's at B 8 (8 query heads on 1 KV
-# head of 256, 256 patches + 256 tokens, no window), granite-3-2b's at B 2,
-# S 4096 (32 / 8 heads of 64)
+# the bf16 flash calls on the training paths of slices 19 and 20 (zt), as
+# the models pass them ((B, S, H, D) views): {label in bench's tables
+# (bench.flash_call, bench.bwd_call): the path's model}. gemma2-27b's local
+# layer (window 4096, scores capped at 50), paligemma-3b's at B 8 (8 query
+# heads on 1 KV head of 256, 256 patches + 256 tokens, no window),
+# granite-3-2b's at B 2, S 4096 (32 / 8 heads of 64), causal;
+# seamless-m4t-medium's at B 8 over 2048 frames and 2048 tokens (16 heads of
+# 64): its encoder's self attention without a causal mask, which is also
+# its cross attention's call (Sq 2048 over Sk 2048 frames, every frame
+# attended), and its decoder's causal self attention
 ZT_ROWS = {"gemma2-4352": "gemma2-27b", "paligemma-train-512": "paligemma-3b",
-           "granite-4096": "granite-3-2b"}
+           "granite-4096": "granite-3-2b",
+           "seamless-2048": "seamless-m4t-medium",
+           "seamless-dec-2048": "seamless-m4t-medium"}
+# the rows slice 20 added, whose checks' seconds (c) and (p) print, and
+# the model's calls each stands for
+SLICE20_ROWS = ("seamless-2048", "seamless-dec-2048")
+ZT_CALLS = {"seamless-2048": "the encoder's self attention and the cross "
+                             "attention, one call (Sq = Sk = 2048)",
+            "seamless-dec-2048": "the decoder's causal self attention"}
 
 
 def zt_call(label):
-    """(B, H, KV, S, D, window, softcap) of one of ZT_ROWS."""
+    """(B, H, KV, Sq, Sk, D, causal, window, softcap) of one of ZT_ROWS."""
     from repro_torch.kernels import bench
-    b, h, kv, s, d, _, window, softcap = bench.SHAPES[label]
-    return b, h, kv, s, d, window, softcap
+    b, h, kv, sq, sk, d, _, causal, window, softcap = bench.flash_call(label)
+    return b, h, kv, sq, sk, d, causal, window, softcap
 
 
 def zt_kernel_cases():
-    """ZT_ROWS' calls in bf16, then gemma2's global layer in the same step
-    (softcap 50 without a window, S 4352)."""
+    """ZT_ROWS' calls in bf16, each with its own causal mask, then
+    gemma2's global layer in the same step (softcap 50 without a window,
+    S 4352)."""
     calls = [zt_call(label) for label in ZT_ROWS]
-    return [(b, h, kv, s, s, d, True, window, softcap, torch.bfloat16,
-             "bshd") for b, h, kv, s, d, window, softcap in
-            (*calls, (1, 32, 16, 4352, 128, None, 50.0))]
+    return [(*call, torch.bfloat16, "bshd") for call in
+            (*calls, (1, 32, 16, 4352, 4352, 128, True, None, 50.0))]
 
 
 def zt_label(case):
     """The ZT_ROWS label of a case of the table, or None."""
-    b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
-    if not causal or sq != sk or layout != "bshd" or \
-            dtype != torch.bfloat16:
+    *call, dtype, layout = case
+    if layout != "bshd" or dtype != torch.bfloat16:
         return None
-    return next((label for label in ZT_ROWS
-                 if zt_call(label) == (b, h, kv, sq, d, window, softcap)),
+    return next((label for label in ZT_ROWS if zt_call(label) == tuple(call)),
                 None)
 
 
@@ -564,7 +595,9 @@ def phase_flash_bwd_vs_plain():
          None, torch.bfloat16, "bshd"),
         (1, 32, 8, QWEN_FP32_S, QWEN_FP32_S, 128, True, None, None,
          torch.float32, "bshd")]
+    new_s = 0.0
     for case in cases:
+        t0 = time.perf_counter()
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
         do = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)[0]
@@ -596,6 +629,10 @@ def phase_flash_bwd_vs_plain():
             label = slice10_label(case) or zt_label(case)
             if label is not None:
                 main_err[label] = main_err[(d, sq)]
+            if label in SLICE20_ROWS:
+                new_s += time.perf_counter() - t0
+    log("p", f"seamless-m4t-medium's bf16 training calls "
+             f"({', '.join(SLICE20_ROWS)}) held in {new_s:.1f} s")
     return main_err
 
 
@@ -611,7 +648,9 @@ def phase_kernel_vs_plain():
     main_err = {}
     cases = kernel_cases() + zoo_kernel_cases() + slice10_kernel_cases()
     cases += [case for case in zt_kernel_cases() if case not in cases]
+    new_s = 0.0
     for case in cases:
+        t0 = time.perf_counter()
         b, h, kv, sq, sk, d, causal, window, softcap, dtype, layout = case
         q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, dtype, layout)
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -639,6 +678,10 @@ def phase_kernel_vs_plain():
         label = slice10_label(case) or zt_label(case)
         if label is not None:
             main_err[label] = err.max().item()
+        if label in SLICE20_ROWS:
+            new_s += time.perf_counter() - t0
+    log("c", f"seamless-m4t-medium's bf16 training calls "
+             f"({', '.join(SLICE20_ROWS)}) held in {new_s:.1f} s")
     return main_err
 
 
@@ -1596,54 +1639,30 @@ def phase_scan_train_fp32(label, cfg, params, batch, reference=None):
 
 def profile_split(fns):
     """One torch.profiler session over ``fns`` ({name: fn}), each called
-    once between synchronises and marks: {name: (card busy ms, kernels and
+    once between synchronises and marks (bench.profiled, every interval
+    held by bench.check_profile): {name: (card busy ms, kernels and
     copies, [(kernel name, ms, count)] the top 5 by device time, {kernel
-    name: (ms, count)} of every one)}, each
-    device event counted in the interval between the marks its start falls
-    in. One session serves them all: a profile of a train
-    step, whose backward runs on autograd's own thread, has left later
-    profiles in the process without device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    names = list(fns)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i, name in enumerate(names):
-            torch.cuda.synchronize()
-            with record_function(f"chip_smoke_mark_{i}"):
-                pass
-            fns[name]()
-        torch.cuda.synchronize()
-        with record_function(f"chip_smoke_mark_{len(names)}"):
-            pass
-    events = prof.events()
-    marks = sorted(ev.time_range.start for ev in events
-                   if ev.name.startswith("chip_smoke_mark_"))
-    out = {name: [0.0, 0, {}] for name in names}
-    for ev in events:
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        t = ev.time_range.start
-        for i, name in enumerate(names):
-            if marks[i] <= t < marks[i + 1]:
-                ms = ev.self_device_time_total / 1e3
-                out[name][0] += ms
-                out[name][1] += 1
-                by = out[name][2].setdefault(ev.name[:60], [0.0, 0])
-                by[0] += ms
-                by[1] += 1
-    return {name: (ms, n, sorted(((k, v[0], v[1]) for k, v in by.items()),
-                                 key=lambda e: -e[1])[:5],
-                   {k: tuple(v) for k, v in by.items()})
-            for name, (ms, n, by) in out.items()}
+    name: (ms, count)} of every one)}."""
+    from repro_torch.kernels import bench
+    out = {}
+    for name, events in zip(fns, bench.profiled(
+            list(fns.values()), [f"{name}" for name in fns])):
+        by = {}
+        for kernel, ms in events:
+            t, n = by.get(kernel[:60], (0.0, 0))
+            by[kernel[:60]] = (t + ms, n + 1)
+        out[name] = (sum(ms for _, ms in events), len(events),
+                     sorted(((k, t, n) for k, (t, n) in by.items()),
+                            key=lambda e: -e[1])[:5], by)
+    return out
 
 
 def step_times(entries):
     """(k) Train steps, {(label, slices): (cfg, data_cfg, slices, step
     fn)}: the wall
     time (host clock around 3 steps ending in a synchronise), the card's
-    busy time in one step (all in one profile_split session, after every
-    other profile of the process) and tokens/s."""
+    busy time in one step (all in one profile_split session, each step's
+    interval held by bench.check_profile) and tokens/s."""
     walls = {}
     for key, (*_, step) in entries.items():
         step()
@@ -1665,9 +1684,6 @@ def step_times(entries):
                  f"({100 * (1 - ms / walls[key]):.1f}% idle), "
                  f"{tokens / walls[key] * 1e3:.0f} tokens/s; top: "
                  + "; ".join(f"{k} {t:.3f} ms x{c}" for k, t, c in top))
-        if launches == 0:
-            raise AssertionError(f"the profile saw no device work of "
-                                 f"{key[0]}'s step at {n} slices")
     return walls, busy
 
 
@@ -2769,6 +2785,10 @@ def drive_zoo(label, cfg, depth, toks, blocks_of, long_toks=None):
 # batch and its halves.
 VLM_TEXT = 256
 ENCDEC_S, ENCDEC_DECODE_S, ENCDEC_TRAIN = 512, 256, (2, 512)
+# paligemma-3b's layers at the reference's init, drawn at its 18 layers'
+# scale: its Server and step times at 18 layers took 10-16 s of the run
+# (PERF.md), and all 18 train in (zt)
+VLM_REF_LAYERS = 4
 
 
 def phase_encdec_grads(label, cfg, params, batch):
@@ -2799,8 +2819,9 @@ def drive_with_inputs(label, cfg, rng):
     prefill + 8 decode steps against forward; for seamless one fp32 train
     step (phase_encdec_grads). Then at the reference's init, the fp32
     comparisons printed, with paligemma's Server (text, as the reference's)
-    and the step times. Returns (launch counts, Server tok/s or None, peak
-    GiB)."""
+    and the step times, paligemma cut to VLM_REF_LAYERS layers drawn at its
+    depth's scale. Returns (launch counts, Server tok/s or None, peak
+    GiB, the seconds of the draw at the reference's init)."""
     from repro_torch.data import DataConfig, SyntheticLMData
     encdec = cfg.family == "encdec"
     b, e = PREFILL_B, cfg.d_model
@@ -2840,7 +2861,12 @@ def drive_with_inputs(label, cfg, rng):
     held, _ = drive(label, phases)
     del params
     torch.cuda.empty_cache()
-    model, params = model_and_params(cfg, label, on_card=True)
+    t0 = time.perf_counter()
+    depth = None
+    if not encdec:
+        depth = cfg.num_layers
+        cfg = dataclasses.replace(cfg, num_layers=VLM_REF_LAYERS)
+    model, params = model_and_params(cfg, label, depth, on_card=True)
     phases = [
         lambda: phase_prefill(cfg, params, toks, label, hold=False,
                               wrap=wrap),
@@ -2858,7 +2884,10 @@ def drive_with_inputs(label, cfg, rng):
         raise AssertionError(f"{cfg.name}'s path never launched the flash "
                              "kernels")
     phase_step_times(cfg, params, toks, wrap=wrap)
-    return counts, tok_s, peak
+    ref_s = time.perf_counter() - t0
+    log(label, f"{cfg.name} at the reference's init ({cfg.num_layers} "
+               f"layers), its path and step times in {ref_s:.1f} s")
+    return counts, tok_s, peak, ref_s
 
 
 def phase_compression():
@@ -2978,7 +3007,7 @@ def phase_step_times(cfg, params, toks, wrap=bare):
         lambda: model.decode_step(params, cache, toks[:, -1:], s))
     for name, fn in steps.items():
         wall = eager_ms(fn, iters=5)
-        prof = device_profile(fn)
+        prof = device_profile(fn, what=f"{cfg.name} {name}")
         log("k", f"{cfg.name} bf16 {name}: {wall:.3f} ms wall; card busy "
                  f"{prof['busy_ms']:.3f} ms in {prof['launches']} kernels "
                  f"and copies ({100 * (1 - prof['busy_ms'] / wall):.1f}% "
@@ -3107,7 +3136,10 @@ def zt_path(arch, result):
                             "local layer, none in the global",
               "paligemma-3b": "bf16 D 256 without a window, GQA 8:1",
               "phi3.5-moe-42b-a6.6b": "D 128, GQA 4:1, under a MoE",
-              "granite-3-2b": "D 64, GQA 4:1"}[arch]
+              "granite-3-2b": "D 64, GQA 4:1",
+              "seamless-m4t-medium": "D 64 at S 2048: the encoder's and the "
+                                     "cross attention without a causal "
+                                     "mask, the decoder's causal"}[arch]
     return f"{arch} training, {result['layers']} layers ({routes})"
 
 
@@ -3115,18 +3147,22 @@ def zt_record_row(name, row, label, result, err, timed):
     """A kernel row at one of ZT_ROWS, its launches those of the path
     ``result`` (main_zoo_train's), the shape from bench's tables."""
     from repro_torch.kernels import bench
-    b, h, kv, s, d, _, window, softcap = bench.BWD_SHAPES[label]
+    b, h, kv, sq, sk, d, _, causal, window, softcap = bench.bwd_call(label)
     options = "".join((f", window {window}" if window else "",
                        f", softcap {softcap:g}" if softcap else ""))
     what = ("dq / dk / dv from the forward's lse"
             if name == "flash_attention_bwd" else "the forward's output")
+    length = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
+    mask = "causal" if causal else "non-causal"
     out = record_row(name, row["source"], row["replaces"],
                      result["counts"][name], err, timed,
-                     f"B{b} H{h} KV{kv} S{s} D{d} bf16 causal{options}, "
+                     f"B{b} H{h} KV{kv} {length} D{d} bf16 {mask}{options}, "
                      f"(B, S, H, D) views, {what}")
     out["library_backend"] = timed["library_backend"]
     if "library_err" in timed:
         out["library_err"] = timed["library_err"]
+    if label in ZT_CALLS:
+        out["calls"] = ZT_CALLS[label]
     return out
 
 
@@ -3184,8 +3220,10 @@ def main_zoo():
         torch.cuda.empty_cache()
     phase_compression()
     for arch, label in (("paligemma-3b", "y"), ("seamless-m4t-medium", "z")):
-        counts, tok_s, peak = drive_with_inputs(label, get_config(arch), rng)
-        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak}
+        counts, tok_s, peak, ref_s = drive_with_inputs(
+            label, get_config(arch), rng)
+        zoo[arch] = {"counts": counts, "tok_s": tok_s, "peak": peak,
+                     "ref_seconds": ref_s}
         torch.cuda.empty_cache()
     ZOO_RESULT.parent.mkdir(parents=True, exist_ok=True)
     ZOO_RESULT.write_text(json.dumps(zoo))
@@ -3623,7 +3661,7 @@ def phase_tp_step_times(cfg, trainer, whole, batch, data_cfg, label="tp"):
 def main_tp():
     """(tp), run by ``chip_smoke.py --tp`` in a process of its own
     (run_child), with the card to itself: qwen3-4b at its published
-    widths, cut to QWEN_TRAIN_LAYERS layers (as wq), each layer at its own
+    widths, cut to TP_LAYERS layers, each layer at its own
     fan-in, remat "dots", the loss by ce_chunk, with tensor parallelism
     inside a slice on virtual devices of the card: one fp32 step at B 1, S
     QWEN_FP32_S at model_ways 2 and 4 against 1 (phase_tp_fp32), then
@@ -3642,8 +3680,7 @@ def main_tp():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.optim import AdamWConfig
-    cfg = dataclasses.replace(get_config("qwen3-4b"),
-                              num_layers=QWEN_TRAIN_LAYERS,
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=TP_LAYERS,
                               ce_chunk=QWEN_CE_CHUNK, remat="dots")
     t0 = time.perf_counter()
     opt = AdamWConfig(lr=QWEN_TRAIN_LR, warmup_steps=1,
@@ -3691,6 +3728,9 @@ TP_KINDS_RESULT = ROOT / "build" / "chip_smoke_tp_kinds.json"
 # batch (B, S)
 TPK_RG_LAYERS, TPK_DS_LAYERS, TPK_STEPS, TPK_LR = 3, 3, 4, 1e-3
 TPK_MOE_B, TPK_MOE_S = 2, 1024
+# seamless-m4t-medium's bf16 steps in (tk): B 2 rows of 2048 frames and 2048
+# tokens (the zt row's at a quarter of its batch)
+TPK_ENCDEC_TRAIN = (2, 4096)
 
 
 @contextlib.contextmanager
@@ -4051,7 +4091,9 @@ def main_tp_kinds():
     layers): the routing and drops at 2 against 1, the fp32 step at 2 and
     4 against 1, bf16 steps at 2, the step's times, and its fp32 step at 2
     data slices against 1 (phase_tpk_slices); seamless-m4t-medium:
-    its fp32 step at 2 and 4 against 1, as phase (z)'s batch. Writes the
+    its fp32 step at 2 and 4 against 1, as phase (z)'s batch, TPK_STEPS
+    bf16 steps at 2 as zt trains it (remat "dots", ce_chunk) at
+    TPK_ENCDEC_TRAIN, and the step's times at 1, 2 and 4. Writes the
     path's launch counts and the numbers to TP_KINDS_RESULT."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMData
@@ -4137,10 +4179,27 @@ def main_tp_kinds():
     data = DataConfig(vocab_size=sm.vocab_size, seq_len=seq_len,
                       global_batch=rows, frontend=sm.frontend,
                       d_model=sm.d_model, enc_dec=True)
-    counts, (fp32,) = drive("tk", (
-        lambda: phase_tpk_fp32("tk", sm, params, batch_of(data)),))
+    # its bf16 steps as zt trains it (remat "dots", the loss by ce_chunk),
+    # at TPK_ENCDEC_TRAIN's (B, S)
+    sm_bf16 = zt_config(sm.name, sm.num_layers)
+    bf16_data = zt_data(sm_bf16, *TPK_ENCDEC_TRAIN)
+    t0 = time.perf_counter()
+    counts, (fp32, trained) = drive("tk", (
+        lambda: phase_tpk_fp32("tk", sm, params, batch_of(data)),
+        lambda: phase_tpk_bf16("tk", sm_bf16, params, bf16_data)))
     add(counts)
-    out["fp32"][sm.name] = fp32
+    del params
+    trainer, whole, next_batch, losses, peak = trained
+    del trained
+    out["fp32"][sm.name], out["losses"][sm.name] = fp32, losses
+    out["peak"][sm.name] = peak
+    out["times"][sm.name] = phase_tp_step_times(
+        sm_bf16, trainer, whole, next_batch, bf16_data, label="tk")
+    del trainer, whole
+    out["seconds"] = {sm.name: time.perf_counter() - t0}
+    log("tk", f"{sm.name}'s fp32 steps, bf16 steps at model_ways "
+              f"{QWEN_TP_WAYS[0]} and step times in "
+              f"{out['seconds'][sm.name]:.1f} s")
     for name in counters():
         if totals[name] == 0:
             raise AssertionError(f"the tensor-parallel kinds' path never "
@@ -4151,18 +4210,23 @@ def main_tp_kinds():
     return 0
 
 
-# -- (zt) gemma2-27b, paligemma-3b, phi3.5-moe and granite-3-2b training -------------
+# -- (zt) the training of gemma2-27b, paligemma-3b, phi3.5-moe, granite-3-2b ---
+# and seamless-m4t-medium
 
-# the four families whose training no card had run before slice 19:
+# the families whose training no card had run before slice 19, and
+# seamless-m4t-medium, which had run only fp32 steps before slice 20:
 # {arch: (published depth, the cuts tried, deepest first, the fp32 step's
 # (B, S), the bf16 steps' (B, S))}. gemma2: one (local, global) unit, else
 # the local layer alone, S 4352 where the window of 4096 bites; paligemma:
 # 256 patches + 256 tokens a row; phi3.5: two MoE layers, else one;
-# granite: all 40 layers
+# granite: all 40 layers; seamless: all 12 encoder and 12 decoder layers,
+# each row S / 2 frames and S / 2 tokens (the bf16 steps' S 4096 the
+# reference's train_4k sequence split by enc_dec)
 ZT_CELLS = {"gemma2-27b": (46, (2, 1), (1, 4352), (1, 4352)),
             "paligemma-3b": (18, (18, 12), (2, 512), (8, 512)),
             "phi3.5-moe-42b-a6.6b": (32, (2, 1), (2, 1024), (2, 4096)),
-            "granite-3-2b": (40, (40, 32), (1, 2048), (2, 4096))}
+            "granite-3-2b": (40, (40, 32), (1, 2048), (2, 4096)),
+            "seamless-m4t-medium": (12, (12,), (2, 1024), (8, 4096))}
 # bf16 ElasticTrainer steps under remat "dots", their learning rate, the
 # loss's ce_chunk, and the largest counted one-step peak a cut may have (the
 # card's 79.19 GiB less room for the allocator's blocks of other sizes and
@@ -4245,7 +4309,8 @@ def phase_zt_fp32(cfg, params, batch):
     top = max(held, key=held.get)
     shape = f"B{batch['tokens'].shape[0]} S{batch['tokens'].shape[1]}"
     if "frontend" in batch:
-        shape += f" (+ {batch['frontend'].shape[1]} patch embeddings)"
+        word = {"patches": "patch embeddings"}.get(cfg.frontend, cfg.frontend)
+        shape += f" (+ {batch['frontend'].shape[1]} {word})"
     log("zt", f"{cfg.name} ({cfg.num_layers} layers) fp32 train step "
               f"{shape}, remat dots ({want['flash_attention']} + "
               f"{want['flash_attention_bwd']} flash launches), each layer "
@@ -4258,12 +4323,13 @@ def phase_zt_fp32(cfg, params, batch):
 
 def zt_data(cfg, b, s):
     """The synthetic stream's config for ``cfg`` at B ``b``, S ``s``
-    (paligemma: s - 256 text tokens after its patch embeddings)."""
+    (paligemma: s - 256 text tokens after its patch embeddings; an
+    encoder-decoder: s / 2 frames and s / 2 tokens)."""
     from repro_torch.data import DataConfig
     return DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
                       frontend=cfg.frontend,
                       frontend_tokens=cfg.frontend_tokens,
-                      d_model=cfg.d_model)
+                      d_model=cfg.d_model, enc_dec=cfg.family == "encdec")
 
 
 def drive_zt(arch, count):
@@ -4324,12 +4390,12 @@ def drive_zt(arch, count):
 
 def main_zoo_train():
     """(zt), run by ``chip_smoke.py --zoo-train`` in a process of its own
-    (run_child), with the card to itself: the training of gemma2-27b,
-    paligemma-3b, phi3.5-moe-42b-a6.6b and granite-3-2b at their published
-    widths (ZT_CELLS), each at the deepest cut whose counted one-step peak
-    is within ZT_PEAK_GIB (zt_count, all four counted before any draw), each
-    freed after its path (drive_zt). Writes each path's numbers to
-    ZOO_TRAIN_RESULT."""
+    (run_child), with the card to itself: the training of each model of
+    ZT_CELLS (gemma2-27b, paligemma-3b, phi3.5-moe-42b-a6.6b, granite-3-2b,
+    seamless-m4t-medium) at its published widths, each at the deepest cut
+    whose counted one-step peak is within ZT_PEAK_GIB (zt_count, every one
+    counted before any draw), each freed after its path (drive_zt), with
+    each path's seconds. Writes each path's numbers to ZOO_TRAIN_RESULT."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4340,12 +4406,17 @@ def main_zoo_train():
         counts = json.loads(Path(os.environ["ZT_COUNTS"]).read_text())
     else:
         counts = {arch: zt_count(arch) for arch in ZT_CELLS}
-        log("zt", f"the four counts in {time.perf_counter() - t0:.1f} s")
+        log("zt", f"the {len(counts)} counts in "
+                  f"{time.perf_counter() - t0:.1f} s")
     out = {}
     for arch in ZT_CELLS:
+        t1 = time.perf_counter()
         out[arch] = drive_zt(arch, counts[arch])
+        out[arch]["seconds"] = time.perf_counter() - t1
+        log("zt", f"{arch}'s training path in {out[arch]['seconds']:.1f} s")
         torch.cuda.empty_cache()
-    log("zt", f"the four training paths in {time.perf_counter() - t0:.1f} s")
+    log("zt", f"the {len(out)} training paths in "
+              f"{time.perf_counter() - t0:.1f} s")
     ZOO_TRAIN_RESULT.parent.mkdir(parents=True, exist_ok=True)
     ZOO_TRAIN_RESULT.write_text(json.dumps(out))
     return 0
@@ -4489,12 +4560,12 @@ def finish_host_work(proc, timeout=600):
 def run_child(flag, result, env=None):
     """Run ``chip_smoke.py flag`` in a child process and return the JSON it
     wrote to ``result``. The child loads the kernels this process built.
-    The zoo (u)-(z) runs there because, in the process of the earlier
-    phases, its paths left torch.profiler without device events in the
-    kernel timings after them, though each part alone, and twenty profiles
-    after training, left it working (PERF.md, Findings);
-    recurrentgemma's training (mq) because it needs the card nearly to
-    itself, with no other path's freed blocks left in the allocator."""
+    The heavy paths run there for memory: each starts with the card to
+    itself, with no other path's freed blocks left in the allocator
+    (recurrentgemma's training, mq, needs it nearly whole). The zoo first
+    ran there because its paths left torch.profiler losing kernel records
+    in this process; bench.session's sentinel kernels now absorb that
+    (PERF.md, section 7)."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     result.unlink(missing_ok=True)
@@ -4652,12 +4723,9 @@ def main():
                   for label in bench.RGLRU_SHAPES}
     for row in rglru_rows.values():
         log("k", bench.describe_rglru(row))
-    # the backwards' CUDA kernels under the profiler before any autograd
-    # backward of a plain version or of the library's, here or in a train
-    # step's profile (after which profiles in this process have come back
-    # partly blank)
-    flash_bwd_split = {label: bench.flash_bwd_kernels(label)
-                       for label in bench.BWD_SHAPES}
+    # the backwards' CUDA kernels under the profiler
+    flash_bwd_split = {label: bench.flash_bwd_kernels(label) for label in
+                       (*bench.BWD_SHAPES, *bench.NONCAUSAL_BWD_SHAPES)}
     for label, kernels in flash_bwd_split.items():
         log("k", f"flash_attention_bwd {label}: " + ", ".join(
             f"{name} {ms:.4f} ms x{n}" for name, ms, n in kernels))
@@ -4680,8 +4748,8 @@ def main():
                           others=[(mamba, *m_trained, m_data)])
     # the backward last: its library yardstick is autograd's backward in a
     # CUDA graph, after which no profile runs
-    bwd_rows = {label: bench.time_flash_attention_bwd(label)
-                for label in bench.BWD_SHAPES}
+    bwd_rows = {label: bench.time_flash_attention_bwd(label) for label in
+                (*bench.BWD_SHAPES, *bench.NONCAUSAL_BWD_SHAPES)}
     for row in bwd_rows.values():
         log("k", bench.describe_bwd(row))
     held_library(bwd_rows, BWD_TOL[torch.bfloat16])
@@ -4694,8 +4762,9 @@ def main():
              f" GiB of the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
              f"reserved) while the child runs")
     log("k", f"the children from {time.perf_counter() - start:.1f} s")
+    zoo_result = run_child("--zoo", ZOO_RESULT)
     zoo = {arch: (v["counts"], v["tok_s"], v["peak"])
-           for arch, v in run_child("--zoo", ZOO_RESULT).items()}
+           for arch, v in zoo_result.items()}
     # the allocator's expandable segments: its 65 GiB peak leaves no room
     # for blocks split at another size
     rg_train = run_child("--rg-train", RG_TRAIN_RESULT, env={
@@ -4721,7 +4790,7 @@ def main():
     qwen_train = qwen_train["counts"]
     tp = run_child("--tp", TP_RESULT, env={
         "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-    log("tp", f"qwen3-4b ({QWEN_TRAIN_LAYERS} layers) under tensor "
+    log("tp", f"qwen3-4b ({TP_LAYERS} layers) under tensor "
               f"parallelism: fp32 step against model_ways 1, largest "
               f"max-normalised error " + ", ".join(
                   f"{e:.3e} at model_ways {m}" for m, e in tp["fp32"].items())
@@ -4753,12 +4822,12 @@ def main():
                   for arch, t in tpk["times"].items() for m, v in t.items())
               + "; fp32 step at 2 data slices against 1: " + ", ".join(
                   f"{arch} {e:.3e}" for arch, e in tpk["slices"].items()))
+    tpk_seconds = tpk["seconds"]
     tpk = tpk["counts"]
     zt = run_child("--zoo-train", ZOO_TRAIN_RESULT, env={
         "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
         "ZT_COUNTS": str(ZT_COUNTS)})
-    log("zt", "gemma2-27b, paligemma-3b, phi3.5-moe and granite-3-2b "
-              "training: " + "; ".join(
+    log("zt", "the training paths of " + ", ".join(zt) + ": " + "; ".join(
                   f"{arch} ({v['layers']} layers) fp32 step within "
                   f"{v['fp32_err']:.3e} of chunked, bf16 losses "
                   + ", ".join(f"{x:.4f}" for x in v["losses"])
@@ -4778,6 +4847,13 @@ def main():
                  + f" ({arch}, peak {peak:.2f} GiB)"
                  for arch, (_, tok_s, peak) in zoo.items()))
     finish_node_counts(node_counts)
+    sm = "seamless-m4t-medium"
+    log("k", f"slice 20's new work: the zt row of {sm} "
+             f"{zt[sm]['seconds']:.1f} s, its (tk) steps "
+             f"{tpk_seconds[sm]:.1f} s (its (c) and (p) cases above); the "
+             f"cut: paligemma-3b at the reference's init in (y), "
+             f"{zoo_result['paligemma-3b']['ref_seconds']:.1f} s at "
+             f"{VLM_REF_LAYERS} layers")
     log("k", f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     # each kernel's row at the shape its first main path launches; flash
     # attention runs on two paths: its launches are both paths', and its

@@ -20,4 +20,12 @@ tensors, the plain version for CPU tensors; through a
 gradient is needed) and ref.py (the plain PyTorch version the kernel is
 held against). build.py compiles the sources; bench.py times each kernel
 against its plain version and its bound.
+
+Besides its own ``launches``, each wrapper adds the CUDA kernels a call
+puts on the stream, by name, to ``CUDA_KERNELS``: a profiled interval is
+held to them (``bench.check_profile``).
 """
+from collections import Counter
+
+# every CUDA kernel the wrappers launched, by the name the profiler gives it
+CUDA_KERNELS: Counter = Counter()

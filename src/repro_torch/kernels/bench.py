@@ -34,9 +34,12 @@ scores, the backward of ``flex_attention`` compiled by ``torch.compile``,
 the cap its ``score_mod`` and the mask a block mask). The SSD and RG-LRU
 backward kernels are timed at mamba2-130m's and recurrentgemma-9b's
 training shapes beside their plain versions (torch autograd of
-``ssd_ref`` and ``rglru_ref``, the backward replayed eagerly). ``--profile`` also lists the library backward's kernels by device
-time, last, as a profile of autograd's backward left later profiles in the
-same process without device events.
+``ssd_ref`` and ``rglru_ref``, the backward replayed eagerly).
+``--profile`` also lists the library backward's kernels by device time.
+Every profile is held to the kernels the wrappers launched
+(``check_profile``): in a process in torch.profiler's lossy state each
+session loses its first kernel records (``profiler_repro.py``), which
+``session``'s sentinel kernels absorb.
 
 Times are device times: the calls are captured in a CUDA graph and
 replayed, so host overhead between launches is not counted. The bound is
@@ -55,12 +58,12 @@ import math
 import re
 import subprocess
 import sys
-import time
+from collections import Counter
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import work
+from repro_torch.kernels import CUDA_KERNELS, work
 from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
                                            PEAK_FP32_FLOPS)
 
@@ -75,8 +78,9 @@ from repro_torch.roofline.hardware import (PEAK_BF16_FLOPS, PEAK_BYTES,
 # bites (whole, and on one model coordinate's 8 of 16 heads at model_ways
 # 2, its one KV head whole), gemma2-27b's local layer at B 1, S 4352 (32
 # query / 16 KV heads of 128, window 4096, scores capped at 50),
-# paligemma-3b's at B 8 (256 patches and 256 tokens) and granite-3-2b's at
-# B 2, S 4096 (32 query / 8 KV heads of 64). All causal.
+# paligemma-3b's at B 8 (256 patches and 256 tokens), granite-3-2b's at
+# B 2, S 4096 (32 query / 8 KV heads of 64) and seamless-m4t-medium's
+# decoder at B 8 (2048 of the 4096 positions; 16 heads of 64). All causal.
 SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None, None),
           "prefill-512": (4, 9, 3, 512, 64, "bshd", None, None),
           "recurrentgemma-512": (4, 16, 1, 512, 256, "bshd", 2048, None),
@@ -89,13 +93,17 @@ SHAPES = {"smollm-2048": (8, 9, 3, 2048, 64, "bhsd", None, None),
                                       None),
           "gemma2-4352": (1, 32, 16, 4352, 128, "bshd", 4096, 50.0),
           "paligemma-train-512": (8, 8, 1, 512, 256, "bshd", None, None),
-          "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None)}
+          "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None),
+          "seamless-dec-2048": (8, 16, 16, 2048, 64, "bshd", None, None)}
 # (B, H, KV, Sq, Sk, D, layout) of seamless-m4t-medium's attention without a
 # causal mask (16 heads of 64): its encoder's in a B 4 prefill of 512
 # frames, which is also the cross attention's call of 512 tokens over them,
-# and the cross attention of 264 tokens over 256 frames
+# the cross attention of 264 tokens over 256 frames, and in its B 8 train
+# step of 2048 frames and 2048 tokens the encoder's call, which is also the
+# cross attention's (the same shape, mask and layout: every frame attended)
 NONCAUSAL_SHAPES = {"seamless-512": (4, 16, 16, 512, 512, 64, "bshd"),
-                    "seamless-cross-264": (4, 16, 16, 264, 256, 64, "bshd")}
+                    "seamless-cross-264": (4, 16, 16, 264, 256, 64, "bshd"),
+                    "seamless-2048": (8, 16, 16, 2048, 2048, 64, "bshd")}
 # (B, S, H, P, N, chunk, layout) of mamba2-130m's SSD scan: the views of the
 # conv output a B 4, S 512 prefill passes, a longer contiguous batch, and
 # one model coordinate's 12 of 24 heads in a B 8, S 2048 train step at
@@ -112,8 +120,10 @@ RGLRU_SHAPES = {"prefill-512": (4, 512, 4096), "train-4096": (1, 4096, 4096),
 # B 8, S 2048 train step, of recurrentgemma-9b's local layers in a B 1,
 # S 4096 one (window 2048), of qwen3-4b's in a B 2, S 4096 one (32 query /
 # 8 KV heads of 128; 16 / 4 on each model coordinate at model_ways 2), and
-# of the train steps of gemma2-27b's local layer, paligemma-3b and
-# granite-3-2b (SHAPES' calls of the same names), for the backward
+# of the train steps of gemma2-27b's local layer, paligemma-3b,
+# granite-3-2b and seamless-m4t-medium's decoder (SHAPES' calls of the same
+# names), for the backward; without a causal mask, seamless's encoder and
+# cross attention in its train step (NONCAUSAL_SHAPES' call)
 BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None, None),
               "recurrentgemma-4096": (1, 16, 1, 4096, 256, "bshd", 2048,
                                       None),
@@ -124,7 +134,10 @@ BWD_SHAPES = {"train-2048": (8, 9, 3, 2048, 64, "bshd", None, None),
               "gemma2-4352": (1, 32, 16, 4352, 128, "bshd", 4096, 50.0),
               "paligemma-train-512": (8, 8, 1, 512, 256, "bshd", None,
                                       None),
-              "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None)}
+              "granite-4096": (2, 32, 8, 4096, 64, "bshd", None, None),
+              "seamless-dec-2048": (8, 16, 16, 2048, 64, "bshd", None,
+                                    None)}
+NONCAUSAL_BWD_SHAPES = {"seamless-2048": NONCAUSAL_SHAPES["seamless-2048"]}
 # the CUDA kernels one call launches at the timed (bf16) shapes: the SSD
 # scan's three passes, its backward's four (bf16 route); the flash
 # backward's three (delta, the main pass, dq), four on the bf16 D 256 route
@@ -185,42 +198,171 @@ def eager_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, top: int = 6) -> dict:
-    """One call of ``fn`` under torch.profiler: the card's busy time (the
-    sum of its kernels and copies), the profiled wall time, the number of
-    kernels and copies (``launches``) and of kernels alone (``kernels``),
-    and the kernels that took the most device time."""
+def base_name(name: str) -> str:
+    """A CUDA kernel's own name from the profiler's: no return type,
+    namespace, template arguments or parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.match(r"(?:void\s+)?([\w:]+)", name)
+    return m.group(1).rsplit("::", 1)[-1] if m else name
+
+
+def port_kernels() -> frozenset:
+    """Every CUDA kernel of the port's routes, by base_name."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.rglru import kernel as rglru
+    from repro_torch.kernels.ssd import kernel as ssd
+    names = set(rglru.CUDA_KERNEL + rglru.BWD_CUDA_KERNEL)
+    for dtype in (torch.float32, torch.bfloat16):
+        names.update(flash.cuda_kernels(dtype), ssd.cuda_kernels(dtype),
+                     ssd.bwd_cuda_kernels(dtype))
+        for d in flash.HEAD_DIMS:
+            names.update(flash.bwd_cuda_kernels(dtype, d, 2))
+    return frozenset(names)
+
+
+def check_profile(events, launched, what: str) -> None:
+    """Raise unless one profiled interval's device events, ``events`` [(name,
+    device ms)], hold at least one event and list each CUDA kernel that the
+    port's wrappers launched in the interval, ``launched`` ({kernel name:
+    launches}, from CUDA_KERNELS), as often, by name, each with device time
+    above 0. Every busy reading passes through here: torch.profiler loses
+    kernel records in some processes (profiler_repro.py), and a reading
+    missing a kernel would pass for a faster call. A reading that fails is
+    not retried."""
+    if not events:
+        raise RuntimeError(f"the profile of {what} holds no device event")
+    ours = port_kernels()
+    seen, timeless = Counter(), Counter()
+    for name, ms in events:
+        base = base_name(name)
+        if base in ours:
+            seen[base] += 1
+            timeless[base] += ms <= 0
+    timeless = +timeless
+    if seen != launched or timeless:
+        raise RuntimeError(
+            f"the profile of {what} lists the port's CUDA kernels "
+            f"{dict(seen)}, {sum(timeless.values())} of them without device "
+            f"time {dict(timeless)}; the wrappers launched {dict(launched)}")
+
+
+# the marks between the intervals of one profiler session (session): a
+# spin kernel (``torch.cuda._sleep``), finished before and after, so that
+# the intervals are cut on the card's own clock (the host's
+# record_function marks can lie a millisecond off the kernels' CUPTI
+# times); and the small kernels a session launches before its first mark
+# and after its last: in a process where torch.profiler loses records, a
+# session loses its first kernels, mostly one to three, rarely dozens
+# (profiler_repro.py; PERF.md, section 7), and these are they
+MARK, MARK_CYCLES, SENTINELS = "spin_kernel", 20000, 256
+
+
+def sentinel() -> None:
+    """SENTINELS small CUDA kernels, finished: a session's first launches,
+    and its last, outside every interval."""
+    if torch.cuda.is_available():
+        for _ in range(SENTINELS):
+            torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+
+
+def session(fns) -> list:
+    """One torch.profiler session over ``fns`` (callables), each called once
+    between marks (MARK's kernel, the card synchronised on each side),
+    between the sentinel's kernels: for each, (the device events of its
+    interval [(name, device ms)], the CUDA kernels the port's wrappers
+    launched in it, a Counter). A device event belongs to the interval
+    between the marks it starts between, on the card's clock. The events
+    are Kineto's own (``kineto_results.events()``, each kernel's duration
+    as CUPTI recorded it), not the parse ``prof.events()`` makes of them.
+    Raises where the session does not list every mark, or none of the
+    sentinel's kernels before the first or after the last: it may then
+    have lost more, inside an interval. Without a card every interval is
+    empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    card = torch.cuda.is_available()
+
+    def mark():
+        torch.cuda.synchronize()
+        if card:
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+    launched = []
+    if card:
+        # the allocator's cached blocks handed back first: in the zoo's
+        # child, whose models hold most of the card, sessions lost their
+        # marks without it (PERF.md, section 7)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
+        sentinel()
+        for fn in fns:
+            mark()
+            before = Counter(CUDA_KERNELS)
+            fn()
+            launched.append(CUDA_KERNELS - before)
+        mark()
+        sentinel()
+    events = sorted((ev for ev in prof.profiler.kineto_results.events()
+                     if ev.device_type() == DeviceType.CUDA),
+                    key=lambda ev: ev.start_ns())
+    marks = [i for i, ev in enumerate(events)
+             if base_name(ev.name()) == MARK]
+    out = [[] for _ in fns]
+    if not card:
+        return list(zip(out, launched))
+    if len(marks) != len(fns) + 1:
+        raise RuntimeError(
+            f"the profile lists {len(marks)} of its {len(fns) + 1} marks, "
+            f"at {marks} of {len(events)} device events; first "
+            f"{[base_name(ev.name()) for ev in events[:3]]}, last "
+            f"{[base_name(ev.name()) for ev in events[-3:]]}")
+    if marks[0] == 0 or marks[-1] == len(events) - 1:
+        raise RuntimeError(f"the profile lost all {SENTINELS} kernels the "
+                           f"session began or ended with")
+    for i, (lo, hi) in enumerate(zip(marks, marks[1:])):
+        out[i] = [(ev.name(), ev.duration_ns() / 1e6)
+                  for ev in events[lo + 1:hi]]
+    return list(zip(out, launched))
+
+
+def profiled(fns, whats) -> list:
+    """session(fns), each interval held by check_profile (``whats`` names
+    them): [each interval's device events]."""
+    out = session(fns)
+    for (events, launched), what in zip(out, whats):
+        check_profile(events, launched, what)
+    return [events for events, _ in out]
+
+
+def device_profile(fn, top: int = 6, what: str = "a call") -> dict:
+    """One call of ``fn`` (after one untimed) under torch.profiler, held by
+    check_profile: the card's busy time (the sum of its kernels and
+    copies), the number of kernels and copies (``launches``) and of kernels
+    alone (``kernels``), and the kernels that took the most device time."""
+    fn()
+    torch.cuda.synchronize()
+    events, = profiled([fn], [what])
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            us, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.self_device_time_total, n + 1)
-    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    for name, ms in events:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + ms, n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return dict(busy_ms=busy_ms, wall_ms=wall * 1e3,
+    return dict(busy_ms=sum(t for t, _ in by_name.values()),
                 launches=sum(n for _, n in by_name.values()),
                 kernels=sum(n for name, (_, n) in by_name.items()
                             if not name.startswith(("Memcpy", "Memset"))),
-                top=[(name[:60], us / 1e3, n) for name, (us, n) in ranked])
+                top=[(name[:60], t, n) for name, (t, n) in ranked])
 
 
 def split_kernels(fn, want: int, what: str) -> list:
     """Each CUDA kernel one call of ``fn`` launches, (name, device ms,
-    count), from torch.profiler; raises unless the profile saw ``want``
-    kernel launches, each with device time. The profiler has come back
-    partly blank in a long process (a kernel listed without its time, or
-    not at all): a split missing a kernel would pass for a faster call."""
-    prof = device_profile(fn, top=64)
+    count), from device_profile (held by check_profile); raises unless the
+    profile saw ``want`` kernel launches, the route's count, each with
+    device time."""
+    prof = device_profile(fn, top=64, what=what)
     kernels = [(name, ms, n) for name, ms, n in prof["top"]
                if not name.startswith(("Memcpy", "Memset"))]
     launched = sum(n for *_, n in kernels)
@@ -233,22 +375,19 @@ def split_kernels(fn, want: int, what: str) -> list:
 
 
 def flash_bwd_kernels(label: str, seed: int = 1) -> list:
-    """split_kernels of the flash backward at one of BWD_SHAPES (bf16), from
-    the forward kernel's output and log-sum-exp: three CUDA kernels, or
-    four on the D 256 route with more than one split. Profile it before any
-    autograd backward of the process (library_backward's): after one,
-    later profiles have come back without device events."""
+    """split_kernels of the flash backward at a label of bwd_call (bf16),
+    from the forward kernel's output and log-sum-exp: three CUDA kernels,
+    or four on the D 256 route with more than one split."""
     from repro_torch.kernels.flash_attention import kernel
-    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = bwd_call(label)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+    q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
     do = torch.randn_like(q)
-    out, lse = kernel.flash_attention(q, k, v, window=window,
-                                      softcap=softcap, return_lse=True)
-    splits = kernel.bwd_splits(b, h, kv, s, d, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
+    splits = kernel.bwd_splits(b, h, kv, sk, d, torch.bfloat16)
     return split_kernels(
-        lambda: kernel.flash_attention_bwd(q, k, v, out, lse, do,
-                                           window=window, softcap=softcap),
+        lambda: kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw),
         3 + (splits > 1), f"flash_attention_bwd {label}")
 
 
@@ -338,6 +477,16 @@ def flash_call(label: str) -> tuple:
         b, h, kv, s, d, layout, window, softcap = SHAPES[label]
         return b, h, kv, s, s, d, layout, True, window, softcap
     b, h, kv, sq, sk, d, layout = NONCAUSAL_SHAPES[label]
+    return b, h, kv, sq, sk, d, layout, False, None, None
+
+
+def bwd_call(label: str) -> tuple:
+    """(B, H, KV, Sq, Sk, D, layout, causal, window, softcap) of a label of
+    BWD_SHAPES or NONCAUSAL_BWD_SHAPES."""
+    if label in BWD_SHAPES:
+        b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
+        return b, h, kv, s, s, d, layout, True, window, softcap
+    b, h, kv, sq, sk, d, layout = NONCAUSAL_BWD_SHAPES[label]
     return b, h, kv, sq, sk, d, layout, False, None, None
 
 
@@ -468,9 +617,11 @@ def window_mask(s: int, window: int, device) -> torch.Tensor:
     return (diff >= 0) & (diff < window)
 
 
-def library_backward(q, k, v, do, window=None, softcap=None):
+def library_backward(q, k, v, do, window=None, softcap=None,
+                     causal: bool = True):
     """(fn, stream): ``fn`` computes the gradients of :func:`sdpa` on q, k,
-    v (contiguous copies) for the output gradient ``do``, replaying the
+    v (contiguous copies; ``causal`` or not) for the output gradient
+    ``do``, replaying the
     backward of one forward kept on ``stream``; with a ``window``, of
     ``scaled_dot_product_attention`` under that window's explicit mask;
     with a ``softcap``, of :func:`flex_library` (causal, ``window``).
@@ -485,7 +636,7 @@ def library_backward(q, k, v, do, window=None, softcap=None):
             flex = flex_library(*leaves, window=window, softcap=softcap)
             res = flex_compiled(lambda: flex(*leaves))
         elif window is None:
-            res = sdpa(*leaves)
+            res = sdpa(*leaves, causal)
         else:
             res = torch.nn.functional.scaled_dot_product_attention(
                 *leaves, attn_mask=window_mask(q.shape[2], window, q.device),
@@ -495,7 +646,7 @@ def library_backward(q, k, v, do, window=None, softcap=None):
 
 
 def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
-    """The backward kernel at one of BWD_SHAPES (bf16, causal) from the
+    """The backward kernel at a label of bwd_call (bf16) from the
     forward kernel's output and log-sum-exp, its plain version (torch
     autograd of ``attention_ref``, its graph kept and the backward
     replayed, eager) and the backward of ``scaled_dot_product_attention``
@@ -505,14 +656,14 @@ def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     bound."""
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[label]
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = bwd_call(label)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
-    do = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)[0]
-    kw = dict(window=window, softcap=softcap)
+    q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
+    do = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)[0]
+    kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = kernel.flash_attention(q, k, v, return_lse=True, **kw)
     bound_ms, bound_by, flops = attention_bwd_bound(
-        b, h, kv, s, s, d, torch.bfloat16, **kw)
+        b, h, kv, sq, sk, d, torch.bfloat16, **kw)
 
     def run():
         return kernel.flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -522,13 +673,14 @@ def time_flash_attention_bwd(label: str, seed: int = 1) -> dict:
     plain_ms = eager_ms(plain, iters=2, warmup=1)
     if softcap is None:
         del plain
-        library, stream = library_backward(q, k, v, do, window)
+        library, stream = library_backward(q, k, v, do, window,
+                                           causal=causal)
         lib = {"library_ms": graph_ms(library, stream=stream),
                "library_eager_ms": eager_ms(library),
                "library_backend": sdpa_backend(
                    q.contiguous(), k.contiguous(), v.contiguous(),
                    None if window is None
-                   else window_mask(s, window, q.device))}
+                   else window_mask(sq, window, q.device), causal)}
     else:
         want = plain()
         del plain
@@ -575,8 +727,11 @@ def library_name(row: dict, explicit: bool = False) -> str:
 
 
 def describe_bwd(row: dict) -> str:
-    b, h, kv, s, d, layout, window, softcap = BWD_SHAPES[row["label"]]
-    return (f"flash_attention_bwd B{b} H{h} KV{kv} S{s} D{d} bf16 causal"
+    b, h, kv, sq, sk, d, layout, causal, window, softcap = bwd_call(
+        row["label"])
+    length = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
+    mask = "causal" if causal else "non-causal"
+    return (f"flash_attention_bwd B{b} H{h} KV{kv} {length} D{d} bf16 {mask}"
             f"{options(window, softcap)} {layout}: kernel {row['ms']:.4f} "
             f"ms ({row['tflops']:.1f} TFLOP/s), plain (autograd of "
             f"attention_ref, eager) {row['plain_ms']:.4f} ms, the backward "
@@ -872,19 +1027,20 @@ def profile_kernels(seed: int = 1) -> None:
         h, dh = rglru.rglru_scan(a, bb), torch.randn_like(a)
         calls[f"rglru_scan_bwd {label}"] = (
             lambda a=a, h=h, dh=dh: rglru.rglru_scan_bwd(a, h, None, dh))
-    for label, (b, h, kv, s, d, layout, window, cap) in BWD_SHAPES.items():
-        q, k, v = make_qkv(gen, b, h, kv, s, s, d, torch.bfloat16, layout)
+    for label in (*BWD_SHAPES, *NONCAUSAL_BWD_SHAPES):
+        b, h, kv, sq, sk, d, layout, causal, window, cap = bwd_call(label)
+        q, k, v = make_qkv(gen, b, h, kv, sq, sk, d, torch.bfloat16, layout)
         do = torch.randn_like(q)
-        out, lse = flash.flash_attention(q, k, v, window=window, softcap=cap,
-                                         return_lse=True)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = flash.flash_attention(q, k, v, return_lse=True, **kw)
         calls[f"flash_attention_bwd {label}"] = (
-            lambda a=(q, k, v, out, lse, do), w=window, c=cap:
-            flash.flash_attention_bwd(*a, window=w, softcap=c))
+            lambda a=(q, k, v, out, lse, do), kw=kw:
+            flash.flash_attention_bwd(*a, **kw))
         if cap is None:
             calls[f"scaled_dot_product_attention backward {label}"] = \
-                library_backward(q, k, v, do, window)[0]
+                library_backward(q, k, v, do, window, causal=causal)[0]
     for name, fn in calls.items():
-        prof = device_profile(fn, top=8)
+        prof = device_profile(fn, top=8, what=name)
         print(f"profile {name}: busy {prof['busy_ms'] * 1e3:.1f} us; "
               + "; ".join(f"{k} {ms * 1e3:.1f} us x{n}"
                           for k, ms, n in prof["top"]), flush=True)
@@ -1255,9 +1411,7 @@ def main(argv=None) -> int:
         print(describe_rglru_bwd(time_rglru_scan_bwd(label)), flush=True)
     if args.profile:
         profile_kernels()
-    # after every profile: autograd's backward (the library yardstick) has
-    # left later profiles in the same process without device events
-    for label in BWD_SHAPES:
+    for label in (*BWD_SHAPES, *NONCAUSAL_BWD_SHAPES):
         print(describe_bwd(time_flash_attention_bwd(label)), flush=True)
     for old_source in args.against:
         compare(old_source)

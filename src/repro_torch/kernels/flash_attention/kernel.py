@@ -11,7 +11,8 @@ called through ``ctypes`` on PyTorch's current stream. The wrappers
 allocate the outputs and workspace, check what the kernels take and raise
 on the rest, and raise when a launch reports an error.
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-the launches. Meta tensors stand for the card's in the dry-run's count:
+the launches, and ``CUDA_KERNELS`` the CUDA kernels each put on the
+stream (``cuda_kernels``, ``bwd_cuda_kernels``). Meta tensors stand for the card's in the dry-run's count:
 the wrappers check them and allocate the same outputs and workspace, and
 build, load and launch nothing.
 """
@@ -26,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import on_card
-from repro_torch.kernels import build
+from repro_torch.kernels import CUDA_KERNELS, build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
@@ -139,7 +140,27 @@ def flash_attention(q, k, v, *, causal: bool = True,
         launch(load().lib, q, k, v, out, causal=causal, window=window,
                softcap=softcap, lse=lse)
         flash_attention.launches += 1
+        CUDA_KERNELS.update(cuda_kernels(q.dtype))
     return (out, lse) if return_lse else out
+
+
+def cuda_kernels(dtype) -> tuple:
+    """The CUDA kernel one forward call launches, by dtype."""
+    return ("flash_fwd_bf16" if dtype == torch.bfloat16 else "flash_fwd_f32",)
+
+
+def bwd_cuda_kernels(dtype, d: int, splits: int) -> tuple:
+    """The CUDA kernels one backward call launches: the rows' delta, the
+    main pass (the ``wgmma`` kernel at bf16 D 64 and 128, its D 256 route
+    with the partials' sum where ``splits`` > 1, else the CUDA-core one),
+    then dq."""
+    main = ("flash_bwd_dkdv",)
+    if dtype == torch.bfloat16 and d in (64, 128):
+        main = ("flash_bwd_wgmma",)
+    elif dtype == torch.bfloat16 and d == 256:
+        main = ("flash_bwd_wgmma256",) + (("flash_bwd_dkdv_sum",)
+                                          if splits > 1 else ())
+    return ("flash_bwd_delta", *main, "flash_bwd_dq")
 
 
 def output_buffer(q) -> torch.Tensor:
@@ -256,6 +277,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                    workspace, causal=causal, window=window, softcap=softcap,
                    splits=splits)
         flash_attention_bwd.launches += 1
+        CUDA_KERNELS.update(bwd_cuda_kernels(q.dtype, d, splits))
     return dq, dk, dv
 
 

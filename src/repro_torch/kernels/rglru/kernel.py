@@ -6,7 +6,8 @@ state. It is built with ``nvcc`` for sm_90a into a shared library with a
 plain C interface (see :mod:`repro_torch.kernels.build`) and called through
 ``ctypes`` on PyTorch's current stream. The wrapper allocates the output,
 checks what the kernel takes and raises on the rest, and raises when the
-launch reports an error. ``rglru_scan.launches`` counts the launches.
+launch reports an error. ``rglru_scan.launches`` counts the launches
+(``CUDA_KERNELS`` their CUDA kernels).
 
 The backward (``rglru_scan_bwd``, the source's second entry; the Pallas
 kernel has none) gives da, db and dh0 from the gradient of h and the
@@ -26,11 +27,14 @@ from pathlib import Path
 import torch
 
 from repro_torch.device import on_card
-from repro_torch.kernels import build
+from repro_torch.kernels import CUDA_KERNELS, build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru_scan.cu"
 MAX_BATCH = 65535     # the grid's second axis
 BWD_CHUNK = 128       # the backward's steps per block (CHUNK in the source)
+# the CUDA kernel each call launches (the backward's workspace is zeroed by
+# a memset, which is no kernel)
+CUDA_KERNEL, BWD_CUDA_KERNEL = ("rglru_scan_f32",), ("rglru_scan_bwd_f32",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,6 +96,7 @@ def rglru_scan(a, b, h0=None):
     if not a.is_meta:
         launch(load().lib, a, b, h0, h)
         rglru_scan.launches += 1
+        CUDA_KERNELS.update(CUDA_KERNEL)
     return h
 
 
@@ -142,6 +147,7 @@ def rglru_scan_bwd(a, h, h0, dh):
     if not a.is_meta:
         launch_bwd(load().lib, a, h, h0, dh, da, db, dh0, workspace)
         rglru_scan_bwd.launches += 1
+        CUDA_KERNELS.update(BWD_CUDA_KERNEL)
     return da, db, dh0
 
 

@@ -9,7 +9,8 @@ algorithm's three passes as three CUDA kernels (chunk states, state
 passing, chunk outputs; ``ref.ssd_passes`` is their plain mirror). The
 wrapper allocates the outputs and the passes' workspace, checks what the
 kernel takes and raises on the rest, and raises when a launch reports an
-error. ``ssd_scan.launches`` counts the calls.
+error. ``ssd_scan.launches`` counts the calls (``CUDA_KERNELS`` their
+CUDA kernels, ``cuda_kernels`` and ``bwd_cuda_kernels``).
 
 The backward (``csrc/ssd_scan_bwd.cu``, a library of its own; the Pallas
 kernel has none) gives the gradients of x, dt, a_log, B and C from dy, an
@@ -32,7 +33,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.device import on_card
-from repro_torch.kernels import build
+from repro_torch.kernels import CUDA_KERNELS, build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
@@ -177,9 +178,26 @@ def ssd_scan(x, dt, a_log, b, c, *, chunk: int = 128,
         launch(load().lib, x, dt, a_log, b, c, y, h_final, workspace,
                chunk=chunk_rows(s, chunk))
         ssd_scan.launches += 1
+        CUDA_KERNELS.update(cuda_kernels(x.dtype))
     if keep_workspace:
         return y, h_final, workspace
     return y, h_final
+
+
+def cuda_kernels(dtype) -> tuple:
+    """The CUDA kernels one forward call launches: its three passes."""
+    t = "bf16" if dtype == torch.bfloat16 else "f32"
+    return (f"chunk_state_{t}", "state_pass", f"chunk_output_{t}")
+
+
+def bwd_cuda_kernels(dtype) -> tuple:
+    """The CUDA kernels one backward call launches: four for bf16 inputs,
+    seven for fp32 (its ``state_pass`` shares the forward's name)."""
+    if dtype == torch.bfloat16:
+        return ("chunk_dstate_bf16", "state_pass", "chunk_bwd_bf16",
+                "reduce_alog")
+    return ("chunk_dstate", "state_pass", "chunk_dx", "chunk_dc", "chunk_db",
+            "reduce_heads", "reduce_alog")
 
 
 def launch(lib: ctypes.CDLL, x, dt, a_log, b, c, y, h_final, workspace, *,
@@ -253,6 +271,7 @@ def ssd_scan_bwd(x, dt, a_log, b, c, dy, dh_final, workspace, *,
                    workspace, dx, ddt, da_log, db, dc, scratch,
                    chunk=chunk_rows(s, chunk))
         ssd_scan_bwd.launches += 1
+        CUDA_KERNELS.update(bwd_cuda_kernels(x.dtype))
     return dx, ddt, da_log, db, dc
 
 

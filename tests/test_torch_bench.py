@@ -529,3 +529,204 @@ def test_split_kernels_fails_on_a_partly_blank_profile(monkeypatch, top, ok):
     else:
         with pytest.raises(RuntimeError, match="route launches 4"):
             bench.split_kernels(lambda: None, want, "ssd_scan_bwd")
+
+
+# -- every busy reading holds its interval to the wrappers' launches --------
+
+# CUDA kernel names as the profiler lists them
+FWD = ("void (anonymous namespace)::flash_fwd_bf16<64>((anonymous "
+       "namespace)::Maps, (anonymous namespace)::Params)")
+BWD = tuple(f"void (anonymous namespace)::{name}<__nv_bfloat16, 64>"
+            f"((anonymous namespace)::Params)"
+            for name in ("flash_bwd_delta", "flash_bwd_dq")) + (
+    "void (anonymous namespace)::flash_bwd_wgmma<64>((anonymous "
+    "namespace)::Maps, (anonymous namespace)::Params)",)
+OTHERS = ("Memcpy DtoD (Device -> Device)",
+          "void at::native::vectorized_elementwise_kernel<4, at::native::"
+          "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+          "FillFunctor<float>, std::array<char*, 1ul>)")
+
+
+def step_launches():
+    """What a bf16 D 64 forward and backward put on the stream."""
+    return bench.Counter(flash.cuda_kernels(torch.bfloat16)
+                         + flash.bwd_cuda_kernels(torch.bfloat16, 64, 1))
+
+
+@pytest.mark.parametrize("events,match", [
+    # every counted launch listed, each with device time; copies and
+    # PyTorch's kernels beside them
+    ([(FWD, 0.14), *((n, 0.1) for n in BWD), *((n, 0.01) for n in OTHERS)],
+     None),
+    # a counted launch missing (the backward's delta)
+    ([(FWD, 0.14), *((n, 0.1) for n in BWD[1:]), (OTHERS[0], 0.01)],
+     "lists the port's CUDA kernels"),
+    # one listed without device time
+    ([(FWD, 0.0), *((n, 0.1) for n in BWD)], "1 of them without device"),
+    # one listed more often than the wrappers launched it (a stale event)
+    ([(FWD, 0.14), (FWD, 0.14), *((n, 0.1) for n in BWD)],
+     "lists the port's CUDA kernels"),
+    # an interval without any device event
+    ([], "holds no device event")])
+def test_check_profile_holds_an_interval_to_its_launches(events, match):
+    """A busy reading's interval must list each CUDA kernel the wrappers
+    launched in it, by name and as often, each with device time, and hold
+    at least one device event; anything else fails the reading."""
+    if match is None:
+        bench.check_profile(events, step_launches(), "a step")
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            bench.check_profile(events, step_launches(), "a step")
+
+
+def test_check_profile_counts_a_name_two_routes_share():
+    """The SSD forward's and backward's ``state_pass`` share a name: a step
+    that runs both lists it twice."""
+    launched = bench.Counter(ssd.cuda_kernels(torch.bfloat16)
+                             + ssd.bwd_cuda_kernels(torch.bfloat16))
+    names = [*ssd.cuda_kernels(torch.bfloat16),
+             *ssd.bwd_cuda_kernels(torch.bfloat16)]
+    events = [(f"(anonymous namespace)::{n}((anonymous namespace)::Params)",
+               0.05) for n in names]
+    bench.check_profile(events, launched, "an SSD step")
+    with pytest.raises(RuntimeError, match="state_pass"):
+        bench.check_profile(events[:-1], launched + bench.Counter(
+            ["state_pass"]), "an SSD step")
+
+
+def test_base_name_of_the_profilers_names():
+    assert [bench.base_name(n) for n in (FWD, *BWD, *OTHERS)] == [
+        "flash_fwd_bf16", "flash_bwd_delta", "flash_bwd_dq",
+        "flash_bwd_wgmma", "Memcpy", "vectorized_elementwise_kernel"]
+
+
+def _globals(source):
+    text = Path(source).read_text()
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*"
+                          r"\)\s*)?(\w+)\s*\(", text))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routes_name_their_sources_kernels(dtype):
+    """Each wrapper's route names CUDA kernels its source defines, as many
+    as the split of a call takes (bench's counts), and bench's set of the
+    port's kernels holds them all."""
+    fwd = _globals(flash.SOURCE)
+    bwd = _globals(flash.BWD_SOURCE)
+    assert set(flash.cuda_kernels(dtype)) <= fwd
+    for d in flash.HEAD_DIMS:
+        for splits in (1, 2):
+            route = flash.bwd_cuda_kernels(dtype, d, splits)
+            assert set(route) <= bwd
+            wide = dtype == torch.bfloat16 and d == 256 and splits > 1
+            assert len(route) == 3 + wide
+    assert flash.bwd_cuda_kernels(torch.bfloat16, 64, 1)[1] == \
+        "flash_bwd_wgmma"
+    assert set(ssd.cuda_kernels(dtype)) <= _globals(ssd.SOURCE)
+    assert set(ssd.bwd_cuda_kernels(dtype)) <= _globals(ssd.BWD_SOURCE)
+    assert len(ssd.cuda_kernels(dtype)) == bench.SSD_KERNELS
+    assert len(ssd.bwd_cuda_kernels(dtype)) == (
+        bench.SSD_BWD_KERNELS if dtype == torch.bfloat16 else 7)
+    assert set(rglru.CUDA_KERNEL + rglru.BWD_CUDA_KERNEL) <= \
+        _globals(rglru.SOURCE)
+    assert bench.port_kernels() == (
+        fwd | bwd | _globals(ssd.SOURCE) | _globals(ssd.BWD_SOURCE)
+        | _globals(rglru.SOURCE))
+
+
+def test_wrappers_count_no_kernel_they_do_not_launch():
+    """On meta tensors (the dry-run's count) a wrapper launches nothing and
+    adds nothing to CUDA_KERNELS."""
+    from repro_torch.kernels import CUDA_KERNELS
+    before = bench.Counter(CUDA_KERNELS)
+    q = torch.empty((1, 2, 64, 64), device="meta", dtype=torch.bfloat16)
+    out, lse = flash.flash_attention(q, q, q, return_lse=True)
+    flash.flash_attention_bwd(q, q, q, out, lse, q)
+    assert CUDA_KERNELS == before
+
+
+def fake_session(intervals):
+    """A stand-in for bench.session returning ``intervals`` [(events,
+    launched)] whatever it is given."""
+    def session(fns):
+        assert len(fns) == len(intervals)
+        for fn in fns:
+            fn()
+        return intervals
+    return session
+
+
+@pytest.mark.parametrize("ok", [True, False])
+def test_device_profile_passes_its_interval_through_the_check(monkeypatch,
+                                                              ok):
+    events = [(FWD, 0.14), *((n, 0.1) for n in BWD), (OTHERS[0], 0.02)]
+    if not ok:
+        events = events[1:]
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(bench, "session",
+                        fake_session([(events, step_launches())]))
+    if not ok:
+        with pytest.raises(RuntimeError, match="flash_fwd_bf16"):
+            bench.device_profile(lambda: None, what="a step")
+        return
+    prof = bench.device_profile(lambda: None, what="a step")
+    assert prof["busy_ms"] == pytest.approx(0.46)
+    assert (prof["launches"], prof["kernels"]) == (5, 4)
+    assert prof["top"][0] == (FWD[:60], 0.14, 1)
+
+
+def test_session_splits_a_profile_at_its_marks(monkeypatch):
+    """The real profiler on the CPU: one interval a callable, each with the
+    CUDA kernels the wrappers counted in it; no device event here, so the
+    check refuses every interval."""
+    from repro_torch.kernels import CUDA_KERNELS
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def launches(n):
+        def fn():
+            torch.ones(4).sum()
+            CUDA_KERNELS.update(["flash_fwd_bf16"] * n)
+        return fn
+    before = bench.Counter(CUDA_KERNELS)
+    try:
+        out = bench.session([launches(1), launches(2)])
+        assert [dict(launched) for _, launched in out] == [
+            {"flash_fwd_bf16": 1}, {"flash_fwd_bf16": 2}]
+        assert [events for events, _ in out] == [[], []]
+        with pytest.raises(RuntimeError, match="holds no device event"):
+            bench.profiled([launches(1)], ["an interval"])
+    finally:
+        CUDA_KERNELS.clear()
+        CUDA_KERNELS.update(before)
+
+
+def chip_smoke():
+    """chip_smoke.py at the root of the checkout, imported (its main does
+    not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", CSRC.parents[2] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_profile_split_checks_each_interval(monkeypatch):
+    """chip_smoke's busy readings of several steps in one session: each
+    step's interval is held on its own, and a blank one fails the reading,
+    whichever it is."""
+    cs = chip_smoke()
+    whole = [(FWD, 0.14), *((n, 0.1) for n in BWD), (OTHERS[0], 0.02)]
+    steps = {"a": lambda: None, "b": lambda: None}
+    monkeypatch.setattr(bench, "session", fake_session(
+        [(whole, step_launches()), (whole, step_launches())]))
+    out = cs.profile_split(steps)
+    assert out["b"][:2] == (pytest.approx(0.46), 5)
+    assert out["a"][3][FWD[:60]] == (0.14, 1)
+    for blank in range(2):
+        intervals = [(whole, step_launches()), (whole, step_launches())]
+        intervals[blank] = ([e for e in whole if "delta" not in e[0]],
+                            step_launches())
+        monkeypatch.setattr(bench, "session", fake_session(intervals))
+        with pytest.raises(RuntimeError, match=f"profile of {'ab'[blank]} "):
+            cs.profile_split(steps)

@@ -35,8 +35,12 @@ from repro_torch.rms.costmodel import ReconfigCostModel  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 GOLDEN = os.path.join(DATA, "golden_calibration.json")
+# the torch backend's quick grid: two geometries at 4 and 64 MiB, best of 3
+# timings a sample, so that under a loaded test run the copy's time, 16x
+# apart, outweighs a resize's fixed cost and the host's noise, which at 4
+# and 16 MiB with one timing could leave the fit a bandwidth below zero
 QUICK = MeasureConfig(backend="torch", geometries=((1, 2), (2, 4)),
-                      data_bytes=(4 * MiB, 16 * MiB), repeats=1)
+                      data_bytes=(4 * MiB, 64 * MiB), repeats=3)
 
 
 @pytest.fixture(autouse=True)

@@ -405,3 +405,44 @@ def test_noncausal_chunked_path_matches_jax_and_plain(sq, sk):
         *(jnp.asarray(t) for t in (qt, kc, vc)), causal=False))
     assert max_norm_err(plain, jplain) < 1e-5
     assert max_norm_err(got, plain.transpose(1, 2).numpy()) < 1e-5
+
+
+def test_chip_smoke_trains_seamless_as_an_encoder_decoder():
+    """chip_smoke.py's zt row of seamless: its stream gives S / 2 frames of
+    d_model and S / 2 tokens a row at the fp32 and bf16 shapes (the
+    reference's train_4k sequence split by enc_dec), the row keeps every
+    layer, and the kernel checks hold the step's three attention calls,
+    each with its own mask: the encoder's self attention and the cross
+    attention of the decoder's S / 2 queries over the S / 2 frames without
+    a causal mask (the same call), the decoder's self attention causal."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    depth, cuts, fp32, (b, s) = cs.ZT_CELLS[ARCH]
+    assert depth == DEPTH and cuts == (DEPTH,) and (b, s) == (8, 4096)
+    cfg = cs.zt_config(ARCH, DEPTH)
+    assert (cfg.num_layers, cfg.enc_layers, cfg.remat) == (12, 12, "dots")
+    for rows, seq in (fp32, (b, s)):
+        batch = SyntheticLMData(cs.zt_data(cfg, rows, seq)).batch(0)
+        assert batch["frontend"].shape == (rows, seq // 2, cfg.d_model)
+        assert batch["frontend"].dtype == torch.float32
+        assert batch["tokens"].shape == batch["labels"].shape == \
+            (rows, seq // 2)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    half = s // 2
+    encoder = (b, h, kv, half, half, d, False, None, None)
+    cross = (b, h, kv, half, half, d, False, None, None)
+    decoder = (b, h, kv, half, half, d, True, None, None)
+    cases = [tuple(case[:9]) for case in cs.zt_kernel_cases()
+             if case[9] == torch.bfloat16 and case[10] == "bshd"]
+    for call in (encoder, cross, decoder):
+        assert call in cases
+    assert cs.zt_label((*encoder, torch.bfloat16, "bshd")) == "seamless-2048"
+    assert cs.zt_label((*decoder, torch.bfloat16, "bshd")) == \
+        "seamless-dec-2048"
+    assert cs.ZT_ROWS["seamless-2048"] == cs.ZT_ROWS["seamless-dec-2048"] \
+        == ARCH

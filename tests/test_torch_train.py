@@ -473,10 +473,12 @@ def per_layer_params(pcfg, seed=0):
 # local layer's window biting, the softcaps on the scores and the logits),
 # paligemma with its 8 patch embeddings in every batch (the stream's text
 # is S - 8 tokens), phi3.5 with the routers' loss in every step, granite's
-# dense GQA
+# dense GQA, seamless's encoder-decoder (32 frames and 32 tokens a row, the
+# stream's enc_dec split; the tied embedding's gradient through both its
+# uses)
 TRAINER_CASES = [("smollm-135m", 32), ("gemma2-27b", 96),
                  ("paligemma-3b", 40), ("phi3.5-moe-42b-a6.6b", 32),
-                 ("granite-3-2b", 32)]
+                 ("granite-3-2b", 32), ("seamless-m4t-medium", 64)]
 
 
 @pytest.mark.parametrize("arch,seq_len", TRAINER_CASES)
@@ -500,10 +502,12 @@ def test_trainer_reproduces_reference_losses(arch, seq_len):
     There every case's grad norms agree within 1e-5 over the 5 steps, and
     a perturbed run stays as close to the unperturbed one."""
     cfg, pcfg = reduced_fp32(arch)
+    encdec = cfg.family == "encdec"
     data = JaxDataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                          global_batch=8, frontend=cfg.frontend,
                          frontend_tokens=cfg.frontend_tokens,
-                         d_model=cfg.d_model if cfg.frontend else 0)
+                         d_model=cfg.d_model if cfg.frontend else 0,
+                         enc_dec=encdec)
     opt = dict(lr=3e-3, warmup_steps=2, total_steps=10)
     tcfg = dict(steps=5, model_ways=1, max_slices=1, log_period=1)
     ref = JaxTrainer(jax_build_model(cfg), JaxAdamWConfig(**opt), data,
@@ -515,8 +519,9 @@ def test_trainer_reproduces_reference_losses(arch, seq_len):
     start = state_from_jax(jax.tree.map(np.array, state), device="cpu")
     ref.train(state=state)
     if cfg.frontend:
-        assert ref.data.batch(0)["frontend"].shape == (
-            8, cfg.frontend_tokens, cfg.d_model)
+        front = seq_len // 2 if encdec else cfg.frontend_tokens
+        assert ref.data.batch(0)["frontend"].shape == (8, front, cfg.d_model)
+        assert ref.data.batch(0)["tokens"].shape == (8, seq_len - front)
     model = build_model(pcfg, device="cpu")
     with torch.no_grad():
         _, parts = model.loss(start["params"], FedBatches(ref.data).batch(0))
