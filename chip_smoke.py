@@ -275,6 +275,18 @@ fit's FitError in (t)):
                   virtual slices share one HBM, and the reshard on one
                   card is host-bound, so a refusal is a finding about one
                   card, not a fault of the port
+  (ws) worksim -- the paper's section 7 testbed on the port's event engine
+                  and simulator (host code), fed (t)'s artifact: the
+                  reference's golden engine scenario (12 jobs, 32 nodes,
+                  a failure, a straggler), sanitised, byte-equal to
+                  tests/data/golden_engine_trace.json; Table 4 (50, 100,
+                  200, 400 jobs of make_workload on 64 nodes, EASY, sync,
+                  fixed and flexible, every job completed) under the
+                  paper-fit cost model with the reference's four claims
+                  held at 50 jobs, then under (t)'s fitted model with its
+                  calibration_id, or one line saying the card gave none;
+                  each flexible row's expand and shrink times; simulated
+                  seconds, and the phase's own host seconds
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
                   both in device time) as a yardstick the port never calls,
@@ -2562,7 +2574,7 @@ def phase_calibration():
                          f"{s['seconds'] * 1e3:.4f} ms, busiest link "
                          f"{s['busiest_bytes'] / 2 ** 20:g} MiB, "
                          f"{s['participants']} participants")
-        return
+        return None
     doc = validate_calibration(make_artifact(
         samples=samples, fitted=fitted, residuals=residuals, checks=checks,
         grid=config.grid_doc(), backend=config.backend, environment=env))
@@ -2576,6 +2588,175 @@ def phase_calibration():
                  f"{row['measured_s'] * 1e3:.4f} ms, fitted "
                  f"{row['fitted_s'] * 1e3:.4f} ms, paper-fit "
                  f"{row['paper_s'] * 1e3:.4f} ms")
+    return doc
+
+
+# -- (ws) workload simulation: the paper's section 7 testbed, host code ----------
+
+# Table 4 (section 7.5): workloads of 50-400 jobs on the paper's 64 nodes,
+# EASY scheduling, synchronous DMR checks, fixed against flexible
+WS_SIZES, WS_NODES, WS_SEED = (50, 100, 200, 400), 64, 7
+# the runs sanitised (every structural invariant checked around each event)
+WS_SANITIZED = 50
+# the phase's host seconds it should stay within (printed, not asserted:
+# a shared host's load is not the port's)
+WS_BUDGET_S = 30.0
+GOLDEN_ENGINE = ROOT / "tests" / "data" / "golden_engine_trace.json"
+
+
+def golden_engine_bytes(report):
+    """The golden scenario's report serialised as
+    tests/test_engine_determinism.py serialises it, with the file's final
+    newline."""
+    doc = {
+        "makespan": round(report.makespan, 6),
+        "actions": [
+            {"t": round(a.t, 6), "job_id": a.job_id, "action": a.action,
+             "decide_s": round(a.decide_s, 6),
+             "apply_s": round(a.apply_s, 6),
+             "from_nodes": a.from_nodes, "to_nodes": a.to_nodes,
+             "timed_out": a.timed_out, "reason": a.reason}
+            for a in report.actions],
+    }
+    return json.dumps(doc, indent=1, sort_keys=True).encode() + b"\n"
+
+
+def ws_golden():
+    """The reference's golden engine scenario in the port, sanitised: 12
+    jobs of make_workload on 32 nodes, a node failure at 400 s, a
+    straggler from 200 s. Returns the sanitizer's event checks."""
+    from repro_torch.rms import ClusterSimulator, SimConfig
+    from repro_torch.workload import make_workload
+    sim = ClusterSimulator(make_workload(12, seed=WS_SEED), SimConfig(
+        num_nodes=32, flexible=True, seed=WS_SEED, failures=((400.0, 0),),
+        stragglers=((200.0, 1, 3.0),), sanitize=True))
+    report = sim.run()      # a violated invariant raises SanitizerError
+    if sim.sanitizer is None or sim.sanitizer.checks == 0:
+        raise AssertionError("the golden scenario ran unsanitised")
+    if golden_engine_bytes(report) != GOLDEN_ENGINE.read_bytes():
+        raise AssertionError("the golden scenario's trace differs from "
+                             "tests/data/golden_engine_trace.json")
+    return sim.sanitizer.checks, len(report.actions), report.makespan
+
+
+def resize_stats(actions, kind):
+    """decide_s + apply_s of one kind of action: (count, min, mean, max)."""
+    xs = [a.decide_s + a.apply_s for a in actions if a.action == kind]
+    if not xs:
+        return 0, 0.0, 0.0, 0.0
+    return len(xs), min(xs), float(np.mean(xs)), max(xs)
+
+
+def ws_table4(cost, sizes=WS_SIZES):
+    """Table 4's rows under one reconfiguration cost model: per workload
+    size, the fixed and the flexible run. Every job must complete. Returns
+    {n: (fixed report, flexible report)}."""
+    from repro_torch.rms import (ClusterSimulator, JobState, SchedulerConfig,
+                                 SimConfig)
+    from repro_torch.workload import make_workload
+    out = {}
+    for n in sizes:
+        runs = []
+        for flexible in (False, True):
+            config = SimConfig(num_nodes=WS_NODES, flexible=flexible,
+                               scheduling="sync", seed=WS_SEED, cost=cost,
+                               sched=SchedulerConfig(policy="easy"),
+                               sanitize=n == WS_SANITIZED)
+            report = ClusterSimulator(make_workload(n, seed=WS_SEED),
+                                      config).run()
+            done = sum(j.state is JobState.COMPLETED for j in report.jobs)
+            if done != n:
+                raise AssertionError(f"Table 4, {n} jobs, flexible "
+                                     f"{flexible}: {done} of {n} completed")
+            runs.append(report)
+        out[n] = tuple(runs)
+    return out
+
+
+def table4_claims(fixed, flexible):
+    """The reference's four Table 4 claims at one workload size
+    (benchmarks/table4_throughput.py)."""
+    (bw, be, bc), (fw, fe, fc) = fixed.averages(), flexible.averages()
+    return {
+        "flexible lowers allocation rate ~30%":
+            flexible.utilization()[0] < fixed.utilization()[0] - 10,
+        "waiting time reduced": fw < bw,
+        "execution time increases": fe > be,
+        "completion time improves": fc < bc}
+
+
+def log_table4(label, table):
+    """One line per row: utilisation, mean wait / exec / completion,
+    makespan, the makespan and wait gains against the fixed run, and the
+    flexible run's expand and shrink times (decide_s + apply_s)."""
+    for n, (fixed, flexible) in table.items():
+        base_w = fixed.averages()[0]
+        for version, rep in (("fixed", fixed), ("flexible", flexible)):
+            w, e, c = rep.averages()
+            gain = (fixed.makespan - rep.makespan) / fixed.makespan * 100
+            wgain = (base_w - w) / base_w * 100 if base_w else 0.0
+            line = (f"{label}: {n} jobs {version}: utilisation "
+                    f"{rep.utilization()[0]:.1f}%, wait {w:.1f} s, exec "
+                    f"{e:.1f} s, completion {c:.1f} s, makespan "
+                    f"{rep.makespan:.1f} s, makespan gain {gain:.1f}%, "
+                    f"wait gain {wgain:.1f}%, {len(rep.actions)} actions")
+            if version == "flexible":
+                for kind in ("expand", "shrink"):
+                    k, lo, mean, hi = resize_stats(rep.actions, kind)
+                    line += (f"; {kind} x{k} min {lo:.4f} mean {mean:.4f} "
+                             f"max {hi:.4f} s")
+            log("ws", line)
+
+
+def phase_workload_sim(artifact, sizes=WS_SIZES, card=None):
+    """(ws) The paper's section 7 testbed on the port's event engine and
+    simulator: host code whose one input from the card is the cost model
+    (t) fitted (``artifact``, or None when its fit raised FitError). The
+    golden engine scenario, sanitised, must reproduce the reference's
+    trace; Table 4 runs under the paper-fit model (its four claims held at
+    the smallest size), then under the card's fitted model when there is
+    one. All times but the last line's are simulated seconds. Returns the
+    tables by cost model's label."""
+    from repro_torch.rms import ReconfigCostModel
+    t0 = time.perf_counter()
+    checks, n_actions, makespan = ws_golden()
+    log("ws", f"golden engine scenario (12 jobs, 32 nodes, a failure at "
+              f"400 s, a straggler from 200 s), sanitised: {checks} event "
+              f"checks, no violation, {n_actions} actions, makespan "
+              f"{makespan:.6f} s, byte-equal to "
+              f"tests/data/golden_engine_trace.json")
+    paper = ReconfigCostModel()
+    tables = {"paper-fit": ws_table4(paper, sizes)}
+    log_table4("paper-fit (the reference's model, calibration_id None, "
+               f"link_bw {paper.link_bw:.4g} B/s)", tables["paper-fit"])
+    claims = table4_claims(*tables["paper-fit"][sizes[0]])
+    for name, ok in claims.items():
+        log("ws", f"paper-fit claim at {sizes[0]} jobs: {name}: {ok}")
+    if not all(claims.values()):
+        raise AssertionError(f"Table 4's claims under the paper-fit model: "
+                             f"{claims}")
+    if artifact is None:
+        log("ws", "no fitted model from this card: (t)'s fit raised "
+                  "FitError (its line above); Table 4 runs under the "
+                  "paper-fit model only")
+    else:
+        card_model = ReconfigCostModel.from_artifact(artifact)
+        label = (f"fitted ({artifact['backend']} backend, calibration_id "
+                 f"{card_model.calibration_id}, "
+                 f"link_bw {card_model.link_bw:.4g} B/s, sched_base_s "
+                 f"{card_model.sched_base_s:.4g}, spawn_s "
+                 f"{card_model.spawn_s:.4g})")
+        tables[card_model.calibration_id] = ws_table4(card_model, sizes)
+        log_table4(label, tables[card_model.calibration_id])
+        for name, ok in table4_claims(
+                *tables[card_model.calibration_id][sizes[0]]).items():
+            log("ws", f"fitted model's claim at {sizes[0]} jobs: {name}: "
+                      f"{ok}")
+    secs = time.perf_counter() - t0
+    log("ws", f"{secs:.2f} s of host time (budget {WS_BUDGET_S:.0f} s"
+              f"{'' if secs <= WS_BUDGET_S else ', exceeded'})"
+              f"{'' if card is None else f', beside {card}'}")
+    return tables
 
 
 # -- (u)-(x) slice 9: gemma2, the MoE families, qwen3 and granite, and the --------
@@ -4651,9 +4832,10 @@ def main():
     t0 = time.perf_counter()
     phase_apps_parity()
     phase_apps_times(phase_apps_table1())
-    phase_calibration()
+    artifact = phase_calibration()
     torch.cuda.empty_cache()
     log("t", f"apps and calibration in {time.perf_counter() - t0:.1f} s")
+    phase_workload_sim(artifact, card=smi)
 
     mamba = get_config("mamba2-130m")
     m_model, m_params = model_and_params(mamba, "h")
