@@ -287,6 +287,24 @@ fit's FitError in (t)):
                   calibration_id, or one line saying the card gave none;
                   each flexible row's expand and shrink times; simulated
                   seconds, and the phase's own host seconds
+  (sw) sweep    -- the rest of the JAX package's modules in the port, host
+                  code fed (t)'s artifact: the three golden sweep grids
+                  (smoke, churn, serving) through repro_torch.rms.sweep on
+                  2 spawn workers, each byte-equal to its tests/data
+                  artifact after the v4 -> v5 upgrade; the policy zoo (8
+                  policies x 5 mixes x fixed and flexible on sample.swf,
+                  64 nodes, seed 7: 80 points) under (t)'s fit written to
+                  build/chip_smoke_calibration.json, or, when the fit raised
+                  FitError, under tests/data/golden_calibration.json (one
+                  line says so), serially and as two journaled shards
+                  merged by --resume, byte-equal; the winners by makespan
+                  and node-hours; the golden churn scenario under the
+                  port's TraceRecorder, its artifact and report byte-equal
+                  to tests/data/golden_obs_trace.json and
+                  golden_obs_report.txt; one zoo point traced, its row
+                  equal to the untraced one and its ledger holding every
+                  action; python -m repro_torch.lint src/repro_torch
+                  --check clean; the phase's host seconds
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
                   both in device time) as a yardstick the port never calls,
@@ -330,6 +348,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2759,6 +2778,278 @@ def phase_workload_sim(artifact, sizes=WS_SIZES, card=None):
     return tables
 
 
+# -- (sw) sweeps, observability and lint: the rest of the JAX package's ------
+# modules in the port, host code fed (t)'s fit
+
+DATA = ROOT / "tests" / "data"
+SAMPLE_SWF = DATA / "sample.swf"
+GOLDEN_CALIBRATION = DATA / "golden_calibration.json"
+# where (t)'s artifact is written for the zoo's points to read, and the
+# phase's artifacts, journals and traces (emptied at the phase's start)
+SW_CALIBRATION = ROOT / "build" / "chip_smoke_calibration.json"
+SW_WORKDIR = ROOT / "build" / "chip_smoke_sweep"
+# the committed golden sweeps: smoke_grid's keywords and the artifact file
+SW_GOLDENS = (({}, "golden_sweep.json"),
+              ({"churn": "smoke"}, "golden_capacity_sweep.json"),
+              ({"serving": True}, "golden_serving_sweep.json"))
+SW_WORKERS = 2
+# the policy zoo (benchmarks/policy_zoo.py:40, copied as data): every
+# registered policy x these five mixes x fixed and flexible on sample.swf,
+# the paper's 64 nodes, seed 7; run as SW_SHARDS shards and merged
+SW_ZOO_MIXES = "1:0:0:0,0.2:0.2:0.6:0,0:0:1:0,0.2:0.1:0.4:0.3,0:0:0.3:0.7"
+SW_ZOO_NODES, SW_ZOO_SEED, SW_SHARDS = 64, 7, 2
+# the phase's host seconds it should stay within (printed, not asserted,
+# as (ws)'s)
+SW_BUDGET_S = 30.0
+# a sweep row's action columns by action kind (a timed-out action counts
+# as a timeout, whatever its kind), as repro_torch.rms.sweep counts them
+SW_ROW_ACTIONS = {"expand": "expands", "shrink": "shrinks",
+                  "preempt_shrink": "preempts",
+                  "preempt_requeue": "requeues",
+                  "phase_change": "phase_changes", "node_drain": "drains",
+                  "node_join": "joins", "power_off": "power_offs",
+                  "power_on": "power_ons"}
+
+
+def sw_goldens():
+    """The three golden grids through the port's sweep driver on a spawn
+    pool of SW_WORKERS, each byte-equal to its committed artifact after
+    load_artifact's v4 -> v5 upgrade."""
+    from repro_torch.rms import sweep
+    for kwargs, name in SW_GOLDENS:
+        t0 = time.perf_counter()
+        points, grid = sweep.smoke_grid(str(SAMPLE_SWF), **kwargs)
+        rows = sweep.run_sweep(points, workers=SW_WORKERS)
+        got = sweep.dumps_artifact(sweep.artifact(rows, grid))
+        if got != sweep.dumps_artifact(sweep.load_artifact(str(DATA / name))):
+            raise AssertionError(f"the {kwargs or 'smoke'} grid's artifact "
+                                 f"differs from tests/data/{name}")
+        log("sw", f"golden grid {kwargs or 'smoke'}: {len(points)} points "
+                  f"at {SW_WORKERS} workers in "
+                  f"{time.perf_counter() - t0:.2f} s, byte-equal to "
+                  f"tests/data/{name}")
+
+
+def sw_calibration(artifact, out=SW_CALIBRATION):
+    """The calibration the zoo runs under: (t)'s artifact written to
+    ``out`` by the port's write_calibration, or, when (t)'s fit raised
+    FitError (``artifact`` None), the committed golden artifact."""
+    if artifact is None:
+        log("sw", "no fitted model from this card: (t)'s fit raised "
+                  "FitError (its line above); the zoo runs under "
+                  "tests/data/golden_calibration.json")
+        return str(GOLDEN_CALIBRATION)
+    from repro_torch.calib.artifact import write_calibration
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    write_calibration(str(out), artifact)
+    log("sw", f"(t)'s artifact, calibration_id "
+              f"{artifact['calibration_id']}, written to {out.name}")
+    return str(out)
+
+
+def sw_main(argv, log_path):
+    """``python -m repro_torch.rms.sweep`` in this process, its CSV lines
+    sent to ``log_path``; a non-zero exit fails the phase."""
+    from repro_torch.rms import sweep
+    with open(log_path, "a") as fh, contextlib.redirect_stdout(fh):
+        rc = sweep.main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"repro_torch.rms.sweep {argv} exited {rc}")
+
+
+def sw_zoo(calibration, workdir):
+    """The policy zoo's 80 points under ``calibration`` through the sweep
+    CLI: serially, then as SW_SHARDS shards each with its own journal,
+    merged by --resume over all the journals; the merged artifact must be
+    the serial one's bytes. Returns the rows."""
+    from repro_torch.rms import POLICY_REGISTRY, sweep
+    from repro_torch.rms.journal import GridJournal
+    grid = ["--trace", SAMPLE_SWF, "--policies",
+            ",".join(sorted(POLICY_REGISTRY)), "--mixes", SW_ZOO_MIXES,
+            "--fixed", "--nodes", SW_ZOO_NODES, "--seed", SW_ZOO_SEED,
+            "--calibration", calibration]
+    log_path = workdir / "zoo.csv.log"
+    t0 = time.perf_counter()
+    sw_main([*grid, "--out", workdir / "zoo_serial.json"], log_path)
+    serial_s = time.perf_counter() - t0
+    journals = [workdir / f"zoo_shard{i}.jsonl" for i in range(SW_SHARDS)]
+    for i, path in enumerate(journals):
+        sw_main([*grid, "--shard", f"{i}/{SW_SHARDS}", "--journal", path,
+                 "--out", workdir / f"zoo_shard{i}.json"], log_path)
+    n_points = len(POLICY_REGISTRY) * len(SW_ZOO_MIXES.split(",")) * 2
+    held = [len(GridJournal.load(str(p))) for p in journals]
+    if sum(held) != n_points:
+        raise AssertionError(f"the shards' journals hold {held} rows, not "
+                             f"{n_points} in all")
+    merged = workdir / "zoo_merged.json"
+    sw_main([*grid, *(a for p in journals for a in ("--journal", p)),
+             "--resume", "--out", merged], log_path)
+    serial = (workdir / "zoo_serial.json").read_bytes()
+    if merged.read_bytes() != serial:
+        raise AssertionError("the shards' merged zoo artifact differs from "
+                             "the serial run's")
+    rows = sweep.load_artifact(str(merged))["results"]
+    if len(rows) != n_points:
+        raise AssertionError(f"the zoo has {len(rows)} rows, not {n_points}")
+    ids = sorted({r["calibration_id"] for r in rows})
+    log("sw", f"policy zoo: {len(POLICY_REGISTRY)} policies x "
+              f"{len(SW_ZOO_MIXES.split(','))} mixes x fixed and flexible = "
+              f"{len(rows)} points on sample.swf, {SW_ZOO_NODES} nodes, seed "
+              f"{SW_ZOO_SEED}, serially in {serial_s:.2f} s; {SW_SHARDS} "
+              f"shards ({', '.join(map(str, held))} journaled rows), two "
+              f"shards merged by --resume, byte-equal to the serial run; "
+              f"rows' calibration_id {', '.join(ids)}")
+    for metric in ("makespan_s", "node_hours"):
+        for key, policy in sweep.winners_by_mix(rows, metric).items():
+            best = min(float(r[metric]) for r in rows
+                       if r["policy"] == policy and
+                       (r["trace"], r["rigid"], r["moldable"], r["malleable"],
+                        r["evolving"], r["serving"]) == key)
+            log("sw", f"mix {':'.join(f'{x:g}' for x in key[1:])}: winner "
+                      f"by {metric} {policy} ({best:.6f})")
+    return rows
+
+
+def sw_churn_scenario():
+    """The reference's golden capacity-churn scenario
+    (tests/test_capacity.py::churn_scenario) on the port's classes."""
+    from repro_torch.rms import AppModel, ClusterSimulator, Job, SimConfig
+    apps = {
+        "grow": AppModel("grow", iterations=600, t1_iter_s=2.0,
+                         serial_frac=0.0, data_bytes=1 << 20, min_nodes=2,
+                         max_nodes=8, preferred=8, check_period_s=5.0),
+        "wall": AppModel("wall", iterations=100, t1_iter_s=6.0,
+                         serial_frac=0.0, data_bytes=0, min_nodes=6,
+                         max_nodes=6, preferred=None, check_period_s=0.0),
+    }
+    grower = Job(job_id=0, app="grow", submit_time=0.0, work=600.0,
+                 min_nodes=2, max_nodes=8, preferred=8, malleable=True,
+                 check_period_s=5.0, requested_nodes=2, data_bytes=1 << 20)
+    wall = Job(job_id=1, app="wall", submit_time=8.0, work=100.0,
+               min_nodes=6, max_nodes=6, preferred=None, malleable=False,
+               requested_nodes=6)
+    cfg = SimConfig(num_nodes=8, flexible=True, scheduling="async",
+                    checkpoint_period_s=0.0, expand_timeout_s=500.0,
+                    joins=((40.0, -1), (41.0, -1), (200.0, -1)),
+                    drains=((80.0, 9), (120.0, 2), (160.0, 3)))
+    return ClusterSimulator([grower, wall], cfg, apps=apps)
+
+
+def sw_obs_golden():
+    """The golden churn scenario under the port's TraceRecorder: the
+    artifact's bytes and its decision-audit report must be the committed
+    files'."""
+    from repro_torch.obs import TraceRecorder, build_artifact, dumps_artifact
+    from repro_torch.obs.report import ledger_total, render_report
+    sim = sw_churn_scenario()
+    rec = TraceRecorder(sim, meta={"scenario": "capacity-churn"}).install()
+    report = sim.run()
+    rec.finalize(report)
+    doc = build_artifact(rec)
+    if dumps_artifact(doc) != (DATA / "golden_obs_trace.json").read_bytes():
+        raise AssertionError("the traced churn scenario's artifact differs "
+                             "from tests/data/golden_obs_trace.json")
+    if render_report(doc) != (DATA / "golden_obs_report.txt").read_text(
+            encoding="utf-8"):
+        raise AssertionError("the traced churn scenario's report differs "
+                             "from tests/data/golden_obs_report.txt")
+    if ledger_total(doc) != len(report.actions):
+        raise AssertionError("the ledger does not account for every action")
+    log("sw", f"traced churn scenario: {len(doc['spans'])} spans, "
+              f"{ledger_total(doc)} actions in the ledger, byte-equal to "
+              f"tests/data/golden_obs_trace.json; its report byte-equal to "
+              f"tests/data/golden_obs_report.txt")
+
+
+def sw_traced_point(point, trace_dir):
+    """``point`` replayed under a TraceRecorder (the sweep's trace_dir):
+    its row, its ledger's total, the action spans and the Chrome trace's
+    events. Each action span is one ActionRecord; counted as the sweep
+    counts actions, they must give the row's action columns."""
+    from repro_torch.obs.report import ledger_total, load_artifact
+    from repro_torch.rms import sweep
+    row = sweep.run_point(dataclasses.replace(point, trace_dir=trace_dir))
+    prefix = os.path.join(trace_dir, point.slug)
+    doc = load_artifact(prefix + ".obs.json")
+    actions = [s for s in doc["spans"]
+               if s["kind"] in ("dmr", "capacity", "disruption")]
+    counted = dict.fromkeys((*SW_ROW_ACTIONS.values(), "timeouts"), 0)
+    for span in actions:
+        col = ("timeouts" if span["args"].get("timed_out")
+               else SW_ROW_ACTIONS.get(span["name"]))
+        if col is not None:
+            counted[col] += 1
+    wrong = {c: (n, row[c]) for c, n in counted.items() if row[c] != n}
+    if wrong:
+        raise AssertionError(f"the traced point's action spans do not count "
+                             f"its row's actions: {wrong}")
+    with open(prefix + ".perfetto.json") as fh:
+        events = len(json.load(fh)["traceEvents"])
+    return {"row": row, "ledger": ledger_total(doc), "actions": len(actions),
+            "events": events}
+
+
+def sw_lint():
+    """``python -m repro_torch.lint src/repro_torch --check`` in this
+    process; a finding fails the phase. Returns (rules, files)."""
+    from repro_torch.lint import REGISTRY
+    from repro_torch.lint.cli import main as lint_main
+    from repro_torch.lint.core import iter_files
+    path = str(ROOT / "src" / "repro_torch")
+    rc = lint_main([path, "--check"])
+    if rc != 0:
+        raise AssertionError(f"the port's lint exited {rc} (its findings "
+                             f"above)")
+    files = sum(1 for _ in iter_files([path]))
+    log("sw", f"python -m repro_torch.lint src/repro_torch --check: no "
+              f"finding, {len(REGISTRY)} rules over {files} files")
+    return len(REGISTRY), files
+
+
+def phase_sweep(artifact, card=None, workdir=SW_WORKDIR,
+                calibration_out=SW_CALIBRATION):
+    """(sw) The last modules of the JAX package in the port, host code whose
+    one input from the card is (t)'s fit (``artifact``, or None when it
+    raised FitError): the golden sweeps on a pool, the policy zoo under
+    the card's cost model as two journaled shards merged, the golden obs
+    trace and one traced zoo point, and the port's lint."""
+    from repro_torch.rms import POLICY_REGISTRY, sweep
+    t0 = time.perf_counter()
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    sw_goldens()
+    calibration = sw_calibration(artifact, calibration_out)
+    rows = sw_zoo(calibration, workdir)
+    sw_obs_golden()
+    point = sweep.build_grid(
+        [str(SAMPLE_SWF)], [sorted(POLICY_REGISTRY)[0]],
+        sweep.parse_mixes(SW_ZOO_MIXES)[-1:], (True,), num_nodes=SW_ZOO_NODES,
+        seed=SW_ZOO_SEED, calibration=calibration)[0]
+    traced = sw_traced_point(point, str(workdir / "traces"))
+    want = [r for r in rows if sweep.row_key(r) == sweep.row_key(
+        traced["row"])]
+    if want != [traced["row"]]:
+        raise AssertionError("the traced zoo point's row differs from the "
+                             "untraced one")
+    if traced["ledger"] != traced["actions"]:
+        raise AssertionError(f"the ledger holds {traced['ledger']} actions, "
+                             f"the trace {traced['actions']}")
+    log("sw", f"zoo point {point.slug} traced: its row equal to the untraced "
+              f"row, {traced['ledger']} actions in the ledger, the row's "
+              f"action columns counted from the spans; Chrome trace of "
+              f"{traced['events']} events")
+    rules, files = sw_lint()
+    secs = time.perf_counter() - t0
+    log("sw", f"{secs:.2f} s of host time (budget {SW_BUDGET_S:.0f} s"
+              f"{'' if secs <= SW_BUDGET_S else ', exceeded'})"
+              f"{'' if card is None else f', beside {card}'}")
+    return {"calibration_id": rows[0]["calibration_id"],
+            "zoo_points": len(rows), "lint_rules": rules,
+            "lint_files": files, "events": traced["events"], "seconds": secs}
+
+
 # -- (u)-(x) slice 9: gemma2, the MoE families, qwen3 and granite, and the --------
 # compressed all-reduce
 
@@ -4836,6 +5127,7 @@ def main():
     torch.cuda.empty_cache()
     log("t", f"apps and calibration in {time.perf_counter() - t0:.1f} s")
     phase_workload_sim(artifact, card=smi)
+    phase_sweep(artifact, card=smi)
 
     mamba = get_config("mamba2-130m")
     m_model, m_params = model_and_params(mamba, "h")
