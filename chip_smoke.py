@@ -8,9 +8,9 @@ fit's FitError in (t)):
 
   (a) device   -- the card's name and power limit (nvidia-smi)
   (b) build    -- nvcc builds the flash-attention forward and backward,
-                  the SSD scan's forward and backward and the RG-LRU
-                  scan's (forward and backward, one source) from src/, all
-                  at once
+                  the SSD scan's forward and backward, the RG-LRU scan's
+                  (forward and backward, one source) and the reshard's
+                  box-copy kernel from src/, all at once
   (c) flash    -- the flash-attention kernel against its plain version, at
                   head_dim 32-256 (recurrentgemma's local layers: D 256,
                   window 2048; slice 9's D 128 prefills: 32 / 8, 16 / 16
@@ -50,6 +50,13 @@ fit's FitError in (t)):
                   holds recurrentgemma's D 256 flash backward on 8 and 4
                   of its 16 heads)
   smollm-135m at full width (seeded random weights):
+  (bc) copies  -- the reshard's box-copy kernel against its plain version,
+                  bit for bit, on the tables reshard builds (plan_copies):
+                  every resize of (t)'s grid (CI geometries both ways, 64
+                  MiB - 1 GiB) and smollm's TrainState (random moments)
+                  expanded 2 -> 4 and shrunk back under TP_DP_RULES and
+                  FSDP_RULES (the shrink reading the views the expand kept
+                  in place as strided sources)
   (e) prefill  -- B 4, S 512: logits through the kernel against
                   attn_impl="chunked"; exactly 30 launches per prefill
   (f) decode   -- prefill, then decode steps, against forward's logits
@@ -266,15 +273,19 @@ fit's FitError in (t)):
   (t) calib    -- measure_grid(MeasureConfig(backend="torch")) on the CI
                   grid (1 <-> 2 ... 32 <-> 64 virtual slices; 64 MiB, 256
                   MiB, 1 GiB; 3 repeats; migrate and sched samples), the
-                  port's reshard onto resized_mesh, each resize bit-equal
-                  with the plan's non-local bytes; then the fit. Its
-                  verdict (the fitted model, the residuals, the Fig. 3b
-                  checks and fit_report_rows, or FitError's message with
-                  the samples) is printed, not asserted: the paper's model
-                  divides busiest-link bytes by a per-node bandwidth,
-                  virtual slices share one HBM, and the reshard on one
-                  card is host-bound, so a refusal is a finding about one
-                  card, not a fault of the port
+                  port's reshard onto resized_mesh (its copies in one
+                  box-copy launch a resize), each resize bit-equal with
+                  the plan's non-local bytes; the grid again through the
+                  plain version's copies, each resize and each geometry's
+                  time at zero bytes printed beside the kernel's; then the
+                  fit. Its verdict (the fitted model, the residuals, the
+                  Fig. 3b checks and fit_report_rows, or FitError's
+                  message with the samples) is printed, not asserted: the
+                  paper's model divides busiest-link bytes by a per-node
+                  bandwidth and virtual slices share one HBM, so a refusal
+                  is a finding about one card, not a fault of the port;
+                  (s) and (t) are one main path, its box-copy launches
+                  counted
   (ws) worksim -- the paper's section 7 testbed on the port's event engine
                   and simulator (host code), fed (t)'s artifact: the
                   reference's golden engine scenario (12 jobs, 32 nodes,
@@ -307,7 +318,11 @@ fit's FitError in (t)):
                   --check clean; the phase's host seconds
   (k) times    -- each kernel, its plain version, its bound and (flash
                   only) scaled_dot_product_attention (forward and backward,
-                  both in device time) as a yardstick the port never calls,
+                  both in device time) as a yardstick the port never calls
+                  (the box-copy kernel: torch._foreach_copy_ over the
+                  pieces' views; the TrainState's resizes through the
+                  kernel, its plain version and checkpoint_reshard, one
+                  under the profiler),
                   every busy reading held by bench.check_profile (each
                   profiled interval lists every CUDA kernel the wrappers
                   launched in it, by name, each with device time, else
@@ -335,8 +350,8 @@ fit's FitError in (t)):
                   collective terms and the collectives by kind, printed
                   at the end
 
-Phases (e)-(g), (q), (r), (tps), (h)-(j), (hq), (m)-(o), (u)-(w), (y),
-(z), (mq), (wq), (tp), (tk) and (zt) are the main paths: every kernel launch count is set to 0 just
+Phases (e)-(g), (q), (r), (tps), (s)-(t), (h)-(j), (hq), (m)-(o), (u)-(w),
+(y), (z), (mq), (wq), (tp), (tk) and (zt) are the main paths: every kernel launch count is set to 0 just
 before each path and read just after it. The last
 lines are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero without printing a result when
@@ -1003,6 +1018,7 @@ def bf16_distance(cfg, got, truth):
 def counters():
     """Every kernel wrapper, by name; each counts its own launches."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.reshard import kernel as box
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
     return {"flash_attention": flash.flash_attention,
@@ -1010,7 +1026,8 @@ def counters():
             "ssd_scan": ssd.ssd_scan,
             "ssd_scan_bwd": ssd.ssd_scan_bwd,
             "rglru_scan": rglru.rglru_scan,
-            "rglru_scan_bwd": rglru.rglru_scan_bwd}
+            "rglru_scan_bwd": rglru.rglru_scan_bwd,
+            "box_copy": box.box_copy}
 
 
 def counted_launches(fn, want):
@@ -1935,6 +1952,87 @@ def random_moments(tr, params, seed):
     return state
 
 
+def copies_vs_plain(label, state, shardings):
+    """``state`` onto ``shardings`` as reshard lays it out (plan_copies),
+    its copies run by the box-copy kernel and, into blocks of their own, by
+    its plain version from the same sources: every new block bit-equal
+    between the two and every leaf to its input. Returns (the resharded
+    state, the pieces, the bytes copied)."""
+    from repro_torch.core import gather
+    from repro_torch.core.reshard import plan_copies
+    from repro_torch.kernels.reshard import kernel as box
+    from repro_torch.kernels.reshard.ref import box_copy_ref, piece_bytes
+    from repro_torch.models.layers import tree_leaves
+    out, groups = plan_copies(state, shardings)
+    pieces = copied = 0
+    for sdev, ddev, srcs, dsts, table in groups:
+        if sdev != ddev or sdev.type != "cuda":
+            raise AssertionError(f"{label}: pieces from {sdev} to {ddev}")
+        box.box_copy(srcs, dsts, table)
+        plain = [torch.empty_like(d) for d in dsts]
+        box_copy_ref(srcs, plain, table)
+        bad = sum(not same_bits(a, b) for a, b in zip(dsts, plain))
+        if bad:
+            raise AssertionError(f"{label}: {bad} of {len(dsts)} new blocks "
+                                 f"differ between the kernel and its plain "
+                                 f"version")
+        pieces += len(table)
+        copied += int(piece_bytes(table).sum())
+    for a, b in zip(tree_leaves(state), tree_leaves(out)):
+        if not same_bits(gather(a), gather(b)):
+            raise AssertionError(f"{label}: a leaf changed")
+    return out, pieces, copied
+
+
+def phase_box_copy_vs_plain(cfg, params, data_cfg):
+    """(bc) The reshard's box-copy kernel against its plain version on the
+    card, bit for bit (copies_vs_plain): every resize of (t)'s grid (the CI
+    geometries both ways at 64 MiB, 256 MiB and 1 GiB, a row-sharded
+    float32 array onto resized_mesh) and smollm-135m's TrainState (random
+    moments) expanded 2 -> 4 and shrunk back under TP_DP_RULES and
+    FSDP_RULES. Returns the largest difference (0: bit-equal, else the
+    phase fails)."""
+    from repro_torch.calib.measure import (CI_DATA_BYTES, CI_GEOMETRIES,
+                                           _elems_for, _placed)
+    from repro_torch.core import (FSDP_RULES, NamedSharding, PartitionSpec,
+                                  make_mesh, resized_mesh, slice_devices)
+    t0 = time.perf_counter()
+    devices = slice_devices(64)
+    n = pieces = copied = 0
+    for p, q in CI_GEOMETRIES:
+        for a, b in ((p, q), (q, p)):
+            old = make_mesh(a, 1, devices=devices)
+            new = NamedSharding(resized_mesh(old, b, devices=devices),
+                                PartitionSpec("data"))
+            for nbytes in CI_DATA_BYTES:
+                x = _placed(_elems_for(nbytes, max(a, b)), old)
+                _, k, c = copies_vs_plain(f"{a} -> {b}, {nbytes} bytes", x,
+                                          new)
+                n, pieces, copied = n + 1, pieces + k, copied + c
+                del x
+    log("bc", f"(t)'s grid: {n} resizes, {pieces} pieces, "
+              f"{copied / 2 ** 30:.2f} GiB copied, the kernel bit-equal to "
+              f"its plain version")
+    for name, changes in (("TP_DP_RULES", {}),
+                          ("FSDP_RULES", {"rules": FSDP_RULES})):
+        tr = elastic_trainer(cfg, data_cfg, 1, 2, **changes)
+        s2 = random_moments(tr, params, 9)
+        m4 = resized_mesh(tr.mesh, 4, devices=slice_devices(ELASTIC_SLICES))
+        s4, k4, c4 = copies_vs_plain(f"{name} 2 -> 4", s2,
+                                     tr._state_shardings(m4))
+        _, k2, c2 = copies_vs_plain(f"{name} 4 -> 2", s4,
+                                    tr._state_shardings(tr.mesh))
+        log("bc", f"{cfg.name} TrainState under {name}: expand 2 -> 4 "
+                  f"{k4} pieces, {c4 / 1e9:.3f} GB copied; shrink 4 -> 2 "
+                  f"{k2} pieces, {c2 / 1e9:.3f} GB copied (views kept in "
+                  f"place read as strided sources); the kernel bit-equal "
+                  f"to its plain version")
+        del s2, s4
+    torch.cuda.empty_cache()
+    log("bc", f"{time.perf_counter() - t0:.1f} s")
+    return 0.0
+
+
 def phase_fsdp_step(cfg, model, params, data_cfg):
     """(r) One fp32 train step of smollm-135m at full width (weights at a
     per-layer fan-in) on 2 and 4 virtual slices with the parameters in
@@ -2222,6 +2320,8 @@ def phase_elastic_fp32(cfg, model, params, data_cfg):
     from repro_torch.core import Action, Decision
     sane = at_per_layer_fan_in(model, params, cfg.pattern_repeats[0])
 
+    from repro_torch.core.reshard import PROGRAMS
+
     def run(slices, steps, rms=None):
         tr = elastic_trainer(f32, data_cfg, steps, slices, rms=rms,
                              check_period=2)
@@ -2229,8 +2329,10 @@ def phase_elastic_fp32(cfg, model, params, data_cfg):
         return [m["loss"] for m in tr.metrics], tr
 
     fixed, _ = run(4, ELASTIC_FP32_STEPS)
+    compiled = PROGRAMS.compiles
     elastic, tr = run(2, ELASTIC_FP32_STEPS,
                       ScriptedRMS({1: Decision(Action.EXPAND, 4)}))
+    compiled = PROGRAMS.compiles - compiled
     one, _ = run(1, 2)
     diff = max(abs(a - b) for a, b in zip(fixed, elastic))
     spread = max(abs(a - b) for run_ in (one, elastic[:2])
@@ -2239,7 +2341,8 @@ def phase_elastic_fp32(cfg, model, params, data_cfg):
              f"(per-layer fan-in): losses at 4 slices "
              + ", ".join(f"{x:.6f}" for x in fixed) + "; 2 -> 4 "
              + ", ".join(f"{x:.6f}" for x in elastic)
-             + f" (resize {tr.resize_log}); largest difference {diff:.3e} "
+             + f" (resize {tr.resize_log}, {compiled} walks compiled in "
+             f"it); largest difference {diff:.3e} "
              f"(tol {ELASTIC_TOL}); first two steps at 1, 2 and 4 slices "
              f"within {spread:.3e} (tol {SLICES_TOL})")
     if [(r["action"], r["from"], r["to"]) for r in tr.resize_log] != \
@@ -2287,6 +2390,7 @@ def phase_elastic_loop(cfg, params, data_cfg):
     and goes on: exactly one recovery. Every step launches 60 forward and
     30 backward flash kernels per slice; the loss falls."""
     import tempfile
+    from repro_torch.core.reshard import PROGRAMS
     from repro_torch.data import SyntheticLMData
     from repro_torch.rms import Job
     from repro_torch.runtime import LocalRMS
@@ -2318,9 +2422,11 @@ def phase_elastic_loop(cfg, params, data_cfg):
             return out
 
         tr.train_step = step
+        compiled = PROGRAMS.compiles
         t0 = time.perf_counter()
         state = tr.train(state=tr.init_state(params=params))
         seconds = time.perf_counter() - t0
+        compiled = PROGRAMS.compiles - compiled
         saved = sorted(p.name for p in Path(ckpt).glob("ckpt_*"))
     losses = [m["loss"] for m in tr.metrics]
     log("r", f"{cfg.name} bf16 B{data_cfg.global_batch} S{data_cfg.seq_len}"
@@ -2329,7 +2435,9 @@ def phase_elastic_loop(cfg, params, data_cfg):
              + "; ".join(f"{r['action']} {r['from']} -> {r['to']} at step "
                          f"{r['step']} in {r['resize_s'] * 1e3:.3f} ms"
                          for r in tr.resize_log)
-             + f"; recoveries {tr.recoveries}; checkpoints kept {saved}; "
+             + f" ({compiled} walks compiled in them: a geometry's first "
+             f"resize compiles its leaves' walks); recoveries "
+             f"{tr.recoveries}; checkpoints kept {saved}; "
              f"slices by step {[m['slices'] for m in tr.metrics]}; losses "
              + ", ".join(f"{x:.4f}" for x in losses))
     actions = [r["action"] for r in tr.resize_log]
@@ -2351,15 +2459,22 @@ def phase_elastic_loop(cfg, params, data_cfg):
 
 
 def phase_reshard_times(cfg, trainer, s2, s4):
-    """(k) timed_reshard against timed_reshard(impl=checkpoint_reshard) for
-    the TrainState's expand 2 -> 4 and shrink 4 -> 2, three of each, with
-    the plan's bytes (non-local transfers) and the rate they imply; then
-    migrate_slice(0, 2) of every leaf of the 4-slice state."""
+    """(k) timed_reshard for the TrainState's expand 2 -> 4 and shrink
+    4 -> 2, three of each, through the box-copy kernel (reshard), its plain
+    version (plain_reshard: the same compiled walk, one copy_ a piece) and
+    checkpoint_reshard, with the plan's bytes (non-local transfers) and the
+    rate they imply; one expand under the profiler (bench.device_profile,
+    held by check_profile: the box-copy kernel listed with device time);
+    each resize's copies alone (copies_times); then migrate_slice(0, 2) of
+    every leaf of the 4-slice state. Returns the expand's copies_times,
+    the kernel's row."""
     from repro_torch.core import (checkpoint_reshard, migrate_slice,
                                   reshard, resized_mesh, slice_devices,
                                   timed_reshard)
     from repro_torch.core.reshard import synchronize
+    from repro_torch.kernels import bench
     from repro_torch.models.layers import tree_leaves, tree_map
+    smi = bench.card()
     m4 = resized_mesh(trainer.mesh, 4,
                       devices=slice_devices(ELASTIC_SLICES))
     cases = {"expand 2 -> 4": (s2, trainer._state_shardings(m4)),
@@ -2369,20 +2484,40 @@ def phase_reshard_times(cfg, trainer, s2, s4):
         reshard(src, sh, transfers=plan)
         moved = sum(t.nbytes for t in plan if not t.local)
         times = {}
-        for impl in (reshard, checkpoint_reshard):
+        for impl in (reshard, plain_reshard, checkpoint_reshard):
             times[impl.__name__] = [timed_reshard(src, sh, impl=impl)[1]
                                     * 1e3 for _ in range(3)]
         best = min(times["reshard"])
+        best_plain = min(times["plain_reshard"])
         slow = min(times["checkpoint_reshard"])
         log("k", f"{cfg.name} TrainState {name} virtual slices: reshard "
                  + ", ".join(f"{t:.3f}" for t in times["reshard"])
-                 + f" ms ({moved / 1e9:.3f} GB of non-local transfers, "
-                 f"{moved / best / 1e6:.1f} GB/s at the best); "
+                 + f" ms through the box-copy kernel ({moved / 1e9:.3f} GB "
+                 f"of non-local transfers, {moved / best / 1e6:.1f} GB/s at "
+                 f"the best); its plain version after the same walk "
+                 + ", ".join(f"{t:.3f}" for t in times["plain_reshard"])
+                 + f" ms ({moved / best_plain / 1e6:.1f} GB/s); "
                  f"checkpoint_reshard "
                  + ", ".join(f"{t:.3f}" for t in times["checkpoint_reshard"])
                  + f" ms (to the host and back, pageable memory), "
                  f"{slow / best:.1f}x the reshard; on-card copies, not the "
-                 f"paper's links between nodes")
+                 f"paper's links between nodes; {smi}")
+    src, sh = cases["expand 2 -> 4"]
+    prof = bench.device_profile(lambda: reshard(src, sh), top=8,
+                                what="a TrainState expand 2 -> 4")
+    log("k", f"{cfg.name} TrainState expand 2 -> 4 under the profiler: "
+             f"{prof['busy_ms']:.3f} ms busy, {prof['kernels']} kernels, "
+             f"{prof['launches']} kernels and copies; top " + ", ".join(
+                 f"{name} {ms:.4f} ms x{k}" for name, ms, k in prof["top"]))
+    rows = {name: copies_times(*case) for name, case in cases.items()}
+    for name, row in rows.items():
+        log("k", f"box_copy, {cfg.name} TrainState {name} ({row['pieces']} "
+                 f"pieces, {row['copied'] / 1e9:.3f} GB copied, one launch): "
+                 f"{row['ms']:.4f} ms "
+                 f"({2 * row['copied'] / row['ms'] / 1e6:.1f} GB/s read + "
+                 f"written), bound {row['bound_ms']:.4f} ms "
+                 f"(bytes), plain {row['plain_ms']:.4f} ms, "
+                 f"torch._foreach_copy_ {row['library_ms']:.4f} ms; {smi}")
     synchronize(s4)
     t0 = time.perf_counter()
     out = tree_map(lambda x: migrate_slice(x, x.sharding.mesh, 0, 2), s4)
@@ -2393,6 +2528,45 @@ def phase_reshard_times(cfg, trainer, s2, s4):
     log("k", f"{cfg.name} migrate_slice(0, 2) of every leaf at 4 slices: "
              f"{ms:.3f} ms, {moved / 1e9:.3f} GB swapped, "
              f"{moved / ms / 1e6:.1f} GB/s")
+    return rows["expand 2 -> 4"]
+
+
+def copies_times(src, sh):
+    """The table of reshard(src, sh) (plan_copies) run by the box-copy
+    kernel, by its plain version and by torch._foreach_copy_ over the same
+    pieces' views, each in device time (CUDA events around 10 calls), and
+    the kernel's bound: each copied byte read and written once at the HBM
+    rate."""
+    from repro_torch.core.reshard import plan_copies
+    from repro_torch.kernels import bench
+    from repro_torch.kernels.reshard import kernel as box
+    from repro_torch.kernels.reshard.ref import (box_copy_ref, byte_view,
+                                                 piece_bytes)
+    out, groups = plan_copies(src, sh)
+    (_, _, srcs, dsts, table), = groups
+    copied = int(piece_bytes(table).sum())
+    views = {id(t): (byte_view(t), t.storage_offset() * t.element_size())
+             for t in (*srcs, *dsts)}
+
+    def as_view(t, off, strides, shape):
+        v, base = views[id(t)]
+        return v.as_strided(shape, strides, base + off)
+    src_views, dst_views = [], []
+    for rec in table:
+        shape = [*rec["ext"].tolist(), int(rec["run"])]
+        src_views.append(as_view(srcs[rec["src"]], int(rec["src_off"]),
+                                 [*rec["src_stride"].tolist(), 1], shape))
+        dst_views.append(as_view(dsts[rec["dst"]], int(rec["dst_off"]),
+                                 [*rec["dst_stride"].tolist(), 1], shape))
+    return {"ms": bench.eager_ms(lambda: box.box_copy(srcs, dsts, table),
+                                 iters=10),
+            "plain_ms": bench.eager_ms(
+                lambda: box_copy_ref(srcs, dsts, table), iters=10),
+            "library_ms": bench.eager_ms(
+                lambda: torch._foreach_copy_(dst_views, src_views),
+                iters=10),
+            "bound_ms": 2 * copied / bench.PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "pieces": len(table), "copied": copied}
 
 
 # -- (s) the paper's apps ---------------------------------------------------------
@@ -2533,19 +2707,60 @@ def phase_apps_times(states):
 # -- (t) calibration: the port's reshards on virtual slices, fitted ---------------
 
 
+def plain_reshard(state, shardings):
+    """reshard with its copies run by the box-copy kernel's plain version
+    (one copy_ a piece), after the same compiled walk (plan_copies)."""
+    from repro_torch.core.reshard import plan_copies
+    from repro_torch.kernels.reshard.ref import box_copy_ref
+    out, groups = plan_copies(state, shardings)
+    for *_, srcs, dsts, table in groups:
+        box_copy_ref(srcs, dsts, table)
+    return out
+
+
+def sample_key(s):
+    return s["kind"], s["old"], s["new"], s["bytes"]
+
+
+def plain_grid(config):
+    """Each resize of ``config``'s grid timed through plain_reshard as
+    measure_grid times the reshard (the same array and meshes, one warm-up,
+    the best of config.repeats timed_reshard calls): {sample_key:
+    seconds}."""
+    from repro_torch.calib.measure import _best_of, _elems_for, _placed
+    from repro_torch.core import (NamedSharding, PartitionSpec, make_mesh,
+                                  resized_mesh, slice_devices, timed_reshard)
+    out = {}
+    for p, q in config.geometries:
+        for nbytes in config.data_bytes:
+            for kind, a, b in (("expand", p, q), ("shrink", q, p)):
+                devices = slice_devices(max(a, b))
+                old = make_mesh(a, 1, devices=devices)
+                new = NamedSharding(resized_mesh(old, b, devices=devices),
+                                    PartitionSpec("data"))
+                x = _placed(_elems_for(nbytes, max(a, b)), old)
+                out[kind, a, b, nbytes] = _best_of(lambda: timed_reshard(
+                    x, new, impl=plain_reshard), config.repeats)
+                del x
+    return out
+
+
 def phase_calibration():
     """(t) measure_grid(MeasureConfig(backend="torch")) on the CI grid: the
     port's reshard of 64 MiB - 1 GiB between 1 and 64 virtual slices of the
-    card, each resize checked by measure_grid itself (bit-equal, the
-    reshard's transfers carrying the plan's non-local bytes) and here (each
-    sample's plan features, positive seconds); then the fit. The fit's
-    verdict is printed, not asserted: the paper's model divides the
-    busiest link's bytes by a per-node bandwidth, and virtual slices share
-    one HBM, so a refusal (FitError) is a finding about one card."""
+    card, its copies in one box-copy launch a resize, each resize checked
+    by measure_grid itself (bit-equal, the reshard's transfers carrying the
+    plan's non-local bytes) and here (each sample's plan features, positive
+    seconds); the grid again through the plain version's copies, printed
+    beside; then the fit of the kernel's samples. The fit's verdict is
+    printed, not asserted: the paper's model divides the busiest link's
+    bytes by a per-node bandwidth, and virtual slices share one HBM, so a
+    refusal (FitError) is a finding about one card."""
     from repro_torch.calib import (FitError, MeasureConfig, fit_report_rows,
                                    fit_samples, make_artifact, measure_grid,
                                    validate_calibration)
     from repro_torch.calib.measure import resize_features
+    from repro_torch.kernels import bench
     from repro_torch.rms.costmodel import ReconfigCostModel
     config = MeasureConfig(backend="torch")
     t0 = time.perf_counter()
@@ -2569,19 +2784,34 @@ def phase_calibration():
         if s["kind"] in ("migrate", "sched"):
             log("t", f"{s['kind']} {s['old']} slices: "
                      f"{s['seconds'] * 1e3:.4f} ms")
+    # the same grid with the plain version's copies (the same compiled
+    # walk, one copy_ a piece), printed beside the kernel's, not fitted
+    t0 = time.perf_counter()
+    resizes = [s for s in samples if s["kind"] in ("expand", "shrink")]
+    plain = plain_grid(config)
+    log("t", f"the grid again through the plain version's copies in "
+             f"{time.perf_counter() - t0:.1f} s; {bench.card()}")
     # each geometry alone: seconds against busiest-link bytes over the data
     # sizes, the copy rate its slope gives and the time at zero bytes (the
     # host's share), which the model's one spawn_s cannot follow
-    by_geometry = {}
-    for s in samples:
-        if s["kind"] in ("expand", "shrink"):
-            by_geometry.setdefault((s["kind"], s["old"], s["new"]), []).append(
-                (s["busiest_bytes"], s["seconds"]))
-    for (kind, old, new), pts in by_geometry.items():
-        slope, at_zero = np.polyfit(*zip(*pts), 1)
-        rate = f"{1 / slope / 1e12:.3f} TB/s" if slope > 0 else "no rate"
-        log("t", f"{kind} {old} -> {new} alone: {rate} of busiest-link "
-                 f"bytes, {at_zero * 1e3:.4f} ms at zero bytes")
+    for label, seconds in (("box-copy kernel", lambda s: s["seconds"]),
+                           ("plain", lambda s: plain[sample_key(s)])):
+        by_geometry = {}
+        for s in resizes:
+            by_geometry.setdefault((s["kind"], s["old"], s["new"]),
+                                   []).append((s["busiest_bytes"],
+                                               seconds(s)))
+        for (kind, old, new), pts in by_geometry.items():
+            slope, at_zero = np.polyfit(*zip(*pts), 1)
+            rate = f"{1 / slope / 1e12:.3f} TB/s" if slope > 0 else "no rate"
+            log("t", f"{kind} {old} -> {new} alone, {label}: {rate} of "
+                     f"busiest-link bytes, {at_zero * 1e3:.4f} ms at zero "
+                     f"bytes")
+    for s in resizes:
+        log("t", f"{s['kind']} {s['old']} -> {s['new']}, "
+                 f"{s['bytes'] / 2 ** 20:.0f} MiB: box-copy kernel "
+                 f"{s['seconds'] * 1e3:.4f} ms, plain "
+                 f"{plain[sample_key(s)] * 1e3:.4f} ms")
     try:
         fitted, residuals, checks = fit_samples(samples)
     except FitError as err:
@@ -2589,8 +2819,7 @@ def phase_calibration():
         for s in samples:
             if s["kind"] in ("expand", "shrink"):
                 log("t", f"{s['kind']} {s['old']} -> {s['new']}, "
-                         f"{s['bytes'] / 2 ** 20:.0f} MiB: "
-                         f"{s['seconds'] * 1e3:.4f} ms, busiest link "
+                         f"{s['bytes'] / 2 ** 20:.0f} MiB: busiest link "
                          f"{s['busiest_bytes'] / 2 ** 20:g} MiB, "
                          f"{s['participants']} participants")
         return None
@@ -3491,12 +3720,14 @@ def build_kernels():
     """(b) nvcc on every kernel source at once; print ptxas's registers and
     spills."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.reshard import kernel as box
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
     kernels = (("flash_attention", flash.load),
                ("flash_attention_bwd", flash.load_bwd),
                ("ssd_scan", ssd.load), ("ssd_scan_bwd", ssd.load_bwd),
-               ("rglru_scan and rglru_scan_bwd", rglru.load))
+               ("rglru_scan and rglru_scan_bwd", rglru.load),
+               ("box_copy", box.load))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         builds = {name: pool.submit(load) for name, load in kernels}
@@ -4672,8 +4903,9 @@ def main_tp_kinds():
     log("tk", f"{sm.name}'s fp32 steps, bf16 steps at model_ways "
               f"{QWEN_TP_WAYS[0]} and step times in "
               f"{out['seconds'][sm.name]:.1f} s")
+    # every kernel of the models; the path resizes nothing (no box_copy)
     for name in counters():
-        if totals[name] == 0:
+        if name != "box_copy" and totals[name] == 0:
             raise AssertionError(f"the tensor-parallel kinds' path never "
                                  f"launched {name}")
     out["counts"] = totals
@@ -5096,6 +5328,7 @@ def main():
                           global_batch=TRAIN_B)
     train_batch = {k: t.cuda()
                    for k, t in SyntheticLMData(data_cfg).batch(0).items()}
+    box_err = phase_box_copy_vs_plain(smollm, params, data_cfg)
     train_counts, (_, trained) = drive("q", (
         lambda: phase_train_fp32(smollm, model, params, train_batch),
         lambda: phase_train_bf16(smollm, params, data_cfg, TRAIN_STEPS)))
@@ -5109,21 +5342,24 @@ def main():
         lambda: phase_elastic_loop(smollm, params, data_cfg),
         lambda: phase_fsdp_step(smollm, model, params, data_cfg),
         lambda: phase_fsdp_elastic(smollm, params, data_cfg)))
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "box_copy"):
         if elastic_counts[name] == 0:
             raise AssertionError(f"smollm's elastic path never launched "
                                  f"{name}")
     tps_counts, _ = drive("tps", (
         lambda: phase_tp_step(smollm, model, params, data_cfg),
         lambda: phase_tp_elastic(smollm, params, data_cfg)))
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "box_copy"):
         if tps_counts[name] == 0:
             raise AssertionError(f"smollm's path at model_ways {TP_WAYS} "
                                  f"never launched {name}")
     t0 = time.perf_counter()
-    phase_apps_parity()
-    phase_apps_times(phase_apps_table1())
-    artifact = phase_calibration()
+    calib_counts, (*_, artifact) = drive("t", (
+        phase_apps_parity, lambda: phase_apps_times(phase_apps_table1()),
+        phase_calibration))
+    if calib_counts["box_copy"] == 0:
+        raise AssertionError("the apps' and the calibration's reshards never "
+                             "launched box_copy")
     torch.cuda.empty_cache()
     log("t", f"apps and calibration in {time.perf_counter() - t0:.1f} s")
     phase_workload_sim(artifact, card=smi)
@@ -5216,7 +5452,7 @@ def main():
     phase_step_times(smollm, params, toks[:, :PREFILL_S])
     phase_step_times(mamba, m_params, m_toks[:, :PREFILL_S])
     phase_step_times(rg, rg_params, rg_toks)
-    phase_reshard_times(smollm, *resharded)
+    box_times = phase_reshard_times(smollm, *resharded)
     del resharded
     phase_train_step_time(smollm, *trained, data_cfg,
                           others=[(mamba, *m_trained, m_data)])
@@ -5537,8 +5773,30 @@ def main():
     # kernel's), its eager call, and the backend PyTorch picked
     bwd_row["library_eager_ms"] = bwd_rows["train-2048"]["library_eager_ms"]
     bwd_row["library_backend"] = bwd_rows["train-2048"]["library_backend"]
+    # the reshard's copies: one launch a resize on the card, on every path
+    # that resizes (the elastic loops, the apps' states, the calibration)
+    box_row = {"name": "box_copy", "route": "cuda",
+               "source": "src/repro_torch/kernels/reshard/csrc/box_copy.cu",
+               "replaces": "none: the reference's reshard is jax.device_put "
+                           "(src/repro/core/reshard.py:42)",
+               "launches": elastic_counts["box_copy"]
+               + tps_counts["box_copy"] + calib_counts["box_copy"],
+               "max_abs_err": box_err,
+               **{k: box_times[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+               "shape": f"{smollm.name} TrainState expand 2 -> 4 virtual "
+                        f"slices: {box_times['pieces']} pieces, "
+                        f"{box_times['copied'] / 1e9:.3f} GB copied, one "
+                        "launch",
+               "library": "torch._foreach_copy_ over the pieces' views",
+               "launches_by_path": {
+                   "smollm-135m elastic training": elastic_counts["box_copy"],
+                   "smollm-135m elastic training at model_ways 2":
+                       tps_counts["box_copy"],
+                   "apps' reshards and the calibration":
+                       calib_counts["box_copy"]}}
     record = {"kernels": [flash_row, bwd_row, ssd_row, ssd_bwd_row,
-                          rglru_row, rglru_bwd_row]}
+                          rglru_row, rglru_bwd_row, box_row]}
     print(json.dumps(record))
     print(bench.card())
     print(json.dumps({"ok": True, "device": {

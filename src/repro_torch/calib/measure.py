@@ -8,7 +8,8 @@ Counterpart of ``repro.calib.measure``. Two backends:
   the port's own :func:`~repro_torch.core.reshard.reshard` onto
   :func:`~repro_torch.core.meshes.resized_mesh` of ``q`` slices, so the
   blocks kept in place are the Listing-3 plans' local transfers and every
-  other block is a copy. Slices are
+  other block is a copy (on a card, all of a resize's copies in one launch
+  of the box-copy kernel). Slices are
   :func:`~repro_torch.core.meshes.slice_devices` of one device (virtual
   slices of the card, or of the CPU), so every geometry of the grid, up to
   64 slices, runs for real and no link proxy is needed. Each resize is

@@ -53,6 +53,18 @@ class Mesh:
     def id(self, coord) -> int:
         return int(self.ids[coord])
 
+    @property
+    def key(self) -> tuple:
+        """The mesh's structure, hashable: axis names, shape, ids and
+        devices. Meshes with one key lay tensors out alike, however often
+        they are built (the reshard caches its programs by it)."""
+        key = self.__dict__.get("_key")
+        if key is None:
+            key = self._key = (self.axis_names, self.devices.shape,
+                               tuple(int(i) for i in self.ids.flat),
+                               tuple(self.devices.flat))
+        return key
+
     def __repr__(self):
         return (f"Mesh({self.shape}, {list(self.devices.flat)}, "
                 f"ids {self.ids.ravel().tolist()})")

@@ -12,6 +12,9 @@ rglru           -- the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t,
                    with an optional initial state (replaces the Pallas TPU
                    kernel ``rglru_scan_pallas``), and backward (da, db,
                    dh0; the Pallas kernel has none)
+reshard         -- the reshard's transfer engine: a table of strided boxes
+                   copied bit for bit in one launch (replaces no TPU
+                   kernel: the reference's reshard is ``jax.device_put``)
 
 Each has csrc/ (the CUDA source, plain C interface), kernel.py (build,
 ctypes binding, checks, launch count), ops.py (dispatch: the kernel for CUDA

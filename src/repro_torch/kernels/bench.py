@@ -209,9 +209,10 @@ def base_name(name: str) -> str:
 def port_kernels() -> frozenset:
     """Every CUDA kernel of the port's routes, by base_name."""
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.reshard import kernel as box
     from repro_torch.kernels.rglru import kernel as rglru
     from repro_torch.kernels.ssd import kernel as ssd
-    names = set(rglru.CUDA_KERNEL + rglru.BWD_CUDA_KERNEL)
+    names = set(rglru.CUDA_KERNEL + rglru.BWD_CUDA_KERNEL + box.CUDA_KERNEL)
     for dtype in (torch.float32, torch.bfloat16):
         names.update(flash.cuda_kernels(dtype), ssd.cuda_kernels(dtype),
                      ssd.bwd_cuda_kernels(dtype))

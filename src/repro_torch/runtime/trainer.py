@@ -388,6 +388,8 @@ class ElasticTrainer:
             factor=self.cfg.factor, preferred=self.cfg.preferred)
         if action is Action.NO_ACTION:
             return state
+        # the resize alone: the step's queued work finishes first
+        synchronize(state)
         t0 = time.perf_counter()
         new_mesh = resized_mesh(self.mesh, new_slices, devices=self.devices)
         state = reshard(state, self._state_shardings(new_mesh))

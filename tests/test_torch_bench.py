@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import bench, work  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.reshard import kernel as box  # noqa: E402
 from repro_torch.kernels.rglru import kernel as rglru  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd  # noqa: E402
 
@@ -629,9 +630,10 @@ def test_routes_name_their_sources_kernels(dtype):
         bench.SSD_BWD_KERNELS if dtype == torch.bfloat16 else 7)
     assert set(rglru.CUDA_KERNEL + rglru.BWD_CUDA_KERNEL) <= \
         _globals(rglru.SOURCE)
+    assert set(box.CUDA_KERNEL) == _globals(box.SOURCE)
     assert bench.port_kernels() == (
         fwd | bwd | _globals(ssd.SOURCE) | _globals(ssd.BWD_SOURCE)
-        | _globals(rglru.SOURCE))
+        | _globals(rglru.SOURCE) | _globals(box.SOURCE))
 
 
 def test_wrappers_count_no_kernel_they_do_not_launch():

@@ -263,6 +263,8 @@ def test_reshard_walk_stops_once_a_block_is_covered(monkeypatch, p, q):
         tests.append(1)
         return real(a, b)
     monkeypatch.setattr(reshard_mod, "_intersect", counted)
+    # the walk runs once per geometry: count a walk compiled afresh
+    reshard_mod.PROGRAMS.clear()
     cpu64 = slice_devices(64, "cpu")
     x = torch.arange(128.0 * 3).reshape(128, 3)
     mp = make_mesh(p, 1, devices=cpu64)
